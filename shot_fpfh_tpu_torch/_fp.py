@@ -1,0 +1,26 @@
+"""Fused multiply-add in float32, for exact agreement on distance tests.
+
+XLA:CPU contracts ``x*x + y*y + z*z`` (and ``jnp.linalg.norm`` over 3
+components) into the chain ``fma(z, z, fma(y, y, x*x))``, rounding once per
+add.  Eager PyTorch rounds every multiply and add on its own, so a squared
+distance can differ from the reference's by one ulp, which flips a point on
+a radius boundary or a distance tie in voxel subsampling.  :func:`sqnorm3`
+evaluates the same chain: the product of two float32 values is exact in
+float64, so one float64 add rounded to float32 equals the fused result
+(except on the rare double-rounding midpoint).  The CUDA kernels compute the
+chain with ``fmaf``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` with one float32 rounding."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def sqnorm3(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """``x² + y² + z²`` as ``fma(z, z, fma(y, y, x*x))``."""
+    return fma(z, z, fma(y, y, x * x))

@@ -1,0 +1,169 @@
+"""Build, load and count the hand-written CUDA kernels in ``csrc/``.
+
+The sources are compiled by ``nvcc`` into one shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds) and loaded with
+``ctypes``.  In a checkout or an editable install the library lands in the
+repository's ``build/kernels/<hash>/``; a regular install (sources shipped
+as package data) builds into the user's cache directory instead
+(``$XDG_CACHE_HOME`` or ``~/.cache``, then ``shot_fpfh_tpu_torch/kernels``),
+never into ``site-packages``.  The hash covers every source and the
+compiler flags, so an edited source rebuilds and an unchanged one loads the
+existing file.
+
+Every C entry point enqueues its kernel on the stream it is given, checks
+``cudaGetLastError()`` right after the launch and returns that error code;
+:func:`launch` raises when it is not 0 and counts the launch.
+
+Nothing here runs at import: the build happens at the first kernel call, so
+a CPU-only machine (no ``nvcc``, no card) can import every module.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+LIB_NAME = "libshot_kernels.so"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+    "-shared", "-Xcompiler", "-fPIC",
+    # no implicit multiply-add contraction: the kernels round each
+    # elementwise step like the eager PyTorch twins they are held against
+    # (counts and bin decisions at a radius or bin edge must agree)
+    "-fmad=false",
+    "-Xptxas", "-v",
+]
+
+# C entry point -> argument types (every pointer and the stream as c_void_p,
+# so ctypes never truncates a 64-bit address to a 32-bit int)
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "shot_binning_histogram": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "top2_match": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "radius_pca": [_P, _I, _P, _P, _P, _P, _I, _I, _P, _P],
+}
+
+# one launch counter per kernel: incremented by launch() and nowhere else
+launch_counts: dict[str, int] = {name: 0 for name in _SIGNATURES}
+
+_lib = None
+_lock = threading.Lock()
+build_info: dict[str, object] = {}
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources():
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build_root() -> Path:
+    """Where built libraries go: the checkout's ``build/kernels`` when the
+    package sits in a source tree, else the user's cache directory."""
+    repo = Path(__file__).resolve().parent.parent
+    if (repo / "pyproject.toml").is_file():
+        return repo / "build" / "kernels"
+    cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
+    return Path(cache) / "shot_fpfh_tpu_torch" / "kernels"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = Path(cuda_home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` into the hashed library path (if not there yet)
+    and return it.  Writes to a temporary name and renames, so a process
+    building concurrently never loads a half-written library."""
+    out_dir = build_root() / _source_hash()
+    lib_path = out_dir / LIB_NAME
+    if lib_path.exists():
+        build_info.setdefault("seconds", 0.0)
+        build_info.setdefault("cached", True)
+        return lib_path
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f".{LIB_NAME}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    elapsed = time.perf_counter() - t0
+    (out_dir / "build.log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, lib_path)
+    build_info.update(seconds=elapsed, cached=False,
+                      ptxas=[ln for ln in proc.stderr.splitlines()
+                             if "registers" in ln or "Compiling entry" in ln])
+    return lib_path
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.shot_error_string.argtypes = [ctypes.c_int]
+            lib.shot_error_string.restype = ctypes.c_char_p
+            _lib = lib
+    return _lib
+
+
+def ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def require_cuda(*tensors: torch.Tensor) -> torch.device:
+    """Device of a kernel call: every tensor on the same CUDA device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or dev.type != "cuda":
+            raise ValueError(
+                f"kernel inputs must share one CUDA device, got {t.device} "
+                f"and {dev}")
+    return dev
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call C entry point ``name`` on ``device``'s current stream; raise on
+    a launch error; count the launch."""
+    lib = library()
+    with torch.cuda.device(device):
+        err = getattr(lib, name)(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError_t {err} "
+                           f"({lib.shot_error_string(err).decode()})")
+    launch_counts[name] += 1

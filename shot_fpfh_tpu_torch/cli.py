@@ -1,0 +1,244 @@
+"""Command-line entry point: register two .ply point clouds on one GPU.
+
+Port of ``shot_fpfh_tpu.cli`` (console script ``register_point_clouds_torch``):
+load clouds → k-NN normals → keypoints → descriptors → matching → RANSAC →
+ICP → metrics → aligned ``.ply`` outputs, with per-stage timings and the
+same YAML config.  ``--device`` picks the torch device (default ``cuda``).
+Options this port does not cover yet (``--fused``, more than one device,
+the debug checks, descriptors other than single-scale SHOT) raise
+``NotImplementedError`` naming their ROADMAP.md item; the reference's flags
+that only tune those (``--fpfh_n_bins``, ``--phi``, ``--n_scales``,
+``--k_max_fpfh``, ``--share_local_rfs``, ``--mesh_axis``), its second
+names of flags (``--n_procs``, ``--normals_computation_k``) and its no-op
+``--disable_progress_bars`` are not accepted.  Exit code 0 means the
+registration was accepted.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import logging
+import os
+from pathlib import Path
+
+import torch
+
+from .configuration import load_config_from_yaml
+from .io.ground_truth import get_transform_from_conf_file
+from .io.ply import get_data
+from .models.normals import compute_normals
+from .pipeline import RegistrationPipeline
+from .utils.perf import checkpoint
+
+logger = logging.getLogger(__name__)
+
+_DEFAULT_CONFIG = str(Path(__file__).resolve().parent.parent / "config" / "default.yaml")
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    parser = argparse.ArgumentParser(
+        prog="register_point_clouds_torch",
+        description="SHOT point-cloud registration on a GPU (PyTorch / CUDA)",
+    )
+    io_group = parser.add_argument_group("I/O")
+    io_group.add_argument("--scan_file_path", "-s", type=str,
+                          default="./data/bunny/bun045.ply")
+    io_group.add_argument("--ref_file_path", "-r", type=str,
+                          default="./data/bunny/bun000.ply")
+    io_group.add_argument("--conf_file_path", "-c", type=str,
+                          default="./data/bunny/bun.conf",
+                          help="Stanford .conf ground truth (optional)")
+    io_group.add_argument("--config", type=str, default=_DEFAULT_CONFIG)
+    io_group.add_argument("--output_dir", type=str, default="./data/results")
+    io_group.add_argument("--disable_ply_writing", action="store_true")
+    io_group.add_argument("--metrics_json", type=str, default=None,
+                          help="Write per-stage metrics to this JSON file")
+
+    kp = parser.add_argument_group("keypoint selection")
+    kp.add_argument("--selection_algorithm", type=str, default=None,
+                    choices=["random", "iterative", "subsampling", "subsampling_with_density"])
+    kp.add_argument("--neighborhood_size", type=float, default=None)
+    kp.add_argument("--min_n_neighbors", type=int, default=None)
+
+    desc = parser.add_argument_group("descriptors")
+    desc.add_argument("--descriptor_choice", type=str, default=None,
+                      choices=["fpfh", "shot_single_scale", "shot_bi_scale", "shot_multiscale"])
+    desc.add_argument("--radius", type=float, default=None)
+    desc.add_argument("--rho", type=float, default=None)
+    desc.add_argument("--min_neighborhood_size", type=int, default=None)
+
+    match = parser.add_argument_group("matching and RANSAC")
+    match.add_argument("--matching_algorithm", type=str, default=None,
+                       choices=["simple", "double", "ratio", "threshold"])
+    match.add_argument("--reject_threshold", type=float, default=None)
+    match.add_argument("--threshold_multiplier", type=float, default=None)
+    match.add_argument("--n_draws", type=int, default=None)
+    match.add_argument("--draw_size", type=int, default=None)
+    match.add_argument("--max_inliers_distance", type=float, default=None)
+    match.add_argument("--seed", type=int, default=None)
+
+    icp = parser.add_argument_group("ICP")
+    icp.add_argument("--icp_type", type=str, default=None,
+                     choices=["point_to_point", "point_to_plane"])
+    icp.add_argument("--d_max", type=float, default=None)
+    icp.add_argument("--voxel_size", type=float, default=None)
+    icp.add_argument("--max_iter", type=int, default=None)
+    icp.add_argument("--rms_threshold", type=float, default=None)
+
+    compute = parser.add_argument_group("compute")
+    compute.add_argument("--device", type=str, default="cuda",
+                         help="torch device the stages run on (cuda, cuda:N or cpu)")
+    compute.add_argument("--k_max_descriptor", type=int, default=None)
+    compute.add_argument("--normals_k", type=int, default=None,
+                         help="Number of neighbors used to compute normals.")
+    compute.add_argument("--state_cache", type=str, default=None,
+                         help="npz path: save/resume keypoints+descriptors+matches")
+    compute.add_argument("--fused", action="store_const", const=True, default=None)
+    compute.add_argument("--debug_nans", action="store_const", const=True, default=None)
+    compute.add_argument("--debug_shot", action="store_const", const=True, default=None)
+    compute.add_argument("--n_devices", type=int, default=None,
+                         help="0 or 1: one device (more are not ported yet)")
+    return parser.parse_args(argv)
+
+
+def _check_supported(compute_cfg) -> None:
+    if compute_cfg.n_devices not in (0, 1):
+        raise NotImplementedError(
+            "--n_devices > 1 is not ported yet (ROADMAP.md, Queue 1, item 14: "
+            "multi-GPU)")
+    if compute_cfg.fused:
+        raise NotImplementedError(
+            "--fused is not ported yet (ROADMAP.md, Queue 1, item 13: "
+            "single-program path)")
+    if compute_cfg.debug_shot:
+        raise NotImplementedError(
+            "--debug_shot is not ported yet (ROADMAP.md, Queue 1, item 5)")
+    if compute_cfg.debug_nans:
+        raise NotImplementedError(
+            "--debug_nans is not ported yet (ROADMAP.md, Queue 1, item 10)")
+
+
+def _file_id(path: str):
+    try:
+        st = os.stat(path)
+        return [path, st.st_size, st.st_mtime_ns]
+    except OSError:
+        return [path, -1, -1]
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
+    config = load_config_from_yaml(args.config, vars(args))
+    compute_cfg = config["compute"]
+    _check_supported(compute_cfg)
+    device = torch.device(args.device)
+    timer = checkpoint()
+
+    def normals_callback(query_points, cloud_points, *, k=None, radius=None,
+                         pre_computed_normals=None):
+        return compute_normals(query_points, cloud_points, k=k, radius=radius,
+                               pre_computed_normals=pre_computed_normals,
+                               device=device).cpu().numpy()
+
+    scan, scan_normals = get_data(args.scan_file_path, k=compute_cfg.normals_k,
+                                  normals_computation_callback=normals_callback)
+    ref, ref_normals = get_data(args.ref_file_path, k=compute_cfg.normals_k,
+                                normals_computation_callback=normals_callback)
+    timer("Data loading + normals")
+
+    exact_transform = None
+    if args.conf_file_path and os.path.exists(args.conf_file_path):
+        try:
+            exact_transform = get_transform_from_conf_file(
+                args.conf_file_path, args.scan_file_path, args.ref_file_path)
+        except (KeyError, ValueError) as exc:
+            logger.warning("Could not recover ground truth: %s", exc)
+
+    pipeline = RegistrationPipeline(
+        scan=scan, scan_normals=scan_normals, ref=ref, ref_normals=ref_normals,
+        k_max_descriptor=compute_cfg.k_max_descriptor, device=device)
+    kp_cfg, desc_cfg = config["keypoint_selection"], config["descriptor"]
+    match_cfg, ransac_cfg, icp_cfg = config["matching"], config["ransac"], config["icp"]
+
+    # cache key: every section that determines the cached state, plus the
+    # input clouds (a cache of another pair or config is never resumed)
+    state_key = hashlib.sha256(json.dumps(
+        {"kp": repr(kp_cfg), "desc": repr(desc_cfg), "match": repr(match_cfg),
+         "caps": [compute_cfg.k_max_descriptor, compute_cfg.k_max_fpfh,
+                  compute_cfg.normals_k],
+         "inputs": [_file_id(args.scan_file_path), _file_id(args.ref_file_path)]},
+        sort_keys=True).encode()).hexdigest()
+    state_resumed = False
+    if compute_cfg.state_cache and os.path.exists(compute_cfg.state_cache):
+        logger.info("Resuming intermediate state from %s", compute_cfg.state_cache)
+        state_resumed = pipeline.load_state(compute_cfg.state_cache, config_key=state_key)
+
+    logger.info(kp_cfg.help_message())
+    pipeline.select_keypoints(kp_cfg.selection_algorithm,
+                              neighborhood_size=kp_cfg.neighborhood_size,
+                              min_n_neighbors=kp_cfg.min_n_neighbors)
+    timer("Keypoint selection")
+
+    logger.info(desc_cfg.help_message())
+    pipeline.compute_descriptors(
+        radius=desc_cfg.radius, descriptor_choice=desc_cfg.descriptor_choice,
+        rho=desc_cfg.rho, subsample_support=desc_cfg.subsample_support,
+        normalize=desc_cfg.normalize, min_neighborhood_size=desc_cfg.min_neighborhood_size)
+    timer("Descriptors")
+    if compute_cfg.state_cache and not state_resumed:
+        pipeline.save_state(compute_cfg.state_cache, config_key=state_key)
+        logger.info("Saved intermediate state to %s", compute_cfg.state_cache)
+
+    logger.info(match_cfg.help_message())
+    pipeline.find_descriptors_matches(match_cfg.matching_algorithm,
+                                      reject_threshold=match_cfg.reject_threshold,
+                                      threshold_multiplier=match_cfg.threshold_multiplier)
+    timer("Matching")
+
+    logger.info(ransac_cfg.help_message())
+    transform_ransac, inlier_ratio = pipeline.run_ransac(
+        n_draws=ransac_cfg.n_draws, draw_size=ransac_cfg.draw_size,
+        max_inliers_distance=ransac_cfg.max_inliers_distance, seed=ransac_cfg.seed,
+        exact_transformation=exact_transform)
+    logger.info("RANSAC inlier ratio: %.3f", inlier_ratio)
+    logger.info("RANSAC transform:\n%r", transform_ransac)
+    timer("RANSAC")
+
+    logger.info(icp_cfg.help_message())
+    transform_icp, rms, converged = pipeline.run_icp(
+        icp_cfg.icp_type, transformation_init=transform_ransac, d_max=icp_cfg.d_max,
+        voxel_size=icp_cfg.voxel_size, max_iter=icp_cfg.max_iter,
+        rms_threshold=icp_cfg.rms_threshold)
+    logger.info("ICP RMS: %.4f (converged: %s)", rms, converged)
+    logger.info("ICP transform:\n%r", transform_icp)
+    timer("ICP")
+
+    eval_cfg = config["registration_evaluation"]
+    overlap, kp_inliers = pipeline.compute_metrics_post_icp(
+        transform_icp, eval_cfg.distance_to_map_threshold)
+    accepted = eval_cfg.eval_registration(overlap=overlap, distance_to_map=rms,
+                                          inliers=kp_inliers)
+    logger.info("Overlap: %.1f%% | keypoint inliers: %.1f%% | registration %s",
+                overlap * 100, kp_inliers * 100, "ACCEPTED" if accepted else "REJECTED")
+    timer("Metrics")
+
+    if not args.disable_ply_writing:
+        os.makedirs(args.output_dir, exist_ok=True)
+        scan_name = Path(args.scan_file_path).stem
+        ref_name = Path(args.ref_file_path).stem
+        pipeline.write_alignments(
+            (f"{args.output_dir}/{scan_name}_on_{ref_name}_post_ransac.ply", transform_ransac),
+            (f"{args.output_dir}/{scan_name}_on_{ref_name}_post_icp.ply", transform_icp))
+        timer("Writing outputs")
+
+    if args.metrics_json:
+        with open(args.metrics_json, "w") as f:
+            json.dump(pipeline.metrics.summary(), f, indent=2)
+    return 0 if accepted else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,23 @@
+from .grid_hash import AUTO_GRID_MIN_POINTS, HashGrid, build_grid, window_distances
+from .match import top2_match, top2_match_plain
+from .neighbors import Neighborhoods, knn, nearest_neighbor, radius_count, radius_search
+from .radius_pca import radius_pca, radius_pca_plain
+from .shot_fused import shot_binning_histogram, shot_binning_histogram_plain
+
+__all__ = [
+    "AUTO_GRID_MIN_POINTS",
+    "HashGrid",
+    "build_grid",
+    "window_distances",
+    "top2_match",
+    "top2_match_plain",
+    "Neighborhoods",
+    "knn",
+    "nearest_neighbor",
+    "radius_count",
+    "radius_search",
+    "radius_pca",
+    "radius_pca_plain",
+    "shot_binning_histogram",
+    "shot_binning_histogram_plain",
+]

@@ -1,0 +1,349 @@
+"""Grid-hash neighbor engine: voxel bucketing + contiguous candidate runs.
+
+Port of the parts of ``shot_fpfh_tpu.ops.grid_hash`` that the staged
+registration path runs.  Points are bucketed into cells of edge
+``cell_size``, sorted by linear cell id (z minor) on the device, and a dense
+cell-start table maps a cell id to its first sorted row.  A query's
+``(2h+1)^3`` cell window is then ``(2h+1)^2`` *contiguous* z-column runs of
+the sorted cloud (:func:`_zcolumn_runs`), and :func:`window_distances`
+concatenates them into a fixed-width ``(Q, W)`` candidate window, ``W`` being
+the largest window occupancy of the grid (computed at build) — every radius
+neighborhood of radius ≤ ``halo·cell_size`` is inside it, uncapped.
+
+Not ported: the content-keyed grid LRU and the G=8/16 grouped
+feature-planar gather (index-bound gather workarounds of the TPU); a plain
+``(Q, W)`` row gather over the runs gives the same window contract.
+"""
+
+from __future__ import annotations
+
+import logging
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .._fp import sqnorm3
+from .neighbors import Neighborhoods, _sq_dists, as_f32, knn
+
+logger = logging.getLogger(__name__)
+
+# below this cloud size brute force wins (one matmul beats build + gather)
+AUTO_GRID_MIN_POINTS = 20_000
+
+# window rows x features gathered per chunk: bounds a chunk's temporaries
+_CHUNK_ELEMS = 1 << 24
+
+
+@dataclass(frozen=True)
+class HashGrid:
+    """Cell-sorted cloud plus the host-side caps that set window shapes."""
+
+    packed_sorted: torch.Tensor    # (N, 3+F) [points | extras], cell order
+    orig_idx: torch.Tensor         # (N,) sorted position -> original index
+    cell_ids_sorted: torch.Tensor  # (N,) int64 linear cell ids, ascending
+    origin: torch.Tensor           # (3,) float32
+    dims: tuple[int, int, int]     # cells per axis
+    cell_size: float
+    cell_starts: torch.Tensor | None  # (n_cells+1,) first row per cell id
+    cell_cap: int                  # max points in one cell
+    window_cap: int                # max points in any (2h+1)^3 window
+    col_cap: int                   # max points in any (2h+1) z-column run
+    halo: int = 1
+
+    @property
+    def has_table(self) -> bool:
+        return self.cell_starts is not None
+
+    @property
+    def points_sorted(self) -> torch.Tensor:
+        return self.packed_sorted[:, :3]
+
+    @property
+    def device(self) -> torch.device:
+        return self.packed_sorted.device
+
+
+def _box_max(counts: torch.Tensor, halo: int) -> tuple[int, int]:
+    """(max (2h+1)^3 box sum, max (2h+1) z-column sum) over every in-grid
+    center of a dense ``(d0, d1, d2)`` count volume."""
+    box = counts
+    col = 0
+    w = 2 * halo + 1
+    for ax in (2, 1, 0):  # z first: the column max falls out on the way
+        pad = [0, 0, 0, 0, 0, 0]
+        pad[2 * (2 - ax)] = pad[2 * (2 - ax) + 1] = halo
+        p = F.pad(box, pad)
+        acc = sum(p.narrow(ax, s, box.shape[ax]) for s in range(w))
+        box = acc
+        if ax == 2:
+            col = int(box.max())
+    return int(box.max()), col
+
+
+def build_grid(points, cell_size: float, extras=None, halo: int = 1,
+               device=None) -> HashGrid:
+    """Bucket ``points`` into cells of edge ``cell_size`` on the device.
+
+    ``extras``: optional ``(N, F)`` per-point values (e.g. normals) carried
+    in cell order beside the points.  The dense cell-start table is built
+    when the cell count is at most ``max(8N, 2^24)``; sparser grids find
+    their runs by binary search over the sorted ids instead."""
+    pts = as_f32(points, device)
+    n = pts.shape[0]
+    origin = pts.min(dim=0).values
+    cell = torch.floor((pts - origin) / cell_size).to(torch.int64)
+    dims_t = cell.max(dim=0).values + 1
+    dims = tuple(int(v) for v in dims_t.tolist())
+    linear = (cell[:, 0] * dims[1] + cell[:, 1]) * dims[2] + cell[:, 2]
+    ids_sorted, orig_idx = torch.sort(linear, stable=True)
+    _, occ = torch.unique_consecutive(ids_sorted, return_counts=True)
+    cell_cap = int(occ.max())
+    n_cells = dims[0] * dims[1] * dims[2]
+    if 0 < n_cells <= max(8 * n, 1 << 24):
+        cell_starts = torch.searchsorted(
+            ids_sorted, torch.arange(n_cells + 1, device=pts.device), right=False)
+        counts = (cell_starts[1:] - cell_starts[:-1]).reshape(dims)
+        window_cap, col_cap = _box_max(counts, halo)
+        window_cap = min(window_cap, n)
+        col_cap = min(col_cap, n)
+    else:
+        cell_starts = None
+        window_cap = min((2 * halo + 1) ** 3 * cell_cap, n)
+        col_cap = min((2 * halo + 1) * cell_cap, n)
+    packed = pts[orig_idx]
+    if extras is not None:
+        packed = torch.cat([packed, as_f32(extras, pts.device)[orig_idx]], dim=1)
+    return HashGrid(packed.contiguous(), orig_idx, ids_sorted, origin, dims,
+                    float(cell_size), cell_starts, cell_cap,
+                    max(window_cap, 1), max(col_cap, 1), halo)
+
+
+def _query_cells(grid: HashGrid, queries: torch.Tensor) -> torch.Tensor:
+    return torch.floor((queries - grid.origin) / grid.cell_size).to(torch.int64)
+
+
+def _zcolumn_runs(grid: HashGrid, queries: torch.Tensor):
+    """``(start, end)`` sorted rows ``(Q, (2h+1)^2)`` of each query's
+    z-column runs: for each (dx, dy) offset, the cells (x+dx, y+dy,
+    max(z-h, 0) .. min(z+h, d2-1)) are consecutive in the z-minor id, so they
+    form one contiguous run.  Off-grid columns give empty runs."""
+    h = grid.halo
+    d0, d1, d2 = grid.dims
+    qcell = _query_cells(grid, queries)
+    r = torch.arange(-h, h + 1, device=queries.device)
+    off = torch.stack(torch.meshgrid(r, r, indexing="ij"), -1).reshape(-1, 2)
+    xy = qcell[:, None, :2] + off[None]                       # (Q, R, 2)
+    in_grid = ((xy[..., 0] >= 0) & (xy[..., 0] < d0)
+               & (xy[..., 1] >= 0) & (xy[..., 1] < d1))
+    z_lo = torch.clamp(qcell[:, 2:3], min=h) - h              # (Q, 1)
+    z_hi = torch.clamp(qcell[:, 2:3] + h, max=d2 - 1)
+    in_grid = (in_grid & (qcell[:, 2:3] >= -h)
+               & (qcell[:, 2:3] <= d2 + h - 1) & (z_hi >= z_lo))
+    base = (xy[..., 0] * d1 + xy[..., 1]) * d2
+    zero = torch.zeros_like(base)
+    if grid.has_table:
+        last = grid.cell_starts.shape[0] - 1
+        lo = torch.clamp(base + z_lo, 0, last)
+        hi = torch.clamp(base + z_hi + 1, 0, last)
+        start = torch.where(in_grid, grid.cell_starts[lo], zero)
+        end = torch.where(in_grid, grid.cell_starts[hi], zero)
+    else:
+        neg = torch.full_like(base, -1)
+        lo_id = torch.where(in_grid, base + z_lo, neg)
+        hi_id = torch.where(in_grid, base + z_hi, neg)
+        ids = grid.cell_ids_sorted
+        start = torch.searchsorted(ids, lo_id.reshape(-1)).reshape(lo_id.shape)
+        end = torch.searchsorted(ids, hi_id.reshape(-1), right=True).reshape(hi_id.shape)
+        end = torch.where(in_grid, end, start)
+    return start, torch.maximum(end, start)
+
+
+def window_rows(grid: HashGrid, queries: torch.Tensor):
+    """``(rows (Q, W), valid (Q, W))``: each query's z-column runs
+    concatenated into ``W = grid.window_cap`` sorted-row slots."""
+    start, end = _zcolumn_runs(grid, queries)
+    cum = torch.cumsum(end - start, dim=1)                    # inclusive
+    excl = cum - (end - start)
+    w = grid.window_cap
+    j = torch.arange(w, device=queries.device).expand(queries.shape[0], w)
+    run = torch.clamp(torch.searchsorted(cum, j.contiguous(), right=True),
+                      max=start.shape[1] - 1)
+    rows = torch.gather(start, 1, run) + j - torch.gather(excl, 1, run)
+    valid = j < cum[:, -1:]
+    n = grid.packed_sorted.shape[0]
+    rows = torch.where(valid, torch.clamp(rows, max=n - 1), torch.zeros_like(rows))
+    return rows, valid
+
+
+def window_distances(grid: HashGrid, queries: torch.Tensor):
+    """The window fetch of every window consumer: returns
+    ``(vals (Q, F, W), dist (Q, W), valid (Q, W), rows (Q, W))`` with
+    feature-first gathered ``[points | extras]`` rows, the distance of each
+    candidate, and ``valid`` marking true window rows (callers apply their
+    own radius mask on ``dist``)."""
+    rows, valid = window_rows(grid, queries)
+    vals = grid.packed_sorted[rows].permute(0, 2, 1).contiguous()
+    dx = vals[:, 0, :] - queries[:, 0:1]
+    dy = vals[:, 1, :] - queries[:, 1:2]
+    dz = vals[:, 2, :] - queries[:, 2:3]
+    return vals, torch.sqrt(sqnorm3(dx, dy, dz)), valid, rows
+
+
+def query_chunk(grid: HashGrid, features: int = 8) -> int:
+    """Queries per window chunk, bounded by ``_CHUNK_ELEMS`` window values."""
+    return max(1, _CHUNK_ELEMS // (grid.window_cap * features))
+
+
+def check_radius_contract(grid: HashGrid, radius) -> None:
+    """Raise if ``radius`` exceeds what the window covers (``halo·cell``)."""
+    if isinstance(radius, torch.Tensor):
+        radius = float(radius.max()) if radius.numel() else 0.0
+    if grid.halo * grid.cell_size < float(radius) * (1.0 - 1e-6):
+        raise ValueError(
+            f"grid with cell_size={grid.cell_size} and halo={grid.halo} covers "
+            f"radius <= {grid.halo * grid.cell_size:.6g}, but the search asked "
+            f"for radius={float(radius):.6g}; rebuild the grid with "
+            f"cell_size >= radius / halo")
+
+
+def window_moments(grid: HashGrid, queries: torch.Tensor, r2: torch.Tensor):
+    """``(Q, 10)`` raw sums over each query's in-radius window points, with
+    ``d = p − q``: ``[count, Σdx, Σdy, Σdz, Σdx², Σdy², Σdz², Σdxdy, Σdxdz,
+    Σdydz]`` — the plain form of the streaming covariance reduction."""
+    out = []
+    step = query_chunk(grid, 4)
+    for s in range(0, queries.shape[0], step):
+        qc = queries[s:s + step]
+        rows, valid = window_rows(grid, qc)
+        cand = grid.points_sorted[rows]                       # (C, W, 3)
+        dx = cand[..., 0] - qc[:, 0:1]
+        dy = cand[..., 1] - qc[:, 1:2]
+        dz = cand[..., 2] - qc[:, 2:3]
+        m = (valid & (sqnorm3(dx, dy, dz) <= r2[s:s + step, None])).to(torch.float32)
+        mx, my, mz = m * dx, m * dy, m * dz
+        out.append(torch.stack([
+            m.sum(-1), mx.sum(-1), my.sum(-1), mz.sum(-1),
+            (mx * dx).sum(-1), (my * dy).sum(-1), (mz * dz).sum(-1),
+            (mx * dy).sum(-1), (mx * dz).sum(-1), (my * dz).sum(-1)], dim=1))
+    return torch.cat(out) if out else queries.new_zeros((0, 10))
+
+
+def moments_to_pca(sums: torch.Tensor, queries: torch.Tensor):
+    """``(cov (Q,3,3), barycenter (Q,3), count (Q,))`` from the 10 raw sums
+    (covariance centered and divided by the count, as the reference)."""
+    count = sums[:, 0]
+    safe = torch.clamp(count, min=1.0)[:, None]
+    mean = sums[:, 1:4] / safe                                 # E[p - q]
+    xx, yy, zz, xy, xz, yz = (sums[:, 4 + i:5 + i] / safe for i in range(6))
+    second = torch.cat([xx, xy, xz, xy, yy, yz, xz, yz, zz], 1).reshape(-1, 3, 3)
+    cov = second - mean[:, :, None] * mean[:, None, :]
+    return cov, mean + queries, count
+
+
+def radius_sq(radius, q: int, device) -> torch.Tensor:
+    """Per-query squared radius ``(Q,)`` from a scalar or ``(Q,)`` radius,
+    squared in float32."""
+    r = torch.as_tensor(radius, dtype=torch.float32, device=device)
+    return torch.broadcast_to(r * r, (q,)).contiguous()
+
+
+def grid_radius_pca(grid: HashGrid, queries, radius):
+    """Radius-neighborhood PCA over the window: every in-radius point
+    contributes (no k cap).  ``radius`` is a scalar or a per-query ``(Q,)``
+    tensor within the grid's coverage.  Returns ``(cov, barycenter, count)``."""
+    check_radius_contract(grid, radius)
+    queries = as_f32(queries, grid.device)
+    sums = window_moments(grid, queries, radius_sq(radius, queries.shape[0], grid.device))
+    return moments_to_pca(sums, queries)
+
+
+def grid_nearest_neighbor(grid: HashGrid, queries):
+    """1-NN through the grid: exact when the true nearest neighbor lies
+    within ``halo·cell_size``; queries with an empty window get inf."""
+    queries = as_f32(queries, grid.device)
+    dist_out, idx_out = [], []
+    step = query_chunk(grid, 4)
+    for s in range(0, queries.shape[0], step):
+        qc = queries[s:s + step]
+        rows, valid = window_rows(grid, qc)
+        cand = grid.points_sorted[rows]
+        diff = cand - qc[:, None, :]
+        d = torch.sqrt(sqnorm3(diff[..., 0], diff[..., 1], diff[..., 2]))
+        masked = torch.where(valid, d, torch.full_like(d, float("inf")))
+        best, pos = masked.min(dim=1)
+        row = torch.gather(rows, 1, pos[:, None])[:, 0]
+        dist_out.append(best)
+        idx_out.append(grid.orig_idx[row])
+    return torch.cat(dist_out), torch.cat(idx_out)
+
+
+def kth_distance_bound(sample, points, k: int) -> torch.Tensor:
+    """Per-sample distance of the k-th nearest point (exact ``topk``; the
+    reference uses ``approx_max_k``, which only ever biases it up)."""
+    d2 = torch.clamp(_sq_dists(sample, points), min=0.0)
+    kth = torch.topk(d2, k, dim=1, largest=False, sorted=True).values[:, -1]
+    return torch.sqrt(torch.clamp(kth, min=0.0))
+
+
+def quantized_kth_radius(kth) -> float:
+    """1.5x the 99th percentile of sampled k-th distances, rounded up onto a
+    1.25-geometric grid."""
+    raw = 1.5 * float(np.quantile(np.asarray(kth), 0.99))
+    return float(1.25 ** np.ceil(np.log(max(raw, 1e-12)) / np.log(1.25)))
+
+
+def grid_radius_search(grid: HashGrid, queries, radius, k_max: int) -> Neighborhoods:
+    """The ``k_max`` nearest neighbors within ``radius`` through the grid
+    window (same contract as ``neighbors.radius_search``)."""
+    check_radius_contract(grid, radius)
+    queries = as_f32(queries, grid.device)
+    k_eff = min(k_max, grid.window_cap)
+    idx_out, dist_out = [], []
+    inf = float("inf")
+    for s in range(0, queries.shape[0], query_chunk(grid, 4)):
+        qc = queries[s:s + query_chunk(grid, 4)]
+        rows, valid = window_rows(grid, qc)
+        diff = grid.points_sorted[rows] - qc[:, None, :]
+        d = torch.sqrt(sqnorm3(diff[..., 0], diff[..., 1], diff[..., 2]))
+        masked = torch.where(valid & (d <= radius), d, torch.full_like(d, inf))
+        dist, pos = torch.topk(masked, k_eff, dim=1, largest=False, sorted=True)
+        idx_out.append(grid.orig_idx[torch.gather(rows, 1, pos)])
+        dist_out.append(dist)
+    idx, dist = torch.cat(idx_out), torch.cat(dist_out)
+    if k_eff < k_max:
+        pad = k_max - k_eff
+        idx = torch.cat([idx, idx.new_zeros((idx.shape[0], pad))], 1)
+        dist = torch.cat([dist, dist.new_full((dist.shape[0], pad), inf)], 1)
+    mask = torch.isfinite(dist)
+    return Neighborhoods(torch.where(mask, idx, torch.zeros_like(idx)), dist, mask)
+
+
+def knn_auto(queries, points, k: int, sample_size: int = 512) -> Neighborhoods:
+    """k-NN that scales to large clouds: a sampled bound on the k-th
+    neighbor distance sets a grid search radius; queries whose k-th neighbor
+    fell outside it get an exact brute-force pass."""
+    points = as_f32(points)
+    queries = as_f32(queries, points.device)
+    n = points.shape[0]
+    if n < AUTO_GRID_MIN_POINTS:
+        return knn(queries, points, k)
+    stride = max(1, n // sample_size)
+    sample = points[::stride][:sample_size]
+    radius = quantized_kth_radius(kth_distance_bound(sample, points, k).cpu().numpy())
+    grid = build_grid(points, radius)
+    nbr = grid_radius_search(grid, queries, radius, k)
+    missing = torch.nonzero(nbr.count < min(k, n))[:, 0]
+    if missing.numel():
+        frac = missing.numel() / queries.shape[0]
+        if frac > 0.05:
+            logger.warning(
+                "knn_auto exactness net caught %.1f%% of %d queries (sampled "
+                "radius bound %.3g undercovers)", 100.0 * frac,
+                queries.shape[0], radius)
+        fix = knn(queries[missing], points, k)
+        idx, dist, mask = nbr.idx.clone(), nbr.dist.clone(), nbr.mask.clone()
+        idx[missing], dist[missing], mask[missing] = fix.idx, fix.dist, fix.mask
+        nbr = Neighborhoods(idx, dist, mask)
+    return nbr

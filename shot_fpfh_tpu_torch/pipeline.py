@@ -1,0 +1,260 @@
+"""End-to-end registration pipeline — port of ``shot_fpfh_tpu.pipeline``.
+
+Holds the scan/ref clouds on the host, memoizes each stage's result
+(recomputed only on ``force_recompute``), and runs the stages on
+``device``: voxel keypoints, single-scale SHOT, nearest / ratio-test
+matching, RANSAC, ICP, and the post-ICP metrics.  Stage timings go to
+``self.metrics``.  Dispatcher branches this port does not cover yet raise
+``NotImplementedError`` naming the ROADMAP.md item that will port them.
+"""
+
+from __future__ import annotations
+
+import logging
+from dataclasses import dataclass, field
+from typing import Literal
+
+import numpy as np
+import torch
+
+from .core.transform import RigidTransform, rotation_angle
+from .io.ply import write_ply
+from .keypoints import select_keypoints_subsampling, select_keypoints_with_density_threshold
+from .models.shot import ShotComputer
+from .ops.grid_hash import AUTO_GRID_MIN_POINTS, build_grid, grid_nearest_neighbor
+from .ops.neighbors import as_f32, nearest_neighbor
+from .registration.icp import icp_point_to_plane, icp_point_to_point
+from .registration.matching import basic_matching, lowe_matching
+from .registration.ransac import ransac_on_matches
+from .utils.perf import StageMetrics
+
+logger = logging.getLogger(__name__)
+
+_STATE_ARRAYS = ("scan_keypoints", "ref_keypoints", "scan_descriptors", "ref_descriptors")
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, {item})")
+
+
+@dataclass
+class RegistrationPipeline:
+    """Descriptor-based registration between two local maps (scan → ref)."""
+
+    scan: np.ndarray
+    scan_normals: np.ndarray
+    ref: np.ndarray
+    ref_normals: np.ndarray
+
+    scan_keypoints: np.ndarray | None = None
+    ref_keypoints: np.ndarray | None = None
+    scan_descriptors: torch.Tensor | np.ndarray | None = None
+    ref_descriptors: torch.Tensor | np.ndarray | None = None
+    matches: tuple[np.ndarray, np.ndarray] | None = None
+
+    k_max_descriptor: int = 512
+    metrics: StageMetrics = field(default_factory=StageMetrics)
+    device: torch.device | str = "cpu"
+
+    # ------------------------------------------------------------ keypoints --
+    def select_keypoints(
+        self,
+        selection_algorithm: Literal[
+            "random", "iterative", "subsampling", "subsampling_with_density"],
+        *, neighborhood_size: float | None = None, min_n_neighbors: int | None = None,
+        force_recompute: bool = False,
+    ) -> None:
+        if selection_algorithm in ("random", "iterative"):
+            raise _not_ported(f"keypoint selection {selection_algorithm!r}",
+                              "Queue 1, item 8")
+        if selection_algorithm not in ("subsampling", "subsampling_with_density"):
+            raise ValueError("Incorrect keypoint selection algorithm.")
+        if neighborhood_size is None:
+            raise ValueError(
+                f"keypoint selection '{selection_algorithm}' needs "
+                "neighborhood_size (CLI: --neighborhood_size)")
+        self.metrics.start(f"keypoints[{selection_algorithm}]")
+        for side in ("scan", "ref"):
+            if getattr(self, f"{side}_keypoints") is None or force_recompute:
+                cloud = getattr(self, side)
+                if selection_algorithm == "subsampling":
+                    kp = select_keypoints_subsampling(cloud, neighborhood_size, self.device)
+                else:
+                    kp = select_keypoints_with_density_threshold(
+                        cloud, neighborhood_size, min_n_neighbors, device=self.device)
+                setattr(self, f"{side}_keypoints", kp)
+        self.metrics.stop(keypoints=len(self.scan_keypoints) + len(self.ref_keypoints))
+        for side in ("scan", "ref"):
+            logger.info("%d keypoints selected on %s out of %d points.",
+                        len(getattr(self, f"{side}_keypoints")), side,
+                        getattr(self, side).shape[0])
+
+    # ----------------------------------------------------------- descriptors --
+    def compute_descriptors(
+        self, radius: float,
+        descriptor_choice: Literal[
+            "fpfh", "shot_single_scale", "shot_bi_scale", "shot_multiscale"
+        ] = "shot_single_scale",
+        rho: float = 10.0, subsample_support: bool = True, normalize: bool = True,
+        min_neighborhood_size: int = 100, force_recompute: bool = False,
+    ) -> None:
+        """Stage dispatcher: single-scale SHOT of both clouds' keypoints
+        (frame sharing across scales comes with bi-scale SHOT)."""
+        if descriptor_choice == "fpfh":
+            raise _not_ported("FPFH", "Queue 1, item 11")
+        if descriptor_choice in ("shot_bi_scale", "shot_multiscale", "shot_multi_scale"):
+            raise _not_ported(f"{descriptor_choice} SHOT", "Queue 1, item 12")
+        if descriptor_choice != "shot_single_scale":
+            raise ValueError("Incorrect descriptor choice")
+        self.metrics.start(f"descriptors[{descriptor_choice}]")
+        computer = ShotComputer(
+            normalize=normalize, min_neighborhood_size=min_neighborhood_size,
+            k_max=self.k_max_descriptor, device=self.device)
+        voxel = radius / rho if subsample_support else None
+        for side in ("scan", "ref"):
+            if getattr(self, f"{side}_descriptors") is None or force_recompute:
+                cloud = getattr(self, side)
+                kp = cloud[getattr(self, f"{side}_keypoints")]
+                setattr(self, f"{side}_descriptors", computer.compute_descriptor_single_scale(
+                    cloud, getattr(self, f"{side}_normals"), kp, radius=radius,
+                    subsampling_voxel_size=voxel))
+        self.metrics.stop(descriptors=len(self.scan_keypoints) + len(self.ref_keypoints))
+
+    # -------------------------------------------------------------- matching --
+    def find_descriptors_matches(
+        self, matching_algorithm: Literal["simple", "double", "ratio", "threshold"], *,
+        reject_threshold: float = 0.8, threshold_multiplier: float = 10,
+        force_recompute: bool = False,
+    ) -> None:
+        if self.matches is not None and not force_recompute:
+            return
+        if matching_algorithm == "threshold":
+            raise _not_ported("threshold matching", "Queue 1, item 6")
+        if matching_algorithm not in ("simple", "double", "ratio"):
+            raise ValueError("Incorrect matching algorithm selection.")
+        self.metrics.start(f"matching[{matching_algorithm}]")
+        if matching_algorithm == "simple":
+            self.matches = basic_matching(self.scan_descriptors, self.ref_descriptors,
+                                          device=self.device)
+        else:
+            self.matches = lowe_matching(self.scan_descriptors, self.ref_descriptors,
+                                         reject_threshold, device=self.device)
+        self.metrics.stop(matches=len(self.matches[0]))
+
+    def analyze_matches(self, matching_algorithm, exact_transformation: RigidTransform):
+        raise _not_ported("ground-truth match analysis (analysis.py)", "Queue 1, item 10")
+
+    # ---------------------------------------------------------------- RANSAC --
+    def run_ransac(self, *, n_draws: int = 10000, draw_size: int = 4,
+                   max_inliers_distance: float = 2, seed: int = 72,
+                   exact_transformation: RigidTransform | None = None,
+                   draws=None) -> tuple[RigidTransform, float]:
+        """RANSAC over the matched keypoints; draws come from a CPU
+        generator seeded with ``seed`` (the same on every device), or from
+        ``draws`` when given."""
+        self.metrics.start("ransac")
+        scan_m = as_f32(self.scan[self.scan_keypoints[self.matches[0]]], self.device)
+        ref_m = as_f32(self.ref[self.ref_keypoints[self.matches[1]]], self.device)
+        ratio, transform = ransac_on_matches(
+            scan_m, ref_m, generator=torch.Generator().manual_seed(seed), draws=draws,
+            n_draws=n_draws, draw_size=draw_size, distance_threshold=max_inliers_distance)
+        ratio = float(ratio)
+        self.metrics.stop(draws=n_draws)
+        if exact_transformation is not None:
+            exact = exact_transformation.to(transform.rotation.device)
+            logger.info(
+                "Norm of the angle between the two rotations: %.2f\n"
+                "Norm of the difference between the two translations: %.2f",
+                float(rotation_angle(exact.rotation, transform.rotation)),
+                float(torch.linalg.norm(exact.translation - transform.translation)))
+        return transform, ratio
+
+    # ------------------------------------------------------------------- ICP --
+    def run_icp(self, icp_type: Literal["point_to_point", "point_to_plane"],
+                transformation_init: RigidTransform, *, d_max: float,
+                voxel_size: float = 0.2, max_iter: int = 30,
+                rms_threshold: float = 1e-2) -> tuple[RigidTransform, float, bool]:
+        if icp_type not in ("point_to_point", "point_to_plane"):
+            raise ValueError("Incorrect ICP type selected.")
+        self.metrics.start(f"icp[{icp_type}]")
+        if icp_type == "point_to_point":
+            out = icp_point_to_point(self.scan, self.ref, transformation_init, d_max=d_max,
+                                     voxel_size=voxel_size, max_iter=max_iter,
+                                     rms_threshold=rms_threshold, device=self.device)
+        else:
+            out = icp_point_to_plane(self.scan, self.ref, self.ref_normals,
+                                     transformation_init, d_max=d_max,
+                                     voxel_size=voxel_size, max_iter=max_iter,
+                                     rms_threshold=rms_threshold, device=self.device)
+        self.metrics.stop(iterations=out.n_iters)
+        logger.info("ICP ran %d/%d iterations (converged: %s).",
+                    out.n_iters, max_iter, out.has_converged)
+        return out.transform, out.rms, out.has_converged
+
+    # ---------------------------------------------------------------- metrics --
+    def compute_metrics_post_icp(self, transformation_icp: RigidTransform,
+                                 distance_threshold: float) -> tuple[float, float]:
+        """(overlap, keypoint-inlier ratio): the fraction of moved scan
+        points, and of moved scan keypoints, within ``distance_threshold`` of
+        the ref (keypoints); a grid 1-NN with that cell size above
+        ``AUTO_GRID_MIN_POINTS`` targets (exact for a threshold test)."""
+
+        def frac_within(queries: torch.Tensor, targets: torch.Tensor) -> float:
+            if targets.shape[0] >= AUTO_GRID_MIN_POINTS:
+                dist, _ = grid_nearest_neighbor(
+                    build_grid(targets, float(distance_threshold)), queries)
+            else:
+                dist, _ = nearest_neighbor(queries, targets)
+            return float((dist <= distance_threshold).to(torch.float32).mean())
+
+        ref = as_f32(self.ref, self.device)
+        moved = transformation_icp.to(ref.device).apply(as_f32(self.scan, ref.device))
+        overlap = frac_within(moved, ref)
+        scan_kp = torch.as_tensor(self.scan_keypoints, device=ref.device)
+        ref_kp = torch.as_tensor(self.ref_keypoints, device=ref.device)
+        return overlap, frac_within(moved[scan_kp], ref[ref_kp])
+
+    # ---------------------------------------------------- checkpoint/resume --
+    def save_state(self, path: str, config_key: str | None = None) -> None:
+        """Write keypoints, descriptors and matches to an ``.npz`` with the
+        reference's keys, so either package can resume the other's state."""
+        state = {}
+        for name in _STATE_ARRAYS:
+            value = getattr(self, name)
+            if value is not None:
+                state[name] = (value.cpu().numpy() if isinstance(value, torch.Tensor)
+                               else np.asarray(value))
+        if self.matches is not None:
+            state["matches_scan"] = np.asarray(self.matches[0])
+            state["matches_ref"] = np.asarray(self.matches[1])
+        if config_key is not None:
+            state["config_key"] = np.asarray(config_key)
+        np.savez_compressed(path, **state)
+
+    def load_state(self, path: str, config_key: str | None = None) -> bool:
+        """Restore a saved state; False (nothing loaded) when it was written
+        under a different ``config_key``."""
+        data = np.load(path)
+        if config_key is not None and "config_key" in data:
+            stored = str(data["config_key"])
+            if stored != config_key:
+                logger.warning(
+                    "State cache %s was written under a different pipeline config "
+                    "(stored key %s != current %s); ignoring it.",
+                    path, stored[:16], config_key[:16])
+                return False
+        for name in _STATE_ARRAYS:
+            if name in data:
+                setattr(self, name, data[name])
+        if "matches_scan" in data:
+            self.matches = (data["matches_scan"], data["matches_ref"])
+        return True
+
+    def write_alignments(self, *args: tuple[str, RigidTransform]) -> None:
+        """Write (moved scan + ref) stacks with an ``is_scan`` column."""
+        is_scan = np.hstack((np.ones(self.scan.shape[0], bool),
+                             np.zeros(self.ref.shape[0], bool)))[:, None]
+        for file_name, transform in args:
+            moved = transform.to("cpu").apply(as_f32(self.scan)).numpy()
+            write_ply(file_name, [np.hstack((np.vstack((moved, self.ref)), is_scan))],
+                      ["x", "y", "z", "is_scan"])

@@ -1,0 +1,73 @@
+"""Descriptor matching — the nearest and ratio-test matchers of
+``shot_fpfh_tpu.registration.matching``.
+
+All-zero descriptors (neighborhoods too sparse) are left out of matching,
+as in the reference.  Nearest and second-nearest descriptors come from the
+K2 top-2 kernel (``ops.match``); by default its operands are bf16 with f32
+accumulation and norms from the rounded values (``matching.py:40-46``);
+``use_bf16=False`` selects f32 operands.  ``lowe_matching`` keeps
+matches whose distance ratio is ≤ the threshold (the corrected ratio test).
+
+The filtered and multiscale matchers (``match_descriptors``, the three
+distance filters, ``multiscale_top1``) are not ported yet (ROADMAP.md,
+Queue 1, item 6).
+"""
+
+from __future__ import annotations
+
+import logging
+
+import torch
+
+from ..ops.match import top2_match
+from ..ops.neighbors import as_f32
+
+logger = logging.getLogger(__name__)
+
+
+def nearest_descriptor(a: torch.Tensor, b: torch.Tensor, b_valid: torch.Tensor,
+                       use_bf16: bool = True):
+    """Per-row nearest neighbor of ``a`` in ``b``: ``(idx, dist)``."""
+    idx, d1_sq, _ = top2_match(a, b, b_valid, use_bf16)
+    return idx, torch.sqrt(d1_sq)
+
+
+def top2_descriptor(a: torch.Tensor, b: torch.Tensor, b_valid: torch.Tensor,
+                    use_bf16: bool = True):
+    """Nearest and second-nearest: ``(idx1, d1, d2)``."""
+    idx, d1_sq, d2_sq = top2_match(a, b, b_valid, use_bf16)
+    return idx, torch.sqrt(d1_sq), torch.sqrt(d2_sq)
+
+
+def _split_nonzero(desc, device=None):
+    """``(host indices of the nonzero rows, those rows as a float32 tensor
+    on the device)``; only the row mask crosses to the host."""
+    d = as_f32(desc, device)
+    nz = torch.nonzero((d != 0).any(dim=1))[:, 0]
+    return nz.cpu().numpy(), d[nz]
+
+
+def basic_matching(scan_descriptors, ref_descriptors, device=None):
+    """Each non-empty scan descriptor matched to its nearest non-empty ref
+    descriptor; returns host ``(scan_indices, ref_indices)``."""
+    scan_nz, a = _split_nonzero(scan_descriptors, device)
+    ref_nz, b = _split_nonzero(ref_descriptors, a.device)
+    idx, _ = nearest_descriptor(a, b, torch.ones(b.shape[0], dtype=torch.bool,
+                                                 device=b.device))
+    return scan_nz, ref_nz[idx.cpu().numpy()]
+
+
+def lowe_matching(scan_descriptors, ref_descriptors, threshold: float = 0.8,
+                  verbose: bool = True, device=None):
+    """Ratio-test matching: keep matches with ``d1/d2 <= threshold``
+    (``d2 == 0`` counts as ratio 1)."""
+    scan_nz, a = _split_nonzero(scan_descriptors, device)
+    ref_nz, b = _split_nonzero(ref_descriptors, a.device)
+    idx, d1, d2 = top2_descriptor(a, b, torch.ones(b.shape[0], dtype=torch.bool,
+                                                   device=b.device))
+    ratio = torch.where(d2 > 0, d1 / torch.where(d2 > 0, d2, torch.ones_like(d2)),
+                        torch.ones_like(d1))
+    mask = (ratio <= threshold).cpu().numpy()
+    if verbose:
+        logger.info("Kept %d matches out of %d descriptors.", mask.sum(), len(scan_nz))
+    return scan_nz[mask], ref_nz[idx.cpu().numpy()[mask]]

@@ -1,0 +1,76 @@
+"""RANSAC coarse alignment with every draw batched on the device.
+
+Port of ``shot_fpfh_tpu.registration.ransac``: draws of ``draw_size``
+matches (without replacement within a draw) are solved by batched Kabsch in
+chunks of 512, each transform's inliers are counted over all matches, and
+the first draw with the most inliers wins (the reference's tie rule: first
+maximum within a chunk, strictly more to replace an earlier chunk).
+
+Randomness comes from an explicit ``torch.Generator``.  It cannot reproduce
+JAX's PRNG, so ``draws`` takes an explicit ``(n_draws, draw_size)`` index
+array — the parity tests inject the reference's draws that way.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core.solvers import solve_point_to_point
+from ..core.transform import RigidTransform
+from ..ops.neighbors import as_f32
+
+_DRAW_CHUNK = 512
+
+
+def sample_draws(m: int, n_draws: int, draw_size: int,
+                 generator: torch.Generator | None = None,
+                 device=None) -> torch.Tensor:
+    """``(n_draws, draw_size)`` match indices on ``device``, distinct within
+    each draw (rows with a repeat are redrawn until none is left).  They are
+    drawn on the host from a CPU ``generator``, so one seed gives the same
+    draws on every device."""
+    if draw_size > m:
+        raise ValueError(f"cannot draw {draw_size} distinct matches out of {m}")
+    draws = torch.randint(m, (n_draws, draw_size), generator=generator)
+    while True:
+        s = torch.sort(draws, dim=1).values
+        dup = (s[:, 1:] == s[:, :-1]).any(dim=1)
+        n_dup = int(dup.sum())
+        if n_dup == 0:
+            return draws.to(device)
+        draws[dup] = torch.randint(m, (n_dup, draw_size), generator=generator)
+
+
+def ransac_on_matches(scan_matched, ref_matched, generator: torch.Generator | None = None,
+                      draws=None, n_draws: int = 10000, draw_size: int = 4,
+                      distance_threshold: float = 1.0):
+    """Best rigid transform over random draws of matched keypoint pairs.
+
+    ``scan_matched``/``ref_matched``: ``(M, 3)`` matched coordinates.
+    Returns ``(inlier_ratio, transform)`` — best inlier count / M and the
+    quaternion-renormalized transform."""
+    scan = as_f32(scan_matched)
+    ref = as_f32(ref_matched, scan.device)
+    m = scan.shape[0]
+    if draws is None:
+        draws = sample_draws(m, n_draws, draw_size, generator, scan.device)
+    elif not isinstance(draws, torch.Tensor):
+        draws = torch.as_tensor(np.array(draws))   # a copy: host arrays may be read-only
+    draws = draws.to(scan.device).long()
+    thr2 = torch.tensor(distance_threshold, dtype=torch.float32) ** 2
+    best_count = torch.tensor(-1, device=scan.device)
+    best_rot = torch.eye(3, device=scan.device)
+    best_t = torch.zeros(3, device=scan.device)
+    for s in range(0, draws.shape[0], _DRAW_CHUNK):
+        idx = draws[s:s + _DRAW_CHUNK]
+        tf = solve_point_to_point(scan[idx], ref[idx])
+        moved = torch.einsum("cij,mj->cmi", tf.rotation, scan) + tf.translation[:, None, :]
+        counts = (((moved - ref[None]) ** 2).sum(-1) <= thr2.to(scan.device)).sum(-1)
+        i = torch.argmax(counts)
+        better = counts[i] > best_count
+        best_count = torch.where(better, counts[i], best_count)
+        best_rot = torch.where(better, tf.rotation[i], best_rot)
+        best_t = torch.where(better, tf.translation[i], best_t)
+    best = RigidTransform(best_rot, best_t).normalize_rotation()
+    return best_count.to(torch.float32) / m, best

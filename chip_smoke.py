@@ -7,20 +7,31 @@ Phases, one line each; any failure exits non-zero with no result line:
 
 1. device: torch / CUDA versions, card name and power limit;
 2. build: compile ``shot_fpfh_tpu_torch/csrc/*.cu`` for sm_90a;
-3. kernel parity at main-path shapes, each kernel against its plain
+3. kernel parity at each path's shapes, each kernel against its plain
    PyTorch version on the same card inputs, with CUDA-event timings:
    K1 SHOT frames + histogram (4096 keypoints on a 50k-point terrain),
-   K2 top-2 matching (4096 x 4096 x 352, f32 and bf16),
-   K3 radius covariance (100k queries, scalar and per-query radius);
-4. main path: the port's ``cli.main`` on a ~100k-point terrain pair (scan =
+   K2 top-2 matching (4096 x 4096 x 352, f32 and bf16; 8192 x 8192 x 125,
+   the FPFH width, bf16),
+   K3 radius covariance (100k queries, scalar and per-query radius),
+   K4 SPFH window histogram (one 8192-point chunk of a 100k-point terrain,
+   radius 0.9, k=30 normals, joint and decorrelated),
+   K6 SPFH over xy-row runs (all 100k points of that terrain);
+4. SHOT path: the port's ``cli.main`` on a ~100k-point terrain pair (scan =
    known rigid motion of ref + noise) with ``config/default.yaml``, run
    cold once and then measured; the registration must be accepted, within
    1e-2 rad / 1e-2 of the ground truth, and the measured run must have
    launched K1, K2 and K3.  ``--profile DIR`` adds a third run under
-   ``torch.profiler`` (op table, chrome trace, device-busy share).
+   ``torch.profiler`` (op table, chrome trace, device-busy share);
+5. FPFH path: the same pair with ``--descriptor_choice fpfh``, cold and
+   measured on the window route (launches K2, K3 and K4), then once on the
+   run route (``set_dma_kernel(True)``: launches K6 and no K4); each run
+   accepted within the same bounds.
 
-Then one JSON line of kernel results, the ``nvidia-smi`` name / power-limit
-line, and the last line ``{"ok": true, "device": {...}}``.
+Each path's launch counts are set to 0 just before its measured run and
+read just after.  Then one JSON line of kernel results (launches on the
+kernel's path, errors, kernel / plain / bound / library times), the
+``nvidia-smi`` name / power-limit line, and the last line ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -39,13 +50,45 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "chip_smoke"
 
-# tolerances (bench.py:277-280, 309-341, 377)
+# tolerances (bench.py:277-280, 309-341, 377; tests/test_pallas_shot_dma.py)
 K3_COV_ATOL = 1e-4
 K1_FRAME_ATOL = 5e-4
 K1_FLIP_ABS, K1_FLIP_REL, K1_FLIP_FRAC, K1_MAX_DIFF = 5e-3, 1e-2, 3e-3, 0.1
 K2_D1_RTOL = {False: 1e-4, True: 2e-3}
 K2_MIN_AGREE = {False: 1.0, True: 0.97}
+# SPFH counts are whole numbers: a difference is a neighbor moved to another
+# bin by a last-bit change of an angle
+K4_FLIP_FRAC, K4_MAX_COUNTS = 1e-3, 2.0
+# two SPFH routes: at most 1e-3 of elements off by more than 1e-4, row sums
+# within 1e-3
+SPFH_ELEM_TOL, SPFH_ELEM_FRAC, SPFH_ROW_TOL = 1e-4, 1e-3, 1e-3
 MAIN_ROT_TOL, MAIN_T_TOL = 1e-2, 1e-2
+
+# FPFH on the smoke pair: the SHOT radius; at this cloud's density (250
+# points per unit area) radius 0.9 keeps ~600 neighbors per point
+FPFH_RADIUS = 0.9
+
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense, at 700 W):
+# the least time for a kernel's work is the larger of its bytes over the
+# memory rate and its operations over the rate for their type
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12          # CUDA cores
+BF16_TENSOR_FLOPS = 989e12
+# operation counts per element, from the kernels' source: one candidate
+# distance test (3 sub, 3 mul/fma pairs, compare) and one SPFH neighbor
+# (2 cross products, 3 dots, a division, atan2f ~20, sqrt, three bin indices)
+OPS_DIST_TEST = 11
+OPS_SPFH_NEIGHBOR = 75
+# a SHOT neighbor in K1: covariance 13, sign votes 8, projections, atan2f,
+# acosf, soft-bin weights and five shared-memory adds ~130
+OPS_SHOT_NEIGHBOR = 150
+# a K3 in-radius point: 10 sums of moments
+OPS_PCA_POINT = 20
+
+# each path and the kernels its measured run must launch (and must not)
+SHOT_PATH = ("shot_binning_histogram", "top2_match", "radius_pca")
+FPFH_WINDOW_PATH = ("top2_match", "radius_pca", "spfh_histogram")
+FPFH_RUN_PATH = ("top2_match", "radius_pca", "spfh_runs")
 
 
 def make_terrain(n: int, rng: np.random.Generator, scale: float = 10.0,
@@ -90,6 +133,25 @@ def check(cond: bool, message: str) -> None:
         raise AssertionError(message)
 
 
+def bound(n_bytes: float, n_ops: float, peak_flops: float = F32_FLOPS) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the peak for their type, whichever is larger."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / peak_flops * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def route_rule(got, want, label: str) -> float:
+    """Hold two SPFH routes to each other; returns the max abs difference."""
+    diff = (got - want).abs()
+    frac = float((diff > SPFH_ELEM_TOL).float().mean())
+    row = float((got.sum(1) - want.sum(1)).abs().max())
+    check(frac <= SPFH_ELEM_FRAC and row <= SPFH_ROW_TOL,
+          f"{label}: {frac} of elements off by > {SPFH_ELEM_TOL}, row sums off by {row}")
+    return float(diff.max())
+
+
 def phase_device():
     import torch
 
@@ -118,7 +180,12 @@ def parity_k3(dev, rng):
     import torch
 
     from shot_fpfh_tpu_torch.models.normals import _knn_target_radii
-    from shot_fpfh_tpu_torch.ops.grid_hash import build_grid, kth_distance_bound, quantized_kth_radius
+    from shot_fpfh_tpu_torch.ops.grid_hash import (
+        _zcolumn_runs,
+        build_grid,
+        kth_distance_bound,
+        quantized_kth_radius,
+    )
     from shot_fpfh_tpu_torch.ops.radius_pca import radius_pca, radius_pca_plain
 
     cloud = torch.tensor(make_terrain(100_000, rng), device=dev)
@@ -137,37 +204,68 @@ def parity_k3(dev, rng):
         out[label] = err
     ms = cuda_ms(lambda: radius_pca(grid, cloud, r_q))
     plain_ms = cuda_ms(lambda: radius_pca_plain(grid, cloud, r_q))
+    # the timed call: every query reads its 9 runs (lanes) and sums its
+    # in-radius points
+    start, end = _zcolumn_runs(grid, cloud)
+    lanes = float((end - start).sum())
+    _, _, cnt = radius_pca(grid, cloud, r_q)
+    q = cloud.shape[0]
+    b = bound(grid.packed_sorted.numel() * 4 + q * (12 + 4 + 40) + start.numel() * 16,
+              lanes * OPS_DIST_TEST + float(cnt.sum()) * OPS_PCA_POINT)
     print(f"phase 3 K3 radius_pca: 100000 queries, window cap {grid.window_cap}: counts "
-          f"exact, cov max err {out}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
-    return dict(max_abs_err=max(out.values()), ms=ms, plain_ms=plain_ms)
+          f"exact, cov max err {out}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})", flush=True)
+    return dict(max_abs_err=max(out.values()), ms=ms, plain_ms=plain_ms, library_ms=None, **b)
 
 
-def parity_k2(dev, rng):
+def _k2_library(a, b, valid, bf16):
+    """The yardstick, timed only: one cuBLAS product of the rounded operands
+    and ``torch.topk`` of the masked squared distances."""
+    import torch
+
+    cdt = torch.bfloat16 if bf16 else torch.float32
+    ac, bc = a.to(cdt), b.to(cdt)
+    an, bn = (ac.float() ** 2).sum(-1), (bc.float() ** 2).sum(-1)
+
+    def run():
+        d2 = an[:, None] + bn[None, :] - 2.0 * (ac @ bc.T).float()
+        return torch.topk(d2.masked_fill(~valid[None, :], float("inf")), 2, dim=1,
+                          largest=False)
+    return run
+
+
+def parity_k2(dev, rng, n: int, dim: int, modes=(False, True)):
     import torch
 
     from shot_fpfh_tpu_torch.ops.match import top2_match, top2_match_plain
 
-    a = torch.tensor(rng.normal(size=(4096, 352)).astype(np.float32), device=dev)
-    b = torch.tensor(rng.normal(size=(4096, 352)).astype(np.float32), device=dev)
-    valid = torch.ones(4096, dtype=torch.bool, device=dev)
+    a = torch.tensor(rng.normal(size=(n, dim)).astype(np.float32), device=dev)
+    b = torch.tensor(rng.normal(size=(n, dim)).astype(np.float32), device=dev)
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
     valid[::97] = False
     res = {}
-    for bf16 in (False, True):
+    for bf16 in modes:
         i_k, d1_k, d2_k = top2_match(a, b, valid, bf16)
         i_p, d1_p, d2_p = top2_match_plain(a, b, valid, bf16)
         torch.cuda.synchronize()
         agree = float((i_k == i_p).float().mean())
         rel = float(((d1_k - d1_p).abs() / d1_p.abs()).max())
-        check(agree >= K2_MIN_AGREE[bf16], f"K2 bf16={bf16}: index agreement {agree}")
-        check(rel <= K2_D1_RTOL[bf16], f"K2 bf16={bf16}: d1 relative error {rel}")
+        check(agree >= K2_MIN_AGREE[bf16], f"K2 {dim} bf16={bf16}: index agreement {agree}")
+        check(rel <= K2_D1_RTOL[bf16], f"K2 {dim} bf16={bf16}: d1 relative error {rel}")
         check(not bool(valid.logical_not()[i_k].any()), "K2 picked an invalid ref")
+        elem = 2 if bf16 else 4
         res[bf16] = dict(agree=agree, rel=rel,
                          max_abs_err=float((d1_k - d1_p).abs().max()),
                          ms=cuda_ms(lambda: top2_match(a, b, valid, bf16)),
-                         plain_ms=cuda_ms(lambda: top2_match_plain(a, b, valid, bf16)))
-    print("phase 3 K2 top2_match: 4096x4096x352: " + "; ".join(
+                         plain_ms=cuda_ms(lambda: top2_match_plain(a, b, valid, bf16)),
+                         library_ms=cuda_ms(_k2_library(a, b, valid, bf16)),
+                         **bound(2 * n * dim * elem + n * (4 + 4 + 1) + n * 12,
+                                 2.0 * n * n * dim,
+                                 BF16_TENSOR_FLOPS if bf16 else F32_FLOPS))
+    print(f"phase 3 K2 top2_match: {n}x{n}x{dim}: " + "; ".join(
         f"{'bf16' if k else 'f32'} agree {v['agree']:.4f} d1 rel err {v['rel']:.2e} "
-        f"kernel {v['ms']:.3f} ms plain {v['plain_ms']:.3f} ms" for k, v in res.items()),
+        f"kernel {v['ms']:.3f} ms plain {v['plain_ms']:.3f} ms library {v['library_ms']:.3f} "
+        f"ms bound {v['bound_ms']:.4f} ms ({v['bound_by']})" for k, v in res.items()),
         flush=True)
     return res[True]
 
@@ -209,10 +307,131 @@ def parity_k1(dev, rng):
               f"K1 {label}: flip fraction {flip}, max diff {stats[label][1]}")
     ms = cuda_ms(lambda: shot_binning_histogram(vals, dist_inf, kp, None, radius))
     plain_ms = cuda_ms(lambda: shot_binning_histogram_plain(vals, dist_inf, kp, None, radius))
+    q, nf, w = vals.shape
+    b = bound((q * nf * w + q * w + q * 3 + q * (352 + 9)) * 4,
+              float(torch.isfinite(dist_inf).sum()) * OPS_SHOT_NEIGHBOR)
     print(f"phase 3 K1 shot_binning_histogram: 4096 keypoints x window {vals.shape[2]}: "
           f"frames max err {frame_err:.2e}, (flip fraction, max diff) {stats}; "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
-    return dict(max_abs_err=max(s[1] for s in stats.values()), ms=ms, plain_ms=plain_ms)
+          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']})", flush=True)
+    return dict(max_abs_err=max(s[1] for s in stats.values()), ms=ms, plain_ms=plain_ms,
+                library_ms=None, **b)
+
+
+def spfh_terrain(dev, rng):
+    """The FPFH path's SPFH grid on a 100k-point smoke terrain: cell
+    radius/2, halo 2, the main path's k=30 normals (through K3)."""
+    import torch
+
+    from shot_fpfh_tpu_torch.models.normals import compute_normals
+    from shot_fpfh_tpu_torch.ops.grid_hash import build_grid
+
+    cloud = torch.tensor(make_terrain(100_000, rng), device=dev)
+    normals = compute_normals(cloud, cloud, k=30, device=dev)
+    grid = build_grid(cloud, FPFH_RADIUS / 2, extras=normals, halo=2)
+    check(grid.use_xyrow and grid.xyrow_run_cap > 0,
+          "the smoke terrain's SPFH grid is not an xy-row grid")
+    return grid
+
+
+def parity_k4(grid):
+    import torch
+
+    from shot_fpfh_tpu_torch.ops.grid_hash import window_distances
+    from shot_fpfh_tpu_torch.ops.spfh_fused import spfh_histogram, spfh_histogram_plain
+
+    # the first chunk of models.fpfh._spfh_window_sorted
+    qc, qn = grid.packed_sorted[:8192, :3], grid.packed_sorted[:8192, 3:6]
+    vals, d, valid, _ = window_distances(grid, qc)
+    ok = valid & (d <= FPFH_RADIUS)
+    dist_inf = torch.where(ok, d, torch.full_like(d, float("inf")))
+    stats, times = {}, {}
+    for dec in (False, True):
+        got = spfh_histogram(vals, dist_inf, qc, qn, 5, dec)
+        want = spfh_histogram_plain(vals, dist_inf, qc, qn, 5, dec)
+        torch.cuda.synchronize()
+        diff = (got - want).abs()
+        flip, top = float((diff > 0).float().mean()), float(diff.max())
+        check(flip <= K4_FLIP_FRAC and top <= K4_MAX_COUNTS,
+              f"K4 decorrelated={dec}: {flip} of elements differ, max {top} counts")
+        check(float(want.sum()) > 0, "K4: empty histograms")
+        stats[dec] = (flip, top)
+        times[dec] = (cuda_ms(lambda: spfh_histogram(vals, dist_inf, qc, qn, 5, dec)),
+                      cuda_ms(lambda: spfh_histogram_plain(vals, dist_inf, qc, qn, 5, dec)))
+    c, nf, w = vals.shape
+    neighbors = float((ok & (d > 0)).sum())
+    b = bound((c * nf * w + c * w + c * 6 + c * 125) * 4,
+              c * w * 2 + neighbors * OPS_SPFH_NEIGHBOR)
+    ms, plain_ms = times[False]
+    print(f"phase 3 K4 spfh_histogram: 8192 queries x window {w}, radius {FPFH_RADIUS}: "
+          f"(fraction differing, max count diff) joint {stats[False]}, decorrelated "
+          f"{stats[True]}; joint kernel {ms:.3f} ms plain {plain_ms:.3f} ms, decorrelated "
+          f"kernel {times[True][0]:.3f} ms plain {times[True][1]:.3f} ms; bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']})", flush=True)
+    return dict(max_abs_err=max(s[1] for s in stats.values()), ms=ms, plain_ms=plain_ms,
+                library_ms=None, **b)
+
+
+def _route_counts(grid, radius):
+    """Per sorted point, its neighbor count (self included) under each SPFH
+    route's radius rule: ``rho² <= r·r`` (run route, K6) and
+    ``sqrt(rho²) <= r`` (window route, K4)."""
+    import torch
+
+    from shot_fpfh_tpu_torch._fp import sqnorm3
+    from shot_fpfh_tpu_torch.ops.grid_hash import query_chunk, window_rows
+
+    pts = grid.packed_sorted[:, :3]
+    r = torch.tensor(radius, dtype=torch.float32, device=pts.device)
+    runs, window = [], []
+    step = query_chunk(grid, 4)
+    for s in range(0, pts.shape[0], step):
+        qc = pts[s:s + step]
+        rows, valid = window_rows(grid, qc)
+        cand = grid.points_sorted[rows]
+        rho2 = sqnorm3(*(cand[..., i] - qc[:, i:i + 1] for i in range(3)))
+        runs.append((valid & (rho2 <= r * r)).sum(1))
+        window.append((valid & (torch.sqrt(rho2) <= r)).sum(1))
+    return torch.cat(runs), torch.cat(window)
+
+
+def parity_k6(grid):
+    import torch
+
+    from shot_fpfh_tpu_torch.models.fpfh import _spfh_window_sorted
+    from shot_fpfh_tpu_torch.ops.grid_hash import _xyrow_runs
+    from shot_fpfh_tpu_torch.ops.shot_dma import spfh_sorted_dma, spfh_sorted_dma_plain
+
+    got = spfh_sorted_dma(grid, FPFH_RADIUS, 5, False)
+    want = spfh_sorted_dma_plain(grid, FPFH_RADIUS, 5, False)
+    window = _spfh_window_sorted(grid, FPFH_RADIUS, 5, False)
+    torch.cuda.synchronize()
+    err = route_rule(got, want, "K6 vs its twin")
+    # the two routes' radius rules part on a neighbor whose sqrt rounds onto
+    # the radius: that row's count, and with it every bin, moves by one
+    # neighbor (row sum ~1/count); the other rows are held to the rule
+    cnt_runs, cnt_window = _route_counts(grid, FPFH_RADIUS)
+    same = cnt_runs == cnt_window
+    n = grid.packed_sorted.shape[0]
+    parted = n - int(same.sum())
+    check(parted <= SPFH_ELEM_FRAC * n,
+          f"K6 vs the K4 route: the radius rules part on {parted} of {n} rows")
+    route_rule(got[same], window[same], "K6 vs the K4 route")
+    ms = cuda_ms(lambda: spfh_sorted_dma(grid, FPFH_RADIUS, 5, False))
+    plain_ms = cuda_ms(lambda: spfh_sorted_dma_plain(grid, FPFH_RADIUS, 5, False))
+    # this run's work: every row of the queries' runs is tested, every
+    # in-radius neighbor but the query itself binned
+    start, end = _xyrow_runs(grid, grid.packed_sorted[:, :3])
+    lanes = float((end - start).sum())
+    b = bound(grid.packed_sorted.numel() * 4 + start.numel() * 16 + n * 125 * 4,
+              lanes * OPS_DIST_TEST + (float(cnt_runs.sum()) - n) * OPS_SPFH_NEIGHBOR)
+    print(f"phase 3 K6 spfh_runs: {n} queries x {start.shape[1]} xy-row runs (longest "
+          f"{grid.xyrow_run_cap}, {lanes / n:.0f} rows and "
+          f"{float(cnt_runs.sum()) / n - 1:.0f} neighbors a query): max err vs twin "
+          f"{err:.2e}; K4 route held on the {n - parted} rows whose radius rules agree "
+          f"({parted} part); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']})", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
 
 
 class _StageLog(logging.Handler):
@@ -248,78 +467,131 @@ def _profiled(fn, out_dir: Path):
     return result, wall, busy_us / 1e6
 
 
-def phase_main_path(profile_dir: Path | None = None):
-    import torch
+class SmokePair:
+    """The 100k-point terrain pair (scan = known rigid motion of ref +
+    noise) on disk, and the CLI runs over it."""
 
-    from shot_fpfh_tpu_torch import _kernels, cli
-    from shot_fpfh_tpu_torch.core.solvers import solve_point_to_point
-    from shot_fpfh_tpu_torch.core.transform import rotation_angle
-    from shot_fpfh_tpu_torch.io.ply import read_ply, write_ply
+    def __init__(self):
+        from shot_fpfh_tpu_torch.io.ply import write_ply
 
-    shutil.rmtree(WORK, ignore_errors=True)
-    WORK.mkdir(parents=True)
-    rng = np.random.default_rng(72)
-    ref = make_terrain(100_000, rng, scale=10, n_bumps=40)
-    rot = rotation_about([0.3, -0.2, 1.0], np.deg2rad(15.0))
-    trans = np.array([0.4, -0.25, 0.15])
-    scan = (ref @ rot.T + trans + rng.normal(scale=0.005, size=ref.shape)).astype(np.float32)
-    write_ply(str(WORK / "scan.ply"), [scan], ["x", "y", "z"])
-    write_ply(str(WORK / "ref.ply"), [ref], ["x", "y", "z"])
-    metrics = WORK / "metrics.json"
-    argv = ["--scan_file_path", str(WORK / "scan.ply"), "--ref_file_path", str(WORK / "ref.ply"),
+        shutil.rmtree(WORK, ignore_errors=True)
+        WORK.mkdir(parents=True)
+        rng = np.random.default_rng(72)
+        ref = make_terrain(100_000, rng, scale=10, n_bumps=40)
+        self.rot = rotation_about([0.3, -0.2, 1.0], np.deg2rad(15.0))
+        self.trans = np.array([0.4, -0.25, 0.15])
+        self.scan = (ref @ self.rot.T + self.trans
+                     + rng.normal(scale=0.005, size=ref.shape)).astype(np.float32)
+        write_ply(str(WORK / "scan.ply"), [self.scan], ["x", "y", "z"])
+        write_ply(str(WORK / "ref.ply"), [ref], ["x", "y", "z"])
+        self.metrics = WORK / "metrics.json"
+        self.argv = [
+            "--scan_file_path", str(WORK / "scan.ply"), "--ref_file_path", str(WORK / "ref.ply"),
             "--conf_file_path", "", "--output_dir", str(WORK / "out"),
-            "--metrics_json", str(metrics), "--device", "cuda",
+            "--metrics_json", str(self.metrics), "--device", "cuda",
             # config/default.yaml leaves these null (unusable) or sized for
-            # the bunny: keypoint voxel + density threshold, SHOT radius
+            # the bunny: keypoint voxel + density threshold, descriptor radius
             "--neighborhood_size", "0.15", "--min_n_neighbors", "5", "--radius", "0.9"]
 
-    # a first, cold run pays one-time library set-up (cuSOLVER handles for
-    # RANSAC's SVDs and ICP's solves, allocator growth); the second run is
-    # the one measured and whose kernel launches are counted
-    t0 = time.perf_counter()
-    check(cli.main(argv) == 0, "main path (cold run): registration rejected")
-    torch.cuda.synchronize()
-    cold_wall = time.perf_counter() - t0
-    stage_log = _StageLog()
-    logging.getLogger("shot_fpfh_tpu_torch.utils.perf").addHandler(stage_log)
-    _kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    rc = cli.main(argv)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(_kernels.launch_counts)
-    logging.getLogger("shot_fpfh_tpu_torch.utils.perf").removeHandler(stage_log)
-    check(rc == 0, f"main path: registration rejected (exit code {rc})")
-    for name, count in launches.items():
-        check(count > 0, f"main path never launched kernel {name}")
+    def errors(self) -> tuple[float, float]:
+        """(rotation, translation) error of the written post-ICP alignment
+        against the ground truth (scan -> ref: the inverse motion)."""
+        import torch
 
-    # ground truth maps scan -> ref: the inverse of the motion applied
-    gt_rot, gt_t = rot.T, -rot.T @ trans
-    data = read_ply(str(WORK / "out" / "scan_on_ref_post_icp.ply"))
-    is_scan = data["is_scan"] > 0
-    moved = np.stack([data[c][is_scan] for c in "xyz"], axis=1)
-    got = solve_point_to_point(torch.tensor(scan, dtype=torch.float64),
-                               torch.tensor(moved, dtype=torch.float64))
-    rot_err = float(rotation_angle(got.rotation, torch.tensor(gt_rot)))
-    t_err = float(np.linalg.norm(got.translation.numpy() - gt_t))
-    check(rot_err < MAIN_ROT_TOL and t_err < MAIN_T_TOL,
-          f"main path: rotation error {rot_err}, translation error {t_err}")
-    stages = json.loads(metrics.read_text())["stages"]
-    timers = [ln for ln in stage_log.lines if ln.endswith(" seconds")]
+        from shot_fpfh_tpu_torch.core.solvers import solve_point_to_point
+        from shot_fpfh_tpu_torch.core.transform import rotation_angle
+        from shot_fpfh_tpu_torch.io.ply import read_ply
+
+        data = read_ply(str(WORK / "out" / "scan_on_ref_post_icp.ply"))
+        is_scan = data["is_scan"] > 0
+        moved = np.stack([data[c][is_scan] for c in "xyz"], axis=1)
+        got = solve_point_to_point(torch.tensor(self.scan, dtype=torch.float64),
+                                   torch.tensor(moved, dtype=torch.float64))
+        rot_err = float(rotation_angle(got.rotation, torch.tensor(self.rot.T)))
+        t_err = float(np.linalg.norm(got.translation.numpy() - (-self.rot.T @ self.trans)))
+        return rot_err, t_err
+
+    def run(self, label: str, extra: list[str], must: tuple[str, ...],
+            must_not: tuple[str, ...] = (), cold: bool = True) -> dict:
+        """One measured ``cli.main`` run (after a cold one when ``cold``)
+        with the launch counts set to 0 just before it and read just after;
+        fails unless accepted within the bounds and every kernel of ``must``
+        (and none of ``must_not``) was launched."""
+        import torch
+
+        from shot_fpfh_tpu_torch import _kernels, cli
+
+        argv = self.argv + extra
+        cold_wall = None
+        if cold:
+            # a first, cold run pays one-time library set-up (cuSOLVER
+            # handles for RANSAC's SVDs and ICP's solves, allocator growth)
+            t0 = time.perf_counter()
+            check(cli.main(argv) == 0, f"{label} (cold run): registration rejected")
+            torch.cuda.synchronize()
+            cold_wall = time.perf_counter() - t0
+        stage_log = _StageLog()
+        logging.getLogger("shot_fpfh_tpu_torch.utils.perf").addHandler(stage_log)
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_kernels.launch_counts)
+        logging.getLogger("shot_fpfh_tpu_torch.utils.perf").removeHandler(stage_log)
+        check(rc == 0, f"{label}: registration rejected (exit code {rc})")
+        for name in must:
+            check(launches[name] > 0, f"{label} never launched kernel {name}")
+        for name in must_not:
+            check(launches[name] == 0, f"{label} launched kernel {name}")
+        rot_err, t_err = self.errors()
+        check(rot_err < MAIN_ROT_TOL and t_err < MAIN_T_TOL,
+              f"{label}: rotation error {rot_err}, translation error {t_err}")
+        return dict(launches=launches, rot_err=rot_err, t_err=t_err, wall=wall,
+                    cold_wall=cold_wall,
+                    stages=json.loads(self.metrics.read_text())["stages"],
+                    timers=[ln for ln in stage_log.lines if ln.endswith(" seconds")])
+
+
+def _describe(phase: str, r: dict) -> str:
+    cold = "" if r["cold_wall"] is None else f" (cold run {r['cold_wall']:.3f} s)"
+    return (f"{phase}: 100000-point pair accepted, rotation error {r['rot_err']:.2e} rad, "
+            f"translation error {r['t_err']:.2e}, wall {r['wall']:.3f} s{cold}, launches "
+            f"{r['launches']}, stages "
+            + ", ".join(f"{s['stage']} {s['seconds']:.3f} s" for s in r["stages"])
+            + f"; CLI timers: {r['timers']}")
+
+
+def phase_shot_path(pair: SmokePair, profile_dir: Path | None = None) -> dict:
+    from shot_fpfh_tpu_torch import cli
+
+    r = pair.run("SHOT path", [], SHOT_PATH)
     profiled = ""
     if profile_dir is not None:
         # a third run under the profiler, so its overhead stays out of the
         # measured run above
-        rc, prof_wall, busy = _profiled(lambda: cli.main(argv), profile_dir)
-        check(rc == 0, f"main path (profiled run): registration rejected (exit code {rc})")
+        rc, prof_wall, busy = _profiled(lambda: cli.main(pair.argv), profile_dir)
+        check(rc == 0, f"SHOT path (profiled run): registration rejected (exit code {rc})")
         profiled = (f"; profiled run {prof_wall:.3f} s, device busy {busy:.3f} s "
                     f"(idle share {1.0 - busy / prof_wall:.3f})")
-    print(f"phase 4 main path: 100000-point pair accepted, rotation error {rot_err:.2e} rad, "
-          f"translation error {t_err:.2e}, wall {wall:.3f} s (cold run {cold_wall:.3f} s)"
-          + profiled + f", launches {launches}, stages "
-          + ", ".join(f"{s['stage']} {s['seconds']:.3f} s" for s in stages)
-          + f"; CLI timers: {timers}", flush=True)
-    return launches
+    print(_describe("phase 4 SHOT path", r) + profiled, flush=True)
+    return r["launches"]
+
+
+def phase_fpfh_path(pair: SmokePair) -> tuple[dict, dict]:
+    from shot_fpfh_tpu_torch.ops.shot_dma import set_dma_kernel
+
+    fpfh = ["--descriptor_choice", "fpfh", "--radius", str(FPFH_RADIUS)]
+    window = pair.run("FPFH window route", fpfh, FPFH_WINDOW_PATH, ("spfh_runs",))
+    print(_describe("phase 5 FPFH window route", window), flush=True)
+    set_dma_kernel(True)
+    try:
+        runs = pair.run("FPFH run route", fpfh, FPFH_RUN_PATH, ("spfh_histogram",),
+                        cold=False)
+    finally:
+        set_dma_kernel(False)
+    print(_describe("phase 5 FPFH run route", runs), flush=True)
+    return window["launches"], runs["launches"]
 
 
 def main(argv=None) -> int:
@@ -344,21 +616,36 @@ def main(argv=None) -> int:
     phase_build()
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
+    k1 = parity_k1(dev, rng)
+    k2 = parity_k2(dev, rng, 4096, 352)
+    parity_k2(dev, rng, 8192, 125, modes=(True,))
+    k3 = parity_k3(dev, rng)
+    grid = spfh_terrain(dev, rng)
+    k4, k6 = parity_k4(grid), parity_k6(grid)
+    del grid
+    pair = SmokePair()
+    shot = phase_shot_path(pair, args.profile)
+    fpfh_window, fpfh_runs = phase_fpfh_path(pair)
+    # kernel -> (source, TPU kernel it replaces, parity and timings, the
+    # launches of the path it belongs to)
     results = {
         "shot_binning_histogram": ("shot_fpfh_tpu_torch/csrc/shot_fused.cu",
-                                   "shot_fpfh_tpu/ops/pallas_shot_fused.py:408",
-                                   parity_k1(dev, rng)),
+                                   "shot_fpfh_tpu/ops/pallas_shot_fused.py:408", k1, shot),
         "top2_match": ("shot_fpfh_tpu_torch/csrc/match.cu",
-                       "shot_fpfh_tpu/ops/pallas_match.py:139", parity_k2(dev, rng)),
+                       "shot_fpfh_tpu/ops/pallas_match.py:139", k2, shot),
         "radius_pca": ("shot_fpfh_tpu_torch/csrc/radius_pca.cu",
-                       "shot_fpfh_tpu/ops/pallas_radius.py:247", parity_k3(dev, rng)),
+                       "shot_fpfh_tpu/ops/pallas_radius.py:247", k3, shot),
+        "spfh_histogram": ("shot_fpfh_tpu_torch/csrc/spfh_fused.cu",
+                           "shot_fpfh_tpu/ops/pallas_fpfh_fused.py:172", k4, fpfh_window),
+        "spfh_runs": ("shot_fpfh_tpu_torch/csrc/spfh_runs.cu",
+                      "shot_fpfh_tpu/ops/pallas_shot_dma.py:337", k6, fpfh_runs),
     }
-    launches = phase_main_path(args.profile)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-         "plain_ms": r["plain_ms"]}
-        for name, (src, rep, r) in results.items()]}), flush=True)
+         "launches": path[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+         "library_ms": r["library_ms"]}
+        for name, (src, rep, r, path) in results.items()]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,13 @@
 """shot_fpfh_tpu_torch — the PyTorch / CUDA port of ``shot_fpfh_tpu``.
 
 Pairwise rigid registration of two point clouds (normals → keypoints →
-SHOT descriptors → matching → RANSAC → ICP) on one NVIDIA GPU, with the
-three hot kernels of the staged path written by hand in CUDA C++
-(``csrc/``): SHOT frames + binning + histogram, descriptor top-2 matching,
-and the streaming radius covariance behind normals.  On CPU tensors every
-kernel wrapper runs its plain PyTorch twin instead.
+SHOT or FPFH descriptors → matching → RANSAC → ICP) on one NVIDIA GPU,
+with the hot kernels written by hand in CUDA C++ (``csrc/``): SHOT frames +
+binning + histogram, descriptor top-2 matching, the streaming radius
+covariance behind normals, and the SPFH histogram over a window or over
+the grid's xy-row runs.  On CPU tensors every kernel wrapper runs its plain
+PyTorch twin instead.  The public entry points run on ``cuda`` unless
+given ``device="cpu"`` or CPU tensors.
 
 Module names mirror ``shot_fpfh_tpu`` so each function's reference sits at
 the same relative path.  This package never imports JAX.

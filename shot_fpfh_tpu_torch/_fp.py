@@ -8,7 +8,8 @@ a radius boundary or a distance tie in voxel subsampling.  :func:`sqnorm3`
 evaluates the same chain: the product of two float32 values is exact in
 float64, so one float64 add rounded to float32 equals the fused result
 (except on the rare double-rounding midpoint).  The CUDA kernels compute the
-chain with ``fmaf``.
+chain with ``fmaf``.  :func:`div` keeps cell and bin indices exact the
+same way.
 """
 
 from __future__ import annotations
@@ -24,3 +25,11 @@ def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 def sqnorm3(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     """``x² + y² + z²`` as ``fma(z, z, fma(y, y, x*x))``."""
     return fma(z, z, fma(y, y, x * x))
+
+
+def div(x: torch.Tensor, scalar: float) -> torch.Tensor:
+    """``x / scalar`` as one float32 division on every device.  PyTorch's
+    CUDA kernel divides by a Python scalar as a multiply by its reciprocal,
+    which can move a value on a cell or bin edge by one ulp; a 0-d tensor
+    divisor takes the true division, as on the CPU and in the reference."""
+    return x / torch.tensor(scalar, dtype=torch.float32, device=x.device)

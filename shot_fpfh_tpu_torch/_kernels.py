@@ -50,6 +50,8 @@ _SIGNATURES = {
     "shot_binning_histogram": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "top2_match": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "radius_pca": [_P, _I, _P, _P, _P, _P, _I, _I, _P, _P],
+    "spfh_histogram": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "spfh_runs": [_P, _I, _P, _P, _P, _P, _I, _I, _F, _I, _I, _P, _P],
 }
 
 # one launch counter per kernel: incremented by launch() and nowhere else

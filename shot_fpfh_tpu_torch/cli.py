@@ -1,15 +1,15 @@
 """Command-line entry point: register two .ply point clouds on one GPU.
 
 Port of ``shot_fpfh_tpu.cli`` (console script ``register_point_clouds_torch``):
-load clouds → k-NN normals → keypoints → descriptors → matching → RANSAC →
-ICP → metrics → aligned ``.ply`` outputs, with per-stage timings and the
-same YAML config.  ``--device`` picks the torch device (default ``cuda``).
-Options this port does not cover yet (``--fused``, more than one device,
-the debug checks, descriptors other than single-scale SHOT) raise
-``NotImplementedError`` naming their ROADMAP.md item; the reference's flags
-that only tune those (``--fpfh_n_bins``, ``--phi``, ``--n_scales``,
-``--k_max_fpfh``, ``--share_local_rfs``, ``--mesh_axis``), its second
-names of flags (``--n_procs``, ``--normals_computation_k``) and its no-op
+load clouds → k-NN normals → keypoints → descriptors (single-scale SHOT or
+FPFH) → matching → RANSAC → ICP → metrics → aligned ``.ply`` outputs, with
+per-stage timings and the same YAML config.  ``--device`` picks the torch
+device (default ``cuda``).  Options this port does not cover yet
+(``--fused``, more than one device, the debug checks, bi-scale and
+multiscale SHOT) raise ``NotImplementedError`` naming their ROADMAP.md
+item; the reference's flags that only tune those (``--phi``,
+``--n_scales``, ``--share_local_rfs``, ``--mesh_axis``), its second names of
+flags (``--n_procs``, ``--normals_computation_k``) and its no-op
 ``--disable_progress_bars`` are not accepted.  Exit code 0 means the
 registration was accepted.
 """
@@ -40,7 +40,7 @@ _DEFAULT_CONFIG = str(Path(__file__).resolve().parent.parent / "config" / "defau
 def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(
         prog="register_point_clouds_torch",
-        description="SHOT point-cloud registration on a GPU (PyTorch / CUDA)",
+        description="SHOT / FPFH point-cloud registration on a GPU (PyTorch / CUDA)",
     )
     io_group = parser.add_argument_group("I/O")
     io_group.add_argument("--scan_file_path", "-s", type=str,
@@ -66,6 +66,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     desc.add_argument("--descriptor_choice", type=str, default=None,
                       choices=["fpfh", "shot_single_scale", "shot_bi_scale", "shot_multiscale"])
     desc.add_argument("--radius", type=float, default=None)
+    desc.add_argument("--fpfh_n_bins", type=int, default=None)
     desc.add_argument("--rho", type=float, default=None)
     desc.add_argument("--min_neighborhood_size", type=int, default=None)
 
@@ -91,6 +92,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     compute.add_argument("--device", type=str, default="cuda",
                          help="torch device the stages run on (cuda, cuda:N or cpu)")
     compute.add_argument("--k_max_descriptor", type=int, default=None)
+    compute.add_argument("--k_max_fpfh", type=int, default=None)
     compute.add_argument("--normals_k", type=int, default=None,
                          help="Number of neighbors used to compute normals.")
     compute.add_argument("--state_cache", type=str, default=None,
@@ -159,7 +161,8 @@ def main(argv=None) -> int:
 
     pipeline = RegistrationPipeline(
         scan=scan, scan_normals=scan_normals, ref=ref, ref_normals=ref_normals,
-        k_max_descriptor=compute_cfg.k_max_descriptor, device=device)
+        k_max_descriptor=compute_cfg.k_max_descriptor, k_max_fpfh=compute_cfg.k_max_fpfh,
+        device=device)
     kp_cfg, desc_cfg = config["keypoint_selection"], config["descriptor"]
     match_cfg, ransac_cfg, icp_cfg = config["matching"], config["ransac"], config["icp"]
 
@@ -185,8 +188,9 @@ def main(argv=None) -> int:
     logger.info(desc_cfg.help_message())
     pipeline.compute_descriptors(
         radius=desc_cfg.radius, descriptor_choice=desc_cfg.descriptor_choice,
-        rho=desc_cfg.rho, subsample_support=desc_cfg.subsample_support,
-        normalize=desc_cfg.normalize, min_neighborhood_size=desc_cfg.min_neighborhood_size)
+        fpfh_n_bins=desc_cfg.fpfh_n_bins, rho=desc_cfg.rho,
+        subsample_support=desc_cfg.subsample_support, normalize=desc_cfg.normalize,
+        min_neighborhood_size=desc_cfg.min_neighborhood_size)
     timer("Descriptors")
     if compute_cfg.state_cache and not state_resumed:
         pipeline.save_state(compute_cfg.state_cache, config_key=state_key)

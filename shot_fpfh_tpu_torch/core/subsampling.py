@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .._fp import sqnorm3
+from .._fp import div, sqnorm3
 
 
 def _as_points(points, device=None) -> torch.Tensor:
@@ -32,7 +32,7 @@ def _voxel_segments(points: torch.Tensor, voxel_size):
     point counts (f32, length N) and each sorted point's distance to its
     voxel barycenter."""
     n = points.shape[0]
-    cell = torch.floor((points - points.min(dim=0).values) / voxel_size).to(torch.int64)
+    cell = torch.floor(div(points - points.min(dim=0).values, voxel_size)).to(torch.int64)
     order = torch.arange(n, device=points.device)
     # lexicographic (cx, cy, cz) = stable sorts from the minor key up
     for axis in (2, 1, 0):

@@ -11,12 +11,13 @@ from __future__ import annotations
 
 import numpy as np
 
+from ._device import resolve
 from .core.subsampling import _as_points, grid_subsample, voxel_counts_for_representatives
 from .ops.neighbors import radius_count
 
 
 def select_keypoints_subsampling(points, voxel_size, device=None) -> np.ndarray:
-    return grid_subsample(points, voxel_size, device=device)
+    return grid_subsample(points, voxel_size, device=resolve(device, points))
 
 
 def select_keypoints_with_density_threshold(
@@ -25,7 +26,7 @@ def select_keypoints_with_density_threshold(
 ) -> np.ndarray:
     """Voxel representatives filtered by local density (reference
     keypoint_selection.py:65-122); returns host indices."""
-    pts = _as_points(points, device)
+    pts = _as_points(points, resolve(device, points))
     idx, mask, counts = voxel_counts_for_representatives(pts, voxel_size)
     idx, counts = idx[mask], counts[mask]
     if density_threshold_radius is None or density_threshold_radius == voxel_size:

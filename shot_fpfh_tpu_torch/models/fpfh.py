@@ -1,0 +1,177 @@
+"""FPFH (Fast Point Feature Histograms) — port of ``shot_fpfh_tpu.models.fpfh``.
+
+Algorithmic parity with the reference (descriptors/fpfh.py:16-117, Rusu et
+al. 2009):
+
+- Pass 1 (SPFH): for every cloud point, the Darboux-frame angles over its
+  radius neighborhood (``ops.descriptor_bins.darboux_angles``: ``v`` kept
+  unnormalized, so out-of-range α values are dropped as ``np.histogramdd``
+  drops them), in a joint ``n_bins³`` histogram or three decorrelated 1-D
+  histograms, divided by the neighborhood size (self included).
+- Pass 2 (FPFH): ``FPFH(p) = SPFH(p) + (1/|N(p)|) Σ_j SPFH(p_j)/d_j``.
+
+Routes, switched at ``ops.grid_hash.AUTO_GRID_MIN_POINTS`` cloud points
+(read at call time):
+
+- small clouds: brute radius search capped at the ``k_max`` nearest
+  (:func:`compute_spfh`), SPFH in PyTorch, aggregation over the same
+  neighborhoods;
+- large clouds: a halo-2 grid whose window holds every uncapped radius
+  neighborhood; SPFH of every point in grid order through K4
+  (``ops.spfh_fused``) or, with the run route on and an xy-row grid, K6
+  (``ops.shot_dma``); the aggregation gathers the neighbors' SPFH rows over
+  the same windows (plain PyTorch: a gather and a 1/d weighted sum, as the
+  reference leaves it to XLA).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .._device import resolve
+from ..ops import grid_hash
+from ..ops.descriptor_bins import darboux_angles
+from ..ops.grid_hash import (
+    HashGrid,
+    build_grid,
+    grid_radius_search,
+    radius_search_with_values_auto,
+    window_distances,
+)
+from ..ops.neighbors import Neighborhoods, as_f32
+from ..ops.shot_dma import dma_kernel_enabled, spfh_sorted_dma
+from ..ops.spfh_fused import spfh_from_angles, spfh_histogram
+
+# queries per streamed SPFH chunk of compute_spfh's grid route: bounds the
+# (chunk, k_max) Darboux intermediates
+_SPFH_CHUNK = 1 << 14
+# gathered neighbor-SPFH elements per aggregation chunk, (C, W, D)
+_AGG_ELEMS = 1 << 26
+
+
+def _use_dma_spfh(grid: HashGrid) -> bool:
+    """Route the sorted-order SPFH pass through the run kernel (K6): the
+    run route is on, and the grid is an xy-row grid carrying normals."""
+    return (dma_kernel_enabled() and grid.use_xyrow and grid.xyrow_run_cap > 0
+            and grid.packed_sorted.shape[1] >= 6)
+
+
+def _spfh_from_values(cloud, nrm, p_j, n_j, d, mask, radius, n_bins: int,
+                      decorrelated: bool):
+    """Count-normalized SPFH of ``cloud`` from its gathered ``(N, K)``
+    neighbor points, normals, distances and mask."""
+    diff = p_j - cloud[:, None, :]
+    valid = mask & (d > 0)
+    alpha, phi, theta = darboux_angles(
+        diff[..., 0], diff[..., 1], diff[..., 2], n_j[..., 0], n_j[..., 1], n_j[..., 2],
+        nrm[:, 0:1], nrm[:, 1:2], nrm[:, 2:3], torch.where(valid, d, 1.0))
+    count = torch.clamp(mask.sum(-1), min=1).to(torch.float32)
+    return spfh_from_angles(alpha, phi, theta, valid, n_bins, decorrelated) / count[:, None]
+
+
+def compute_spfh(cloud_points, normals, radius, n_bins: int, k_max: int = 128,
+                 decorrelated: bool = False, device=None):
+    """SPFH for every cloud point: ``(spfh (N, D), neighborhoods)`` over the
+    ``k_max`` nearest neighbors within ``radius``.  Large clouds stream
+    query chunks through the grid search."""
+    cloud = as_f32(cloud_points, resolve(device, cloud_points))
+    nrm = as_f32(normals, cloud.device)
+    n = cloud.shape[0]
+    if n < grid_hash.AUTO_GRID_MIN_POINTS:
+        nbr, vals = radius_search_with_values_auto(cloud, cloud, nrm, radius, k_max)
+        spfh = _spfh_from_values(cloud, nrm, vals[..., :3], vals[..., 3:6], nbr.dist,
+                                 nbr.mask, radius, n_bins, decorrelated)
+        return spfh, nbr
+    grid = build_grid(cloud, float(radius) / 2, extras=nrm, halo=2)
+    spfh_parts, nbr_parts = [], []
+    for s in range(0, n, _SPFH_CHUNK):
+        nbr_c, vals = grid_radius_search(grid, cloud[s:s + _SPFH_CHUNK], radius, k_max,
+                                         with_values=True)
+        spfh_parts.append(_spfh_from_values(
+            cloud[s:s + _SPFH_CHUNK], nrm[s:s + _SPFH_CHUNK], vals[..., :3], vals[..., 3:6],
+            nbr_c.dist, nbr_c.mask, radius, n_bins, decorrelated))
+        nbr_parts.append(nbr_c)
+    nbr = Neighborhoods(*(torch.cat([getattr(p, f) for p in nbr_parts])
+                          for f in ("idx", "dist", "mask")))
+    return torch.cat(spfh_parts), nbr
+
+
+def _spfh_window_block(grid: HashGrid, qc, qn, radius, n_bins: int, decorrelated: bool):
+    """Count-normalized SPFH of one query block over its grid windows,
+    binned by K4 (its plain twin on CPU tensors)."""
+    vals, d, win_ok, _ = window_distances(grid, qc)
+    ok = win_ok & (d <= radius)
+    count = torch.clamp(ok.sum(-1), min=1).to(torch.float32)
+    dist_inf = torch.where(ok, d, torch.full_like(d, float("inf")))
+    return spfh_histogram(vals, dist_inf, qc, qn, n_bins, decorrelated) / count[:, None]
+
+
+def _spfh_window_sorted(grid: HashGrid, radius, n_bins: int, decorrelated: bool,
+                        chunk: int = 8192):
+    """SPFH of every cloud point in grid-sorted order, ``(N, D)``."""
+    pts, nrm = grid.packed_sorted[:, :3], grid.packed_sorted[:, 3:6]
+    return torch.cat([
+        _spfh_window_block(grid, pts[s:s + chunk], nrm[s:s + chunk], radius, n_bins,
+                           decorrelated)
+        for s in range(0, pts.shape[0], chunk)])
+
+
+def _fpfh_window_aggregate(grid: HashGrid, spfh_sorted, kp_sorted_idx, radius):
+    """FPFH(p) = SPFH(p) + (Σ_{j, d>0} SPFH(j)/d_j) / |N(p)| with the
+    neighbors' SPFH rows gathered over each keypoint's grid window."""
+    step = max(1, _AGG_ELEMS // (grid.window_cap * spfh_sorted.shape[1]))
+    out = []
+    for s in range(0, kp_sorted_idx.shape[0], step):
+        kp_c = kp_sorted_idx[s:s + step]
+        _, d, win_ok, rows = window_distances(grid, grid.packed_sorted[kp_c, :3])
+        ok = win_ok & (d <= radius)
+        m = ok & (d > 0)
+        wt = torch.where(m, 1.0 / torch.where(m, d, 1.0), 0.0)
+        acc = torch.einsum("cwd,cw->cd", spfh_sorted[rows], wt)
+        count = torch.clamp(ok.sum(-1), min=1).to(torch.float32)
+        out.append(spfh_sorted[kp_c] + acc / count[:, None])
+    return torch.cat(out) if out else spfh_sorted.new_zeros((0, spfh_sorted.shape[1]))
+
+
+def _fpfh_aggregate(spfh, nbr_idx, nbr_dist, nbr_mask, keypoint_indices,
+                    kp_chunk: int = 256):
+    """FPFH(p) = SPFH(p) + (Σ_{j, d>0} SPFH(j)/d_j) / |N(p)| over keypoints."""
+    out = []
+    for s in range(0, keypoint_indices.shape[0], kp_chunk):
+        kp = keypoint_indices[s:s + kp_chunk]
+        d = nbr_dist[kp]
+        m = nbr_mask[kp] & (d > 0)
+        weights = torch.where(m, 1.0 / torch.where(m, d, 1.0), 0.0)
+        acc = torch.einsum("ckd,ck->cd", spfh[nbr_idx[kp]], weights)
+        count = torch.clamp(nbr_mask[kp].sum(-1), min=1).to(torch.float32)
+        out.append(spfh[kp] + acc / count[:, None])
+    return torch.cat(out) if out else spfh.new_zeros((0, spfh.shape[1]))
+
+
+def compute_fpfh_descriptor(keypoint_indices, cloud_points, normals, radius,
+                            n_bins: int = 5, decorrelated: bool = False, k_max: int = 128,
+                            mesh=None, device=None) -> torch.Tensor:
+    """FPFH of the keypoints (indices into the cloud): ``(n_keypoints,
+    n_bins³)``, or ``(n_keypoints, 3·n_bins)`` when decorrelated (reference
+    ``compute_fpfh_descriptor``, descriptors/fpfh.py:16-117).  ``k_max`` caps
+    the brute route's neighborhoods; the grid route is uncapped."""
+    if mesh is not None and np.size(getattr(mesh, "devices", mesh)) > 1:
+        raise NotImplementedError(
+            "FPFH over a multi-device mesh is not ported yet (ROADMAP.md, Queue 1, "
+            "item 14: multi-GPU)")
+    cloud = as_f32(cloud_points, resolve(device, cloud_points))
+    nrm = as_f32(normals, cloud.device)
+    kp = torch.as_tensor(keypoint_indices).to(device=cloud.device, dtype=torch.int64)
+    n = cloud.shape[0]
+    if n >= grid_hash.AUTO_GRID_MIN_POINTS:
+        grid = build_grid(cloud, float(radius) / 2, extras=nrm, halo=2)
+        if _use_dma_spfh(grid):
+            spfh_sorted = spfh_sorted_dma(grid, radius, n_bins, decorrelated)
+        else:
+            spfh_sorted = _spfh_window_sorted(grid, radius, n_bins, decorrelated)
+        inv_perm = torch.empty_like(grid.orig_idx)
+        inv_perm[grid.orig_idx] = torch.arange(n, device=cloud.device)
+        return _fpfh_window_aggregate(grid, spfh_sorted, inv_perm[kp], radius)
+    spfh, nbr = compute_spfh(cloud, nrm, radius, n_bins, k_max, decorrelated)
+    return _fpfh_aggregate(spfh, nbr.idx, nbr.dist, nbr.mask, kp)

@@ -16,6 +16,7 @@ import logging
 
 import torch
 
+from .._device import resolve
 from ..ops.eigh3 import eigh3x3, pca_eigh
 from ..ops.grid_hash import (
     AUTO_GRID_MIN_POINTS,
@@ -112,14 +113,15 @@ def compute_normals(query_points, cloud_points, *, k: int | None = None,
                     device=None) -> torch.Tensor:
     """PCA normals of ``query_points`` from ``cloud_points`` neighborhoods
     (``k`` nearest), sign-aligned to ``pre_computed_normals`` when given.
-    Returns a ``(Q, 3)`` float32 tensor on ``device``."""
+    Returns a ``(Q, 3)`` float32 tensor on ``device`` (default: the
+    cloud tensor's device, ``cuda`` for host arrays)."""
     if k is None and radius is None:
         raise ValueError("Provide k or radius.")
     if k is None:
         raise NotImplementedError(
             "radius-mode normals are not ported yet (ROADMAP.md, Queue 1, "
             "item 7: radius-mode and PCA-feature normals)")
-    c = as_f32(cloud_points, device)
+    c = as_f32(cloud_points, resolve(device, cloud_points))
     q = as_f32(query_points, c.device)
     pre = (None if pre_computed_normals is None
            else as_f32(pre_computed_normals, c.device))

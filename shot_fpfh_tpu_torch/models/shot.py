@@ -21,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .._device import resolve
 from .._fp import sqnorm3
 from ..core.subsampling import grid_subsample
 from ..ops.grid_hash import (
@@ -123,7 +124,7 @@ def compute_shot_descriptor(keypoints, support_points, support_normals, radius, 
                             device=None):
     """Single-scale SHOT of ``keypoints`` on a support cloud; returns
     ``((Q, 352) descriptors, (Q, 3, 3) frames)``."""
-    sup = as_f32(support_points, device)
+    sup = as_f32(support_points, resolve(device, support_points))
     nrm = as_f32(support_normals, sup.device)
     kp = as_f32(keypoints, sup.device)
     if sup.shape[0] >= AUTO_GRID_MIN_POINTS:
@@ -155,7 +156,7 @@ class ShotComputer:
         self.device = device
 
     def _support(self, point_cloud, normals, voxel_size):
-        pts = as_f32(point_cloud, self.device)
+        pts = as_f32(point_cloud, resolve(self.device, point_cloud))
         nrm = as_f32(normals, pts.device)
         if voxel_size is None:
             return pts, nrm

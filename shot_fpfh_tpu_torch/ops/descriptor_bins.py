@@ -1,4 +1,5 @@
-"""SHOT bin conventions — port of ``shot_fpfh_tpu.ops.descriptor_bins``.
+"""SHOT bin conventions and the FPFH Darboux angles — port of
+``shot_fpfh_tpu.ops.descriptor_bins``.
 
 Quadrilinear soft binning of the reference SHOT (azimuth octants, radial
 husks at r/4 and 3r/4, elevation volumes at π/4 and 3π/4, round-half-even
@@ -6,7 +7,9 @@ cosine bins, wrap-around azimuth), elementwise on tensors.  The SHOT kernel
 in ``csrc/shot_fused.cu`` evaluates the same formulas in the same float32
 order; a convention change here must be made there too.
 
-Angles come from ``torch.atan2``/``torch.acos`` (the JAX package's Mosaic
+The SPFH kernels (``csrc/spfh_fused.cu``, ``csrc/spfh_runs.cu``) evaluate
+:func:`darboux_angles` in the same float32 order.  Angles come from
+``torch.atan2``/``torch.acos`` (the JAX package's Mosaic
 ``mosaic_atan2`` polynomial was a TPU workaround and is not ported).
 """
 
@@ -146,3 +149,22 @@ def shot_soft_bins(lx, ly, lz, rho, theta, phi, cosine, radius) -> ShotBins:
         w_husk_nb=outer * (rad_bin == 0) + inner * (rad_bin == 1),
         w_vert_nb=upper * (elev_bin == 0) + lower * (elev_bin == 1),
     )
+
+
+def darboux_angles(dx, dy, dz, nx, ny, nz, ux, uy, uz, d_safe):
+    """(alpha, phi, theta) of the reference Darboux frame (fpfh.py:50-66):
+    u = query normal, v = diff x u (UNNORMALIZED, the reference's semantics:
+    alpha values outside [-1, 1] fall out of the histogram), w = u x v;
+    alpha = v.n_j, phi = diff.u / |diff|, theta = atan2(n_j.w, n_j.u).
+    ``d_safe`` is |diff| with invalid/zero lanes replaced by 1.  Each sum
+    runs left to right with every product rounded, as the kernels do."""
+    vx = dy * uz - dz * uy
+    vy = dz * ux - dx * uz
+    vz = dx * uy - dy * ux
+    wx = uy * vz - uz * vy
+    wy = uz * vx - ux * vz
+    wz = ux * vy - uy * vx
+    alpha = vx * nx + vy * ny + vz * nz
+    phi = (dx * ux + dy * uy + dz * uz) / d_safe
+    theta = torch.atan2(nx * wx + ny * wy + nz * wz, nx * ux + ny * uy + nz * uz)
+    return alpha, phi, theta

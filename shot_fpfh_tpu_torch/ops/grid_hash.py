@@ -10,6 +10,12 @@ concatenates them into a fixed-width ``(Q, W)`` candidate window, ``W`` being
 the largest window occupancy of the grid (computed at build) — every radius
 neighborhood of radius ≤ ``halo·cell_size`` is inside it, uncapped.
 
+On surface-like clouds the build also picks the reference's *xy-row* mode
+(``use_xyrow``): a query's window is then ``2h+1`` runs, one per x offset,
+each spanning the ``y-h .. y+h`` columns at full z extent
+(:func:`_xyrow_runs`).  The run-streaming SPFH kernel (``ops.shot_dma``)
+reads those runs straight from the sorted table.
+
 Not ported: the content-keyed grid LRU and the G=8/16 grouped
 feature-planar gather (index-bound gather workarounds of the TPU); a plain
 ``(Q, W)`` row gather over the runs gives the same window contract.
@@ -24,8 +30,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .._fp import sqnorm3
-from .neighbors import Neighborhoods, _sq_dists, as_f32, knn
+from .._fp import div, sqnorm3
+from .neighbors import Neighborhoods, _sq_dists, as_f32, knn, radius_search
 
 logger = logging.getLogger(__name__)
 
@@ -51,6 +57,8 @@ class HashGrid:
     window_cap: int                # max points in any (2h+1)^3 window
     col_cap: int                   # max points in any (2h+1) z-column run
     halo: int = 1
+    use_xyrow: bool = False        # surface-like: 2h+1 full-z xy-row runs
+    xyrow_run_cap: int = 0         # max points in one xy-row run (0: none)
 
     @property
     def has_table(self) -> bool:
@@ -82,6 +90,61 @@ def _box_max(counts: torch.Tensor, halo: int) -> tuple[int, int]:
     return int(box.max()), col
 
 
+def _round_up(v: int, m: int) -> int:
+    return -(-max(v, 1) // m) * m
+
+
+def _group_cap(cell_starts: torch.Tensor, dims, halo: int, group: int = 8) -> int:
+    """Exact max number of ``group``-aligned row groups any (2h+1)^2
+    z-column window needs (reference ``grid_hash._group_cap``)."""
+    d0, d1, d2 = dims
+    dev = cell_starts.device
+    zc = torch.arange(d2, device=dev)
+    zlo = torch.clamp(zc - halo, min=0)
+    zhi = torch.clamp(zc + halo, max=d2 - 1) + 1
+    base = torch.arange(d0 * d1, device=dev)[:, None] * d2
+    start = cell_starts[base + zlo[None, :]]
+    ln = cell_starts[base + zhi[None, :]] - start
+    g = torch.where(ln > 0, (start % group + ln + group - 1) // group, 0).reshape(d0, d1, d2)
+    p = F.pad(g, (0, 0, halo, halo, halo, halo))
+    w = 2 * halo + 1
+    acc = sum(p[dx:dx + d0, dy:dy + d1, :] for dx in range(w) for dy in range(w))
+    return int(acc.max())
+
+
+def _xyrow_caps(cell_starts: torch.Tensor, dims, halo: int, group: int = 8):
+    """``(exact max group count, longest single run)`` of the xy-row mode
+    (reference ``grid_hash._xyrow_caps``, less the window occupancy no port
+    caller reads): per query 2h+1 runs, one per x offset, each spanning the
+    y-h .. y+h columns at full z extent — consecutive in the z-minor id, so
+    one contiguous run of the sorted cloud."""
+    d0, d1, d2 = dims
+    dev = cell_starts.device
+    ys = torch.arange(d1, device=dev)
+    ylo = torch.clamp(ys - halo, min=0)
+    yhi = torch.clamp(ys + halo, max=d1 - 1) + 1
+    xbase = torch.arange(d0, device=dev)[:, None] * (d1 * d2)
+    start = cell_starts[xbase + ylo[None, :] * d2]             # (d0, d1)
+    ln = cell_starts[xbase + yhi[None, :] * d2] - start
+    g_p = F.pad(torch.where(ln > 0, (start % group + ln + group - 1) // group, 0),
+                (0, 0, halo, halo))
+    g_acc = sum(g_p[dx:dx + d0] for dx in range(2 * halo + 1))
+    return int(g_acc.max()), int(ln.max())
+
+
+def _xyrow_mode(cell_starts: torch.Tensor, dims, halo: int) -> tuple[bool, int]:
+    """``(use_xyrow, xyrow_run_cap)`` by the reference's build rule
+    (``grid_hash.py:438-476``): the xy-row mode when its 8-row group cap is
+    at most a small margin above the z-column window's; both caps rounded up
+    to 16 first.  Grids of more than 2^22 cells get neither."""
+    if dims[0] * dims[1] * dims[2] > 1 << 22:
+        return False, 0
+    group_cap = _round_up(_group_cap(cell_starts, dims, halo, 8), 16)
+    xy_groups, run_cap = _xyrow_caps(cell_starts, dims, halo, 8)
+    use = _round_up(xy_groups, 16) <= group_cap + max(16, group_cap // 5)
+    return use, run_cap
+
+
 def build_grid(points, cell_size: float, extras=None, halo: int = 1,
                device=None) -> HashGrid:
     """Bucket ``points`` into cells of edge ``cell_size`` on the device.
@@ -93,7 +156,7 @@ def build_grid(points, cell_size: float, extras=None, halo: int = 1,
     pts = as_f32(points, device)
     n = pts.shape[0]
     origin = pts.min(dim=0).values
-    cell = torch.floor((pts - origin) / cell_size).to(torch.int64)
+    cell = torch.floor(div(pts - origin, cell_size)).to(torch.int64)
     dims_t = cell.max(dim=0).values + 1
     dims = tuple(int(v) for v in dims_t.tolist())
     linear = (cell[:, 0] * dims[1] + cell[:, 1]) * dims[2] + cell[:, 2]
@@ -108,20 +171,23 @@ def build_grid(points, cell_size: float, extras=None, halo: int = 1,
         window_cap, col_cap = _box_max(counts, halo)
         window_cap = min(window_cap, n)
         col_cap = min(col_cap, n)
+        use_xyrow, xyrow_run_cap = _xyrow_mode(cell_starts, dims, halo)
     else:
         cell_starts = None
         window_cap = min((2 * halo + 1) ** 3 * cell_cap, n)
         col_cap = min((2 * halo + 1) * cell_cap, n)
+        use_xyrow, xyrow_run_cap = False, 0
     packed = pts[orig_idx]
     if extras is not None:
         packed = torch.cat([packed, as_f32(extras, pts.device)[orig_idx]], dim=1)
     return HashGrid(packed.contiguous(), orig_idx, ids_sorted, origin, dims,
                     float(cell_size), cell_starts, cell_cap,
-                    max(window_cap, 1), max(col_cap, 1), halo)
+                    max(window_cap, 1), max(col_cap, 1), halo,
+                    use_xyrow, xyrow_run_cap)
 
 
 def _query_cells(grid: HashGrid, queries: torch.Tensor) -> torch.Tensor:
-    return torch.floor((queries - grid.origin) / grid.cell_size).to(torch.int64)
+    return torch.floor(div(queries - grid.origin, grid.cell_size)).to(torch.int64)
 
 
 def _zcolumn_runs(grid: HashGrid, queries: torch.Tensor):
@@ -157,6 +223,30 @@ def _zcolumn_runs(grid: HashGrid, queries: torch.Tensor):
         start = torch.searchsorted(ids, lo_id.reshape(-1)).reshape(lo_id.shape)
         end = torch.searchsorted(ids, hi_id.reshape(-1), right=True).reshape(hi_id.shape)
         end = torch.where(in_grid, end, start)
+    return start, torch.maximum(end, start)
+
+
+def _xyrow_runs(grid: HashGrid, queries: torch.Tensor):
+    """``(start, end)`` sorted rows ``(Q, 2h+1)`` of each query's xy-row
+    runs: for each dx, the cells (x+dx, y-h .. y+h, all z) are consecutive
+    in the z-minor id.  A superset of the z-column window, exact for any
+    radius ≤ ``halo·cell_size``.  Needs the cell-start table."""
+    if not grid.has_table:
+        raise ValueError("xy-row runs need a grid with a cell-start table")
+    h = grid.halo
+    d0, d1, d2 = grid.dims
+    qcell = _query_cells(grid, queries)
+    x = qcell[:, 0:1] + torch.arange(-h, h + 1, device=queries.device)[None, :]
+    y_lo = torch.clamp(qcell[:, 1:2] - h, min=0)
+    y_hi = torch.clamp(qcell[:, 1:2] + h, max=d1 - 1)
+    ok = ((x >= 0) & (x < d0) & (y_hi >= y_lo)
+          & (qcell[:, 1:2] >= -h) & (qcell[:, 1:2] <= d1 + h - 1))
+    last = grid.cell_starts.shape[0] - 1
+    lo = torch.clamp((x * d1 + y_lo) * d2, 0, last)
+    hi = torch.clamp((x * d1 + y_hi + 1) * d2, 0, last)
+    zero = torch.zeros_like(lo)
+    start = torch.where(ok, grid.cell_starts[lo], zero)
+    end = torch.where(ok, grid.cell_starts[hi], zero)
     return start, torch.maximum(end, start)
 
 
@@ -294,30 +384,59 @@ def quantized_kth_radius(kth) -> float:
     return float(1.25 ** np.ceil(np.log(max(raw, 1e-12)) / np.log(1.25)))
 
 
-def grid_radius_search(grid: HashGrid, queries, radius, k_max: int) -> Neighborhoods:
+def grid_radius_search(grid: HashGrid, queries, radius, k_max: int,
+                       with_values: bool = False):
     """The ``k_max`` nearest neighbors within ``radius`` through the grid
-    window (same contract as ``neighbors.radius_search``)."""
+    window (same contract as ``neighbors.radius_search``).  With
+    ``with_values`` returns ``(Neighborhoods, values (Q, k_max, 3+F))``:
+    the neighbors' ``[points | extras]`` rows, zeros where masked."""
     check_radius_contract(grid, radius)
     queries = as_f32(queries, grid.device)
     k_eff = min(k_max, grid.window_cap)
-    idx_out, dist_out = [], []
+    idx_out, dist_out, val_out = [], [], []
     inf = float("inf")
-    for s in range(0, queries.shape[0], query_chunk(grid, 4)):
-        qc = queries[s:s + query_chunk(grid, 4)]
+    step = query_chunk(grid, 4)
+    for s in range(0, queries.shape[0], step):
+        qc = queries[s:s + step]
         rows, valid = window_rows(grid, qc)
         diff = grid.points_sorted[rows] - qc[:, None, :]
         d = torch.sqrt(sqnorm3(diff[..., 0], diff[..., 1], diff[..., 2]))
         masked = torch.where(valid & (d <= radius), d, torch.full_like(d, inf))
         dist, pos = torch.topk(masked, k_eff, dim=1, largest=False, sorted=True)
-        idx_out.append(grid.orig_idx[torch.gather(rows, 1, pos)])
+        sel = torch.gather(rows, 1, pos)
+        idx_out.append(grid.orig_idx[sel])
         dist_out.append(dist)
+        if with_values:
+            val_out.append(torch.where(torch.isfinite(dist)[..., None],
+                                       grid.packed_sorted[sel], 0.0))
     idx, dist = torch.cat(idx_out), torch.cat(dist_out)
+    vals = torch.cat(val_out) if with_values else None
     if k_eff < k_max:
         pad = k_max - k_eff
         idx = torch.cat([idx, idx.new_zeros((idx.shape[0], pad))], 1)
         dist = torch.cat([dist, dist.new_full((dist.shape[0], pad), inf)], 1)
+        if with_values:
+            vals = torch.cat([vals, vals.new_zeros((vals.shape[0], pad, vals.shape[2]))], 1)
     mask = torch.isfinite(dist)
-    return Neighborhoods(torch.where(mask, idx, torch.zeros_like(idx)), dist, mask)
+    nbr = Neighborhoods(torch.where(mask, idx, torch.zeros_like(idx)), dist, mask)
+    return (nbr, vals) if with_values else nbr
+
+
+def radius_search_with_values_auto(queries, points, extras, radius, k_max: int,
+                                   halo: int = 2):
+    """Radius search returning ``(Neighborhoods, values (Q, k_max, 3+F))``
+    with the neighbors' ``[points | extras]`` rows: brute force below
+    ``AUTO_GRID_MIN_POINTS`` points, a ``halo`` grid (cell radius/halo)
+    above it.  Runs where ``points`` is."""
+    points = as_f32(points)
+    queries = as_f32(queries, points.device)
+    extras = as_f32(extras, points.device)
+    if points.shape[0] < AUTO_GRID_MIN_POINTS:
+        nbr = radius_search(queries, points, radius, k_max)
+        packed = torch.cat([points, extras], dim=1)
+        return nbr, torch.where(nbr.mask[..., None], packed[nbr.idx], 0.0)
+    grid = build_grid(points, float(radius) / halo, extras=extras, halo=halo)
+    return grid_radius_search(grid, queries, radius, k_max, with_values=True)
 
 
 def knn_auto(queries, points, k: int, sample_size: int = 512) -> Neighborhoods:

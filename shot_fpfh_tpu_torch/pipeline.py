@@ -2,9 +2,9 @@
 
 Holds the scan/ref clouds on the host, memoizes each stage's result
 (recomputed only on ``force_recompute``), and runs the stages on
-``device``: voxel keypoints, single-scale SHOT, nearest / ratio-test
-matching, RANSAC, ICP, and the post-ICP metrics.  Stage timings go to
-``self.metrics``.  Dispatcher branches this port does not cover yet raise
+``device`` (default ``cuda``): voxel keypoints, single-scale SHOT or FPFH,
+nearest / ratio-test matching, RANSAC, ICP, and the post-ICP metrics.
+Stage timings go to ``self.metrics``.  Dispatcher branches this port does not cover yet raise
 ``NotImplementedError`` naming the ROADMAP.md item that will port them.
 """
 
@@ -17,9 +17,11 @@ from typing import Literal
 import numpy as np
 import torch
 
+from ._device import resolve
 from .core.transform import RigidTransform, rotation_angle
 from .io.ply import write_ply
 from .keypoints import select_keypoints_subsampling, select_keypoints_with_density_threshold
+from .models.fpfh import compute_fpfh_descriptor
 from .models.shot import ShotComputer
 from .ops.grid_hash import AUTO_GRID_MIN_POINTS, build_grid, grid_nearest_neighbor
 from .ops.neighbors import as_f32, nearest_neighbor
@@ -53,8 +55,12 @@ class RegistrationPipeline:
     matches: tuple[np.ndarray, np.ndarray] | None = None
 
     k_max_descriptor: int = 512
+    k_max_fpfh: int = 128
     metrics: StageMetrics = field(default_factory=StageMetrics)
-    device: torch.device | str = "cpu"
+    device: torch.device | str = "cuda"
+
+    def __post_init__(self):
+        self.device = resolve(self.device)
 
     # ------------------------------------------------------------ keypoints --
     def select_keypoints(
@@ -95,16 +101,15 @@ class RegistrationPipeline:
         descriptor_choice: Literal[
             "fpfh", "shot_single_scale", "shot_bi_scale", "shot_multiscale"
         ] = "shot_single_scale",
-        rho: float = 10.0, subsample_support: bool = True, normalize: bool = True,
-        min_neighborhood_size: int = 100, force_recompute: bool = False,
+        fpfh_n_bins: int = 5, rho: float = 10.0, subsample_support: bool = True,
+        normalize: bool = True, min_neighborhood_size: int = 100,
+        force_recompute: bool = False,
     ) -> None:
-        """Stage dispatcher: single-scale SHOT of both clouds' keypoints
-        (frame sharing across scales comes with bi-scale SHOT)."""
-        if descriptor_choice == "fpfh":
-            raise _not_ported("FPFH", "Queue 1, item 11")
+        """Stage dispatcher: single-scale SHOT or FPFH of both clouds'
+        keypoints (frame sharing across scales comes with bi-scale SHOT)."""
         if descriptor_choice in ("shot_bi_scale", "shot_multiscale", "shot_multi_scale"):
             raise _not_ported(f"{descriptor_choice} SHOT", "Queue 1, item 12")
-        if descriptor_choice != "shot_single_scale":
+        if descriptor_choice not in ("shot_single_scale", "fpfh"):
             raise ValueError("Incorrect descriptor choice")
         self.metrics.start(f"descriptors[{descriptor_choice}]")
         computer = ShotComputer(
@@ -113,11 +118,17 @@ class RegistrationPipeline:
         voxel = radius / rho if subsample_support else None
         for side in ("scan", "ref"):
             if getattr(self, f"{side}_descriptors") is None or force_recompute:
-                cloud = getattr(self, side)
-                kp = cloud[getattr(self, f"{side}_keypoints")]
-                setattr(self, f"{side}_descriptors", computer.compute_descriptor_single_scale(
-                    cloud, getattr(self, f"{side}_normals"), kp, radius=radius,
-                    subsampling_voxel_size=voxel))
+                cloud, normals = getattr(self, side), getattr(self, f"{side}_normals")
+                kp_idx = getattr(self, f"{side}_keypoints")
+                if descriptor_choice == "fpfh":
+                    desc = compute_fpfh_descriptor(
+                        kp_idx, cloud, normals, radius=radius, n_bins=fpfh_n_bins,
+                        k_max=self.k_max_fpfh, device=self.device)
+                else:
+                    desc = computer.compute_descriptor_single_scale(
+                        cloud, normals, cloud[kp_idx], radius=radius,
+                        subsampling_voxel_size=voxel)
+                setattr(self, f"{side}_descriptors", desc)
         self.metrics.stop(descriptors=len(self.scan_keypoints) + len(self.ref_keypoints))
 
     # -------------------------------------------------------------- matching --

@@ -16,6 +16,7 @@ from typing import NamedTuple
 
 import torch
 
+from .._device import resolve
 from ..core.solvers import solve_point_to_plane, solve_point_to_point
 from ..core.subsampling import grid_subsample
 from ..core.transform import RigidTransform
@@ -35,7 +36,7 @@ class IcpHostResult(NamedTuple):
 
 def _icp(scan, ref, ref_normals, init: RigidTransform, d_max, voxel_size,
          max_iter, rms_threshold, device) -> IcpHostResult:
-    ref_t = as_f32(ref, device)
+    ref_t = as_f32(ref, resolve(device, ref))
     scan_t = as_f32(scan, ref_t.device)
     sub = torch.as_tensor(grid_subsample(scan_t, voxel_size), device=ref_t.device)
     scan_sub = scan_t[sub]

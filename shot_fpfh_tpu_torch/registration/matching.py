@@ -19,6 +19,7 @@ import logging
 
 import torch
 
+from .._device import resolve
 from ..ops.match import top2_match
 from ..ops.neighbors import as_f32
 
@@ -50,7 +51,7 @@ def _split_nonzero(desc, device=None):
 def basic_matching(scan_descriptors, ref_descriptors, device=None):
     """Each non-empty scan descriptor matched to its nearest non-empty ref
     descriptor; returns host ``(scan_indices, ref_indices)``."""
-    scan_nz, a = _split_nonzero(scan_descriptors, device)
+    scan_nz, a = _split_nonzero(scan_descriptors, resolve(device, scan_descriptors))
     ref_nz, b = _split_nonzero(ref_descriptors, a.device)
     idx, _ = nearest_descriptor(a, b, torch.ones(b.shape[0], dtype=torch.bool,
                                                  device=b.device))
@@ -61,7 +62,7 @@ def lowe_matching(scan_descriptors, ref_descriptors, threshold: float = 0.8,
                   verbose: bool = True, device=None):
     """Ratio-test matching: keep matches with ``d1/d2 <= threshold``
     (``d2 == 0`` counts as ratio 1)."""
-    scan_nz, a = _split_nonzero(scan_descriptors, device)
+    scan_nz, a = _split_nonzero(scan_descriptors, resolve(device, scan_descriptors))
     ref_nz, b = _split_nonzero(ref_descriptors, a.device)
     idx, d1, d2 = top2_descriptor(a, b, torch.ones(b.shape[0], dtype=torch.bool,
                                                    device=b.device))

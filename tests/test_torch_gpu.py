@@ -9,24 +9,28 @@ path's shapes.
 """
 
 import json
+import sys
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-from shot_fpfh_tpu_torch import _kernels
-from shot_fpfh_tpu_torch.ops.grid_hash import build_grid, window_distances
-from shot_fpfh_tpu_torch.ops.match import top2_match, top2_match_plain
-from shot_fpfh_tpu_torch.ops.radius_pca import radius_pca, radius_pca_plain
-from shot_fpfh_tpu_torch.ops.shot_fused import (
+REPO = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO))
+from chip_smoke import make_terrain, rotation_about  # noqa: E402
+from shot_fpfh_tpu_torch import _kernels  # noqa: E402
+from shot_fpfh_tpu_torch.ops import shot_dma  # noqa: E402
+from shot_fpfh_tpu_torch.ops.grid_hash import build_grid, window_distances  # noqa: E402
+from shot_fpfh_tpu_torch.ops.match import top2_match, top2_match_plain  # noqa: E402
+from shot_fpfh_tpu_torch.ops.radius_pca import radius_pca, radius_pca_plain  # noqa: E402
+from shot_fpfh_tpu_torch.ops.shot_fused import (  # noqa: E402
     shot_binning_histogram,
     shot_binning_histogram_plain,
 )
+from shot_fpfh_tpu_torch.ops.spfh_fused import spfh_histogram, spfh_histogram_plain  # noqa: E402
 
 pytestmark = pytest.mark.gpu
-
-REPO = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture
@@ -68,9 +72,9 @@ def test_k3_radius_pca_kernel(cuda, rng):
 
 
 @pytest.mark.parametrize("use_bf16", [False, True])
-def test_k2_top2_kernel(cuda, rng, use_bf16):
-    a = torch.randn(1000, 352, device=cuda)
-    b = torch.randn(1537, 352, device=cuda)
+def test_k2_top2_kernel(cuda, rng, use_bf16, dim=352):
+    a = torch.randn(1000, dim, device=cuda)
+    b = torch.randn(1537, dim, device=cuda)
     valid = torch.rand(1537, device=cuda) > 0.05
     i1, d1, d2 = _counted("top2_match", lambda: top2_match(a, b, valid, use_bf16))
     j1, e1, e2 = top2_match_plain(a, b, valid, use_bf16)
@@ -78,6 +82,11 @@ def test_k2_top2_kernel(cuda, rng, use_bf16):
     rtol = 2e-3 if use_bf16 else 1e-4
     torch.testing.assert_close(d1, e1, rtol=rtol, atol=0)
     assert bool(valid[i1].all())
+
+
+def test_k2_top2_kernel_fpfh_width(cuda, rng):
+    """FPFH's 125 bins: not a multiple of the 32 features K2 stages a step."""
+    test_k2_top2_kernel(cuda, rng, True, dim=125)
 
 
 @pytest.mark.parametrize("own_frames", [True, False])
@@ -137,3 +146,100 @@ def test_golden_pair_on_card(cuda):
                                 torch.tensor(measured["rotation"], dtype=torch.float64))) < 1e-3
     assert np.linalg.norm(t - np.array(measured["translation"])) < 1e-3
     assert ate < 1e-3
+
+
+def test_cells_and_bins_match_the_cpu_on_card(cuda, rng):
+    """Points on cell faces (integer multiples of the cell size) fall in the
+    same grid cells, voxels and histogram bins on the card as on the CPU:
+    every index comes from a true float32 division (``_fp.div``), not
+    PyTorch's CUDA multiply by the reciprocal of a Python scalar.  (The
+    voxel representatives are not compared: this cloud's duplicate points
+    make exact distance ties, which the barycenter's atomic-order rounding
+    on the card breaks its own way.)"""
+    from shot_fpfh_tpu_torch.core.subsampling import _voxel_segments
+    from shot_fpfh_tpu_torch.ops.histogram import bin_index
+
+    faces = rng.integers(0, 40, size=(20_000, 3)).astype(np.float32) * np.float32(0.45)
+    pts = np.concatenate([np.zeros((1, 3), np.float32), faces, faces[:5000] + np.float32(0.01)])
+    on_card = build_grid(torch.tensor(pts, device=cuda), 0.45)
+    on_cpu = build_grid(pts, 0.45, device="cpu")
+    assert on_card.dims == on_cpu.dims
+    assert torch.equal(on_card.cell_ids_sorted.cpu(), on_cpu.cell_ids_sorted)
+    assert torch.equal(on_card.orig_idx.cpu(), on_cpu.orig_idx)
+    for card, cpu in zip(_voxel_segments(torch.tensor(pts, device=cuda), 0.45)[:2],
+                         _voxel_segments(torch.tensor(pts), 0.45)[:2]):
+        assert torch.equal(card.cpu(), cpu)      # voxel order and segment ids
+    edges = np.float32(-1.0) + np.arange(6, dtype=np.float32) * np.float32(0.4)
+    x = np.concatenate([edges, np.nextafter(edges, -2), np.nextafter(edges, 2)])
+    card, cpu = (bin_index(torch.tensor(x, device=dev), -1.0, 1.0, 5) for dev in (cuda, "cpu"))
+    assert torch.equal(card[0].cpu(), cpu[0]) and torch.equal(card[1].cpu(), cpu[1])
+
+
+def _spfh_grid(rng, cuda, radius):
+    pts = _surface(rng, 30_000, cuda)
+    nrm = torch.nn.functional.normalize(torch.randn_like(pts), dim=1)
+    return build_grid(pts, radius / 2, extras=nrm, halo=2)
+
+
+@pytest.mark.parametrize("decorrelated", [False, True])
+def test_k4_spfh_kernel(cuda, rng, decorrelated):
+    grid = _spfh_grid(rng, cuda, 0.5)
+    qc, qn = grid.packed_sorted[:3000, :3], grid.packed_sorted[:3000, 3:6]
+    vals, d, valid, _ = window_distances(grid, qc)
+    dist = torch.where(valid & (d <= 0.5), d, torch.full_like(d, float("inf")))
+    got = _counted("spfh_histogram",
+                   lambda: spfh_histogram(vals, dist, qc, qn, 5, decorrelated))
+    want = spfh_histogram_plain(vals, dist, qc, qn, 5, decorrelated)
+    diff = (got - want).abs()
+    # whole counts: a difference is a neighbor moved by a last-bit angle change
+    assert float((diff > 0).float().mean()) <= 1e-3 and float(diff.max()) <= 2.0
+    assert float(want.sum()) > 0
+
+
+def test_k6_spfh_runs_kernel(cuda, rng):
+    grid = _spfh_grid(rng, cuda, 0.5)
+    assert grid.use_xyrow
+    got = _counted("spfh_runs", lambda: shot_dma.spfh_sorted_dma(grid, 0.5, 5, False))
+    want = shot_dma.spfh_sorted_dma_plain(grid, 0.5, 5, False)
+    diff = (got - want).abs()
+    assert float((diff > 1e-4).float().mean()) <= 1e-3
+    torch.testing.assert_close(got.sum(1), want.sum(1), atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("run_route", [False, True])
+def test_fpfh_cli_on_card(cuda, tmp_path, monkeypatch, run_route):
+    """A 30k-point terrain pair (the smoke terrain's density) registered
+    with FPFH through the CLI on the card: the window route launches K4,
+    the run route K6 and no K4."""
+    from shot_fpfh_tpu_torch import cli
+    from shot_fpfh_tpu_torch.io.ply import write_ply
+
+    rng = np.random.default_rng(72)
+    ref = make_terrain(30_000, rng, scale=10 * 0.3 ** 0.5, n_bumps=12)
+    rot = rotation_about([0.3, -0.2, 1.0], np.deg2rad(15.0))
+    scan = (ref @ rot.T + [0.4, -0.25, 0.15]).astype(np.float32)
+    write_ply(str(tmp_path / "scan.ply"), [scan], ["x", "y", "z"])
+    write_ply(str(tmp_path / "ref.ply"), [ref], ["x", "y", "z"])
+    monkeypatch.setitem(shot_dma._DMA, "enabled", run_route)
+    _kernels.reset_launch_counts()
+    assert cli.main(["--scan_file_path", str(tmp_path / "scan.ply"),
+                     "--ref_file_path", str(tmp_path / "ref.ply"), "--conf_file_path", "",
+                     "--output_dir", str(tmp_path / "out"), "--neighborhood_size", "0.15",
+                     "--min_n_neighbors", "5", "--descriptor_choice", "fpfh",
+                     "--radius", "0.9"]) == 0
+    counts = _kernels.launch_counts
+    assert counts["top2_match"] > 0 and counts["radius_pca"] > 0
+    assert (counts["spfh_runs"] > 0) == run_route
+    assert (counts["spfh_histogram"] > 0) == (not run_route)
+
+
+def test_entry_points_default_to_the_card(cuda):
+    from shot_fpfh_tpu_torch.models import compute_fpfh_descriptor, compute_normals
+    from shot_fpfh_tpu_torch.pipeline import RegistrationPipeline
+
+    pts = np.random.default_rng(0).normal(size=(500, 3)).astype(np.float32)
+    assert compute_normals(pts, pts, k=10).device.type == "cuda"
+    assert compute_fpfh_descriptor([0, 5], pts, pts, 1.0).device.type == "cuda"
+    assert RegistrationPipeline(scan=pts, scan_normals=pts, ref=pts,
+                                ref_normals=pts).device.type == "cuda"
+    assert compute_normals(pts, pts, k=10, device="cpu").device.type == "cpu"

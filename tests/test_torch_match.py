@@ -68,10 +68,10 @@ def test_matchers_match_reference(rng, algo):
                           _descriptors(rng, 60, [7])]).astype(np.float32)
     if algo == "simple":
         js, jr = j_match.basic_matching(scan, ref)
-        ts, tr = t_match.basic_matching(scan, ref)
+        ts, tr = t_match.basic_matching(scan, ref, device="cpu")
     else:
         js, jr = j_match.lowe_matching(scan, ref, 0.9)
-        ts, tr = t_match.lowe_matching(scan, ref, 0.9)
+        ts, tr = t_match.lowe_matching(scan, ref, 0.9, device="cpu")
     np.testing.assert_array_equal(ts, js)
     np.testing.assert_array_equal(tr, jr)
     assert 3 not in ts and 50 not in ts

@@ -79,13 +79,14 @@ def test_icp_matches_reference(rng, kind, n):
         j = j_icp.icp_point_to_point(scan, ref, JTransform(jnp.asarray(init_rot),
                                                            jnp.asarray(init_t)), **kw)
         tt = t_icp.icp_point_to_point(scan, ref, RigidTransform.from_numpy(init_rot, init_t),
-                                      **kw)
+                                      device="cpu", **kw)
     else:
-        normals = compute_normals(ref, ref, k=20).numpy()   # one input to both sides
+        normals = compute_normals(ref, ref, k=20, device="cpu").numpy()  # one input to both
         j = j_icp.icp_point_to_plane(scan, ref, normals, JTransform(
             jnp.asarray(init_rot), jnp.asarray(init_t)), **kw)
         tt = t_icp.icp_point_to_plane(scan, ref, normals,
-                                      RigidTransform.from_numpy(init_rot, init_t), **kw)
+                                      RigidTransform.from_numpy(init_rot, init_t),
+                                      device="cpu", **kw)
     assert tt.n_iters == j.n_iters
     assert tt.has_converged == j.has_converged
     np.testing.assert_allclose(tt.transform.rotation.numpy(), np.asarray(j.transform.rotation),

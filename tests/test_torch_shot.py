@@ -111,7 +111,7 @@ def test_compute_shot_descriptor_both_routes(n_support):
     j_desc, j_rfs = j_shot.compute_shot_descriptor(kp, pts, nrm, 0.5, k_max=256,
                                                    min_neighborhood_size=10)
     t_desc, t_rfs = t_shot.compute_shot_descriptor(kp, pts, nrm, 0.5, k_max=256,
-                                                   min_neighborhood_size=10)
+                                                   min_neighborhood_size=10, device="cpu")
     assert_flip_rule(t_desc.numpy(), j_desc)
     np.testing.assert_allclose(t_rfs.numpy(), np.asarray(j_rfs), atol=5e-4)
     assert not t_desc[-3:].any() and bool(t_desc[:-3].any(dim=1).all())
@@ -123,7 +123,8 @@ def test_shot_computer_pads_and_subsamples(rng):
     kp = pts[:130]
     j = j_shot.ShotComputer(min_neighborhood_size=10, k_max=256).compute_descriptor_single_scale(
         pts, nrm, kp, radius=0.5, subsampling_voxel_size=0.05)
-    t = t_shot.ShotComputer(min_neighborhood_size=10, k_max=256).compute_descriptor_single_scale(
+    t = t_shot.ShotComputer(min_neighborhood_size=10, k_max=256,
+                            device="cpu").compute_descriptor_single_scale(
         pts, nrm, kp, radius=0.5, subsampling_voxel_size=0.05)
     assert t.shape == (130, 352)
     assert_flip_rule(t.numpy(), j)

@@ -6,16 +6,24 @@
 Phases, one line each; any failure exits non-zero with no result line:
 
 1. device: torch / CUDA versions, card name and power limit;
-2. build: compile ``shot_fpfh_tpu_torch/csrc/*.cu`` for sm_90a;
+2. build: compile ``shot_fpfh_tpu_torch/csrc/*.cu`` for sm_90a, one
+   ``nvcc`` per source, all in parallel;
 3. kernel parity at each path's shapes, each kernel against its plain
    PyTorch version on the same card inputs, with CUDA-event timings:
-   K1 SHOT frames + histogram (4096 keypoints on a 50k-point terrain),
-   K2 top-2 matching (4096 x 4096 x 352, f32 and bf16; 8192 x 8192 x 125,
-   the FPFH width, bf16),
+   K1 SHOT frames + histogram (4096 keypoints on a 50k-point terrain; own
+   and given frames at radius 0.9, and the bi-scale mode: frames at 0.9,
+   bins at 2.7, on the bi-scale grid of cell 1.35),
+   K5 SHOT over xy-row runs (the same keypoints and grids, all three modes;
+   then held to the K1 window route on the keypoints whose neighbor counts
+   agree under the two routes' radius rules),
+   K2 top-2 matching (4096 x 4096 x 352, f32 and bf16; 4096 x 4096 x 704,
+   the two-scale width, and 8192 x 8192 x 125, the FPFH width, bf16),
    K3 radius covariance (100k queries, scalar and per-query radius),
    K4 SPFH window histogram (one 8192-point chunk of a 100k-point terrain,
    radius 0.9, k=30 normals, joint and decorrelated),
-   K6 SPFH over xy-row runs (all 100k points of that terrain);
+   K6 SPFH over xy-row runs (all 100k points of that terrain), and the
+   voxel sums of ``grid_subsample`` on a skewed cloud (20,000 points in one
+   voxel), bit-identical to the CPU's;
 4. SHOT path: the port's ``cli.main`` on a ~100k-point terrain pair (scan =
    known rigid motion of ref + noise) with ``config/default.yaml``, run
    cold once and then measured; the registration must be accepted, within
@@ -25,13 +33,14 @@ Phases, one line each; any failure exits non-zero with no result line:
 5. FPFH path: the same pair with ``--descriptor_choice fpfh``, cold and
    measured on the window route (launches K2, K3 and K4), then once on the
    run route (``set_dma_kernel(True)``: launches K6 and no K4); each run
-   accepted within the same bounds.
-
-Each path's launch counts are set to 0 just before its measured run and
-read just after.  Then one JSON line of kernel results (launches on the
-kernel's path, errors, kernel / plain / bound / library times), the
-``nvidia-smi`` name / power-limit line, and the last line ``{"ok": true,
-"device": {...}}``.
+   accepted within the same bounds;
+6. bi-scale SHOT (``--phi 3``: frames at 0.9, bins at 2.7) on the window
+   route (K1, K2, K3) and on the run route (K5, K2, K3, no K1);
+7. multiscale SHOT (``--n_scales 2``: radii 0.9 and 2.7, 704 columns) on the
+   window route (K1, and K2 at D = 704); scale 2's support, subsampled at
+   2.7/10, is under 20k points and takes the brute route;
+8. single-scale SHOT on the run route (K5, no K1).
+Phases 6–8 run cold, then measured, each accepted within the same bounds.
 """
 
 from __future__ import annotations
@@ -82,13 +91,34 @@ OPS_SPFH_NEIGHBOR = 75
 # a SHOT neighbor in K1: covariance 13, sign votes 8, projections, atan2f,
 # acosf, soft-bin weights and five shared-memory adds ~130
 OPS_SHOT_NEIGHBOR = 150
+# K5, from its source: a frame-plane neighbor (covariance 13, sign votes 8)
+# and a binned neighbor (projections, atan2f, acosf, soft bins, five adds),
+# beside one distance test (OPS_DIST_TEST) for every row of the runs
+OPS_SHOT_FRAME = 21
+OPS_SHOT_BIN = 130
 # a K3 in-radius point: 10 sums of moments
 OPS_PCA_POINT = 20
+
+# bi-scale and multiscale SHOT on the smoke pair: the reference defaults
+# phi 3 (bins, or scale 2, at 2.7) and two scales
+PHI, N_SCALES = 3.0, 2
+# the two SHOT routes' radius rules part on a keypoint when one of its
+# squared distances rounds onto r²: expected well under one keypoint in a
+# thousand at these widths (the SPFH routes part on 4–10 of 100k rows of
+# ~600 neighbors each); the parted keypoints are counted and bounded
+SHOT_ROUTE_PARTED_FRAC = 1e-2
+
+# the smoke pair's keypoint voxel (--neighborhood_size), and the points of
+# the one dense voxel in the skewed cloud of the voxel-sum check
+KEYPOINT_VOXEL = 0.15
+VOXEL_CLUSTER = 20_000
 
 # each path and the kernels its measured run must launch (and must not)
 SHOT_PATH = ("shot_binning_histogram", "top2_match", "radius_pca")
 FPFH_WINDOW_PATH = ("top2_match", "radius_pca", "spfh_histogram")
 FPFH_RUN_PATH = ("top2_match", "radius_pca", "spfh_runs")
+SHOT_RUN_PATH = ("shot_runs", "top2_match", "radius_pca")
+MULTISCALE_PATH = ("shot_binning_histogram", "top2_match")
 
 
 def make_terrain(n: int, rng: np.random.Generator, scale: float = 10.0,
@@ -270,25 +300,68 @@ def parity_k2(dev, rng, n: int, dim: int, modes=(False, True)):
     return res[True]
 
 
-def parity_k1(dev, rng):
+def flip_rule(got, want, label: str) -> tuple[float, float]:
+    """Hold two SHOT histograms under the same frames: at most K1_FLIP_FRAC
+    of elements off by more than K1_FLIP_ABS + K1_FLIP_REL·|want|, none by
+    more than K1_MAX_DIFF.  Returns (flip fraction, max difference)."""
+    diff = (got - want).abs()
+    flip = float((diff > K1_FLIP_ABS + K1_FLIP_REL * want.abs()).float().mean())
+    top = float(diff.max())
+    check(flip <= K1_FLIP_FRAC and top <= K1_MAX_DIFF,
+          f"{label}: flip fraction {flip}, max diff {top}")
+    return flip, top
+
+
+class ShotTerrain:
+    """Phase 3's SHOT inputs: a 50k-point terrain with the main path's k=30
+    normals (through K3, so the cosine bins carry the skew of real SHOT
+    inputs), 4096 keypoints, and the halo-2 grids of single-scale SHOT
+    (cell 0.45, radius 0.9) and of bi-scale SHOT (cell 1.35: frames at 0.9,
+    bins at 2.7)."""
+
+    radius, rf_radius, bi_radius = 0.9, 0.9, 0.9 * PHI
+
+    def __init__(self, dev, rng):
+        import torch
+
+        from shot_fpfh_tpu_torch.models.normals import compute_normals
+        from shot_fpfh_tpu_torch.ops.grid_hash import build_grid
+
+        cloud = torch.tensor(make_terrain(50_000, rng), device=dev)
+        normals = compute_normals(cloud, cloud, k=30, device=dev)
+        self.kp = cloud[torch.tensor(rng.choice(cloud.shape[0], 4096, replace=False),
+                                     device=dev)]
+        self.grid = build_grid(cloud, self.radius / 2, extras=normals, halo=2)
+        self.bi_grid = build_grid(cloud, self.bi_radius / 2, extras=normals, halo=2)
+        for g in (self.grid, self.bi_grid):
+            check(g.use_xyrow and g.xyrow_run_cap > 0,
+                  f"the 50k terrain's cell-{g.cell_size} grid is not an xy-row grid")
+
+    def window(self, bi_scale: bool):
+        """K1's inputs: ``(vals, dist_inf, rf_dist_inf or None)``."""
+        import torch
+
+        from shot_fpfh_tpu_torch.ops.grid_hash import window_distances
+
+        grid = self.bi_grid if bi_scale else self.grid
+        vals, d, valid, _ = window_distances(grid, self.kp)
+        inf = torch.full_like(d, float("inf"))
+        if not bi_scale:
+            return vals, torch.where(valid & (d <= self.radius), d, inf), None
+        return (vals, torch.where(valid & (d <= self.bi_radius), d, inf),
+                torch.where(valid & (d <= self.rf_radius), d, inf))
+
+
+def parity_k1(terrain: ShotTerrain):
     import torch
 
-    from shot_fpfh_tpu_torch.models.normals import compute_normals
-    from shot_fpfh_tpu_torch.ops.grid_hash import build_grid, window_distances
     from shot_fpfh_tpu_torch.ops.shot_fused import (
         shot_binning_histogram,
         shot_binning_histogram_plain,
     )
 
-    radius = 0.9
-    cloud = torch.tensor(make_terrain(50_000, rng), device=dev)
-    # the main path's normals (k=30, through K3), so the cosine bins carry
-    # the skew of real SHOT inputs
-    normals = compute_normals(cloud, cloud, k=30, device=dev)
-    kp = cloud[torch.tensor(rng.choice(cloud.shape[0], 4096, replace=False), device=dev)]
-    grid = build_grid(cloud, radius / 2, extras=normals, halo=2)
-    vals, d, valid, _ = window_distances(grid, kp)
-    dist_inf = torch.where(valid & (d <= radius), d, torch.full_like(d, float("inf")))
+    radius, kp = terrain.radius, terrain.kp
+    vals, dist_inf, _ = terrain.window(bi_scale=False)
     hist_k, rfs_k = shot_binning_histogram(vals, dist_inf, kp, None, radius)
     hist_p, rfs_p = shot_binning_histogram_plain(vals, dist_inf, kp, None, radius)
     hist_g = shot_binning_histogram(vals, dist_inf, kp, rfs_p, radius)
@@ -298,23 +371,144 @@ def parity_k1(dev, rng):
     torch.cuda.synchronize()
     frame_err = float((rfs_k - rfs_p).abs().max())
     check(frame_err <= K1_FRAME_ATOL, f"K1 frames error {frame_err}")
-    stats = {}
-    for label, got, want in (("own frames", hist_k, hist_pk), ("given frames", hist_g, hist_p)):
-        diff = (got - want).abs()
-        flip = float((diff > K1_FLIP_ABS + K1_FLIP_REL * want.abs()).float().mean())
-        stats[label] = (flip, float(diff.max()))
-        check(flip <= K1_FLIP_FRAC and stats[label][1] <= K1_MAX_DIFF,
-              f"K1 {label}: flip fraction {flip}, max diff {stats[label][1]}")
+    stats = {"own frames": flip_rule(hist_k, hist_pk, "K1 own frames"),
+             "given frames": flip_rule(hist_g, hist_p, "K1 given frames")}
     ms = cuda_ms(lambda: shot_binning_histogram(vals, dist_inf, kp, None, radius))
     plain_ms = cuda_ms(lambda: shot_binning_histogram_plain(vals, dist_inf, kp, None, radius))
-    q, nf, w = vals.shape
-    b = bound((q * nf * w + q * w + q * 3 + q * (352 + 9)) * 4,
-              float(torch.isfinite(dist_inf).sum()) * OPS_SHOT_NEIGHBOR)
-    print(f"phase 3 K1 shot_binning_histogram: 4096 keypoints x window {vals.shape[2]}: "
+    q, _, w = vals.shape
+    # the bytes this run's data needs: every lane's distance, and the six
+    # value planes (x y z nx ny nz) only at the lanes K1 reads them, the
+    # finite ones
+    n_lanes = float(torch.isfinite(dist_inf).sum())
+    b = bound((6 * n_lanes + q * w + q * 3 + q * (352 + 9)) * 4, n_lanes * OPS_SHOT_NEIGHBOR)
+    print(f"phase 3 K1 shot_binning_histogram: {q} keypoints x window {w}: "
           f"frames max err {frame_err:.2e}, (flip fraction, max diff) {stats}; "
           f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms "
           f"({b['bound_by']})", flush=True)
-    return dict(max_abs_err=max(s[1] for s in stats.values()), ms=ms, plain_ms=plain_ms,
+
+    # bi-scale mode: frames from the rf plane, bins from the descriptor plane
+    bi_vals, bi_dist, rf_dist = terrain.window(bi_scale=True)
+    args = (bi_vals, bi_dist, kp, None, terrain.bi_radius)
+    rf = dict(rf_dist_inf=rf_dist, rf_radius=terrain.rf_radius)
+    bi_hist, bi_rfs = shot_binning_histogram(*args, **rf)
+    _, bi_rfs_p = shot_binning_histogram_plain(*args, **rf)
+    bi_hist_p = shot_binning_histogram_plain(bi_vals, bi_dist, kp, bi_rfs, terrain.bi_radius)
+    torch.cuda.synchronize()
+    bi_frame_err = float((bi_rfs - bi_rfs_p).abs().max())
+    check(bi_frame_err <= K1_FRAME_ATOL, f"K1 bi-scale frames error {bi_frame_err}")
+    stats["bi-scale"] = flip_rule(bi_hist, bi_hist_p, "K1 bi-scale")
+    bi_ms = cuda_ms(lambda: shot_binning_histogram(*args, **rf))
+    bi_plain_ms = cuda_ms(lambda: shot_binning_histogram_plain(*args, **rf))
+    w_bi = bi_vals.shape[2]
+    # both planes at every lane; x y z at the lanes finite in either plane,
+    # the normals at those the descriptor plane bins
+    n_bin, n_frame = float(torch.isfinite(bi_dist).sum()), float(torch.isfinite(rf_dist).sum())
+    n_either = float((torch.isfinite(bi_dist) | torch.isfinite(rf_dist)).sum())
+    bi_b = bound((3 * n_either + 3 * n_bin + 2 * q * w_bi + q * 3 + q * (352 + 9)) * 4,
+                 n_frame * OPS_SHOT_FRAME + n_bin * OPS_SHOT_BIN)
+    print(f"phase 3 K1 bi-scale mode: {q} keypoints x window {w_bi}, frames at "
+          f"{terrain.rf_radius}, bins at {terrain.bi_radius}: frames max err "
+          f"{bi_frame_err:.2e}, (flip fraction, max diff) {stats['bi-scale']}; kernel "
+          f"{bi_ms:.3f} ms, plain {bi_plain_ms:.3f} ms, bound {bi_b['bound_ms']:.4f} ms "
+          f"({bi_b['bound_by']})", flush=True)
+    return dict(max_abs_err=max(st[1] for st in stats.values()), ms=ms, plain_ms=plain_ms,
+                library_ms=None, **b)
+
+
+def _route_counts(grid, queries, radius):
+    """Per query, its neighbor count (self included) under each radius
+    rule: ``rho² <= r·r`` (run routes, K5 and K6) and ``sqrt(rho²) <= r``
+    (window routes, K1 and K4)."""
+    import torch
+
+    from shot_fpfh_tpu_torch._fp import sqnorm3
+    from shot_fpfh_tpu_torch.ops.grid_hash import query_chunk, window_rows
+
+    r = torch.tensor(radius, dtype=torch.float32, device=queries.device)
+    runs, window = [], []
+    step = query_chunk(grid, 4)
+    for s in range(0, queries.shape[0], step):
+        qc = queries[s:s + step]
+        rows, valid = window_rows(grid, qc)
+        cand = grid.points_sorted[rows]
+        rho2 = sqnorm3(*(cand[..., i] - qc[:, i:i + 1] for i in range(3)))
+        runs.append((valid & (rho2 <= r * r)).sum(1))
+        window.append((valid & (torch.sqrt(rho2) <= r)).sum(1))
+    return torch.cat(runs), torch.cat(window)
+
+
+def parity_k5(terrain: ShotTerrain):
+    """K5 in its three modes against its twin (frames atol K1_FRAME_ATOL,
+    histograms by the flip rule under the same frames), then against the K1
+    window route on the keypoints whose counts agree under both rules."""
+    import torch
+
+    from shot_fpfh_tpu_torch.ops.grid_hash import _xyrow_runs
+    from shot_fpfh_tpu_torch.ops.shot_dma import shot_descriptor_dma, shot_descriptor_dma_plain
+    from shot_fpfh_tpu_torch.ops.shot_fused import shot_binning_histogram
+
+    kp = terrain.kp
+    raw = dict(normalize=False, min_neighborhood_size=-1)   # histograms as they are
+    modes = {"own": (terrain.grid, terrain.radius, None),
+             "bi-scale": (terrain.bi_grid, terrain.bi_radius, terrain.rf_radius)}
+    stats, frame_errs, results = {}, {}, {}
+    for label, (grid, radius, rf_radius) in modes.items():
+        hist, rfs = shot_descriptor_dma(grid, kp, radius, rf_radius=rf_radius, **raw)
+        _, rfs_p = shot_descriptor_dma_plain(grid, kp, radius, rf_radius=rf_radius, **raw)
+        hist_p, _ = shot_descriptor_dma_plain(grid, kp, radius, rfs=rfs, **raw)
+        torch.cuda.synchronize()
+        frame_errs[label] = float((rfs - rfs_p).abs().max())
+        check(frame_errs[label] <= K1_FRAME_ATOL, f"K5 {label} frames error {frame_errs[label]}")
+        stats[label] = flip_rule(hist, hist_p, f"K5 {label}")
+        results[label] = (hist, rfs)
+    grid, radius = terrain.grid, terrain.radius
+    given = shot_descriptor_dma(grid, kp, radius, rfs=results["own"][1], **raw)[0]
+    given_p = shot_descriptor_dma_plain(grid, kp, radius, rfs=results["own"][1], **raw)[0]
+    stats["given"] = flip_rule(given, given_p, "K5 given frames")
+
+    # against the K1 window route, on the keypoints whose neighbor sets the
+    # two radius rules agree on (both planes in bi-scale mode)
+    route = {}
+    for label, (grid, radius, rf_radius) in modes.items():
+        vals, dist_inf, rf_dist = terrain.window(bi_scale=rf_radius is not None)
+        same = torch.eq(*_route_counts(grid, kp, radius))
+        if rf_radius is not None:
+            same &= torch.eq(*_route_counts(grid, kp, rf_radius))
+        parted = kp.shape[0] - int(same.sum())
+        check(parted <= SHOT_ROUTE_PARTED_FRAC * kp.shape[0],
+              f"K5 vs the K1 route ({label}): the radius rules part on {parted} keypoints")
+        hist, rfs = results[label]
+        _, rfs_k1 = shot_binning_histogram(vals, dist_inf, kp, None, radius,
+                                           rf_dist_inf=rf_dist, rf_radius=rf_radius)
+        err = float((rfs[same] - rfs_k1[same]).abs().max())
+        check(err <= K1_FRAME_ATOL, f"K5 vs the K1 route ({label}): frames error {err}")
+        hist_k1 = shot_binning_histogram(vals, dist_inf, kp, rfs, radius)
+        route[label] = (parted, err, flip_rule(hist[same], hist_k1[same],
+                                               f"K5 vs the K1 route ({label})"))
+
+    grid, radius = terrain.bi_grid, terrain.bi_radius
+    rf = dict(rf_radius=terrain.rf_radius)
+    ms = cuda_ms(lambda: shot_descriptor_dma(grid, kp, radius, **rf, **raw))
+    plain_ms = cuda_ms(lambda: shot_descriptor_dma_plain(grid, kp, radius, **rf, **raw))
+    own_ms = cuda_ms(lambda: shot_descriptor_dma(terrain.grid, kp, terrain.radius, **raw))
+    # the timed call's work: every row of the keypoints' runs tested once,
+    # the frame plane's neighbors reduced, the descriptor plane's binned
+    start, end = _xyrow_runs(grid, kp)
+    lanes = float((end - start).sum())
+    q = kp.shape[0]
+    n_bin = float(_route_counts(grid, kp, radius)[0].sum()) - q    # the keypoint itself: d = 0
+    n_frame = float(_route_counts(grid, kp, terrain.rf_radius)[0].sum())
+    b = bound(grid.packed_sorted.numel() * 4 + q * 12 + start.numel() * 16 + q * (352 + 10) * 4,
+              lanes * OPS_DIST_TEST + n_frame * OPS_SHOT_FRAME + n_bin * OPS_SHOT_BIN)
+    print(f"phase 3 K5 shot_runs: {q} keypoints x {start.shape[1]} xy-row runs (bi-scale "
+          f"grid: longest run {grid.xyrow_run_cap}, {lanes / q:.0f} rows, {n_frame / q:.0f} "
+          f"frame and {n_bin / q:.0f} descriptor neighbors a keypoint): frames max err "
+          f"{frame_errs}, (flip fraction, max diff) vs twin {stats}; vs the K1 route "
+          f"(parted keypoints, frames err, (flip, max diff)) {route}; bi-scale kernel "
+          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']}); own frames at {terrain.radius} kernel {own_ms:.3f} ms",
+          flush=True)
+    return dict(max_abs_err=max(st[1] for st in stats.values()), ms=ms, plain_ms=plain_ms,
                 library_ms=None, **b)
 
 
@@ -372,29 +566,6 @@ def parity_k4(grid):
                 library_ms=None, **b)
 
 
-def _route_counts(grid, radius):
-    """Per sorted point, its neighbor count (self included) under each SPFH
-    route's radius rule: ``rho² <= r·r`` (run route, K6) and
-    ``sqrt(rho²) <= r`` (window route, K4)."""
-    import torch
-
-    from shot_fpfh_tpu_torch._fp import sqnorm3
-    from shot_fpfh_tpu_torch.ops.grid_hash import query_chunk, window_rows
-
-    pts = grid.packed_sorted[:, :3]
-    r = torch.tensor(radius, dtype=torch.float32, device=pts.device)
-    runs, window = [], []
-    step = query_chunk(grid, 4)
-    for s in range(0, pts.shape[0], step):
-        qc = pts[s:s + step]
-        rows, valid = window_rows(grid, qc)
-        cand = grid.points_sorted[rows]
-        rho2 = sqnorm3(*(cand[..., i] - qc[:, i:i + 1] for i in range(3)))
-        runs.append((valid & (rho2 <= r * r)).sum(1))
-        window.append((valid & (torch.sqrt(rho2) <= r)).sum(1))
-    return torch.cat(runs), torch.cat(window)
-
-
 def parity_k6(grid):
     import torch
 
@@ -410,7 +581,7 @@ def parity_k6(grid):
     # the two routes' radius rules part on a neighbor whose sqrt rounds onto
     # the radius: that row's count, and with it every bin, moves by one
     # neighbor (row sum ~1/count); the other rows are held to the rule
-    cnt_runs, cnt_window = _route_counts(grid, FPFH_RADIUS)
+    cnt_runs, cnt_window = _route_counts(grid, grid.packed_sorted[:, :3], FPFH_RADIUS)
     same = cnt_runs == cnt_window
     n = grid.packed_sorted.shape[0]
     parted = n - int(same.sum())
@@ -432,6 +603,41 @@ def parity_k6(grid):
           f"({parted} part); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
           f"{b['bound_ms']:.4f} ms ({b['bound_by']})", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
+
+
+def voxel_sums(dev, rng):
+    """The voxel sums of ``core/subsampling.py`` (no TPU kernel's port) on a
+    skewed cloud: a 100k-point terrain plus a cluster of VOXEL_CLUSTER points
+    in one keypoint voxel.  The card's sums must be bit-identical to the
+    CPU's ``index_add_``; timed beside the card's ``index_add_`` (atomic
+    order) and inside the whole ``grid_subsample``."""
+    import torch
+
+    from shot_fpfh_tpu_torch.core.subsampling import (
+        _segment_sums,
+        _voxel_segments,
+        grid_subsample,
+    )
+
+    terrain = make_terrain(100_000, rng)
+    cluster = terrain[0] + rng.uniform(0.0, 1e-3, size=(VOXEL_CLUSTER, 3)).astype(np.float32)
+    cloud = torch.tensor(np.concatenate([terrain, cluster]), device=dev)
+    order, seg, counts, _ = _voxel_segments(cloud, KEYPOINT_VOXEL)
+    n_seg = int(seg[-1]) + 1
+    lengths, pts = counts[:n_seg].to(torch.int64), cloud[order]
+    want = torch.zeros(n_seg, 3).index_add_(0, seg.cpu(), pts.cpu())
+    check(torch.equal(_segment_sums(pts, lengths).cpu(), want),
+          "voxel sums on the card differ from the CPU's index_add_")
+    longest = int(lengths.max())
+    check(longest >= VOXEL_CLUSTER, f"the dense voxel holds {longest} points")
+    ms = cuda_ms(lambda: _segment_sums(pts, lengths))
+    index_add_ms = cuda_ms(lambda: torch.zeros((n_seg, 3), device=dev).index_add_(0, seg, pts))
+    skewed_ms = cuda_ms(lambda: grid_subsample(cloud, KEYPOINT_VOXEL))
+    uniform_ms = cuda_ms(lambda: grid_subsample(cloud[:100_000], KEYPOINT_VOXEL))
+    print(f"phase 3 voxel sums: {cloud.shape[0]} points in {n_seg} voxels of "
+          f"{KEYPOINT_VOXEL}, longest {longest}: bit-identical to the CPU; segment sums "
+          f"{ms:.3f} ms, index_add_ {index_add_ms:.3f} ms; grid_subsample {skewed_ms:.3f} ms "
+          f"(without the cluster {uniform_ms:.3f} ms)", flush=True)
 
 
 class _StageLog(logging.Handler):
@@ -477,7 +683,7 @@ class SmokePair:
         shutil.rmtree(WORK, ignore_errors=True)
         WORK.mkdir(parents=True)
         rng = np.random.default_rng(72)
-        ref = make_terrain(100_000, rng, scale=10, n_bumps=40)
+        self.ref = ref = make_terrain(100_000, rng, scale=10, n_bumps=40)
         self.rot = rotation_about([0.3, -0.2, 1.0], np.deg2rad(15.0))
         self.trans = np.array([0.4, -0.25, 0.15])
         self.scan = (ref @ self.rot.T + self.trans
@@ -491,7 +697,8 @@ class SmokePair:
             "--metrics_json", str(self.metrics), "--device", "cuda",
             # config/default.yaml leaves these null (unusable) or sized for
             # the bunny: keypoint voxel + density threshold, descriptor radius
-            "--neighborhood_size", "0.15", "--min_n_neighbors", "5", "--radius", "0.9"]
+            "--neighborhood_size", str(KEYPOINT_VOXEL), "--min_n_neighbors", "5",
+            "--radius", "0.9"]
 
     def errors(self) -> tuple[float, float]:
         """(rotation, translation) error of the written post-ICP alignment
@@ -512,11 +719,13 @@ class SmokePair:
         return rot_err, t_err
 
     def run(self, label: str, extra: list[str], must: tuple[str, ...],
-            must_not: tuple[str, ...] = (), cold: bool = True) -> dict:
-        """One measured ``cli.main`` run (after a cold one when ``cold``)
-        with the launch counts set to 0 just before it and read just after;
-        fails unless accepted within the bounds and every kernel of ``must``
-        (and none of ``must_not``) was launched."""
+            must_not: tuple[str, ...] = (), cold: bool = True,
+            cold_extra: tuple[str, ...] = ()) -> dict:
+        """One measured ``cli.main`` run (after a cold one, with
+        ``cold_extra`` arguments too, when ``cold``) with the launch counts
+        set to 0 just before it and read just after; fails unless accepted
+        within the bounds and every kernel of ``must`` (and none of
+        ``must_not``) was launched."""
         import torch
 
         from shot_fpfh_tpu_torch import _kernels, cli
@@ -527,7 +736,8 @@ class SmokePair:
             # a first, cold run pays one-time library set-up (cuSOLVER
             # handles for RANSAC's SVDs and ICP's solves, allocator growth)
             t0 = time.perf_counter()
-            check(cli.main(argv) == 0, f"{label} (cold run): registration rejected")
+            check(cli.main(argv + list(cold_extra)) == 0,
+                  f"{label} (cold run): registration rejected")
             torch.cuda.synchronize()
             cold_wall = time.perf_counter() - t0
         stage_log = _StageLog()
@@ -594,6 +804,50 @@ def phase_fpfh_path(pair: SmokePair) -> tuple[dict, dict]:
     return window["launches"], runs["launches"]
 
 
+def phase_multiscale_paths(pair: SmokePair) -> dict:
+    """Phases 6–8: bi-scale SHOT on both routes, multiscale SHOT (704
+    columns) on the window route, single-scale SHOT on the run route."""
+    from shot_fpfh_tpu_torch.core.subsampling import grid_subsample
+    from shot_fpfh_tpu_torch.ops import grid_hash
+    from shot_fpfh_tpu_torch.ops.shot_dma import set_dma_kernel
+
+    bi = ["--descriptor_choice", "shot_bi_scale", "--phi", str(PHI)]
+    ms = ["--descriptor_choice", "shot_multiscale", "--phi", str(PHI),
+          "--n_scales", str(N_SCALES)]
+    launches = {}
+    r = pair.run("bi-scale window route", bi, SHOT_PATH, ("shot_runs",))
+    print(_describe("phase 6 bi-scale SHOT, window route", r), flush=True)
+    launches["bi-scale window"] = r["launches"]
+    set_dma_kernel(True)
+    try:
+        r = pair.run("bi-scale run route", bi, SHOT_RUN_PATH, ("shot_binning_histogram",))
+        print(_describe("phase 6 bi-scale SHOT, run route", r), flush=True)
+        launches["bi-scale runs"] = r["launches"]
+        r = pair.run("single-scale run route", [], SHOT_RUN_PATH, ("shot_binning_histogram",))
+        print(_describe("phase 8 single-scale SHOT, run route", r), flush=True)
+        launches["single-scale runs"] = r["launches"]
+    finally:
+        set_dma_kernel(False)
+
+    # the cold run saves its state: the descriptors K2 matched are 704 wide
+    state = WORK / "multiscale_state.npz"
+    r = pair.run("multiscale window route", ms, MULTISCALE_PATH, ("shot_runs",),
+                 cold_extra=("--state_cache", str(state)))
+    widths = {k: np.load(state)[k].shape[1] for k in ("scan_descriptors", "ref_descriptors")}
+    check(set(widths.values()) == {352 * N_SCALES}, f"multiscale descriptor widths {widths}")
+    scale2 = [len(grid_subsample(cloud, 0.9 * PHI / 10, device="cuda"))
+              for cloud in (pair.scan, pair.ref)]
+    routes = ("scale 2's supports (voxel 2.7/10) hold "
+              f"{scale2} points: " + ("brute route (k_max-capped, no kernel); phase 3 alone "
+                                      "holds K1's and K5's given-frames modes"
+                                      if max(scale2) < grid_hash.AUTO_GRID_MIN_POINTS
+                                      else "grid route with the first scale's frames"))
+    print(_describe("phase 7 multiscale SHOT, window route", r)
+          + f"; descriptor widths {widths}; {routes}", flush=True)
+    launches["multiscale window"] = r["launches"]
+    return launches
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -616,35 +870,43 @@ def main(argv=None) -> int:
     phase_build()
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
-    k1 = parity_k1(dev, rng)
+    terrain = ShotTerrain(dev, rng)
+    k1, k5 = parity_k1(terrain), parity_k5(terrain)
+    del terrain
     k2 = parity_k2(dev, rng, 4096, 352)
+    parity_k2(dev, rng, 4096, 352 * N_SCALES, modes=(True,))
     parity_k2(dev, rng, 8192, 125, modes=(True,))
     k3 = parity_k3(dev, rng)
     grid = spfh_terrain(dev, rng)
     k4, k6 = parity_k4(grid), parity_k6(grid)
     del grid
+    voxel_sums(dev, rng)
     pair = SmokePair()
-    shot = phase_shot_path(pair, args.profile)
-    fpfh_window, fpfh_runs = phase_fpfh_path(pair)
+    paths = {"SHOT": phase_shot_path(pair, args.profile)}
+    paths["FPFH window"], paths["FPFH runs"] = phase_fpfh_path(pair)
+    paths.update(phase_multiscale_paths(pair))
     # kernel -> (source, TPU kernel it replaces, parity and timings, the
-    # launches of the path it belongs to)
+    # path whose launches the line reports)
     results = {
         "shot_binning_histogram": ("shot_fpfh_tpu_torch/csrc/shot_fused.cu",
-                                   "shot_fpfh_tpu/ops/pallas_shot_fused.py:408", k1, shot),
+                                   "shot_fpfh_tpu/ops/pallas_shot_fused.py:408", k1, "SHOT"),
         "top2_match": ("shot_fpfh_tpu_torch/csrc/match.cu",
-                       "shot_fpfh_tpu/ops/pallas_match.py:139", k2, shot),
+                       "shot_fpfh_tpu/ops/pallas_match.py:139", k2, "SHOT"),
         "radius_pca": ("shot_fpfh_tpu_torch/csrc/radius_pca.cu",
-                       "shot_fpfh_tpu/ops/pallas_radius.py:247", k3, shot),
+                       "shot_fpfh_tpu/ops/pallas_radius.py:247", k3, "SHOT"),
         "spfh_histogram": ("shot_fpfh_tpu_torch/csrc/spfh_fused.cu",
-                           "shot_fpfh_tpu/ops/pallas_fpfh_fused.py:172", k4, fpfh_window),
+                           "shot_fpfh_tpu/ops/pallas_fpfh_fused.py:172", k4, "FPFH window"),
+        "shot_runs": ("shot_fpfh_tpu_torch/csrc/shot_runs.cu",
+                      "shot_fpfh_tpu/ops/pallas_shot_dma.py:164", k5, "bi-scale runs"),
         "spfh_runs": ("shot_fpfh_tpu_torch/csrc/spfh_runs.cu",
-                      "shot_fpfh_tpu/ops/pallas_shot_dma.py:337", k6, fpfh_runs),
+                      "shot_fpfh_tpu/ops/pallas_shot_dma.py:337", k6, "FPFH runs"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": path[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+         "launches": paths[path][name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-         "library_ms": r["library_ms"]}
+         "library_ms": r["library_ms"],
+         "launches_by_path": {p: counts[name] for p, counts in paths.items()}}
         for name, (src, rep, r, path) in results.items()]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """Build, load and count the hand-written CUDA kernels in ``csrc/``.
 
-The sources are compiled by ``nvcc`` into one shared library with a plain C
-interface (no PyTorch headers, so a build takes seconds) and loaded with
+Each source is compiled by its own ``nvcc`` process, all started together,
+and the objects are linked into one shared library with a plain C interface
+(no PyTorch headers, so a build takes seconds) that is loaded with
 ``ctypes``.  In a checkout or an editable install the library lands in the
 repository's ``build/kernels/<hash>/``; a regular install (sources shipped
 as package data) builds into the user's cache directory instead
@@ -35,23 +36,25 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 LIB_NAME = "libshot_kernels.so"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     # no implicit multiply-add contraction: the kernels round each
     # elementwise step like the eager PyTorch twins they are held against
     # (counts and bin decisions at a radius or bin edge must agree)
     "-fmad=false",
     "-Xptxas", "-v",
 ]
+LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 
 # C entry point -> argument types (every pointer and the stream as c_void_p,
 # so ctypes never truncates a 64-bit address to a 32-bit int)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "shot_binning_histogram": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "shot_binning_histogram": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P],
     "top2_match": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "radius_pca": [_P, _I, _P, _P, _P, _P, _I, _I, _P, _P],
     "spfh_histogram": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "spfh_runs": [_P, _I, _P, _P, _P, _P, _I, _I, _F, _I, _I, _P, _P],
+    "shot_runs": [_P, _I, _P, _P, _P, _I, _I, _P, _F, _F, _P, _P, _P, _P],
 }
 
 # one launch counter per kernel: incremented by launch() and nowhere else
@@ -72,7 +75,7 @@ def _sources() -> list[Path]:
 
 
 def _source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for path in _sources():
         h.update(path.name.encode())
         h.update(path.read_bytes())
@@ -102,8 +105,9 @@ def _nvcc() -> str:
 
 def build() -> Path:
     """Compile ``csrc/*.cu`` into the hashed library path (if not there yet)
-    and return it.  Writes to a temporary name and renames, so a process
-    building concurrently never loads a half-written library."""
+    and return it: one ``nvcc -c`` per source, all in parallel, then one
+    link.  Writes to temporary names and renames, so a process building
+    concurrently never loads a half-written library."""
     out_dir = build_root() / _source_hash()
     lib_path = out_dir / LIB_NAME
     if lib_path.exists():
@@ -111,19 +115,32 @@ def build() -> Path:
         build_info.setdefault("cached", True)
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+    nvcc, pid = _nvcc(), os.getpid()
+    sources = sorted(CSRC.glob("*.cu"))
+    objects = [out_dir / f".{src.stem}.{pid}.o" for src in sources]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for src, obj in zip(sources, objects)]
+    outputs = [proc.communicate() for proc in procs]
+    results = [(proc.returncode, out, err) for proc, (out, err) in zip(procs, outputs)]
+    tmp = out_dir / f".{LIB_NAME}.{pid}.tmp"
+    if all(rc == 0 for rc, _, _ in results):
+        link = subprocess.run([nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objects)],
+                              capture_output=True, text=True, check=False)
+        results.append((link.returncode, link.stdout, link.stderr))
     elapsed = time.perf_counter() - t0
-    (out_dir / "build.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    log = "".join(out + err for _, out, err in results)
+    (out_dir / "build.log").write_text(log)
+    for obj in objects:
+        obj.unlink(missing_ok=True)
+    failed = [(rc, out, err) for rc, out, err in results if rc != 0]
+    if failed:
+        rc, out, err = failed[0]
+        raise RuntimeError(f"nvcc failed ({rc}):\n{out}\n{err}")
     os.replace(tmp, lib_path)
     build_info.update(seconds=elapsed, cached=False,
-                      ptxas=[ln for ln in proc.stderr.splitlines()
+                      ptxas=[ln for ln in log.splitlines()
                              if "registers" in ln or "Compiling entry" in ln])
     return lib_path
 

@@ -1,17 +1,18 @@
 """Command-line entry point: register two .ply point clouds on one GPU.
 
 Port of ``shot_fpfh_tpu.cli`` (console script ``register_point_clouds_torch``):
-load clouds → k-NN normals → keypoints → descriptors (single-scale SHOT or
-FPFH) → matching → RANSAC → ICP → metrics → aligned ``.ply`` outputs, with
-per-stage timings and the same YAML config.  ``--device`` picks the torch
-device (default ``cuda``).  Options this port does not cover yet
-(``--fused``, more than one device, the debug checks, bi-scale and
-multiscale SHOT) raise ``NotImplementedError`` naming their ROADMAP.md
-item; the reference's flags that only tune those (``--phi``,
-``--n_scales``, ``--share_local_rfs``, ``--mesh_axis``), its second names of
-flags (``--n_procs``, ``--normals_computation_k``) and its no-op
-``--disable_progress_bars`` are not accepted.  Exit code 0 means the
-registration was accepted.
+load clouds → k-NN normals → keypoints → descriptors (single-, bi- or
+multiscale SHOT, or FPFH) → matching → RANSAC → ICP → metrics → aligned
+``.ply`` outputs, with per-stage timings and the same YAML config.
+``--device`` picks the torch device (default ``cuda``).  Bi-scale SHOT takes
+its frames at ``--radius`` and its bins at ``--radius`` × ``--phi``;
+multiscale SHOT runs ``--n_scales`` scales at ``--radius`` × ``--phi``^s and,
+unless ``--no-share_local_rfs``, shares the first scale's frames.  Options
+this port does not cover yet (``--fused``, more than one device, the debug
+checks) raise ``NotImplementedError`` naming their ROADMAP.md item; the
+reference's ``--mesh_axis``, its second names of flags (``--n_procs``,
+``--normals_computation_k``) and its no-op ``--disable_progress_bars`` are
+not accepted.  Exit code 0 means the registration was accepted.
 """
 
 from __future__ import annotations
@@ -67,7 +68,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                       choices=["fpfh", "shot_single_scale", "shot_bi_scale", "shot_multiscale"])
     desc.add_argument("--radius", type=float, default=None)
     desc.add_argument("--fpfh_n_bins", type=int, default=None)
+    desc.add_argument("--phi", type=float, default=None,
+                      help="Ratio of successive SHOT radii (bi-scale, multiscale).")
     desc.add_argument("--rho", type=float, default=None)
+    desc.add_argument("--n_scales", type=int, default=None,
+                      help="Number of multiscale SHOT scales.")
     desc.add_argument("--min_neighborhood_size", type=int, default=None)
 
     match = parser.add_argument_group("matching and RANSAC")
@@ -95,6 +100,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     compute.add_argument("--k_max_fpfh", type=int, default=None)
     compute.add_argument("--normals_k", type=int, default=None,
                          help="Number of neighbors used to compute normals.")
+    compute.add_argument("--share_local_rfs", action=argparse.BooleanOptionalAction,
+                         default=None,
+                         help="Share the first scale's local reference frames across "
+                              "multiscale SHOT scales (config default: true).")
     compute.add_argument("--state_cache", type=str, default=None,
                          help="npz path: save/resume keypoints+descriptors+matches")
     compute.add_argument("--fused", action="store_const", const=True, default=None)
@@ -188,8 +197,9 @@ def main(argv=None) -> int:
     logger.info(desc_cfg.help_message())
     pipeline.compute_descriptors(
         radius=desc_cfg.radius, descriptor_choice=desc_cfg.descriptor_choice,
-        fpfh_n_bins=desc_cfg.fpfh_n_bins, rho=desc_cfg.rho,
-        subsample_support=desc_cfg.subsample_support, normalize=desc_cfg.normalize,
+        fpfh_n_bins=desc_cfg.fpfh_n_bins, phi=desc_cfg.phi, rho=desc_cfg.rho,
+        n_scales=desc_cfg.n_scales, subsample_support=desc_cfg.subsample_support,
+        normalize=desc_cfg.normalize, share_local_rfs=desc_cfg.share_local_rfs,
         min_neighborhood_size=desc_cfg.min_neighborhood_size)
     timer("Descriptors")
     if compute_cfg.state_cache and not state_resumed:

@@ -26,6 +26,19 @@ def _stable_argsort(key: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
     return order[torch.sort(key[order], stable=True).indices]
 
 
+def _segment_sums(sorted_pts: torch.Tensor, lengths: torch.Tensor):
+    """``(S, 3)`` sums of consecutive segments of ``sorted_pts`` with the
+    given ``lengths``, each added from 0 in sorted order: the rounding of the
+    CPU's ``index_add_`` and of XLA's ``segment_sum``, on every device (the
+    card's ``index_add_`` adds in atomic order, so at an exact distance tie
+    the barycenter's last bit could pick another representative).
+    ``segment_reduce`` over a 2-D input runs one sequential loop per
+    (segment, coordinate) on both devices: one launch, no host sync, the
+    longest segment's length in steps."""
+    return torch.segment_reduce(sorted_pts, "sum", lengths=lengths, axis=0, unsafe=True,
+                                initial=0.0)
+
+
 def _voxel_segments(points: torch.Tensor, voxel_size):
     """Points sorted by voxel: returns ``(order, seg, counts, d)`` with the
     sorted→original ``order``, each sorted point's segment id, per-segment
@@ -42,11 +55,11 @@ def _voxel_segments(points: torch.Tensor, voxel_size):
     new_seg[1:] = (sorted_cell[1:] != sorted_cell[:-1]).any(dim=1)
     seg = torch.cumsum(new_seg.to(torch.int64), 0) - 1
     sorted_pts = points[order]
-    counts = torch.zeros(n, dtype=torch.float32, device=points.device).index_add_(
-        0, seg, torch.ones(n, dtype=torch.float32, device=points.device))
-    sums = torch.zeros((n, 3), dtype=torch.float32, device=points.device).index_add_(
-        0, seg, sorted_pts)
-    bary = sums / torch.clamp(counts, min=1.0)[:, None]
+    starts = torch.nonzero(new_seg)[:, 0]
+    lengths = torch.diff(starts, append=starts.new_full((1,), n))
+    counts = torch.zeros(n, dtype=torch.float32, device=points.device)
+    counts[:starts.shape[0]] = lengths.to(torch.float32)
+    bary = _segment_sums(sorted_pts, lengths) / lengths.to(torch.float32)[:, None]
     diff = sorted_pts - bary[seg]
     d = torch.sqrt(sqnorm3(diff[:, 0], diff[:, 1], diff[:, 2]))
     return order, seg, counts, d

@@ -1,19 +1,26 @@
-"""Single-scale SHOT descriptors — port of ``shot_fpfh_tpu.models.shot``.
+"""SHOT descriptors, single-, bi- and multiscale — port of
+``shot_fpfh_tpu.models.shot``.
 
 352 bins = 11 cosine x 8 azimuth x 2 elevation x 2 radial, with the
 reference's bin conventions (``ops.descriptor_bins``) and true accumulation
-of every contribution.  Two routes, switched at ``AUTO_GRID_MIN_POINTS``
-support points like the reference:
+of every contribution.  Two routes, switched at
+``ops.grid_hash.AUTO_GRID_MIN_POINTS`` support points (read at call time)
+like the reference:
 
 - small supports: brute radius search capped at the ``k_max`` nearest,
   frames by :func:`local_reference_frames`, histogram in PyTorch;
-- large supports: a halo-2 grid window per keypoint holding the exact,
-  uncapped radius neighborhood, frames + binning + histogram in the K1
-  kernel (``ops.shot_fused``).
+- large supports: a halo-2 grid holding the exact, uncapped radius
+  neighborhood of every keypoint, frames + binning + histogram in a kernel:
+  K1 (``ops.shot_fused``) over a gathered ``(Q, F, W)`` window, or, with the
+  run route on (``SHOT_FPFH_DMA``) and an xy-row grid, K5
+  (``ops.shot_dma``) straight over the grid's runs.
 
-Descriptors of neighborhoods with ≤ ``min_neighborhood_size`` points are
-all-zero, the validity convention matching consumes.  Bi-scale and
-multiscale SHOT are not ported yet (ROADMAP.md, Queue 1, item 12).
+Bi-scale SHOT takes its frames from the ``local_rf_radius`` neighborhood
+and its bins from the ``shot_radius`` one; multiscale SHOT concatenates
+per-scale descriptors, each on its own subsampled support, optionally
+sharing the first scale's frames.  Descriptors of neighborhoods with
+≤ ``min_neighborhood_size`` points are all-zero, the validity convention
+matching consumes.
 """
 
 from __future__ import annotations
@@ -24,15 +31,13 @@ import torch
 from .._device import resolve
 from .._fp import sqnorm3
 from ..core.subsampling import grid_subsample
-from ..ops.grid_hash import (
-    AUTO_GRID_MIN_POINTS,
-    build_grid,
-    query_chunk,
-    window_distances,
-)
+from ..ops import grid_hash
+from ..ops.grid_hash import build_grid, query_chunk, window_distances
 from ..ops.neighbors import as_f32, radius_search
+from ..ops.shot_dma import dma_kernel_enabled, shot_descriptor_dma
 from ..ops.shot_fused import local_frames as _local_rfs_ff
 from ..ops.shot_fused import shot_binning_histogram, soft_histogram
+from ..ops.shot_fused import shot_finalize
 
 # far sentinel of padded keypoints: its window is empty, so its descriptor
 # is zero (the reference pads keypoint sets into 1024-row buckets with it)
@@ -52,22 +57,12 @@ def local_reference_frames(keypoints, neighbor_points, mask, radius) -> torch.Te
     return _local_rfs_ff(centered.transpose(1, 2), rho, mask, radius)
 
 
-def _shot_finalize(desc, count, normalize, min_neighborhood_size):
-    """L2-normalize, and zero the descriptors of neighborhoods with
-    ≤ ``min_neighborhood_size`` points."""
-    norm = torch.linalg.norm(desc, dim=-1, keepdim=True)
-    keep = (count > min_neighborhood_size)[:, None] & (norm > 0)
-    if normalize:
-        desc = desc / torch.where(norm > 0, norm, torch.ones_like(norm))
-    return torch.where(keep, desc, torch.zeros_like(desc))
-
-
 def _shot_accumulate(lx, ly, lz, rho, cosine, valid, radius, normalize,
                      min_neighborhood_size):
     """Binning + histogram + finalization from per-neighbor ``(Q, K)``
     local coordinates, distances, cosines and validity."""
     desc = soft_histogram(lx, ly, lz, rho, cosine, valid, radius)
-    return _shot_finalize(desc, valid.sum(-1), normalize, min_neighborhood_size)
+    return shot_finalize(desc, valid.sum(-1), normalize, min_neighborhood_size)
 
 
 def shot_from_neighborhoods(keypoints, neighbor_points, neighbor_normals, mask,
@@ -85,34 +80,54 @@ def shot_from_neighborhoods(keypoints, neighbor_points, neighbor_normals, mask,
 
 def shot_from_window_ff(keypoints, window_vals, window_dist, radius,
                         normalize: bool = True, min_neighborhood_size: int = 100,
-                        local_rfs=None):
+                        local_rfs=None, rf_dist_inf=None, rf_radius=None):
     """SHOT from a feature-first window (``(Q, F≥6, W)`` values,
     distance-or-inf ``(Q, W)``) through the K1 kernel; returns
-    ``(descriptors (Q, 352), frames (Q, 3, 3))``."""
+    ``(descriptors (Q, 352), frames (Q, 3, 3))``.  Bi-scale: the frames come
+    from the ``rf_dist_inf``/``rf_radius`` plane over the same window."""
     if local_rfs is None:
-        hist, rfs = shot_binning_histogram(window_vals, window_dist, keypoints, None, radius)
+        hist, rfs = shot_binning_histogram(window_vals, window_dist, keypoints, None, radius,
+                                           rf_dist_inf=rf_dist_inf, rf_radius=rf_radius)
     else:
         rfs = local_rfs
         hist = shot_binning_histogram(window_vals, window_dist, keypoints, rfs, radius)
     count = (torch.isfinite(window_dist) & (window_dist > 0)).sum(-1)
-    return _shot_finalize(hist, count, normalize, min_neighborhood_size), rfs
+    return shot_finalize(hist, count, normalize, min_neighborhood_size), rfs
+
+
+def _use_dma_kernel(grid) -> bool:
+    """Route the grid SHOT through the run kernel (K5): the run route is on,
+    and the grid is an xy-row grid carrying normals (JAX
+    ``models/shot.py:265-275``)."""
+    return (dma_kernel_enabled() and grid.use_xyrow and grid.xyrow_run_cap > 0
+            and grid.packed_sorted.shape[1] >= 6)
 
 
 def _shot_window_chunked(grid, kp, local_rfs, radius, normalize,
-                         min_neighborhood_size):
-    """Grid-window SHOT over keypoint chunks: the window carries the exact
-    uncapped radius neighborhood (no top-k, no ``k_max``)."""
+                         min_neighborhood_size, rf_radius=None):
+    """Grid SHOT: K5 over the xy-row runs when :func:`_use_dma_kernel`
+    holds, else K1 over gathered windows in keypoint chunks.  Either way the
+    exact uncapped radius neighborhood contributes (no top-k, no ``k_max``);
+    bi-scale frames come from the ``rf_radius`` neighbors of the same grid."""
+    if _use_dma_kernel(grid):
+        return shot_descriptor_dma(grid, kp, radius, rfs=local_rfs, rf_radius=rf_radius,
+                                   normalize=normalize,
+                                   min_neighborhood_size=min_neighborhood_size)
     descs, frames = [], []
     step = min(4096, query_chunk(grid, 8))
     inf = float("inf")
     for s in range(0, kp.shape[0], step):
         qc = kp[s:s + step]
         vals, d, valid, _ = window_distances(grid, qc)
+        rf_dist_inf = None
+        if local_rfs is None and rf_radius is not None:
+            rf_dist_inf = torch.where(valid & (d <= rf_radius), d, torch.full_like(d, inf))
         dist_inf = torch.where(valid & (d <= radius), d, torch.full_like(d, inf))
         desc, rfs = shot_from_window_ff(
             qc, vals, dist_inf, radius, normalize=normalize,
             min_neighborhood_size=min_neighborhood_size,
-            local_rfs=None if local_rfs is None else local_rfs[s:s + step])
+            local_rfs=None if local_rfs is None else local_rfs[s:s + step],
+            rf_dist_inf=rf_dist_inf, rf_radius=rf_radius if rf_dist_inf is not None else None)
         descs.append(desc)
         frames.append(rfs)
     return torch.cat(descs), torch.cat(frames)
@@ -127,7 +142,7 @@ def compute_shot_descriptor(keypoints, support_points, support_normals, radius, 
     sup = as_f32(support_points, resolve(device, support_points))
     nrm = as_f32(support_normals, sup.device)
     kp = as_f32(keypoints, sup.device)
-    if sup.shape[0] >= AUTO_GRID_MIN_POINTS:
+    if sup.shape[0] >= grid_hash.AUTO_GRID_MIN_POINTS:
         grid = build_grid(sup, float(radius) / 2, extras=nrm, halo=2)
         return _shot_window_chunked(grid, kp, local_rfs, radius, normalize,
                                     min_neighborhood_size)
@@ -143,13 +158,15 @@ def compute_shot_descriptor(keypoints, support_points, support_normals, radius, 
 
 
 class ShotComputer:
-    """Single-scale SHOT front end (the reference's ``ShotMultiprocessor``):
-    keypoints are one batch on the device, padded into ``pad_queries_to``
-    buckets with the far sentinel."""
+    """Single-, bi- and multiscale SHOT front end (the reference's
+    ``ShotMultiprocessor``): keypoints are one batch on the device, padded
+    into ``pad_queries_to`` buckets with the far sentinel."""
 
-    def __init__(self, normalize: bool = True, min_neighborhood_size: int = 100,
-                 k_max: int = 512, pad_queries_to: int = 1024, device=None):
+    def __init__(self, normalize: bool = True, share_local_rfs: bool = True,
+                 min_neighborhood_size: int = 100, k_max: int = 512,
+                 pad_queries_to: int = 1024, device=None):
         self.normalize = normalize
+        self.share_local_rfs = share_local_rfs
         self.min_neighborhood_size = min_neighborhood_size
         self.k_max = k_max
         self.pad_queries_to = pad_queries_to
@@ -173,11 +190,59 @@ class ShotComputer:
         far = np.full((padded - len(kp), 3), _FAR, np.float32)
         return np.concatenate([kp, far]), len(kp)
 
+    def _shot(self, kp, sup, nrm, radius, local_rfs=None):
+        return compute_shot_descriptor(
+            kp, sup, nrm, radius, k_max=self.k_max, normalize=self.normalize,
+            min_neighborhood_size=self.min_neighborhood_size, local_rfs=local_rfs,
+            device=sup.device)
+
     def compute_descriptor_single_scale(self, point_cloud, normals, keypoints,
                                         radius, subsampling_voxel_size=None):
         sup, nrm = self._support(point_cloud, normals, subsampling_voxel_size)
         kp, n_kp = self._pad(keypoints)
-        desc, _ = compute_shot_descriptor(
-            kp, sup, nrm, radius, k_max=self.k_max, normalize=self.normalize,
-            min_neighborhood_size=self.min_neighborhood_size, device=sup.device)
+        desc, _ = self._shot(kp, sup, nrm, radius)
         return desc[:n_kp]
+
+    def compute_descriptor_bi_scale(self, point_cloud, normals, keypoints,
+                                    local_rf_radius, shot_radius,
+                                    subsampling_voxel_size=None):
+        """Frames from the ``local_rf_radius`` neighborhoods, bins from the
+        ``shot_radius`` ones (reference shot_parallelization.py:185-239).
+        Large supports: one grid at ``max(local_rf_radius, shot_radius)/2``,
+        halo 2, both planes over the same neighborhoods (K1's or K5's
+        bi-scale mode); small supports: brute-searched frames, then SHOT with
+        them given."""
+        sup, nrm = self._support(point_cloud, normals, subsampling_voxel_size)
+        kp_np, n_kp = self._pad(keypoints)
+        kp = torch.as_tensor(kp_np, device=sup.device)
+        if sup.shape[0] >= grid_hash.AUTO_GRID_MIN_POINTS:
+            max_r = float(max(local_rf_radius, shot_radius))
+            grid = build_grid(sup, max_r / 2, extras=nrm, halo=2)
+            desc, _ = _shot_window_chunked(grid, kp, None, shot_radius, self.normalize,
+                                           self.min_neighborhood_size,
+                                           rf_radius=local_rf_radius)
+            return desc[:n_kp]
+        rf_nbr = radius_search(kp, sup, local_rf_radius, self.k_max)
+        rfs = local_reference_frames(kp, sup[rf_nbr.idx], rf_nbr.mask, local_rf_radius)
+        desc, _ = self._shot(kp, sup, nrm, shot_radius, local_rfs=rfs)
+        return desc[:n_kp]
+
+    def compute_descriptor_multiscale(self, point_cloud, normals, keypoints, radii,
+                                      voxel_sizes=None, weights=None):
+        """Concatenated per-scale descriptors ``(Q, 352·n_scales)``, each
+        scale on its own support (subsampled at ``voxel_sizes[scale]``) and
+        scaled by ``weights[scale]``; with ``share_local_rfs`` every scale
+        takes the first scale's frames (reference
+        shot_parallelization.py:241-312)."""
+        if weights is None:
+            weights = [1.0] * len(radii)
+        kp, n_kp = self._pad(keypoints)
+        descs, shared_rfs = [], None
+        for scale, radius in enumerate(radii):
+            voxel = None if voxel_sizes is None else voxel_sizes[scale]
+            sup, nrm = self._support(point_cloud, normals, voxel)
+            desc, rfs = self._shot(kp, sup, nrm, radius, local_rfs=shared_rfs)
+            if self.share_local_rfs and shared_rfs is None:
+                shared_rfs = rfs
+            descs.append(desc * weights[scale])
+        return torch.cat(descs, dim=1)[:n_kp]

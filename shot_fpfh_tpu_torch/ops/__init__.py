@@ -2,7 +2,13 @@ from .grid_hash import AUTO_GRID_MIN_POINTS, HashGrid, build_grid, window_distan
 from .match import top2_match, top2_match_plain
 from .neighbors import Neighborhoods, knn, nearest_neighbor, radius_count, radius_search
 from .radius_pca import radius_pca, radius_pca_plain
-from .shot_dma import spfh_block_dma, spfh_block_dma_plain, spfh_sorted_dma
+from .shot_dma import (
+    shot_descriptor_dma,
+    shot_descriptor_dma_plain,
+    spfh_block_dma,
+    spfh_block_dma_plain,
+    spfh_sorted_dma,
+)
 from .shot_fused import shot_binning_histogram, shot_binning_histogram_plain
 from .spfh_fused import spfh_histogram, spfh_histogram_plain
 
@@ -22,6 +28,8 @@ __all__ = [
     "radius_pca_plain",
     "shot_binning_histogram",
     "shot_binning_histogram_plain",
+    "shot_descriptor_dma",
+    "shot_descriptor_dma_plain",
     "spfh_block_dma",
     "spfh_block_dma_plain",
     "spfh_sorted_dma",

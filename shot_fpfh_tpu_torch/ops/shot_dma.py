@@ -1,22 +1,31 @@
-"""K6: count-normalized SPFH read straight from the grid's xy-row runs.
+"""K5 and K6: SHOT and SPFH read straight from the grid's xy-row runs.
 
-Counterpart of ``shot_fpfh_tpu/ops/pallas_shot_dma.py::spfh_block_dma`` and
-``spfh_sorted_dma``: on an xy-row grid (``HashGrid.use_xyrow``) carrying
-normals, each query's neighborhood is its ``2h+1`` contiguous xy-row runs of
-the sorted table, so the kernel streams them with no ``(Q, W)`` window
-gather.  A row is a neighbor when its squared distance (the reference's
-contracted ``fma`` chain, ``_fp.sqnorm3``) is ≤ r·r; the SPFH is divided by
-the neighborhood count, self included.  This radius rule differs from the
-window route's ``sqrt(...) ≤ r`` (``models.fpfh._spfh_window_block``): each
-route keeps its reference's rule.
+Counterpart of ``shot_fpfh_tpu/ops/pallas_shot_dma.py``: on an xy-row grid
+(``HashGrid.use_xyrow``) carrying normals, each query's neighborhood is its
+``2h+1`` contiguous xy-row runs of the sorted table, so the kernels stream
+them with no ``(Q, W)`` window gather.  A row is a neighbor when its squared
+distance (the reference's contracted ``fma`` chain, ``_fp.sqnorm3``) is
+≤ r·r.  This radius rule differs from the window routes' ``sqrt(...) ≤ r``
+(``models.shot._shot_window_chunked``, ``models.fpfh._spfh_window_block``):
+each route keeps its reference's rule.
 
-:func:`spfh_block_dma` launches the CUDA kernel (``csrc/spfh_runs.cu``) on
-CUDA tensors and runs :func:`spfh_block_dma_plain` on CPU tensors.
+- K5, :func:`shot_descriptor_dma` (``shot_descriptor_dma``): SHOT frames,
+  soft bins and the 352-bin histogram in one kernel (``csrc/shot_runs.cu``,
+  sharing K1's stage in ``csrc/shot.cuh``), in K1's three modes (own, given
+  and bi-scale frames); the caller's finalization (count rule, L2 norm)
+  stays in PyTorch.
+- K6, :func:`spfh_block_dma` (``spfh_block_dma``, ``spfh_sorted_dma``): the
+  SPFH divided by the neighborhood count, self included
+  (``csrc/spfh_runs.cu``).
 
-The route is off by default, as in the reference: :func:`dma_kernel_enabled`
+Each wrapper launches its CUDA kernel on CUDA tensors and runs its
+``*_plain`` twin on CPU tensors.
+
+The run route is off by default, as in the reference: :func:`dma_kernel_enabled`
 reads ``SHOT_FPFH_DMA`` (``1`` turns it on) and :func:`set_dma_kernel`
-overrides it (``pallas_radius.py:86-110``).  The SHOT run kernel (K5) is not
-ported yet (ROADMAP.md, Queue 1, item 12).
+overrides it (``pallas_radius.py:86-110``).  When on, SHOT (single-scale,
+bi-scale and multiscale) takes K5 and FPFH's SPFH pass takes K6 on every
+qualifying grid.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ from .. import _kernels
 from .._fp import sqnorm3
 from .descriptor_bins import darboux_angles
 from .grid_hash import _CHUNK_ELEMS, HashGrid, _xyrow_runs, check_radius_contract
+from .shot_fused import SHOT_DIM, shot_binning_histogram_plain, shot_finalize
 from .spfh_fused import spfh_dim, spfh_from_angles
 
 _DMA = {"enabled": None}  # None: resolve from SHOT_FPFH_DMA on first use
@@ -38,8 +48,8 @@ _MAX_SMEM_FLOATS = 48 * 1024 // 4 // 8
 
 
 def dma_kernel_enabled() -> bool:
-    """Whether FPFH's SPFH pass takes the run route (K6) on qualifying
-    grids; ``SHOT_FPFH_DMA=1`` turns it on, default off."""
+    """Whether SHOT (K5) and FPFH's SPFH pass (K6) take the run route on
+    qualifying grids; ``SHOT_FPFH_DMA=1`` turns it on, default off."""
     if _DMA["enabled"] is None:
         _DMA["enabled"] = os.environ.get("SHOT_FPFH_DMA", "0") != "0"
     return _DMA["enabled"]
@@ -59,6 +69,94 @@ def _check_run_grid(grid: HashGrid, radius) -> None:
     check_radius_contract(grid, radius)
 
 
+def _run_rows(grid: HashGrid, queries):
+    """Each query's runs padded to ``xyrow_run_cap`` rows: ``(rows (C, W),
+    in_run (C, W))`` with ``W = (2h+1)·cap``, rows clamped to 0 where out
+    of the run."""
+    start, end = _xyrow_runs(grid, queries)                       # (C, R)
+    j = torch.arange(grid.xyrow_run_cap, device=queries.device)
+    rows = start[:, :, None] + j                                   # (C, R, cap)
+    in_run = (rows < end[:, :, None]).reshape(queries.shape[0], -1)
+    return torch.where(in_run, rows.reshape(queries.shape[0], -1), 0), in_run
+
+
+def _shot_chunk_plain(grid: HashGrid, q, radius, rfs, rf_radius):
+    """``(hist, frames, count)`` of one keypoint chunk by the K1 twin over
+    the padded runs, the planes set by the run route's radius rule."""
+    rows, in_run = _run_rows(grid, q)
+    vals = grid.packed_sorted[rows]                                # (C, W, F)
+    rho2 = sqnorm3(*(vals[..., i] - q[:, i:i + 1] for i in range(3)))
+    d = torch.sqrt(rho2)
+    inf = torch.full_like(d, float("inf"))
+
+    def plane(r):
+        r = torch.tensor(float(r), dtype=torch.float32, device=q.device)
+        return torch.where(in_run & (rho2 <= r * r), d, inf)
+
+    dist_inf = plane(radius)
+    rf_dist_inf = None if rf_radius is None else plane(rf_radius)
+    out = shot_binning_histogram_plain(vals[..., :6].permute(0, 2, 1), dist_inf, q, rfs,
+                                       radius, rf_dist_inf, rf_radius)
+    hist, frames = out if rfs is None else (out, rfs)
+    return hist, frames, (torch.isfinite(dist_inf) & (dist_inf > 0)).sum(-1)
+
+
+def shot_descriptor_dma_plain(grid: HashGrid, keypoints, radius, rfs=None, rf_radius=None,
+                              normalize: bool = True, min_neighborhood_size: int = 100):
+    """PyTorch twin of :func:`shot_descriptor_dma`: each keypoint's runs
+    padded to ``xyrow_run_cap`` rows, the same radius rule, K1's twin on
+    them, chunked by ``_CHUNK_ELEMS``."""
+    rf_radius = None if rfs is not None else rf_radius
+    _check_run_grid(grid, radius if rf_radius is None else max(radius, rf_radius))
+    step = max(1, _CHUNK_ELEMS // ((2 * grid.halo + 1) * grid.xyrow_run_cap * 8))
+    hists, frames, counts = [], [], []
+    for s in range(0, keypoints.shape[0], step):
+        h, f, c = _shot_chunk_plain(grid, keypoints[s:s + step], radius,
+                                    None if rfs is None else rfs[s:s + step], rf_radius)
+        hists.append(h)
+        frames.append(f)
+        counts.append(c)
+    if not hists:
+        return keypoints.new_zeros((0, SHOT_DIM)), keypoints.new_zeros((0, 3, 3))
+    return (shot_finalize(torch.cat(hists), torch.cat(counts), normalize,
+                          min_neighborhood_size), torch.cat(frames))
+
+
+def shot_descriptor_dma(grid: HashGrid, keypoints: torch.Tensor, radius, rfs=None,
+                        rf_radius=None, normalize: bool = True,
+                        min_neighborhood_size: int = 100):
+    """``(desc (Q, 352) finalized, rfs (Q, 3, 3))`` of the keypoints over
+    ``grid``'s xy-row runs: frames from the descriptor neighborhood, given
+    ``rfs`` (multiscale sharing), or, with ``rf_radius``, from the neighbors
+    within ``rf_radius`` (bi-scale)."""
+    if keypoints.device.type == "cpu":
+        return shot_descriptor_dma_plain(grid, keypoints, radius, rfs, rf_radius,
+                                         normalize, min_neighborhood_size)
+    rf_radius = None if rfs is not None else rf_radius
+    _check_run_grid(grid, radius if rf_radius is None else max(radius, rf_radius))
+    table = grid.packed_sorted
+    tensors = [keypoints, table] + ([] if rfs is None else [rfs])
+    device = _kernels.require_cuda(*tensors)
+    q = keypoints.shape[0]
+    if keypoints.shape != (q, 3) or (rfs is not None and rfs.shape != (q, 3, 3)):
+        raise ValueError(f"bad keypoint or frame shapes {tuple(keypoints.shape)}")
+    if any(t.dtype != torch.float32 for t in tensors) or not table.is_contiguous():
+        raise ValueError("run kernel inputs must be float32 (table contiguous)")
+    kp = keypoints.contiguous()
+    start, end = (t.contiguous() for t in _xyrow_runs(grid, kp))
+    rfs_in = None if rfs is None else rfs.reshape(q, 9).contiguous()
+    hist = torch.empty((q, SHOT_DIM), dtype=torch.float32, device=kp.device)
+    rfs_out = (torch.empty((q, 3, 3), dtype=torch.float32, device=kp.device)
+               if rfs is None else None)
+    count = torch.empty(q, dtype=torch.float32, device=kp.device)
+    _kernels.launch("shot_runs", device, table.data_ptr(), table.shape[1], kp.data_ptr(),
+                    start.data_ptr(), end.data_ptr(), start.shape[1], q, _kernels.ptr(rfs_in),
+                    float(radius), float(radius if rf_radius is None else rf_radius),
+                    hist.data_ptr(), _kernels.ptr(rfs_out), count.data_ptr())
+    return (shot_finalize(hist, count, normalize, min_neighborhood_size),
+            rfs if rfs_out is None else rfs_out)
+
+
 def spfh_block_dma_plain(grid: HashGrid, qc, qn, radius, n_bins: int, decorrelated: bool):
     """PyTorch twin of the kernel: each query's runs padded to
     ``xyrow_run_cap`` rows, the same radius rule, angles and bins."""
@@ -66,15 +164,12 @@ def spfh_block_dma_plain(grid: HashGrid, qc, qn, radius, n_bins: int, decorrelat
     n_runs, cap = 2 * grid.halo + 1, grid.xyrow_run_cap
     r = torch.tensor(float(radius), dtype=torch.float32, device=qc.device)
     rr = r * r
-    j = torch.arange(cap, device=qc.device)
     out = []
     step = max(1, _CHUNK_ELEMS // (n_runs * cap * 8))
     for s in range(0, qc.shape[0], step):
         q, u = qc[s:s + step], qn[s:s + step]
-        start, end = _xyrow_runs(grid, q)                          # (C, R)
-        rows = start[:, :, None] + j                                # (C, R, cap)
-        seg = (rows < end[:, :, None]).reshape(q.shape[0], -1)
-        vals = grid.packed_sorted[torch.where(seg, rows.reshape(q.shape[0], -1), 0)]
+        rows, seg = _run_rows(grid, q)
+        vals = grid.packed_sorted[rows]
         diff = [vals[..., i] - q[:, i:i + 1] for i in range(3)]
         rho2 = sqnorm3(*diff)
         ok = seg & (rho2 <= rr)

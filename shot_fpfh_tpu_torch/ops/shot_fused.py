@@ -1,11 +1,13 @@
 """K1: SHOT local reference frames + soft binning + histogram on a window.
 
 Counterpart of ``shot_fpfh_tpu/ops/pallas_shot_fused.py::shot_binning_histogram``
-in its own-frames and given-frames modes: from a feature-first candidate
-window (``vals (Q, F≥6, W)`` rows ``[x y z nx ny nz ...]``, ``dist (Q, W)``
-with +inf on invalid lanes) it returns the unnormalized ``(Q, 352)``
-histograms and, when the frames are computed, the ``(Q, 3, 3)`` frames
-(columns x, y, z).
+in its three modes: from a feature-first candidate window (``vals (Q, F≥6,
+W)`` rows ``[x y z nx ny nz ...]``, ``dist (Q, W)`` with +inf on invalid
+lanes) it returns the unnormalized ``(Q, 352)`` histograms and, when the
+frames are computed, the ``(Q, 3, 3)`` frames (columns x, y, z).  The frames
+come from the window's own neighbors, are given (multiscale sharing), or, in
+bi-scale mode, come from a second validity plane ``rf_dist_inf`` over the
+same window with weights ``max(rf_radius − d, 0)``.
 
 :func:`shot_binning_histogram` launches the CUDA kernel
 (``csrc/shot_fused.cu``) on CUDA tensors and runs
@@ -80,15 +82,25 @@ def soft_histogram(lx, ly, lz, rho, cosine, valid, radius) -> torch.Tensor:
     return hist.index_add_(0, idx, wts).reshape(q, SHOT_DIM)
 
 
-def shot_binning_histogram_plain(vals, dist_inf, keypoints, rfs, radius):
+def shot_binning_histogram_plain(vals, dist_inf, keypoints, rfs, radius, rf_dist_inf=None,
+                                 rf_radius=None):
     """PyTorch twin of the kernel: ``hist`` given ``rfs``, or
-    ``(hist, rfs)`` when ``rfs`` is None (frames from the window)."""
+    ``(hist, rfs)`` when ``rfs`` is None (frames from the window, or from
+    the ``rf_dist_inf`` plane with ``rf_radius`` when it is given)."""
     ok = torch.isfinite(dist_inf)
     pts = vals[:, :3, :]
     nrms = torch.where(ok[:, None, :], vals[:, 3:6, :], 0.0)
     centered = torch.where(ok[:, None, :], pts - keypoints[:, :, None], 0.0)
     rho = torch.where(ok, dist_inf, 0.0)
-    frames = local_frames(centered, rho, ok, radius) if rfs is None else rfs
+    if rfs is not None:
+        frames = rfs
+    elif rf_dist_inf is not None:
+        ok_rf = torch.isfinite(rf_dist_inf)
+        centered_rf = torch.where(ok_rf[:, None, :], pts - keypoints[:, :, None], 0.0)
+        frames = local_frames(centered_rf, torch.where(ok_rf, rf_dist_inf, 0.0), ok_rf,
+                              rf_radius)
+    else:
+        frames = local_frames(centered, rho, ok, radius)
     lx, ly, lz = (_project(centered, frames[..., :, j]) for j in range(3))
     cosine = torch.clamp(_project(nrms, frames[..., :, 2]), -1.0, 1.0)
     hist = soft_histogram(lx, ly, lz, rho, cosine, ok & (rho > 0), radius)
@@ -96,26 +108,47 @@ def shot_binning_histogram_plain(vals, dist_inf, keypoints, rfs, radius):
 
 
 def shot_binning_histogram(vals: torch.Tensor, dist_inf: torch.Tensor,
-                           keypoints: torch.Tensor, rfs, radius: float):
+                           keypoints: torch.Tensor, rfs, radius: float, rf_dist_inf=None,
+                           rf_radius=None):
     """Unnormalized ``(Q, 352)`` SHOT histograms of a window; with
-    ``rfs=None`` the frames are computed too and ``(hist, rfs)`` returned."""
+    ``rfs=None`` the frames are computed too and ``(hist, rfs)`` returned,
+    from ``rf_dist_inf`` with ``rf_radius`` (bi-scale) when it is given."""
+    if rfs is not None:
+        rf_dist_inf = None
+    if rf_dist_inf is not None and rf_radius is None:
+        raise ValueError("rf_dist_inf needs rf_radius")
     if vals.device.type == "cpu":
-        return shot_binning_histogram_plain(vals, dist_inf, keypoints, rfs, radius)
-    tensors = [vals, dist_inf, keypoints] + ([] if rfs is None else [rfs])
+        return shot_binning_histogram_plain(vals, dist_inf, keypoints, rfs, radius,
+                                            rf_dist_inf, rf_radius)
+    tensors = [vals, dist_inf, keypoints] + [t for t in (rfs, rf_dist_inf) if t is not None]
     device = _kernels.require_cuda(*tensors)
     q, nf, w = vals.shape
-    if nf < 6 or dist_inf.shape != (q, w) or keypoints.shape != (q, 3):
+    if (nf < 6 or dist_inf.shape != (q, w) or keypoints.shape != (q, 3)
+            or (rf_dist_inf is not None and rf_dist_inf.shape != (q, w))):
         raise ValueError(f"bad window shapes {tuple(vals.shape)}, "
                          f"{tuple(dist_inf.shape)}, {tuple(keypoints.shape)}")
     if any(t.dtype != torch.float32 for t in tensors):
         raise ValueError("SHOT kernel inputs must be float32")
     vals, dist_inf, keypoints = (t.contiguous() for t in (vals, dist_inf, keypoints))
+    rf_plane = None if rf_dist_inf is None else rf_dist_inf.contiguous()
     rfs_in = None if rfs is None else rfs.reshape(q, 9).contiguous()
     hist = torch.empty((q, SHOT_DIM), dtype=torch.float32, device=vals.device)
     rfs_out = (torch.empty((q, 3, 3), dtype=torch.float32, device=vals.device)
                if rfs is None else None)
     _kernels.launch(
         "shot_binning_histogram", device, vals.data_ptr(), dist_inf.data_ptr(),
-        keypoints.data_ptr(), _kernels.ptr(rfs_in), hist.data_ptr(),
-        _kernels.ptr(rfs_out), q, nf, w, float(radius))
+        _kernels.ptr(rf_plane), keypoints.data_ptr(), _kernels.ptr(rfs_in), hist.data_ptr(),
+        _kernels.ptr(rfs_out), q, nf, w, float(radius),
+        float(radius if rf_radius is None else rf_radius))
     return (hist, rfs_out) if rfs is None else hist
+
+
+def shot_finalize(desc, count, normalize, min_neighborhood_size):
+    """L2-normalize, and zero the descriptors of neighborhoods with
+    ≤ ``min_neighborhood_size`` points (the validity convention matching
+    consumes)."""
+    norm = torch.linalg.norm(desc, dim=-1, keepdim=True)
+    keep = (count > min_neighborhood_size)[:, None] & (norm > 0)
+    if normalize:
+        desc = desc / torch.where(norm > 0, norm, torch.ones_like(norm))
+    return torch.where(keep, desc, torch.zeros_like(desc))

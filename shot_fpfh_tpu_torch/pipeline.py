@@ -2,8 +2,9 @@
 
 Holds the scan/ref clouds on the host, memoizes each stage's result
 (recomputed only on ``force_recompute``), and runs the stages on
-``device`` (default ``cuda``): voxel keypoints, single-scale SHOT or FPFH,
-nearest / ratio-test matching, RANSAC, ICP, and the post-ICP metrics.
+``device`` (default ``cuda``): voxel keypoints, single-, bi- or multiscale
+SHOT or FPFH, nearest / ratio-test matching, RANSAC, ICP, and the post-ICP
+metrics.
 Stage timings go to ``self.metrics``.  Dispatcher branches this port does not cover yet raise
 ``NotImplementedError`` naming the ROADMAP.md item that will port them.
 """
@@ -96,39 +97,99 @@ class RegistrationPipeline:
                         getattr(self, side).shape[0])
 
     # ----------------------------------------------------------- descriptors --
+    def _shot_computer(self, **shot_config) -> ShotComputer:
+        return ShotComputer(k_max=self.k_max_descriptor, device=self.device, **shot_config)
+
+    def compute_shot_descriptor_single_scale(
+        self, radius, subsampling_voxel_size=None, force_recompute: bool = False,
+        **shot_config,
+    ) -> None:
+        """Reference API (pipeline.py:132-174): single-scale SHOT of both
+        clouds' keypoints; ``shot_config`` goes to :class:`ShotComputer`."""
+        computer = self._shot_computer(**shot_config)
+        for side in ("scan", "ref"):
+            if getattr(self, f"{side}_descriptors") is None or force_recompute:
+                cloud, normals, kp = self._side(side)
+                setattr(self, f"{side}_descriptors", computer.compute_descriptor_single_scale(
+                    cloud, normals, cloud[kp], radius=radius,
+                    subsampling_voxel_size=subsampling_voxel_size))
+
+    def compute_shot_descriptor_bi_scale(
+        self, local_rf_radius, shot_radius, subsampling_voxel_size=None,
+        force_recompute: bool = False, **shot_config,
+    ) -> None:
+        """Reference API (pipeline.py:176-221): bi-scale SHOT, frames at
+        ``local_rf_radius`` and bins at ``shot_radius``."""
+        computer = self._shot_computer(**shot_config)
+        for side in ("scan", "ref"):
+            if getattr(self, f"{side}_descriptors") is None or force_recompute:
+                cloud, normals, kp = self._side(side)
+                setattr(self, f"{side}_descriptors", computer.compute_descriptor_bi_scale(
+                    cloud, normals, cloud[kp], local_rf_radius=local_rf_radius,
+                    shot_radius=shot_radius, subsampling_voxel_size=subsampling_voxel_size))
+
+    def compute_shot_descriptor_multiscale(
+        self, radii, voxel_sizes=None, weights=None, force_recompute: bool = False,
+        **shot_config,
+    ) -> None:
+        """Reference API (pipeline.py:223-269): multiscale SHOT, one scale
+        per radius, concatenated."""
+        computer = self._shot_computer(**shot_config)
+        for side in ("scan", "ref"):
+            if getattr(self, f"{side}_descriptors") is None or force_recompute:
+                cloud, normals, kp = self._side(side)
+                setattr(self, f"{side}_descriptors", computer.compute_descriptor_multiscale(
+                    cloud, normals, cloud[kp], radii=radii, voxel_sizes=voxel_sizes,
+                    weights=weights))
+
+    def _side(self, side: str):
+        return (getattr(self, side), getattr(self, f"{side}_normals"),
+                getattr(self, f"{side}_keypoints"))
+
     def compute_descriptors(
         self, radius: float,
         descriptor_choice: Literal[
             "fpfh", "shot_single_scale", "shot_bi_scale", "shot_multiscale"
         ] = "shot_single_scale",
-        fpfh_n_bins: int = 5, rho: float = 10.0, subsample_support: bool = True,
-        normalize: bool = True, min_neighborhood_size: int = 100,
+        fpfh_n_bins: int = 5, phi: float = 3.0, rho: float = 10.0, n_scales: int = 2,
+        subsample_support: bool = True, normalize: bool = True,
+        share_local_rfs: bool = True, min_neighborhood_size: int = 100,
         force_recompute: bool = False,
     ) -> None:
-        """Stage dispatcher: single-scale SHOT or FPFH of both clouds'
-        keypoints (frame sharing across scales comes with bi-scale SHOT)."""
-        if descriptor_choice in ("shot_bi_scale", "shot_multiscale", "shot_multi_scale"):
-            raise _not_ported(f"{descriptor_choice} SHOT", "Queue 1, item 12")
-        if descriptor_choice not in ("shot_single_scale", "fpfh"):
+        """Stage dispatcher (reference pipeline.py:271-349; both spellings of
+        multiscale are accepted): bi-scale SHOT takes its frames at
+        ``radius`` and its bins at ``radius·phi``; multiscale SHOT runs
+        ``n_scales`` scales at ``radius·phi^s``, each on a support
+        subsampled at its radius / ``rho``."""
+        if descriptor_choice == "shot_multi_scale":
+            descriptor_choice = "shot_multiscale"
+        if descriptor_choice not in ("shot_single_scale", "shot_bi_scale", "shot_multiscale",
+                                     "fpfh"):
             raise ValueError("Incorrect descriptor choice")
         self.metrics.start(f"descriptors[{descriptor_choice}]")
-        computer = ShotComputer(
-            normalize=normalize, min_neighborhood_size=min_neighborhood_size,
-            k_max=self.k_max_descriptor, device=self.device)
+        shot_config = dict(normalize=normalize, share_local_rfs=share_local_rfs,
+                           min_neighborhood_size=min_neighborhood_size)
         voxel = radius / rho if subsample_support else None
-        for side in ("scan", "ref"):
-            if getattr(self, f"{side}_descriptors") is None or force_recompute:
-                cloud, normals = getattr(self, side), getattr(self, f"{side}_normals")
-                kp_idx = getattr(self, f"{side}_keypoints")
-                if descriptor_choice == "fpfh":
-                    desc = compute_fpfh_descriptor(
-                        kp_idx, cloud, normals, radius=radius, n_bins=fpfh_n_bins,
-                        k_max=self.k_max_fpfh, device=self.device)
-                else:
-                    desc = computer.compute_descriptor_single_scale(
-                        cloud, normals, cloud[kp_idx], radius=radius,
-                        subsampling_voxel_size=voxel)
-                setattr(self, f"{side}_descriptors", desc)
+        if descriptor_choice == "shot_single_scale":
+            self.compute_shot_descriptor_single_scale(
+                radius, subsampling_voxel_size=voxel, force_recompute=force_recompute,
+                **shot_config)
+        elif descriptor_choice == "shot_bi_scale":
+            self.compute_shot_descriptor_bi_scale(
+                radius, radius * phi, subsampling_voxel_size=voxel,
+                force_recompute=force_recompute, **shot_config)
+        elif descriptor_choice == "shot_multiscale":
+            radii = radius * phi ** np.arange(n_scales)
+            self.compute_shot_descriptor_multiscale(
+                list(radii), voxel_sizes=list(radii / rho) if subsample_support else None,
+                force_recompute=force_recompute, **shot_config)
+        else:
+            for side in ("scan", "ref"):
+                if getattr(self, f"{side}_descriptors") is None or force_recompute:
+                    cloud, normals, kp = self._side(side)
+                    setattr(self, f"{side}_descriptors", compute_fpfh_descriptor(
+                        kp, cloud, normals, radius=radius, n_bins=fpfh_n_bins,
+                        k_max=self.k_max_fpfh, device=self.device))
         self.metrics.stop(descriptors=len(self.scan_keypoints) + len(self.ref_keypoints))
 
     # -------------------------------------------------------------- matching --

@@ -89,6 +89,11 @@ def test_k2_top2_kernel_fpfh_width(cuda, rng):
     test_k2_top2_kernel(cuda, rng, True, dim=125)
 
 
+def test_k2_top2_kernel_multiscale_width(cuda, rng):
+    """Two-scale SHOT's 704 columns."""
+    test_k2_top2_kernel(cuda, rng, True, dim=704)
+
+
 @pytest.mark.parametrize("own_frames", [True, False])
 def test_k1_shot_kernel(cuda, rng, own_frames):
     pts = _surface(rng, 30_000, cuda)
@@ -109,9 +114,56 @@ def test_k1_shot_kernel(cuda, rng, own_frames):
     else:
         hist = _counted("shot_binning_histogram",
                         lambda: shot_binning_histogram(vals, dist, kp, rfs_p, 0.5))
-    diff = (hist - hist_p).abs()
-    assert float((diff > 5e-3 + 1e-2 * hist_p.abs()).float().mean()) <= 3e-3
+    _assert_shot_flip_rule(hist, hist_p)
+
+
+def _assert_shot_flip_rule(got, want):
+    diff = (got - want).abs()
+    assert float((diff > 5e-3 + 1e-2 * want.abs()).float().mean()) <= 3e-3
     assert float(diff.max()) <= 0.1
+
+
+def test_k1_shot_kernel_bi_scale(cuda, rng):
+    """Frames from the rf plane (one keypoint's rf plane emptied: identity),
+    bins from the descriptor plane, as the twin."""
+    pts = _surface(rng, 30_000, cuda)
+    nrm = torch.nn.functional.normalize(torch.randn_like(pts), dim=1)
+    grid = build_grid(pts, 0.6, extras=nrm, halo=2)
+    kp = pts[::50]
+    vals, d, valid, _ = window_distances(grid, kp)
+    inf = torch.full_like(d, float("inf"))
+    dist = torch.where(valid & (d <= 1.2), d, inf)
+    rf_dist = torch.where(valid & (d <= 0.4), d, inf)
+    rf_dist[7] = float("inf")
+    hist, rfs = _counted("shot_binning_histogram", lambda: shot_binning_histogram(
+        vals, dist, kp, None, 1.2, rf_dist_inf=rf_dist, rf_radius=0.4))
+    hist_p, rfs_p = shot_binning_histogram_plain(vals, dist, kp, None, 1.2, rf_dist, 0.4)
+    torch.testing.assert_close(rfs, rfs_p, atol=5e-4, rtol=0)
+    assert torch.equal(rfs[7].cpu(), torch.eye(3))
+    _assert_shot_flip_rule(hist, shot_binning_histogram_plain(vals, dist, kp, rfs, 1.2))
+
+
+@pytest.mark.parametrize("mode", ["own", "given", "bi_scale"])
+def test_k5_shot_runs_kernel(cuda, rng, mode):
+    """K5 against its twin: frames atol 5e-4, histograms (min-neighborhood
+    rule off, not normalized) by the flip rule under the same frames; a far
+    keypoint gets a zero row and the identity frame."""
+    pts = _surface(rng, 30_000, cuda)
+    nrm = torch.nn.functional.normalize(torch.randn_like(pts), dim=1)
+    radius, rf_radius = (1.2, 0.4) if mode == "bi_scale" else (0.5, None)
+    grid = build_grid(pts, radius / 2, extras=nrm, halo=2)
+    assert grid.use_xyrow
+    kp = torch.cat([pts[::41], torch.full((1, 3), 1e6, device=cuda)])
+    raw = dict(normalize=False, min_neighborhood_size=-1)
+    _, rfs_p = shot_dma.shot_descriptor_dma_plain(grid, kp, radius, rf_radius=rf_radius, **raw)
+    rfs_in = rfs_p if mode == "given" else None
+    hist, rfs = _counted("shot_runs", lambda: shot_dma.shot_descriptor_dma(
+        grid, kp, radius, rfs=rfs_in, rf_radius=rf_radius, **raw))
+    torch.testing.assert_close(rfs, rfs_p, atol=5e-4, rtol=0)
+    hist_p, _ = shot_dma.shot_descriptor_dma_plain(grid, kp, radius, rfs=rfs, **raw)
+    _assert_shot_flip_rule(hist, hist_p)
+    assert not hist[-1].any() and torch.equal(rfs[-1].cpu(), torch.eye(3))
+    assert float(hist.sum()) > 0
 
 
 def test_golden_pair_on_card(cuda):
@@ -148,19 +200,21 @@ def test_golden_pair_on_card(cuda):
     assert ate < 1e-3
 
 
+def _face_points(rng):
+    """Points on cell faces (integer multiples of 0.45), many duplicated."""
+    faces = rng.integers(0, 40, size=(20_000, 3)).astype(np.float32) * np.float32(0.45)
+    return np.concatenate([np.zeros((1, 3), np.float32), faces, faces[:5000] + np.float32(0.01)])
+
+
 def test_cells_and_bins_match_the_cpu_on_card(cuda, rng):
-    """Points on cell faces (integer multiples of the cell size) fall in the
-    same grid cells, voxels and histogram bins on the card as on the CPU:
-    every index comes from a true float32 division (``_fp.div``), not
-    PyTorch's CUDA multiply by the reciprocal of a Python scalar.  (The
-    voxel representatives are not compared: this cloud's duplicate points
-    make exact distance ties, which the barycenter's atomic-order rounding
-    on the card breaks its own way.)"""
+    """Points on cell faces fall in the same grid cells, voxels and
+    histogram bins on the card as on the CPU: every index comes from a true
+    float32 division (``_fp.div``), not PyTorch's CUDA multiply by the
+    reciprocal of a Python scalar."""
     from shot_fpfh_tpu_torch.core.subsampling import _voxel_segments
     from shot_fpfh_tpu_torch.ops.histogram import bin_index
 
-    faces = rng.integers(0, 40, size=(20_000, 3)).astype(np.float32) * np.float32(0.45)
-    pts = np.concatenate([np.zeros((1, 3), np.float32), faces, faces[:5000] + np.float32(0.01)])
+    pts = _face_points(rng)
     on_card = build_grid(torch.tensor(pts, device=cuda), 0.45)
     on_cpu = build_grid(pts, 0.45, device="cpu")
     assert on_card.dims == on_cpu.dims
@@ -173,6 +227,32 @@ def test_cells_and_bins_match_the_cpu_on_card(cuda, rng):
     x = np.concatenate([edges, np.nextafter(edges, -2), np.nextafter(edges, 2)])
     card, cpu = (bin_index(torch.tensor(x, device=dev), -1.0, 1.0, 5) for dev in (cuda, "cpu"))
     assert torch.equal(card[0].cpu(), cpu[0]) and torch.equal(card[1].cpu(), cpu[1])
+
+
+def test_voxel_representatives_match_the_cpu_on_card(cuda, rng):
+    """Duplicated points make exact distance ties to the voxel barycenter:
+    each voxel is summed in sorted order on both devices, so the card picks
+    the CPU's representatives."""
+    from shot_fpfh_tpu_torch.core.subsampling import grid_subsample
+
+    pts = _face_points(rng)
+    for voxel in (0.45, 0.9, 2.0):
+        on_card = grid_subsample(torch.tensor(pts, device=cuda), voxel)
+        np.testing.assert_array_equal(on_card, grid_subsample(pts, voxel, device="cpu"))
+
+
+def test_voxel_sums_match_the_cpu_on_card_in_a_dense_voxel(cuda, rng):
+    """A skewed cloud (20,000 points in one voxel beside a sparse terrain):
+    the card's voxel sums are bit-identical to the CPU's ``index_add_``."""
+    from shot_fpfh_tpu_torch.core.subsampling import _segment_sums
+
+    lengths = torch.tensor(rng.integers(1, 40, size=3000))
+    lengths[1234] = 20_000
+    pts = torch.tensor(rng.normal(100.0, 3.0, size=(int(lengths.sum()), 3)).astype(np.float32))
+    seg = torch.repeat_interleave(torch.arange(lengths.numel()), lengths)
+    want = torch.zeros(lengths.numel(), 3).index_add_(0, seg, pts)
+    assert torch.equal(_segment_sums(pts, lengths), want)
+    assert torch.equal(_segment_sums(pts.to(cuda), lengths.to(cuda)).cpu(), want)
 
 
 def _spfh_grid(rng, cuda, radius):
@@ -231,6 +311,37 @@ def test_fpfh_cli_on_card(cuda, tmp_path, monkeypatch, run_route):
     assert counts["top2_match"] > 0 and counts["radius_pca"] > 0
     assert (counts["spfh_runs"] > 0) == run_route
     assert (counts["spfh_histogram"] > 0) == (not run_route)
+
+
+@pytest.mark.parametrize("choice,run_route", [("shot_bi_scale", False), ("shot_bi_scale", True),
+                                              ("shot_multiscale", False),
+                                              ("shot_multiscale", True)])
+def test_multiscale_cli_on_card(cuda, tmp_path, monkeypatch, choice, run_route):
+    """A 30k-point terrain pair (the smoke terrain's density) registered
+    with bi-scale and multiscale SHOT through the CLI on the card (radius
+    0.9, phi 3, 2 scales; rho 20 keeps the first scale's support above
+    20k points, so it takes the grid routes): the window route launches
+    K1, the run route K5 and no K1."""
+    from shot_fpfh_tpu_torch import cli
+    from shot_fpfh_tpu_torch.io.ply import write_ply
+
+    rng = np.random.default_rng(72)
+    ref = make_terrain(30_000, rng, scale=10 * 0.3 ** 0.5, n_bumps=12)
+    rot = rotation_about([0.3, -0.2, 1.0], np.deg2rad(15.0))
+    scan = (ref @ rot.T + [0.4, -0.25, 0.15]).astype(np.float32)
+    write_ply(str(tmp_path / "scan.ply"), [scan], ["x", "y", "z"])
+    write_ply(str(tmp_path / "ref.ply"), [ref], ["x", "y", "z"])
+    monkeypatch.setitem(shot_dma._DMA, "enabled", run_route)
+    _kernels.reset_launch_counts()
+    assert cli.main(["--scan_file_path", str(tmp_path / "scan.ply"),
+                     "--ref_file_path", str(tmp_path / "ref.ply"), "--conf_file_path", "",
+                     "--output_dir", str(tmp_path / "out"), "--neighborhood_size", "0.15",
+                     "--min_n_neighbors", "5", "--descriptor_choice", choice,
+                     "--radius", "0.9", "--rho", "20", "--phi", "3", "--n_scales", "2"]) == 0
+    counts = _kernels.launch_counts
+    assert counts["top2_match"] > 0 and counts["radius_pca"] > 0
+    assert (counts["shot_runs"] > 0) == run_route
+    assert (counts["shot_binning_histogram"] > 0) == (not run_route)
 
 
 def test_entry_points_default_to_the_card(cuda):

@@ -176,8 +176,8 @@ def test_cli_refuses_unported_options(flag):
         main(["--device", "cpu", *flag])
 
 
-@pytest.mark.parametrize("flag", [["--n_scales", "3"], ["--mesh_axis", "points"],
-                                  ["--n_procs", "2"], ["--phi", "2.0"]])
+@pytest.mark.parametrize("flag", [["--normals_computation_k", "20"], ["--mesh_axis", "points"],
+                                  ["--n_procs", "2"], ["--disable_progress_bars"]])
 def test_cli_has_no_flags_of_unported_features(flag, capsys):
     from shot_fpfh_tpu_torch.cli import main
 

@@ -21,9 +21,14 @@ Phases, one line each; any failure exits non-zero with no result line:
    K3 radius covariance (100k queries, scalar and per-query radius),
    K4 SPFH window histogram (one 8192-point chunk of a 100k-point terrain,
    radius 0.9, k=30 normals, joint and decorrelated),
-   K6 SPFH over xy-row runs (all 100k points of that terrain), and the
-   voxel sums of ``grid_subsample`` on a skewed cloud (20,000 points in one
-   voxel), bit-identical to the CPU's;
+   K6 SPFH over xy-row runs (all 100k points of that terrain), the voxel
+   sums of ``grid_subsample`` on a skewed cloud (20,000 points in one
+   voxel), bit-identical to the CPU's, and K8 window fetch (K1's keypoints
+   on its own and on the bi-scale grid; the FPFH chunk; phase 10's queries
+   on the PCA features' three-column grid) and K7 masked radius distances
+   (all 100k points of the smoke pair's ref on the iterative path's halo-2
+   grid; the ICP's subsampled scan against the ref's 1-NN grid), each
+   bit-identical to its plain version (``torch.equal`` on every output);
 4. SHOT path: the port's ``cli.main`` on a ~100k-point terrain pair (scan =
    known rigid motion of ref + noise) with ``config/default.yaml``, run
    cold once and then measured; the registration must be accepted, within
@@ -39,8 +44,18 @@ Phases, one line each; any failure exits non-zero with no result line:
 7. multiscale SHOT (``--n_scales 2``: radii 0.9 and 2.7, 704 columns) on the
    window route (K1, and K2 at D = 704); scale 2's support, subsampled at
    2.7/10, is under 20k points and takes the brute route;
-8. single-scale SHOT on the run route (K5, no K1).
-Phases 6–8 run cold, then measured, each accepted within the same bounds.
+8. single-scale SHOT on the run route (K5, no K1);
+9. iterative keypoints (``--selection_algorithm iterative
+   --neighborhood_size 0.3``: greedy coverage over the K7 radius search),
+   single-scale SHOT; the measured run launches K7, K8, K1, K2 and K3, and
+   both clouds' keypoints equal the port's keypoints for them on the CPU;
+10. PCA features of 20,000 points of the 100k ref at radius 0.3 (radius
+   normals, sphericity, the basic and the 21-column features: K3 and K8),
+   held to the port's plain CPU run within 1e-6 (the angle columns 1e-4);
+11. single-scale SHOT with ``--matching_algorithm threshold`` and with
+   ``--selection_algorithm random``, one measured run each.
+Phases 4–9 run cold, then measured, each accepted within the same bounds;
+every window route launches K8, and every ICP K7.
 """
 
 from __future__ import annotations
@@ -113,12 +128,33 @@ SHOT_ROUTE_PARTED_FRAC = 1e-2
 KEYPOINT_VOXEL = 0.15
 VOXEL_CLUSTER = 20_000
 
-# each path and the kernels its measured run must launch (and must not)
-SHOT_PATH = ("shot_binning_histogram", "top2_match", "radius_pca")
-FPFH_WINDOW_PATH = ("top2_match", "radius_pca", "spfh_histogram")
-FPFH_RUN_PATH = ("top2_match", "radius_pca", "spfh_runs")
-SHOT_RUN_PATH = ("shot_runs", "top2_match", "radius_pca")
-MULTISCALE_PATH = ("shot_binning_histogram", "top2_match")
+# phase 9's greedy radius (--neighborhood_size): balls of ~62 points, at
+# most ~105 on the smoke terrain, under the 128-neighbor cap; phase 10's
+# feature radius and query count; the ICP's voxel and d_max
+# (config/default.yaml), whose 1-NN grid K7 searches
+ITERATIVE_RADIUS = 0.3
+FEATURE_RADIUS, FEATURE_QUERIES = 0.3, 20_000
+ICP_VOXEL, ICP_D_MAX = 0.2, 0.5
+# phase 10 against the CPU: eigenvalues, moments, sphericity and every
+# column of the basic and the 21 features but the angles, within
+# FEATURE_ATOL (the smallest moments are ~1e-4, λ_min ~1e-4: the JAX test's
+# 1e-4 / 1e-3 (tests/test_normals.py:124-131) would pass a wrong kernel);
+# the angle columns 2·arcsin|x|/π, whose slope 1/sqrt(1 - x²) is steep at
+# |x| = 1, within FEATURE_ANGLE_ATOL
+FEATURE_ATOL, FEATURE_ANGLE_ATOL = 1e-6, 1e-4
+# the angle columns of compute_pca_based_basic_features (stacked) and of
+# compute_pca_based_features
+BASIC_ANGLE_COLS, FEATURE_ANGLE_COLS = (0,), (8, 9, 10, 11)
+
+# each path and the kernels its measured run must launch (and must not):
+# every window route fetches through K8, every ICP's grid 1-NN runs K7
+WINDOW, NN = "fetch_windows", "radius_dist"
+SHOT_PATH = ("shot_binning_histogram", "top2_match", "radius_pca", WINDOW, NN)
+FPFH_WINDOW_PATH = ("top2_match", "radius_pca", "spfh_histogram", WINDOW, NN)
+FPFH_RUN_PATH = ("top2_match", "radius_pca", "spfh_runs", NN)
+SHOT_RUN_PATH = ("shot_runs", "top2_match", "radius_pca", NN)
+MULTISCALE_PATH = ("shot_binning_histogram", "top2_match", WINDOW, NN)
+ITERATIVE_PATH = (NN, WINDOW, "shot_binning_histogram", "top2_match", "radius_pca")
 
 
 def make_terrain(n: int, rng: np.random.Generator, scale: float = 10.0,
@@ -640,15 +676,126 @@ def voxel_sums(dev, rng):
           f"(without the cluster {uniform_ms:.3f} ms)", flush=True)
 
 
-class _StageLog(logging.Handler):
-    """Collects the CLI's stage timer lines (``utils.perf.checkpoint``)."""
+def _runs_case(grid, queries):
+    """The K7 / K8 inputs of ``queries`` on ``grid``: its table, the runs and
+    the window width, and the count of window slots inside the runs."""
+    import torch
 
-    def __init__(self):
+    from shot_fpfh_tpu_torch.ops.grid_hash import _zcolumn_runs
+
+    start, end = _zcolumn_runs(grid, queries)
+    lanes = float(torch.clamp((end - start).sum(1), max=grid.window_cap).sum())
+    return (grid.packed_sorted, queries, start, end, grid.window_cap), lanes
+
+
+def _max_abs_diff(got, want) -> float:
+    """The largest |got - want| of two float tensors, equal entries
+    (infinities included) counting 0."""
+    import torch
+
+    return float(torch.where(got == want, 0.0, (got - want).abs()).max())
+
+
+def parity_k8(label: str, grid, queries) -> dict:
+    """K8 against its twin on every output (``torch.equal``); bound: the
+    window written ((Q, W) slots of F + 1 floats, a bool and an int64), the
+    run rows read once, a distance per row."""
+    import torch
+
+    from shot_fpfh_tpu_torch.ops.radius_runs import fetch_windows, fetch_windows_plain
+
+    args, lanes = _runs_case(grid, queries)
+    got, want = fetch_windows(*args), fetch_windows_plain(*args)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("vals", "dist", "valid", "rows"), got, want):
+        check(torch.equal(g, w), f"K8 {label}: {name} differs from the plain version")
+    err = max(_max_abs_diff(got[0], want[0]), _max_abs_diff(got[1], want[1]))
+    ms = cuda_ms(lambda: fetch_windows(*args))
+    plain_ms = cuda_ms(lambda: fetch_windows_plain(*args))
+    q, f, w = got[0].shape
+    b = bound(q * w * (4 * f + 4 + 1 + 8) + lanes * 4 * f + q * 12 + args[2].numel() * 16,
+              lanes * OPS_DIST_TEST)
+    print(f"phase 3 K8 fetch_windows ({label}): {q} queries x window {w}, {f} features, "
+          f"halo {grid.halo}, {lanes / q:.0f} rows a query: vals, dist, valid and rows "
+          f"bit-identical (max abs err {err}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
+
+
+def parity_k7(label: str, grid, queries, radius: float) -> dict:
+    """K7 against its twin on both outputs (``torch.equal``); bound: the
+    (Q, W) rows and distances written, the run rows' xyz read once, a
+    distance per row."""
+    import torch
+
+    from shot_fpfh_tpu_torch.ops.radius_runs import radius_dist, radius_dist_plain
+
+    args, lanes = _runs_case(grid, queries)
+    got, want = radius_dist(*args, radius), radius_dist_plain(*args, radius)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("rows", "dist"), got, want):
+        check(torch.equal(g, w), f"K7 {label}: {name} differs from the plain version")
+    err = _max_abs_diff(got[1], want[1])
+    ms = cuda_ms(lambda: radius_dist(*args, radius))
+    plain_ms = cuda_ms(lambda: radius_dist_plain(*args, radius))
+    q, w = got[0].shape
+    inside = float(torch.isfinite(got[1]).sum())
+    b = bound(q * w * (4 + 8) + lanes * 12 + q * 12 + args[2].numel() * 16,
+              lanes * OPS_DIST_TEST)
+    print(f"phase 3 K7 radius_dist ({label}): {q} queries x window {w}, halo {grid.halo}, "
+          f"radius {radius}, {lanes / q:.0f} rows and {inside / q:.1f} within the radius a "
+          f"query: rows and distances bit-identical (max abs err {err}); kernel {ms:.3f} ms, "
+          f"plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})",
+          flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
+
+
+def feature_queries(pair) -> np.ndarray:
+    """Phase 10's FEATURE_QUERIES query points: every k-th point of the ref."""
+    return pair.ref[::pair.ref.shape[0] // FEATURE_QUERIES][:FEATURE_QUERIES]
+
+
+def parity_pair_paths(pair, dev) -> tuple[dict, dict]:
+    """K7 at its two paths' shapes on the smoke pair: the iterative path's
+    search (every ref point on the halo-2 grid of cell 0.15, radius 0.3) and
+    the ICP's 1-NN (the scan subsampled at voxel 0.2, moved onto the ref,
+    against the ref's grid of cell d_max, radius +inf); and K8 at the PCA
+    features' (phase 10's queries on the ref's halo-2 grid of cell 0.15,
+    three columns: no normals)."""
+    import torch
+
+    from shot_fpfh_tpu_torch.core.subsampling import grid_subsample
+    from shot_fpfh_tpu_torch.ops.grid_hash import build_grid
+
+    ref = torch.tensor(pair.ref, device=dev)
+    grid = build_grid(ref, ITERATIVE_RADIUS / 2, halo=2)
+    k7 = parity_k7("iterative search", grid, ref, ITERATIVE_RADIUS)
+    scan = torch.tensor(pair.scan, device=dev)
+    sub = scan[torch.as_tensor(grid_subsample(scan, ICP_VOXEL), device=dev)]
+    moved = ((sub - torch.tensor(pair.trans, dtype=torch.float32, device=dev))
+             @ torch.tensor(pair.rot, dtype=torch.float32, device=dev))
+    parity_k7("ICP 1-NN", build_grid(ref, ICP_D_MAX), moved, float("inf"))
+    k8 = parity_k8("the PCA features", build_grid(ref, FEATURE_RADIUS / 2, halo=2),
+                   torch.tensor(feature_queries(pair), device=dev))
+    return k7, k8
+
+
+class _LogLines(logging.Handler):
+    """Collects the messages of one logger while attached."""
+
+    def __init__(self, name: str):
         super().__init__()
-        self.lines = []
+        self.logger, self.lines = logging.getLogger(name), []
 
     def emit(self, record):
         self.lines.append(record.getMessage())
+
+    def __enter__(self):
+        self.logger.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self)
 
 
 def _profiled(fn, out_dir: Path):
@@ -740,15 +887,14 @@ class SmokePair:
                   f"{label} (cold run): registration rejected")
             torch.cuda.synchronize()
             cold_wall = time.perf_counter() - t0
-        stage_log = _StageLog()
-        logging.getLogger("shot_fpfh_tpu_torch.utils.perf").addHandler(stage_log)
-        _kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        rc = cli.main(argv)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = dict(_kernels.launch_counts)
-        logging.getLogger("shot_fpfh_tpu_torch.utils.perf").removeHandler(stage_log)
+        # the CLI's stage timer lines (utils.perf.checkpoint)
+        with _LogLines("shot_fpfh_tpu_torch.utils.perf") as stage_log:
+            _kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            rc = cli.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(_kernels.launch_counts)
         check(rc == 0, f"{label}: registration rejected (exit code {rc})")
         for name in must:
             check(launches[name] > 0, f"{label} never launched kernel {name}")
@@ -848,6 +994,144 @@ def phase_multiscale_paths(pair: SmokePair) -> dict:
     return launches
 
 
+def phase_iterative_path(pair: SmokePair) -> dict:
+    """Phase 9: greedy-coverage keypoints at ITERATIVE_RADIUS, single-scale
+    SHOT; the cold run's saved keypoints equal the port's CPU keypoints."""
+    from shot_fpfh_tpu_torch.keypoints import select_keypoints_iteratively
+
+    state = WORK / "iterative_state.npz"
+    args = ["--selection_algorithm", "iterative", "--neighborhood_size", str(ITERATIVE_RADIUS)]
+    with _LogLines("shot_fpfh_tpu_torch.keypoints") as log:
+        r = pair.run("iterative keypoints", args, ITERATIVE_PATH,
+                     cold_extra=("--state_cache", str(state)))
+    rounds = sorted({ln for ln in log.lines if " rounds " in ln})
+    check(bool(rounds) and all("(neighbor cap 128)" in ln for ln in rounds),
+          f"iterative keypoints: a radius ball reached the neighbor cap: {rounds}")
+    saved = np.load(state)
+    counts = {}
+    for side, cloud in (("scan", pair.scan), ("ref", pair.ref)):
+        on_cpu = select_keypoints_iteratively(cloud, ITERATIVE_RADIUS, device="cpu")
+        check(np.array_equal(saved[f"{side}_keypoints"], on_cpu),
+              f"iterative keypoints: the card's {side} keypoints differ from the CPU's")
+        counts[side] = len(on_cpu)
+    print(_describe("phase 9 iterative keypoints", r)
+          + f"; keypoints {counts}, equal to the CPU's on both clouds; {rounds}", flush=True)
+    return r["launches"]
+
+
+def _features(cloud, queries, device: str) -> dict:
+    """Phase 10's five calls on ``device``."""
+    import torch
+
+    from shot_fpfh_tpu_torch.models import normals as nm
+
+    args = (queries, cloud, FEATURE_RADIUS)
+    w, _, moments, sizes = nm.local_pca_with_moments(*args, device=device)
+    return dict(normals=nm.compute_normals(queries, cloud, radius=FEATURE_RADIUS, device=device),
+                sphericity=nm.compute_sphericity(*args, device=device),
+                basic=torch.stack(nm.compute_pca_based_basic_features(*args, device=device), 1),
+                eigenvalues=w, moments=moments, sizes=sizes,
+                features=nm.compute_pca_based_features(*args, device=device))
+
+
+def phase_features(pair: SmokePair, dev) -> dict:
+    """Phase 10: the PCA features of FEATURE_QUERIES ref points on the card
+    (K3 for radius normals, sphericity and the basic features; K8 for the
+    moments and the 21 columns) against the port's plain CPU run."""
+    import torch
+
+    from shot_fpfh_tpu_torch import _kernels
+
+    queries = feature_queries(pair)
+    _features(pair.ref, queries, dev)                          # warm-up
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    card = _features(pair.ref, queries, dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_kernels.launch_counts)
+    for name in ("radius_pca", WINDOW):
+        check(launches[name] > 0, f"PCA features never launched kernel {name}")
+    t0 = time.perf_counter()
+    cpu = _features(pair.ref, queries, "cpu")
+    cpu_wall = time.perf_counter() - t0
+    card = {k: v.cpu() for k, v in card.items()}
+    for name, value in card.items():
+        check(bool(torch.isfinite(value.float()).all()), f"PCA features: {name} not finite")
+    check(torch.equal(card["sizes"], cpu["sizes"]), "PCA features: neighborhood sizes differ")
+    # per column: the basic features' four, the 21 features'
+    cols = {k: (card[k] - cpu[k]).abs().amax(0) for k in ("basic", "features")}
+    angles = {"basic": BASIC_ANGLE_COLS, "features": FEATURE_ANGLE_COLS}
+    errs = {k: float((card[k] - cpu[k]).abs().max())
+            for k in ("eigenvalues", "moments", "sphericity")}
+    for k, per_col in cols.items():
+        is_angle = torch.zeros(per_col.shape[0], dtype=torch.bool)
+        is_angle[list(angles[k])] = True
+        errs[f"{k} angles"] = float(per_col[is_angle].max())
+        errs[f"{k} other"] = float(per_col[~is_angle].max())
+    over = {k: e for k, e in errs.items()
+            if e > (FEATURE_ANGLE_ATOL if k.endswith("angles") else FEATURE_ATOL)}
+    check(not over, f"PCA features: errors over the limits {over}; per column "
+                    f"{ {k: v.tolist() for k, v in cols.items()} }")
+    dots = (card["normals"] * cpu["normals"]).sum(1).abs()
+    aligned = float((dots > 0.999).float().mean())
+    check(aligned >= 0.999, f"PCA features: only {aligned} of the normals agree")
+    print(f"phase 10 PCA features: {FEATURE_QUERIES} of {pair.ref.shape[0]} points, radius "
+          f"{FEATURE_RADIUS}: sizes exact (mean {float(cpu['sizes'].float().mean()):.1f}, max "
+          f"{int(cpu['sizes'].max())}), max errors vs the CPU {errs} (limits {FEATURE_ATOL}, "
+          f"angles {FEATURE_ANGLE_ATOL}); per column {({k: v.tolist() for k, v in cols.items()})}"
+          f", normals |n.n'| > 0.999 for {aligned:.5f}; card {wall:.3f} s (the five calls), "
+          f"CPU {cpu_wall:.3f} s; launches {launches}", flush=True)
+    return launches
+
+
+def phase_options(pair: SmokePair) -> dict:
+    """Phase 11: the smoke pair with ``--matching_algorithm threshold``
+    (K2's nearest descriptors both ways, the reciprocal and threshold
+    filters) and with ``--selection_algorithm random`` (half of each
+    cloud's points, drawn from seeded CPU generators), one measured run
+    each; then ``match_descriptors`` with the reciprocal filter (which no
+    CLI flag reaches) and each distance filter on phase 9's saved
+    descriptors, on the card (K2 both ways) and on the CPU: the two match
+    sets agree as K2's bf16 indices do (K2_MIN_AGREE, of their union)."""
+    from shot_fpfh_tpu_torch import _kernels
+    from shot_fpfh_tpu_torch.registration.matching import (
+        left_median_filter,
+        match_descriptors,
+        quantile_filter,
+        threshold_filter,
+    )
+
+    launches = {}
+    for label, extra in (("threshold matching", ["--matching_algorithm", "threshold"]),
+                         ("random keypoints", ["--selection_algorithm", "random"])):
+        r = pair.run(label, extra, SHOT_PATH, cold=False)
+        print(_describe(f"phase 11 {label}", r), flush=True)
+        launches[label] = r["launches"]
+
+    saved = np.load(WORK / "iterative_state.npz")
+    desc = (saved["scan_descriptors"], saved["ref_descriptors"])
+    filters = {"threshold": (threshold_filter, dict(threshold_multiplier=10)),
+               "quantile": (quantile_filter, dict(quantiles=(0.1, 0.9))),
+               "left median": (left_median_filter, {})}
+    kept = {}
+    for name, (fn, kw) in filters.items():
+        _kernels.reset_launch_counts()
+        card = match_descriptors(*desc, fn, filter_nonreciprocal=True, device="cuda", **kw)
+        k2 = _kernels.launch_counts["top2_match"]
+        check(k2 == 2, f"reciprocal {name} matching launched K2 {k2} times, not 2")
+        cpu = match_descriptors(*desc, fn, filter_nonreciprocal=True, device="cpu", **kw)
+        on_card, on_cpu = set(zip(*card)), set(zip(*cpu))
+        agree = len(on_card & on_cpu) / max(len(on_card | on_cpu), 1)
+        check(bool(on_card) and agree >= K2_MIN_AGREE[True],
+              f"reciprocal {name} matching: {len(on_card)} matches, {agree} agree with the CPU")
+        kept[name] = (len(on_card), len(on_cpu), round(agree, 4))
+    print(f"phase 11 reciprocal matching on {len(desc[0])} x {len(desc[1])} descriptors "
+          f"(card matches, CPU matches, agreement): {kept}; K2 launched twice each", flush=True)
+    return launches
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -872,6 +1156,8 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(0)
     terrain = ShotTerrain(dev, rng)
     k1, k5 = parity_k1(terrain), parity_k5(terrain)
+    k8 = parity_k8("K1's keypoints and grid", terrain.grid, terrain.kp)
+    k8_more = [parity_k8("the bi-scale grid", terrain.bi_grid, terrain.kp)]
     del terrain
     k2 = parity_k2(dev, rng, 4096, 352)
     parity_k2(dev, rng, 4096, 352 * N_SCALES, modes=(True,))
@@ -879,12 +1165,18 @@ def main(argv=None) -> int:
     k3 = parity_k3(dev, rng)
     grid = spfh_terrain(dev, rng)
     k4, k6 = parity_k4(grid), parity_k6(grid)
+    k8_more.append(parity_k8("the FPFH chunk", grid, grid.packed_sorted[:8192, :3]))
     del grid
     voxel_sums(dev, rng)
     pair = SmokePair()
+    k7, k8_features = parity_pair_paths(pair, dev)
+    k8["max_abs_err"] = max(r["max_abs_err"] for r in (k8, k8_features, *k8_more))
     paths = {"SHOT": phase_shot_path(pair, args.profile)}
     paths["FPFH window"], paths["FPFH runs"] = phase_fpfh_path(pair)
     paths.update(phase_multiscale_paths(pair))
+    paths["iterative"] = phase_iterative_path(pair)
+    paths["PCA features"] = phase_features(pair, dev)
+    paths.update(phase_options(pair))
     # kernel -> (source, TPU kernel it replaces, parity and timings, the
     # path whose launches the line reports)
     results = {
@@ -900,6 +1192,10 @@ def main(argv=None) -> int:
                       "shot_fpfh_tpu/ops/pallas_shot_dma.py:164", k5, "bi-scale runs"),
         "spfh_runs": ("shot_fpfh_tpu_torch/csrc/spfh_runs.cu",
                       "shot_fpfh_tpu/ops/pallas_shot_dma.py:337", k6, "FPFH runs"),
+        "radius_dist": ("shot_fpfh_tpu_torch/csrc/radius_runs.cu",
+                        "shot_fpfh_tpu/ops/pallas_radius.py:497", k7, "iterative"),
+        "fetch_windows": ("shot_fpfh_tpu_torch/csrc/radius_runs.cu",
+                          "shot_fpfh_tpu/ops/pallas_radius.py:467", k8, "iterative"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

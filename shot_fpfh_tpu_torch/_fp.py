@@ -5,11 +5,9 @@ components) into the chain ``fma(z, z, fma(y, y, x*x))``, rounding once per
 add.  Eager PyTorch rounds every multiply and add on its own, so a squared
 distance can differ from the reference's by one ulp, which flips a point on
 a radius boundary or a distance tie in voxel subsampling.  :func:`sqnorm3`
-evaluates the same chain: the product of two float32 values is exact in
-float64, so one float64 add rounded to float32 equals the fused result
-(except on the rare double-rounding midpoint).  The CUDA kernels compute the
-chain with ``fmaf``.  :func:`div` keeps cell and bin indices exact the
-same way.
+evaluates the same chain, correctly rounded like the hardware ``fmaf`` of
+the CUDA kernels, so a kernel and its plain twin agree bit for bit.
+:func:`div` keeps cell and bin indices exact the same way.
 """
 
 from __future__ import annotations
@@ -18,8 +16,19 @@ import torch
 
 
 def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """``a * b + c`` with one float32 rounding."""
-    return (a.double() * b.double() + c.double()).float()
+    """``a * b + c`` with one float32 rounding.  The product of two float32
+    values is exact in float64; the float64 sum is taken rounded to odd
+    (its inexact results moved to the odd neighbour), which a float32
+    rounding then turns into the correctly rounded result: a plain float64
+    sum could land on a float32 midpoint the exact sum misses."""
+    p, c = a.double() * b.double(), c.double()
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)          # s + err == p + c exactly (TwoSum)
+    even = (s.view(torch.int64) & 1) == 0
+    away = torch.where(err > 0, torch.full_like(s, float("inf")),
+                       torch.full_like(s, float("-inf")))
+    return torch.where((err != 0) & even, torch.nextafter(s, away), s).float()
 
 
 def sqnorm3(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:

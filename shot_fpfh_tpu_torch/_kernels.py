@@ -55,6 +55,8 @@ _SIGNATURES = {
     "spfh_histogram": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "spfh_runs": [_P, _I, _P, _P, _P, _P, _I, _I, _F, _I, _I, _P, _P],
     "shot_runs": [_P, _I, _P, _P, _P, _I, _I, _P, _F, _F, _P, _P, _P, _P],
+    "fetch_windows": [_P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+    "radius_dist": [_P, _I, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P],
 }
 
 # one launch counter per kernel: incremented by launch() and nowhere else

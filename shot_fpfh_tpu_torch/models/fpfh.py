@@ -38,6 +38,7 @@ from ..ops.grid_hash import (
     grid_radius_search,
     radius_search_with_values_auto,
     window_distances,
+    window_radius_dist,
 )
 from ..ops.neighbors import Neighborhoods, as_f32
 from ..ops.shot_dma import dma_kernel_enabled, spfh_sorted_dma
@@ -124,8 +125,9 @@ def _fpfh_window_aggregate(grid: HashGrid, spfh_sorted, kp_sorted_idx, radius):
     out = []
     for s in range(0, kp_sorted_idx.shape[0], step):
         kp_c = kp_sorted_idx[s:s + step]
-        _, d, win_ok, rows = window_distances(grid, grid.packed_sorted[kp_c, :3])
-        ok = win_ok & (d <= radius)
+        # the in-radius distances alone (K7): no value is read here
+        rows, d = window_radius_dist(grid, grid.packed_sorted[kp_c, :3], radius)
+        ok = torch.isfinite(d)
         m = ok & (d > 0)
         wt = torch.where(m, 1.0 / torch.where(m, d, 1.0), 0.0)
         acc = torch.einsum("cwd,cw->cd", spfh_sorted[rows], wt)

@@ -1,13 +1,21 @@
-"""PCA normals in k-mode — port of ``shot_fpfh_tpu.models.normals``.
+"""PCA normals and geometric features — port of ``shot_fpfh_tpu.models.normals``.
 
 The normal of a point is the smallest-eigenvalue eigenvector of its
 neighborhood covariance (``ops.eigh3``), optionally sign-aligned to given
-normals.  Clouds below ``AUTO_GRID_MIN_POINTS`` use exact k-NN
-neighborhoods; larger clouds take the streaming route: per-query radii
-calibrated to hold ≈1.2·k neighbors, one pass of the K3 radius covariance
-kernel over the grid (``ops.radius_pca``), and a k-NN re-solve for the
-queries whose radius under-covered (the reference's documented deviation
-from exact k-NN PCA, PARITY.md round 4).
+normals.  Every function switches at ``AUTO_GRID_MIN_POINTS`` cloud points
+(this module's name, read at call time):
+
+- k-mode normals: exact k-NN neighborhoods below it; above it the streaming
+  route: per-query radii calibrated to hold ≈1.2·k neighbors, one pass of
+  the K3 radius covariance kernel over the grid (``ops.radius_pca``), and a
+  k-NN re-solve for the queries whose radius under-covered (the reference's
+  documented deviation from exact k-NN PCA, PARITY.md round 4);
+- radius-mode normals, sphericity and the basic features: the brute radius
+  search capped at the ``k_max`` nearest below it; above it K3 over a grid
+  of cell ``radius`` (every in-radius point, no cap);
+- the moments of ``local_pca_with_moments`` and the full features: the
+  brute radius search below it; above it the window of a halo-2 grid of cell
+  ``radius/2`` (K8, ``ops.radius_runs``), every in-radius point.
 """
 
 from __future__ import annotations
@@ -24,9 +32,11 @@ from ..ops.grid_hash import (
     build_grid,
     kth_distance_bound,
     knn_auto,
+    query_chunk,
     quantized_kth_radius,
+    window_distances,
 )
-from ..ops.neighbors import Neighborhoods, as_f32, knn
+from ..ops.neighbors import Neighborhoods, as_f32, knn, radius_search
 from ..ops.radius_pca import radius_pca
 
 logger = logging.getLogger(__name__)
@@ -108,23 +118,149 @@ def _streaming_knn_normals(q, c, k, pre, sample_size: int = 512):
     return normals
 
 
+def _clouds(query_points, cloud_points, device):
+    c = as_f32(cloud_points, resolve(device, cloud_points))
+    return as_f32(query_points, c.device), c
+
+
+def _radius_cov(q, c, radius, k_max: int):
+    """``(w, v)`` of each query's radius neighborhood: K3 over a grid of
+    cell ``radius`` from ``AUTO_GRID_MIN_POINTS`` cloud points up (every
+    in-radius point), the brute search capped at ``k_max`` below."""
+    if c.shape[0] >= AUTO_GRID_MIN_POINTS:
+        cov, _, _ = radius_pca(build_grid(c, float(radius)), q, radius)
+        return eigh3x3(cov)
+    nbr = radius_search(q, c, radius, k_max)
+    w, v, _ = pca_eigh(c[nbr.idx], nbr.mask)
+    return w, v
+
+
 def compute_normals(query_points, cloud_points, *, k: int | None = None,
                     radius: float | None = None, pre_computed_normals=None,
-                    device=None) -> torch.Tensor:
+                    k_max: int = 64, device=None) -> torch.Tensor:
     """PCA normals of ``query_points`` from ``cloud_points`` neighborhoods
-    (``k`` nearest), sign-aligned to ``pre_computed_normals`` when given.
-    Returns a ``(Q, 3)`` float32 tensor on ``device`` (default: the
-    cloud tensor's device, ``cuda`` for host arrays)."""
+    (the ``k`` nearest, or every point within ``radius``: capped at the
+    ``k_max`` nearest below ``AUTO_GRID_MIN_POINTS`` cloud points),
+    sign-aligned to ``pre_computed_normals`` when given.  Returns a
+    ``(Q, 3)`` float32 tensor on ``device`` (default: the cloud tensor's
+    device, ``cuda`` for host arrays)."""
     if k is None and radius is None:
         raise ValueError("Provide k or radius.")
-    if k is None:
-        raise NotImplementedError(
-            "radius-mode normals are not ported yet (ROADMAP.md, Queue 1, "
-            "item 7: radius-mode and PCA-feature normals)")
-    c = as_f32(cloud_points, resolve(device, cloud_points))
-    q = as_f32(query_points, c.device)
+    q, c = _clouds(query_points, cloud_points, device)
     pre = (None if pre_computed_normals is None
            else as_f32(pre_computed_normals, c.device))
+    if k is None:
+        _, v = _radius_cov(q, c, radius, k_max)
+        return _flip_to(v[..., :, 0], pre)
     if c.shape[0] >= AUTO_GRID_MIN_POINTS:
         return _streaming_knn_normals(q, c, k, pre)
     return _normals_knn(q, c, k, pre)
+
+
+def compute_sphericity(query_points, cloud_points, radius, k_max: int = 64,
+                       device=None) -> torch.Tensor:
+    """``λ_min / (λ_max + 1e-6)`` of radius neighborhoods (reference
+    pca_based_descriptors.py:62-74)."""
+    w, _ = _radius_cov(*_clouds(query_points, cloud_points, device), radius, k_max)
+    return w[..., 0] / (w[..., 2] + 1e-6)
+
+
+def _moments(centered, v, count):
+    """``(Q, 8)`` from the centered neighbors ``(Q, K, 3)`` (zero rows for
+    the masked ones): |mean| and mean square of their coordinates in the
+    eigenbasis (the columns of ``v``), then mean and mean square of their z."""
+    proj = torch.einsum("qki,qij->qkj", centered, v)
+    vert = centered[..., 2]
+    return torch.cat([torch.abs(proj.sum(1) / count[:, None]),
+                      (proj ** 2).sum(1) / count[:, None],
+                      (vert.sum(-1) / count)[:, None], ((vert ** 2).sum(-1) / count)[:, None]],
+                     dim=1)
+
+
+def _pca_moments_window(grid, q, radius):
+    """``local_pca_with_moments`` over the grid windows (K8), in query
+    chunks; accumulated query-centered so float32 stays accurate far from
+    the origin, then re-centered on the barycenter."""
+    parts = []
+    step = query_chunk(grid, 8)
+    for s in range(0, q.shape[0], step):
+        qc = q[s:s + step]
+        vals, d, win_ok, _ = window_distances(grid, qc)
+        ok = win_ok & (d <= radius)
+        count = torch.clamp(ok.sum(-1).to(torch.float32), min=1.0)
+        rel = torch.where(ok[:, None, :], vals[:, :3, :] - qc[:, :, None], 0.0)
+        bary_off = rel.sum(-1) / count[:, None]
+        centered = torch.where(ok[:, None, :], rel - bary_off[:, :, None], 0.0)
+        cov = torch.einsum("qiw,qjw->qij", centered, centered) / count[:, None, None]
+        w, v = eigh3x3(cov)
+        parts.append((w, v, _moments(centered.transpose(1, 2), v, count), ok.sum(-1)))
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
+def _pca_moments_brute(q, c, radius, k_max: int):
+    nbr = radius_search(q, c, radius, k_max)
+    pts = c[nbr.idx]
+    w, v, bary = pca_eigh(pts, nbr.mask)
+    m = nbr.mask.to(torch.float32)
+    count = torch.clamp(m.sum(-1), min=1.0)
+    centered = (pts - bary[..., None, :]) * m[..., None]
+    return w, v, _moments(centered, v, count), nbr.mask.sum(-1)
+
+
+def local_pca_with_moments(query_points, cloud_points, radius, k_max: int = 64,
+                           device=None):
+    """Local PCA and moments (reference ``compute_local_pca_with_moments``,
+    pca_based_descriptors.py:77-147): ``(eigenvalues (Q, 3), eigenvectors
+    (Q, 3, 3), moments (Q, 8), sizes (Q,))``.
+
+    Deviation kept from the JAX package: moments project the centered
+    neighborhood onto the eigenvector *columns* (the intended basis); the
+    reference uses ``@ eigenvectors.T`` (line 131), an apparent
+    transposition slip."""
+    q, c = _clouds(query_points, cloud_points, device)
+    if c.shape[0] >= AUTO_GRID_MIN_POINTS:
+        return _pca_moments_window(build_grid(c, float(radius) / 2, halo=2), q, radius)
+    return _pca_moments_brute(q, c, radius, k_max)
+
+
+def _arcsin_feature(x):
+    return 2.0 * torch.arcsin(torch.clamp(torch.abs(x), 0, 1)) / torch.pi
+
+
+def compute_pca_based_basic_features(query_points, cloud_points, radius, k_max: int = 64,
+                                     device=None):
+    """``(verticality, linearity, planarity, sphericity)`` (reference
+    pca_based_descriptors.py:150-184)."""
+    w, v = _radius_cov(*_clouds(query_points, cloud_points, device), radius, k_max)
+    lbd3, lbd2, lbd1 = w[..., 0], w[..., 1], w[..., 2] + 1e-6
+    return (_arcsin_feature(v[..., 2, 0]), 1.0 - lbd2 / lbd1, (lbd2 - lbd3) / lbd1,
+            lbd3 / lbd1)
+
+
+def compute_pca_based_features(query_points, cloud_points, radius, k_max: int = 64,
+                               verbose: bool = False, device=None) -> torch.Tensor:
+    """The 21-column eigen-feature stack (reference
+    ``compute_pca_based_features``, pca_based_descriptors.py:187-244):
+    eigensum, eigen square sum, omnivariance, eigenentropy, linearity,
+    planarity, sphericity, curvature change, four verticality-style angles,
+    the 8 moments and the neighborhood size."""
+    if verbose:
+        raise NotImplementedError(
+            "verbose=True plots the neighborhood sizes (analysis.plot_neighborhood_sizes), "
+            "which is not ported yet (ROADMAP.md, Queue 1, item 10: analysis.py)")
+    w, v, moments, sizes = local_pca_with_moments(query_points, cloud_points, radius, k_max,
+                                                  device)
+    lbd3, lbd2, lbd1 = w[..., 0], w[..., 1], w[..., 2] + 1e-6
+    normals, principal_axis = v[..., :, 0], v[..., :, 2]
+    eigensum = w.sum(-1)
+    prod = w.prod(-1)
+    cols = [
+        eigensum, (w ** 2).sum(-1), torch.sign(prod) * torch.abs(prod) ** (1.0 / 3.0),
+        (-w * torch.log(w + 1e-6)).sum(-1),
+        1.0 - lbd2 / lbd1, (lbd2 - lbd3) / lbd1, lbd3 / lbd1,
+        lbd3 / torch.clamp(eigensum, min=1e-12),
+        _arcsin_feature(normals[..., 2]), _arcsin_feature(principal_axis[..., 2]),
+        _arcsin_feature(normals[..., 0]), _arcsin_feature(normals[..., 1]),
+    ]
+    return torch.cat([torch.stack(cols, dim=1), moments,
+                      sizes[:, None].to(torch.float32)], dim=1)

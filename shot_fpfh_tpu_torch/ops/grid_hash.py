@@ -16,9 +16,15 @@ each spanning the ``y-h .. y+h`` columns at full z extent
 (:func:`_xyrow_runs`).  The run-streaming SPFH kernel (``ops.shot_dma``)
 reads those runs straight from the sorted table.
 
+The window functions run the kernels of ``ops.radius_runs`` over the runs:
+:func:`window_distances` K8 (the window's values and distances),
+:func:`grid_radius_search` and :func:`grid_nearest_neighbor` K7 (masked
+distances, then ``topk`` or the row minimum in PyTorch); on CPU tensors their
+plain twins.
+
 Not ported: the content-keyed grid LRU and the G=8/16 grouped
-feature-planar gather (index-bound gather workarounds of the TPU); a plain
-``(Q, W)`` row gather over the runs gives the same window contract.
+feature-planar gather (index-bound gather workarounds of the TPU); the
+compacted ``(Q, W)`` window over the runs gives the same window contract.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import torch.nn.functional as F
 
 from .._fp import div, sqnorm3
 from .neighbors import Neighborhoods, _sq_dists, as_f32, knn, radius_search
+from .radius_runs import fetch_windows, radius_dist, window_slots
 
 logger = logging.getLogger(__name__)
 
@@ -254,31 +261,24 @@ def window_rows(grid: HashGrid, queries: torch.Tensor):
     """``(rows (Q, W), valid (Q, W))``: each query's z-column runs
     concatenated into ``W = grid.window_cap`` sorted-row slots."""
     start, end = _zcolumn_runs(grid, queries)
-    cum = torch.cumsum(end - start, dim=1)                    # inclusive
-    excl = cum - (end - start)
-    w = grid.window_cap
-    j = torch.arange(w, device=queries.device).expand(queries.shape[0], w)
-    run = torch.clamp(torch.searchsorted(cum, j.contiguous(), right=True),
-                      max=start.shape[1] - 1)
-    rows = torch.gather(start, 1, run) + j - torch.gather(excl, 1, run)
-    valid = j < cum[:, -1:]
-    n = grid.packed_sorted.shape[0]
-    rows = torch.where(valid, torch.clamp(rows, max=n - 1), torch.zeros_like(rows))
-    return rows, valid
+    return window_slots(start, end, grid.window_cap, grid.packed_sorted.shape[0])
 
 
 def window_distances(grid: HashGrid, queries: torch.Tensor):
-    """The window fetch of every window consumer: returns
-    ``(vals (Q, F, W), dist (Q, W), valid (Q, W), rows (Q, W))`` with
-    feature-first gathered ``[points | extras]`` rows, the distance of each
-    candidate, and ``valid`` marking true window rows (callers apply their
-    own radius mask on ``dist``)."""
-    rows, valid = window_rows(grid, queries)
-    vals = grid.packed_sorted[rows].permute(0, 2, 1).contiguous()
-    dx = vals[:, 0, :] - queries[:, 0:1]
-    dy = vals[:, 1, :] - queries[:, 1:2]
-    dz = vals[:, 2, :] - queries[:, 2:3]
-    return vals, torch.sqrt(sqnorm3(dx, dy, dz)), valid, rows
+    """The window fetch of every window consumer (K8, ``ops.radius_runs``):
+    returns ``(vals (Q, F, W), dist (Q, W), valid (Q, W), rows (Q, W))``
+    with feature-first gathered ``[points | extras]`` rows, the distance of
+    each candidate, and ``valid`` marking true window rows (callers apply
+    their own radius mask on ``dist``)."""
+    start, end = _zcolumn_runs(grid, queries)
+    return fetch_windows(grid.packed_sorted, queries, start, end, grid.window_cap)
+
+
+def window_radius_dist(grid: HashGrid, queries: torch.Tensor, radius):
+    """``(rows (Q, W), d or +inf (Q, W))`` over each query's window, finite
+    where the slot is valid and ``d <= radius`` (K7, ``ops.radius_runs``)."""
+    start, end = _zcolumn_runs(grid, queries)
+    return radius_dist(grid.packed_sorted, queries, start, end, grid.window_cap, radius)
 
 
 def query_chunk(grid: HashGrid, features: int = 8) -> int:
@@ -356,12 +356,7 @@ def grid_nearest_neighbor(grid: HashGrid, queries):
     dist_out, idx_out = [], []
     step = query_chunk(grid, 4)
     for s in range(0, queries.shape[0], step):
-        qc = queries[s:s + step]
-        rows, valid = window_rows(grid, qc)
-        cand = grid.points_sorted[rows]
-        diff = cand - qc[:, None, :]
-        d = torch.sqrt(sqnorm3(diff[..., 0], diff[..., 1], diff[..., 2]))
-        masked = torch.where(valid, d, torch.full_like(d, float("inf")))
+        rows, masked = window_radius_dist(grid, queries[s:s + step], float("inf"))
         best, pos = masked.min(dim=1)
         row = torch.gather(rows, 1, pos[:, None])[:, 0]
         dist_out.append(best)
@@ -397,11 +392,7 @@ def grid_radius_search(grid: HashGrid, queries, radius, k_max: int,
     inf = float("inf")
     step = query_chunk(grid, 4)
     for s in range(0, queries.shape[0], step):
-        qc = queries[s:s + step]
-        rows, valid = window_rows(grid, qc)
-        diff = grid.points_sorted[rows] - qc[:, None, :]
-        d = torch.sqrt(sqnorm3(diff[..., 0], diff[..., 1], diff[..., 2]))
-        masked = torch.where(valid & (d <= radius), d, torch.full_like(d, inf))
+        rows, masked = window_radius_dist(grid, queries[s:s + step], radius)
         dist, pos = torch.topk(masked, k_eff, dim=1, largest=False, sorted=True)
         sel = torch.gather(rows, 1, pos)
         idx_out.append(grid.orig_idx[sel])

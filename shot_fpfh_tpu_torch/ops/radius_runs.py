@@ -1,0 +1,118 @@
+"""K7 and K8: a query's grid runs written out as its compacted window.
+
+Counterparts of ``shot_fpfh_tpu/ops/pallas_radius.py``:
+
+- K8, ``fetch_windows_pallas`` (``_fetch_kernel``): the dense window fetch —
+  each candidate's table row, feature first, and its distance;
+- K7, ``grid_radius_search_pallas`` (``_dist_kernel``): the masked candidate
+  distances a radius search selects from (``d`` where ``d <= radius``, else
+  +inf); top-k and the value gather stay outside, as there.
+
+Both take the cell-sorted table (``HashGrid.packed_sorted``, ``F`` columns),
+the queries and each query's runs ``(start, end)`` ``(Q, R)`` of sorted rows
+(``grid_hash._zcolumn_runs``: ``(2h+1)²`` runs, from the cell table or from
+a binary search), and write the port's compacted window of width ``W``
+(``grid.window_cap``): the runs concatenated in order, rows ascending within
+a run, then padding slots that hold row 0 (not valid).  The distance of a
+slot is ``sqrt(fma(dz, dz, fma(dy, dy, dx·dx)))`` (``_fp.sqnorm3``).
+
+:func:`fetch_windows` and :func:`radius_dist` launch the CUDA kernels
+(``csrc/radius_runs.cu``) on CUDA tensors and run their plain PyTorch twins
+(:func:`fetch_windows_plain`, :func:`radius_dist_plain`) on CPU tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import _kernels
+from .._fp import sqnorm3
+
+
+def window_slots(start: torch.Tensor, end: torch.Tensor, w: int, n: int):
+    """``(rows (Q, w), valid (Q, w))``: the runs ``[start, end)`` of each
+    query concatenated into ``w`` slots of sorted rows (row 0 past the end)."""
+    cum = torch.cumsum(end - start, dim=1)                    # inclusive
+    excl = cum - (end - start)
+    j = torch.arange(w, device=start.device).expand(start.shape[0], w)
+    run = torch.clamp(torch.searchsorted(cum, j.contiguous(), right=True),
+                      max=start.shape[1] - 1)
+    rows = torch.gather(start, 1, run) + j - torch.gather(excl, 1, run)
+    valid = j < cum[:, -1:]
+    rows = torch.where(valid, torch.clamp(rows, max=n - 1), torch.zeros_like(rows))
+    return rows, valid
+
+
+def _distances(cand, queries):
+    """``(Q, W)`` distances of gathered ``(Q, W, >=3)`` rows to the queries."""
+    return torch.sqrt(sqnorm3(*(cand[..., i] - queries[:, i:i + 1] for i in range(3))))
+
+
+def fetch_windows_plain(table, queries, start, end, w: int):
+    """PyTorch twin of K8: ``(vals (Q, F, W), dist (Q, W), valid (Q, W),
+    rows (Q, W))``; padding slots hold row 0's values and distance."""
+    rows, valid = window_slots(start, end, w, table.shape[0])
+    cand = table[rows]                                        # (Q, W, F)
+    return cand.permute(0, 2, 1).contiguous(), _distances(cand, queries), valid, rows
+
+
+def radius_dist_plain(table, queries, start, end, w: int, radius: float):
+    """PyTorch twin of K7: ``(rows (Q, W), d or +inf (Q, W))``, finite where
+    the slot is valid and ``d <= radius`` (float32; ``inf`` keeps every
+    valid slot)."""
+    rows, valid = window_slots(start, end, w, table.shape[0])
+    dist = _distances(table[:, :3][rows], queries)
+    r = torch.tensor(float(radius), dtype=torch.float32)
+    return rows, torch.where(valid & (dist <= r), dist, torch.full_like(dist, float("inf")))
+
+
+def _checked(table, queries, start, end):
+    """The kernels' inputs, on one CUDA device, in the types and layouts
+    they take; raises on anything else."""
+    device = _kernels.require_cuda(table, queries, start, end)
+    if table.dtype != torch.float32 or table.dim() != 2 or not 3 <= table.shape[1] <= 8:
+        raise ValueError(f"table must be (N, 3..8) float32, got {tuple(table.shape)} "
+                         f"{table.dtype}")
+    q = queries.shape[0]
+    if queries.dtype != torch.float32 or queries.shape != (q, 3):
+        raise ValueError(f"queries must be (Q, 3) float32, got {tuple(queries.shape)}")
+    if (start.dtype != torch.int64 or end.dtype != torch.int64
+            or start.shape != end.shape or start.shape[0] != q):
+        raise ValueError(f"runs must be two int64 (Q, R) tensors, got {tuple(start.shape)} "
+                         f"{start.dtype} and {tuple(end.shape)} {end.dtype}")
+    return (device, table.contiguous(), queries.contiguous(), start.contiguous(),
+            end.contiguous())
+
+
+def fetch_windows(table, queries, start, end, w: int):
+    """K8: ``(vals (Q, F, W), dist (Q, W), valid (Q, W), rows (Q, W))`` of
+    each query's window (see the module docstring)."""
+    if queries.device.type == "cpu":
+        return fetch_windows_plain(table, queries, start, end, w)
+    device, table, queries, start, end = _checked(table, queries, start, end)
+    q, f = queries.shape[0], table.shape[1]
+    vals = torch.empty((q, f, w), dtype=torch.float32, device=device)
+    dist = torch.empty((q, w), dtype=torch.float32, device=device)
+    valid = torch.empty((q, w), dtype=torch.bool, device=device)
+    rows = torch.empty((q, w), dtype=torch.int64, device=device)
+    if q and w:
+        _kernels.launch("fetch_windows", device, table.data_ptr(), f, queries.data_ptr(),
+                        start.data_ptr(), end.data_ptr(), start.shape[1], q, w,
+                        vals.data_ptr(), dist.data_ptr(), valid.data_ptr(), rows.data_ptr())
+    return vals, dist, valid, rows
+
+
+def radius_dist(table, queries, start, end, w: int, radius: float):
+    """K7: ``(rows (Q, W), d or +inf (Q, W))`` of each query's window, the
+    distance kept where the slot is valid and within ``radius``."""
+    if queries.device.type == "cpu":
+        return radius_dist_plain(table, queries, start, end, w, radius)
+    device, table, queries, start, end = _checked(table, queries, start, end)
+    q = queries.shape[0]
+    rows = torch.empty((q, w), dtype=torch.int64, device=device)
+    dist = torch.empty((q, w), dtype=torch.float32, device=device)
+    if q and w:
+        _kernels.launch("radius_dist", device, table.data_ptr(), table.shape[1],
+                        queries.data_ptr(), start.data_ptr(), end.data_ptr(), start.shape[1],
+                        q, w, float(radius), rows.data_ptr(), dist.data_ptr())
+    return rows, dist

@@ -2,9 +2,9 @@
 
 Holds the scan/ref clouds on the host, memoizes each stage's result
 (recomputed only on ``force_recompute``), and runs the stages on
-``device`` (default ``cuda``): voxel keypoints, single-, bi- or multiscale
-SHOT or FPFH, nearest / ratio-test matching, RANSAC, ICP, and the post-ICP
-metrics.
+``device`` (default ``cuda``): random, greedy-coverage or voxel keypoints,
+single-, bi- or multiscale SHOT or FPFH, nearest / ratio-test / threshold
+matching, RANSAC, ICP, and the post-ICP metrics.
 Stage timings go to ``self.metrics``.  Dispatcher branches this port does not cover yet raise
 ``NotImplementedError`` naming the ROADMAP.md item that will port them.
 """
@@ -21,13 +21,23 @@ import torch
 from ._device import resolve
 from .core.transform import RigidTransform, rotation_angle
 from .io.ply import write_ply
-from .keypoints import select_keypoints_subsampling, select_keypoints_with_density_threshold
+from .keypoints import (
+    select_keypoints_iteratively,
+    select_keypoints_subsampling,
+    select_keypoints_with_density_threshold,
+    select_query_indices_randomly,
+)
 from .models.fpfh import compute_fpfh_descriptor
 from .models.shot import ShotComputer
 from .ops.grid_hash import AUTO_GRID_MIN_POINTS, build_grid, grid_nearest_neighbor
 from .ops.neighbors import as_f32, nearest_neighbor
 from .registration.icp import icp_point_to_plane, icp_point_to_point
-from .registration.matching import basic_matching, lowe_matching
+from .registration.matching import (
+    basic_matching,
+    lowe_matching,
+    match_descriptors,
+    threshold_filter,
+)
 from .registration.ransac import ransac_on_matches
 from .utils.perf import StageMetrics
 
@@ -69,22 +79,33 @@ class RegistrationPipeline:
         selection_algorithm: Literal[
             "random", "iterative", "subsampling", "subsampling_with_density"],
         *, neighborhood_size: float | None = None, min_n_neighbors: int | None = None,
-        force_recompute: bool = False,
+        proportion_picked: float = 0.5, force_recompute: bool = False,
     ) -> None:
-        if selection_algorithm in ("random", "iterative"):
-            raise _not_ported(f"keypoint selection {selection_algorithm!r}",
-                              "Queue 1, item 8")
-        if selection_algorithm not in ("subsampling", "subsampling_with_density"):
+        """Keypoints of both clouds: ``random`` draws ``proportion_picked`` of
+        each cloud's points from CPU generators seeded 0 (scan) and 1 (ref);
+        the other strategies need ``neighborhood_size`` (the greedy radius or
+        the voxel size)."""
+        if selection_algorithm not in ("random", "iterative", "subsampling",
+                                       "subsampling_with_density"):
             raise ValueError("Incorrect keypoint selection algorithm.")
-        if neighborhood_size is None:
+        if selection_algorithm != "random" and neighborhood_size is None:
             raise ValueError(
                 f"keypoint selection '{selection_algorithm}' needs "
                 "neighborhood_size (CLI: --neighborhood_size)")
+        if selection_algorithm == "random" and not 0 <= proportion_picked <= 1:
+            raise ValueError("Incorrect proportion passed.")
         self.metrics.start(f"keypoints[{selection_algorithm}]")
-        for side in ("scan", "ref"):
+        for seed, side in enumerate(("scan", "ref")):
             if getattr(self, f"{side}_keypoints") is None or force_recompute:
                 cloud = getattr(self, side)
-                if selection_algorithm == "subsampling":
+                if selection_algorithm == "random":
+                    kp = select_query_indices_randomly(
+                        cloud.shape[0], int(cloud.shape[0] * proportion_picked),
+                        generator=torch.Generator().manual_seed(seed))
+                elif selection_algorithm == "iterative":
+                    kp = select_keypoints_iteratively(cloud, neighborhood_size,
+                                                      device=self.device)
+                elif selection_algorithm == "subsampling":
                     kp = select_keypoints_subsampling(cloud, neighborhood_size, self.device)
                 else:
                     kp = select_keypoints_with_density_threshold(
@@ -200,14 +221,16 @@ class RegistrationPipeline:
     ) -> None:
         if self.matches is not None and not force_recompute:
             return
-        if matching_algorithm == "threshold":
-            raise _not_ported("threshold matching", "Queue 1, item 6")
-        if matching_algorithm not in ("simple", "double", "ratio"):
+        if matching_algorithm not in ("simple", "double", "ratio", "threshold"):
             raise ValueError("Incorrect matching algorithm selection.")
         self.metrics.start(f"matching[{matching_algorithm}]")
         if matching_algorithm == "simple":
             self.matches = basic_matching(self.scan_descriptors, self.ref_descriptors,
                                           device=self.device)
+        elif matching_algorithm == "threshold":
+            self.matches = match_descriptors(
+                self.scan_descriptors, self.ref_descriptors, threshold_filter,
+                threshold_multiplier=threshold_multiplier, device=self.device)
         else:
             self.matches = lowe_matching(self.scan_descriptors, self.ref_descriptors,
                                          reject_threshold, device=self.device)

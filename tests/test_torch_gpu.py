@@ -24,6 +24,12 @@ from shot_fpfh_tpu_torch.ops import shot_dma  # noqa: E402
 from shot_fpfh_tpu_torch.ops.grid_hash import build_grid, window_distances  # noqa: E402
 from shot_fpfh_tpu_torch.ops.match import top2_match, top2_match_plain  # noqa: E402
 from shot_fpfh_tpu_torch.ops.radius_pca import radius_pca, radius_pca_plain  # noqa: E402
+from shot_fpfh_tpu_torch.ops.radius_runs import (  # noqa: E402
+    fetch_windows,
+    fetch_windows_plain,
+    radius_dist,
+    radius_dist_plain,
+)
 from shot_fpfh_tpu_torch.ops.shot_fused import (  # noqa: E402
     shot_binning_histogram,
     shot_binning_histogram_plain,
@@ -354,3 +360,105 @@ def test_entry_points_default_to_the_card(cuda):
     assert RegistrationPipeline(scan=pts, scan_normals=pts, ref=pts,
                                 ref_normals=pts).device.type == "cuda"
     assert compute_normals(pts, pts, k=10, device="cpu").device.type == "cpu"
+
+
+# (halo, cell, cell table, normals as extras): K1's and K3's halo-1 grids,
+# the FPFH halo-2 grid, a grid whose runs come from a binary search, and
+# the iterative and moments halo-2 grid of three columns
+RUN_GRIDS = [(1, 0.3, True, True), (2, 0.15, True, True), (1, 0.3, False, True),
+             (2, 0.15, True, False)]
+
+
+def _runs_case(rng, cuda, halo, cell, table, normals):
+    """The K7 / K8 inputs on a 30k-point surface: every seventh point and
+    two far sentinels as queries."""
+    from shot_fpfh_tpu_torch.ops.grid_hash import _zcolumn_runs
+
+    pts = _surface(rng, 30_000, cuda)
+    if not table:   # one far point: too many cells for a start table
+        pts = torch.cat([pts, torch.full((1, 3), 5e3, device=cuda)])
+    nrm = torch.nn.functional.normalize(torch.randn_like(pts), dim=1) if normals else None
+    grid = build_grid(pts, cell, extras=nrm, halo=halo)
+    assert grid.has_table == table
+    assert grid.packed_sorted.shape[1] == (6 if normals else 3)
+    q = torch.cat([pts[::7], torch.full((2, 3), 1e6, device=cuda)])
+    start, end = _zcolumn_runs(grid, q)
+    return grid.packed_sorted, q, start, end, grid.window_cap
+
+
+@pytest.mark.parametrize("halo,cell,table,normals", RUN_GRIDS)
+def test_k8_fetch_windows_kernel(cuda, rng, halo, cell, table, normals):
+    """K8 equals its twin bit for bit on all four outputs; far sentinels get
+    an all-padding window."""
+    args = _runs_case(rng, cuda, halo, cell, table, normals)
+    got = _counted("fetch_windows", lambda: fetch_windows(*args))
+    want = fetch_windows_plain(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert got[2].any(dim=1)[:-2].all() and not got[2][-2:].any()
+
+
+@pytest.mark.parametrize("halo,cell,table,normals", RUN_GRIDS)
+def test_k7_radius_dist_kernel(cuda, rng, halo, cell, table, normals):
+    """K7 equals its twin bit for bit at a radius inside the window, at the
+    window's coverage and at +inf (the 1-NN's radius)."""
+    args = _runs_case(rng, cuda, halo, cell, table, normals)
+    for radius in (0.6 * cell * halo, cell * halo, float("inf")):
+        got = _counted("radius_dist", lambda: radius_dist(*args, radius))
+        want = radius_dist_plain(*args, radius)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert torch.isfinite(got[1]).any() and not torch.isfinite(got[1][-2:]).any()
+
+
+def test_window_functions_launch_k7_and_k8(cuda, rng):
+    """On CUDA tensors the grid's window functions run the kernels."""
+    from shot_fpfh_tpu_torch.ops.grid_hash import grid_nearest_neighbor, grid_radius_search
+
+    pts = _surface(rng, 30_000, cuda)
+    grid = build_grid(pts, 0.15, halo=2)
+    _counted("fetch_windows", lambda: window_distances(grid, pts[:5000]))
+    nbr = _counted("radius_dist", lambda: grid_radius_search(grid, pts[:5000], 0.3, 128))
+    assert bool((nbr.count >= 1).all())
+    dist, idx = _counted("radius_dist", lambda: grid_nearest_neighbor(grid, pts[:5000]))
+    assert bool((dist == 0).all()) and torch.equal(idx, torch.arange(5000, device=cuda))
+
+
+def test_iterative_keypoints_on_card_equal_cpu(cuda, rng):
+    """The greedy on both sides of the 20k-point switch: the grid rounds
+    (30k points, balls well under the cap) and the sequential greedy (3k
+    points) select the CPU's keypoints, index for index."""
+    from shot_fpfh_tpu_torch.keypoints import select_keypoints_iteratively
+
+    pts = _surface(rng, 30_000, cuda)
+    for cloud, radius in ((pts, 0.1), (pts[:3000], 0.2)):
+        card = select_keypoints_iteratively(cloud, radius)
+        np.testing.assert_array_equal(card, select_keypoints_iteratively(cloud.cpu(), radius))
+        assert len(card) > 0
+
+
+def test_pca_features_on_card_match_cpu(cuda, rng):
+    """Radius normals, sphericity, moments and the 21 feature columns on the
+    grid routes (K3, K8) against the CPU: within 1e-6, the angle columns
+    (steep arcsin at |x| = 1) within 1e-4 (chip_smoke.py phase 10's limits;
+    the moments and λ_min are ~1e-4)."""
+    from shot_fpfh_tpu_torch.models import normals as nm
+
+    pts = _surface(rng, 30_000, cuda)
+    q = pts[::15]
+    w, v, mom, sizes = nm.local_pca_with_moments(q, pts, 0.2)
+    w_c, v_c, mom_c, sizes_c = nm.local_pca_with_moments(q.cpu(), pts.cpu(), 0.2)
+    assert torch.equal(sizes.cpu(), sizes_c)
+    torch.testing.assert_close(w.cpu(), w_c, atol=1e-6, rtol=0)
+    torch.testing.assert_close(mom.cpu(), mom_c, atol=1e-6, rtol=0)
+    n = nm.compute_normals(q, pts, radius=0.2)
+    n_c = nm.compute_normals(q.cpu(), pts.cpu(), radius=0.2)
+    assert float(((n.cpu() * n_c).sum(1).abs() > 0.999).float().mean()) >= 0.999
+    torch.testing.assert_close(nm.compute_sphericity(q, pts, 0.2).cpu(),
+                               nm.compute_sphericity(q.cpu(), pts.cpu(), 0.2), atol=1e-6, rtol=0)
+    feats = nm.compute_pca_based_features(q, pts, 0.2).cpu()
+    feats_c = nm.compute_pca_based_features(q.cpu(), pts.cpu(), 0.2)
+    assert feats.shape == (q.shape[0], 21) and bool(torch.isfinite(feats).all())
+    angle = torch.zeros(21, dtype=torch.bool)
+    angle[8:12] = True
+    torch.testing.assert_close(feats[:, ~angle], feats_c[:, ~angle], atol=1e-6, rtol=0)
+    torch.testing.assert_close(feats[:, angle], feats_c[:, angle], atol=1e-4, rtol=0)

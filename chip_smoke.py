@@ -17,8 +17,13 @@ Phases, one line each; any failure exits non-zero with no result line:
    then held to the K1 window route on the keypoints whose neighbor counts
    agree under the two routes' radius rules),
    K2 top-2 matching (4096 x 4096 x 352, f32 and bf16; 4096 x 4096 x 704,
-   the two-scale width, and 8192 x 8192 x 125, the FPFH width, bf16),
-   K3 radius covariance (100k queries, scalar and per-query radius),
+   the two-scale width, and 8192 x 8192 x 125, the FPFH width, bf16; the
+   main path's 6531 x 6634 x 352, bf16; whole-number descriptors with
+   repeated refs, where i1, d1 and d2 must equal the twin's in both modes;
+   the random path's 50k x 50k, timed only), each beside one library call,
+   K3 radius covariance (100k queries, scalar and per-query radius; its
+   cell order and tile unions equal to their plain twin ``tile_plan``'s;
+   the call, its cell order and the kernel alone timed),
    K4 SPFH window histogram (one 8192-point chunk of a 100k-point terrain,
    radius 0.9, k=30 normals, joint and decorrelated),
    K6 SPFH over xy-row runs (all 100k points of that terrain), the voxel
@@ -63,6 +68,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import re
 import shutil
 import subprocess
 import sys
@@ -122,6 +128,9 @@ PHI, N_SCALES = 3.0, 2
 # thousand at these widths (the SPFH routes part on 4–10 of 100k rows of
 # ~600 neighbors each); the parted keypoints are counted and bounded
 SHOT_ROUTE_PARTED_FRAC = 1e-2
+
+# the smoke pair's density keypoints (scan, ref): K2's shape on the main path
+MAIN_KEYPOINTS = (6531, 6634)
 
 # the smoke pair's keypoint voxel (--neighborhood_size), and the points of
 # the one dense voxel in the skewed cloud of the voxel-sum check
@@ -252,7 +261,15 @@ def parity_k3(dev, rng):
         kth_distance_bound,
         quantized_kth_radius,
     )
-    from shot_fpfh_tpu_torch.ops.radius_pca import radius_pca, radius_pca_plain
+    from shot_fpfh_tpu_torch.ops.grid_hash import radius_sq
+    from shot_fpfh_tpu_torch.ops.radius_pca import (
+        TILE,
+        cell_moments,
+        cell_order,
+        radius_pca,
+        radius_pca_plain,
+        tile_plan,
+    )
 
     cloud = torch.tensor(make_terrain(100_000, rng), device=dev)
     sample = cloud[::cloud.shape[0] // 512][:512]
@@ -268,8 +285,23 @@ def parity_k3(dev, rng):
         check(bool((cnt_k == cnt_p).all()), f"K3 {label}: counts differ")
         check(err <= K3_COV_ATOL, f"K3 {label}: covariance error {err}")
         out[label] = err
+    # the kernel's own bookkeeping (the cell order, each tile's union of
+    # runs) equals its plain twin's
+    plan = tile_plan(grid, cloud)
+    order = cell_order(grid, cloud)
+    r2 = radius_sq(r_q, cloud.shape[0], dev)
+    unions = (torch.empty_like(plan.lo), torch.empty_like(plan.hi))
+    cell_moments(grid, cloud, r2, order, unions)
+    check(torch.equal(order, plan.order), "K3: the cell order differs from tile_plan's")
+    check(torch.equal(unions[0], plan.lo) and torch.equal(unions[1], plan.hi),
+          "K3: the kernel's tile unions differ from tile_plan's")
     ms = cuda_ms(lambda: radius_pca(grid, cloud, r_q))
     plain_ms = cuda_ms(lambda: radius_pca_plain(grid, cloud, r_q))
+    # the call's parts: the cell order (keys kernel and sort) and the
+    # kernel alone
+    order_ms = cuda_ms(lambda: cell_order(grid, cloud))
+    kernel_ms = cuda_ms(lambda: cell_moments(grid, cloud, r2, order))
+    staged = (plan.hi - plan.lo).sum(1).float()
     # the timed call: every query reads its 9 runs (lanes) and sums its
     # in-radius points
     start, end = _zcolumn_runs(grid, cloud)
@@ -278,9 +310,13 @@ def parity_k3(dev, rng):
     q = cloud.shape[0]
     b = bound(grid.packed_sorted.numel() * 4 + q * (12 + 4 + 40) + start.numel() * 16,
               lanes * OPS_DIST_TEST + float(cnt.sum()) * OPS_PCA_POINT)
-    print(f"phase 3 K3 radius_pca: 100000 queries, window cap {grid.window_cap}: counts "
-          f"exact, cov max err {out}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-          f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})", flush=True)
+    print(f"phase 3 K3 radius_pca: 100000 queries, window cap {grid.window_cap}, "
+          f"{lanes / q:.0f} run rows a query; {plan.lo.shape[0]} blocks of {TILE} queries staging "
+          f"{float(staged.mean()):.0f} rows each (most {int(staged.max())}), order and unions "
+          f"equal to tile_plan's: counts exact, cov max err {out}; call {ms:.3f} ms (its cell "
+          f"order {order_ms:.3f} ms, the kernel alone {kernel_ms:.4f} ms), plain "
+          f"{plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']})", flush=True)
     return dict(max_abs_err=max(out.values()), ms=ms, plain_ms=plain_ms, library_ms=None, **b)
 
 
@@ -300,14 +336,22 @@ def _k2_library(a, b, valid, bf16):
     return run
 
 
-def parity_k2(dev, rng, n: int, dim: int, modes=(False, True)):
+def _k2_bound(n: int, m: int, dim: int, bf16: bool) -> dict:
+    """Both operands read once, the refs' validity, the (i1, d1, d2) rows
+    written; 2·n·m·D operations on the tensor cores (bf16) or CUDA cores."""
+    return bound((n + m) * dim * (2 if bf16 else 4) + m + n * 16, 2.0 * n * m * dim,
+                 BF16_TENSOR_FLOPS if bf16 else F32_FLOPS)
+
+
+def parity_k2(dev, rng, n: int, dim: int, modes=(False, True), m: int | None = None):
     import torch
 
     from shot_fpfh_tpu_torch.ops.match import top2_match, top2_match_plain
 
+    m = n if m is None else m
     a = torch.tensor(rng.normal(size=(n, dim)).astype(np.float32), device=dev)
-    b = torch.tensor(rng.normal(size=(n, dim)).astype(np.float32), device=dev)
-    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    b = torch.tensor(rng.normal(size=(m, dim)).astype(np.float32), device=dev)
+    valid = torch.ones(m, dtype=torch.bool, device=dev)
     valid[::97] = False
     res = {}
     for bf16 in modes:
@@ -319,21 +363,64 @@ def parity_k2(dev, rng, n: int, dim: int, modes=(False, True)):
         check(agree >= K2_MIN_AGREE[bf16], f"K2 {dim} bf16={bf16}: index agreement {agree}")
         check(rel <= K2_D1_RTOL[bf16], f"K2 {dim} bf16={bf16}: d1 relative error {rel}")
         check(not bool(valid.logical_not()[i_k].any()), "K2 picked an invalid ref")
-        elem = 2 if bf16 else 4
         res[bf16] = dict(agree=agree, rel=rel,
                          max_abs_err=float((d1_k - d1_p).abs().max()),
                          ms=cuda_ms(lambda: top2_match(a, b, valid, bf16)),
                          plain_ms=cuda_ms(lambda: top2_match_plain(a, b, valid, bf16)),
                          library_ms=cuda_ms(_k2_library(a, b, valid, bf16)),
-                         **bound(2 * n * dim * elem + n * (4 + 4 + 1) + n * 12,
-                                 2.0 * n * n * dim,
-                                 BF16_TENSOR_FLOPS if bf16 else F32_FLOPS))
-    print(f"phase 3 K2 top2_match: {n}x{n}x{dim}: " + "; ".join(
+                         **_k2_bound(n, m, dim, bf16))
+    print(f"phase 3 K2 top2_match: {n}x{m}x{dim}: " + "; ".join(
         f"{'bf16' if k else 'f32'} agree {v['agree']:.4f} d1 rel err {v['rel']:.2e} "
         f"kernel {v['ms']:.3f} ms plain {v['plain_ms']:.3f} ms library {v['library_ms']:.3f} "
-        f"ms bound {v['bound_ms']:.4f} ms ({v['bound_by']})" for k, v in res.items()),
+        f"ms (kernel faster: {v['ms'] < v['library_ms']}) bound {v['bound_ms']:.4f} ms "
+        f"({v['bound_by']})" for k, v in res.items()),
         flush=True)
     return res[True]
+
+
+def parity_k2_ties(dev, rng, n: int = 4096, dim: int = 352) -> None:
+    """K2 on whole-number descriptors in [-2, 2] (every product and sum
+    exact in f32, so the kernel and the twin see equal distances) with
+    repeated ref rows and scan rows copied into the refs: ties everywhere,
+    and the lower index must win on every row, in both modes."""
+    import torch
+
+    from shot_fpfh_tpu_torch.ops.match import top2_match, top2_match_plain
+
+    a = rng.integers(-2, 3, size=(n, dim)).astype(np.float32)
+    b = rng.integers(-2, 3, size=(n, dim)).astype(np.float32)
+    b[n // 3: 2 * (n // 3)] = b[: n // 3]
+    b[n - n // 4:] = a[: n // 4]
+    a, b = torch.tensor(a, device=dev), torch.tensor(b, device=dev)
+    valid = torch.tensor(rng.uniform(size=n) > 0.05, device=dev)
+    ties = {}
+    for bf16 in (False, True):
+        got, want = top2_match(a, b, valid, bf16), top2_match_plain(a, b, valid, bf16)
+        for name, g, w in zip(("i1", "d1", "d2"), got, want):
+            check(torch.equal(g, w), f"K2 duplicate refs bf16={bf16}: {name} differs")
+        ties[bf16] = int((want[2] == want[1]).sum())
+    print(f"phase 3 K2 duplicate refs: {n}x{n}x{dim} whole numbers, i1, d1 and d2 equal to "
+          f"the twin in f32 and bf16 (rows whose first place is tied: {ties[True]})", flush=True)
+
+
+def time_k2_random_path(dev, rng, n: int = 50_000, dim: int = 352) -> None:
+    """K2 at the random keypoints path's 50k x 50k (phase 11), timed only:
+    the twin and the library call would write a 10 GB distance matrix."""
+    import torch
+
+    from shot_fpfh_tpu_torch.ops.match import top2_match
+
+    a = torch.tensor(rng.normal(size=(n, dim)).astype(np.float32), device=dev)
+    b = torch.tensor(rng.normal(size=(n, dim)).astype(np.float32), device=dev)
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    i1, d1, _ = top2_match(a, b, valid, True)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(d1).all()) and int(i1.min()) >= 0 and int(i1.max()) < n,
+          "K2 at 50k: indices or distances out of range")
+    ms = cuda_ms(lambda: top2_match(a, b, valid, True), reps=3)
+    b_ = _k2_bound(n, n, dim, True)
+    print(f"phase 3 K2 top2_match: {n}x{n}x{dim} bf16 (the random path's shape): kernel "
+          f"{ms:.3f} ms, bound {b_['bound_ms']:.4f} ms ({b_['bound_by']})", flush=True)
 
 
 def flip_rule(got, want, label: str) -> tuple[float, float]:
@@ -798,10 +885,22 @@ class _LogLines(logging.Handler):
         self.logger.removeHandler(self)
 
 
+# a kernel as the profiler names a file-local one, and the kernels that
+# csrc/ defines
+_LOCAL_KERNEL = re.compile(r"^(?:void )?\(anonymous namespace\)::(\w+)")
+_DEFINED_KERNEL = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(")
+
+
+def _port_kernels() -> set[str]:
+    return {name for src in (ROOT / "shot_fpfh_tpu_torch" / "csrc").glob("*.cu")
+            for name in _DEFINED_KERNEL.findall(src.read_text())}
+
+
 def _profiled(fn, out_dir: Path):
     """Run ``fn`` under ``torch.profiler``; write the op table and a chrome
     trace to ``out_dir``; return (result, profiled wall seconds, device-busy
-    seconds: the summed time of the kernels and copies run on the card)."""
+    seconds: the summed time of the kernels and copies run on the card,
+    {port kernel: (launches, device ms)})."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -813,11 +912,18 @@ def _profiled(fn, out_dir: Path):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     (out_dir / "main_path_ops.txt").write_text(
-        prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=60))
+        prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=120))
     prof.export_chrome_trace(str(out_dir / "main_path_trace.json"))
-    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                  if e.device_type == DeviceType.CUDA)
-    return result, wall, busy_us / 1e6
+    on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ours = _port_kernels()
+    kernels: dict[str, tuple[int, float]] = {}
+    for e in on_card:
+        match = _LOCAL_KERNEL.match(e.name)
+        if match and match.group(1) in ours:
+            n, ms = kernels.get(match.group(1), (0, 0.0))
+            kernels[match.group(1)] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
+    busy_us = sum(e.time_range.elapsed_us() for e in on_card)
+    return result, wall, busy_us / 1e6, kernels
 
 
 class SmokePair:
@@ -926,10 +1032,12 @@ def phase_shot_path(pair: SmokePair, profile_dir: Path | None = None) -> dict:
     if profile_dir is not None:
         # a third run under the profiler, so its overhead stays out of the
         # measured run above
-        rc, prof_wall, busy = _profiled(lambda: cli.main(pair.argv), profile_dir)
+        rc, prof_wall, busy, kernels = _profiled(lambda: cli.main(pair.argv), profile_dir)
         check(rc == 0, f"SHOT path (profiled run): registration rejected (exit code {rc})")
         profiled = (f"; profiled run {prof_wall:.3f} s, device busy {busy:.3f} s "
-                    f"(idle share {1.0 - busy / prof_wall:.3f})")
+                    f"(idle share {1.0 - busy / prof_wall:.3f}); the port's kernels on the "
+                    "card (launches, device ms): "
+                    + ", ".join(f"{k} ({n}, {ms:.4f})" for k, (n, ms) in sorted(kernels.items())))
     print(_describe("phase 4 SHOT path", r) + profiled, flush=True)
     return r["launches"]
 
@@ -1159,9 +1267,15 @@ def main(argv=None) -> int:
     k8 = parity_k8("K1's keypoints and grid", terrain.grid, terrain.kp)
     k8_more = [parity_k8("the bi-scale grid", terrain.bi_grid, terrain.kp)]
     del terrain
-    k2 = parity_k2(dev, rng, 4096, 352)
+    parity_k2(dev, rng, 4096, 352)
     parity_k2(dev, rng, 4096, 352 * N_SCALES, modes=(True,))
     parity_k2(dev, rng, 8192, 125, modes=(True,))
+    # K2's later checks draw from a generator of their own, so every other
+    # phase-3 input stays as earlier versions of this script made it
+    k2_rng = np.random.default_rng(1)
+    k2 = parity_k2(dev, k2_rng, MAIN_KEYPOINTS[0], 352, modes=(True,), m=MAIN_KEYPOINTS[1])
+    parity_k2_ties(dev, k2_rng)
+    time_k2_random_path(dev, k2_rng)
     k3 = parity_k3(dev, rng)
     grid = spfh_terrain(dev, rng)
     k4, k6 = parity_k4(grid), parity_k6(grid)

@@ -47,11 +47,15 @@ LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 
 # C entry point -> argument types (every pointer and the stream as c_void_p,
 # so ctypes never truncates a 64-bit address to a 32-bit int)
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# a grid as K3 takes it: table, stride, rows, cell starts, cell ids, origin,
+# cell size, dims, halo
+_GRID = [_P, _I, _L, _P, _P, _P, _F, _L, _L, _L, _I]
 _SIGNATURES = {
     "shot_binning_histogram": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P],
-    "top2_match": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "radius_pca": [_P, _I, _P, _P, _P, _P, _I, _I, _P, _P],
+    "top2_match": [_P] * 11 + [_I] * 6 + [_P],
+    "radius_pca_keys": _GRID + [_P, _I, _P, _P],
+    "radius_pca": _GRID + [_P, _P, _P, _I, _P, _P, _P, _P],
     "spfh_histogram": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "spfh_runs": [_P, _I, _P, _P, _P, _P, _I, _I, _F, _I, _I, _P, _P],
     "shot_runs": [_P, _I, _P, _P, _P, _I, _I, _P, _F, _F, _P, _P, _P, _P],

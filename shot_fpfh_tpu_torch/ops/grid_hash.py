@@ -197,14 +197,16 @@ def _query_cells(grid: HashGrid, queries: torch.Tensor) -> torch.Tensor:
     return torch.floor(div(queries - grid.origin, grid.cell_size)).to(torch.int64)
 
 
-def _zcolumn_runs(grid: HashGrid, queries: torch.Tensor):
+def _zcolumn_runs(grid: HashGrid, queries: torch.Tensor, qcell: torch.Tensor | None = None):
     """``(start, end)`` sorted rows ``(Q, (2h+1)^2)`` of each query's
     z-column runs: for each (dx, dy) offset, the cells (x+dx, y+dy,
     max(z-h, 0) .. min(z+h, d2-1)) are consecutive in the z-minor id, so they
-    form one contiguous run.  Off-grid columns give empty runs."""
+    form one contiguous run.  Off-grid columns give empty runs.  ``qcell``:
+    the queries' cells (``_query_cells``), when the caller has them."""
     h = grid.halo
     d0, d1, d2 = grid.dims
-    qcell = _query_cells(grid, queries)
+    if qcell is None:
+        qcell = _query_cells(grid, queries)
     r = torch.arange(-h, h + 1, device=queries.device)
     off = torch.stack(torch.meshgrid(r, r, indexing="ij"), -1).reshape(-1, 2)
     xy = qcell[:, None, :2] + off[None]                       # (Q, R, 2)
@@ -324,10 +326,11 @@ def moments_to_pca(sums: torch.Tensor, queries: torch.Tensor):
     """``(cov (Q,3,3), barycenter (Q,3), count (Q,))`` from the 10 raw sums
     (covariance centered and divided by the count, as the reference)."""
     count = sums[:, 0]
-    safe = torch.clamp(count, min=1.0)[:, None]
-    mean = sums[:, 1:4] / safe                                 # E[p - q]
-    xx, yy, zz, xy, xz, yz = (sums[:, 4 + i:5 + i] / safe for i in range(6))
-    second = torch.cat([xx, xy, xz, xy, yy, yz, xz, yz, zz], 1).reshape(-1, 3, 3)
+    # E[p - q], then E[xx yy zz xy xz yz]: one division for all nine
+    moments = sums[:, 1:] / torch.clamp(count, min=1.0)[:, None]
+    mean = moments[:, :3]
+    xx, yy, zz, xy, xz, yz = moments[:, 3:].unbind(1)
+    second = torch.stack([xx, xy, xz, xy, yy, yz, xz, yz, zz], 1).reshape(-1, 3, 3)
     cov = second - mean[:, :, None] * mean[:, None, :]
     return cov, mean + queries, count
 

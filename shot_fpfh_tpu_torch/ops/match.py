@@ -10,9 +10,17 @@ rounded values, so self-distances cancel exactly.  Invalid refs count as
 :func:`top2_match` launches the CUDA kernel (``csrc/match.cu``) on CUDA
 tensors and runs :func:`top2_match_plain` — the tiled scan of
 ``registration/matching.py::_top_scan`` — on CPU tensors.
+
+The kernel's grid is (row blocks) x (column splits of ``b``): split ``s``
+of ``S`` takes ref tiles ``[s·T/S, (s+1)·T/S)`` of the ``T`` tiles of
+``TILE`` refs and yields a partial top-2 per row; the partials are merged in
+split order with :func:`top2_merge`'s rule.  :func:`column_splits` picks
+``S``.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -20,6 +28,10 @@ from .. import _kernels
 
 _CHUNK = 1024      # scan rows per step of the plain scan
 _REF_TILE = 4096   # ref rows per tile of the plain scan
+
+TILE = 128                            # rows of a per block, ref rows per tile
+K_STEP = {True: 64, False: 8}         # feature step of the bf16 / f32 kernel
+BLOCKS_PER_SM = 2                     # blocks the grid aims to keep on each SM
 
 
 def rounded(x: torch.Tensor, use_bf16: bool) -> torch.Tensor:
@@ -76,6 +88,21 @@ def top2_match_plain(a: torch.Tensor, b: torch.Tensor, b_valid: torch.Tensor,
     return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
+def column_splits(n: int, m: int, n_sms: int) -> int:
+    """Column splits of the kernel's grid: as many (row block, split)
+    blocks as ``BLOCKS_PER_SM`` on each of ``n_sms`` SMs hold in one wave
+    (a second, partial wave would double the time), at most one split per
+    ref tile."""
+    row_blocks = max(1, -(-n // TILE))
+    tiles = -(-m // TILE)
+    return max(1, min(tiles, BLOCKS_PER_SM * n_sms // row_blocks))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def top2_match(a: torch.Tensor, b: torch.Tensor, b_valid: torch.Tensor,
                use_bf16: bool = True):
     """``(i1 (n,) int64, d1² (n,), d2² (n,))`` of each ``a`` row among the
@@ -88,16 +115,26 @@ def top2_match(a: torch.Tensor, b: torch.Tensor, b_valid: torch.Tensor,
     if b.shape[1] != dim or b_valid.shape != (m,):
         raise ValueError(f"bad shapes a {tuple(a.shape)}, b {tuple(b.shape)}, "
                          f"b_valid {tuple(b_valid.shape)}")
-    cdt = torch.bfloat16 if use_bf16 else torch.float32
-    ac = a.to(cdt).contiguous()
-    bc = b.to(cdt).contiguous()
-    an = (ac.float() ** 2).sum(-1).contiguous()
-    bn = (bc.float() ** 2).sum(-1).contiguous()
-    valid = b_valid.to(torch.uint8).contiguous()
-    i1 = torch.empty(n, dtype=torch.int32, device=a.device)
-    d1 = torch.empty(n, dtype=torch.float32, device=a.device)
-    d2 = torch.empty(n, dtype=torch.float32, device=a.device)
-    _kernels.launch("top2_match", device, ac.data_ptr(), bc.data_ptr(), an.data_ptr(),
-                    bn.data_ptr(), valid.data_ptr(), i1.data_ptr(), d1.data_ptr(),
-                    d2.data_ptr(), n, m, dim, int(use_bf16))
-    return i1.long(), d1, d2
+    a = a.to(torch.float32).contiguous()
+    b = b.to(torch.float32).contiguous()
+    valid = b_valid.to(torch.bool).contiguous()
+    # scratch of the kernel's prep step: both operands rounded and padded
+    # with zero columns to its feature step (no change to a dot product or a
+    # norm), the squared norms of the rounded rows (+inf for an invalid ref
+    # and for the padding up to a whole tile), and the splits' partials
+    step = K_STEP[use_bf16]
+    width = max(step, -(-dim // step) * step)
+    ops = torch.empty((n + m) * width, dtype=torch.bfloat16 if use_bf16 else torch.float32,
+                      device=device)
+    norms = torch.empty(-(-m // TILE) * TILE + n, dtype=torch.float32, device=device)
+    splits = column_splits(n, m, _sm_count(device.index))
+    part_i = torch.empty((splits, n), dtype=torch.int32, device=device)
+    part_d = torch.empty((2, splits, n), dtype=torch.float32, device=device)
+    i1 = torch.empty(n, dtype=torch.int64, device=device)
+    d1 = torch.empty(n, dtype=torch.float32, device=device)
+    d2 = torch.empty(n, dtype=torch.float32, device=device)
+    _kernels.launch("top2_match", device, a.data_ptr(), b.data_ptr(), valid.data_ptr(),
+                    ops.data_ptr(), norms.data_ptr(), part_i.data_ptr(), part_d[0].data_ptr(),
+                    part_d[1].data_ptr(), i1.data_ptr(), d1.data_ptr(), d2.data_ptr(), n, m, dim,
+                    width, splits, int(use_bf16))
+    return i1, d1, d2

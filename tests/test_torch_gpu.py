@@ -100,6 +100,156 @@ def test_k2_top2_kernel_multiscale_width(cuda, rng):
     test_k2_top2_kernel(cuda, rng, True, dim=704)
 
 
+def _exact_refs(rng, n, m, dim, device):
+    """Whole numbers in [-2, 2] (every product and sum exact in f32, so the
+    kernel's and the twin's distances are equal) with ref rows repeated and
+    scan rows copied into the refs: exact ties at first and second place."""
+    a = rng.integers(-2, 3, size=(n, dim)).astype(np.float32)
+    b = rng.integers(-2, 3, size=(m, dim)).astype(np.float32)
+    b[m // 3: 2 * (m // 3)] = b[: m // 3]
+    k = min(n // 2, m // 3)
+    b[m - k:] = a[:k]
+    return torch.tensor(a, device=device), torch.tensor(b, device=device)
+
+
+@pytest.mark.parametrize("use_bf16", [False, True])
+@pytest.mark.parametrize("n,m", [(1, 5), (1, 300), (200, 77), (129, 257), (257, 129), (1000, 1),
+                                 (50, 0)])
+def test_k2_top2_kernel_ragged(cuda, rng, use_bf16, n, m):
+    """Ragged n and m (one row, under one 128-ref tile, one over a tile
+    multiple) are masked inside the kernel: indices and distances equal the
+    twin's on exact inputs."""
+    a, b = _exact_refs(rng, n, m, 352, cuda)
+    valid = torch.tensor(rng.uniform(size=m) > 0.1, device=cuda)
+    valid[:1] = True
+    got = _counted("top2_match", lambda: top2_match(a, b, valid, use_bf16))
+    for g, w in zip(got, top2_match_plain(a, b, valid, use_bf16)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("use_bf16", [False, True])
+def test_k2_top2_kernel_every_ref_invalid(cuda, rng, use_bf16):
+    a, b = torch.randn(300, 352, device=cuda), torch.randn(500, 352, device=cuda)
+    valid = torch.zeros(500, dtype=torch.bool, device=cuda)
+    i1, d1, d2 = _counted("top2_match", lambda: top2_match(a, b, valid, use_bf16))
+    j1, _, _ = top2_match_plain(a, b, valid, use_bf16)
+    assert torch.isinf(d1).all() and torch.isinf(d2).all()
+    assert torch.equal(i1, j1)
+
+
+@pytest.mark.parametrize("use_bf16", [False, True])
+@pytest.mark.parametrize("dim", [352, 125, 704])
+def test_k2_top2_kernel_duplicate_refs(cuda, rng, use_bf16, dim):
+    """Duplicated ref rows tie exactly: the lower index wins and the tie
+    goes into d2, as in the twin, on every row."""
+    a, b = _exact_refs(rng, 1000, 3000, dim, cuda)
+    valid = torch.tensor(rng.uniform(size=3000) > 0.05, device=cuda)
+    i1, d1, d2 = _counted("top2_match", lambda: top2_match(a, b, valid, use_bf16))
+    j1, e1, e2 = top2_match_plain(a, b, valid, use_bf16)
+    assert torch.equal(i1, j1) and torch.equal(d1, e1) and torch.equal(d2, e2)
+    assert bool((d1 == 0).any()) and bool((d2 == d1).any())
+
+
+@pytest.mark.parametrize("splits", [1, 3, 5, 7, 19])
+def test_k2_top2_kernel_split_counts(cuda, rng, monkeypatch, splits):
+    """Column splits that do not divide the ref tiles (19 of 20 tiles, 7 of
+    20, ...) merge in split order to the twin's result, in both modes."""
+    from shot_fpfh_tpu_torch.ops import match as match_ops
+
+    monkeypatch.setattr(match_ops, "column_splits", lambda n, m, sms: splits)
+    a, b = _exact_refs(rng, 300, 2500, 352, cuda)
+    valid = torch.tensor(rng.uniform(size=2500) > 0.05, device=cuda)
+    for use_bf16 in (False, True):
+        got = _counted("top2_match", lambda: top2_match(a, b, valid, use_bf16))
+        for g, w in zip(got, top2_match_plain(a, b, valid, use_bf16)):
+            assert torch.equal(g, w)
+
+
+def _k3_sums(grid, queries, radius):
+    cov, bary, cnt = _counted("radius_pca", lambda: radius_pca(grid, queries, radius))
+    return cov, bary, cnt
+
+
+def test_k3_radius_pca_kernel_query_order(cuda, rng):
+    """The same queries in cell order and in a random order give equal
+    outputs: each thread adds its own runs' rows in one fixed order, whatever
+    tile it lands in."""
+    pts = _surface(rng, 30_000, cuda)
+    grid = build_grid(pts, 0.3)
+    cell_order = grid.packed_sorted[:, :3]
+    radius = torch.tensor(rng.uniform(0.1, 0.3, 30_000).astype(np.float32), device=cuda)
+    perm = torch.tensor(rng.permutation(30_000), device=cuda)
+    got = _k3_sums(grid, cell_order[perm], radius[perm])
+    want = _k3_sums(grid, cell_order, radius)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w[perm])
+    cov_p, _, cnt_p = radius_pca_plain(grid, cell_order, radius)
+    assert torch.equal(want[2], cnt_p)
+    torch.testing.assert_close(want[0], cov_p, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("cluster", [6_000, 40_000])
+def test_k3_radius_pca_kernel_dense_cluster(cuda, rng, cluster):
+    """One dense cell beside a surface: its tiles' unions exceed the staging
+    buffer (2,048 rows: staged in chunks) or, at 40,000 points, the staged
+    route's limit (each thread then reads its runs from device memory);
+    counts stay exact."""
+    pts = _surface(rng, 20_000, cuda)
+    blob = pts[0] + 0.01 * torch.rand(cluster, 3, device=cuda)
+    cloud = torch.cat([pts, blob])
+    grid = build_grid(cloud, 0.3)
+    q = torch.cat([cloud[::9], blob[:500]])
+    for radius in (0.3, 0.05):
+        cov, bary, cnt = _k3_sums(grid, q, radius)
+        cov_p, bary_p, cnt_p = radius_pca_plain(grid, q, radius)
+        assert torch.equal(cnt, cnt_p)
+        assert int(cnt.max()) >= cluster
+        torch.testing.assert_close(cov, cov_p, atol=1e-4, rtol=0)
+        torch.testing.assert_close(bary, bary_p, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("table", [True, False])
+@pytest.mark.parametrize("halo", [1, 2])
+def test_k3_radius_pca_kernel_bookkeeping_equals_tile_plan(cuda, rng, table, halo):
+    """The kernel finds its queries' runs and its tiles' unions itself,
+    from the cell-start table or, on a grid too sparse for one, by binary
+    search over the cell ids: its cell order and unions equal ``tile_plan``'s
+    and its counts the twin's."""
+    from shot_fpfh_tpu_torch.ops.grid_hash import radius_sq
+    from shot_fpfh_tpu_torch.ops.radius_pca import cell_moments, cell_order, tile_plan
+
+    pts = _surface(rng, 20_000, cuda)
+    if not table:   # one far point: more cells than the table may hold
+        pts = torch.cat([pts, torch.full((1, 3), 1e4, device=cuda)])
+    grid = build_grid(pts, 0.3, halo=halo)
+    assert grid.has_table == table
+    q = pts[torch.tensor(rng.permutation(pts.shape[0])[:5000], device=cuda)].contiguous()
+    radius = torch.tensor(rng.uniform(0.1, 0.3, 5000).astype(np.float32), device=cuda)
+    plan = tile_plan(grid, q)
+    order = _counted("radius_pca_keys", lambda: cell_order(grid, q))
+    unions = (torch.empty_like(plan.lo), torch.empty_like(plan.hi))
+    sums = _counted("radius_pca", lambda: cell_moments(grid, q, radius_sq(radius, 5000, cuda),
+                                                       order, unions))
+    assert torch.equal(order, plan.order)
+    assert torch.equal(unions[0], plan.lo) and torch.equal(unions[1], plan.hi)
+    assert torch.equal(sums[:, 0], radius_pca_plain(grid, q, radius)[2])
+
+
+def test_k3_radius_pca_kernel_empty_windows(cuda, rng):
+    """Queries whose runs are all empty (far off the grid, below and above
+    its z range, in an empty corner) get all-zero sums: count 0, covariance
+    0, barycenter the query."""
+    pts = _surface(rng, 30_000, cuda)
+    grid = build_grid(pts, 0.3)
+    far = torch.tensor([[1e6, 1e6, 1e6], [0.0, 0.0, -50.0], [0.0, 0.0, 50.0],
+                        [-1e3, 0.0, 0.0]], device=cuda)
+    q = torch.cat([far, pts[:1000]])
+    cov, bary, cnt = _k3_sums(grid, q, 0.3)
+    assert not cnt[:4].any() and not cov[:4].any() and torch.equal(bary[:4], far)
+    assert bool((cnt[4:] >= 1).all())
+    assert torch.equal(cnt, radius_pca_plain(grid, q, 0.3)[2])
+
+
 @pytest.mark.parametrize("own_frames", [True, False])
 def test_k1_shot_kernel(cuda, rng, own_frames):
     pts = _surface(rng, 30_000, cuda)

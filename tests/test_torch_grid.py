@@ -112,3 +112,55 @@ def test_grid_nearest_neighbor_and_knn_auto(cloud, rng):
     nbr = t_grid.knn_auto(big[:500], big, 12)
     d = np.linalg.norm(big[:500, None] - big[None], axis=-1)
     np.testing.assert_allclose(np.sort(nbr.dist.numpy(), 1), np.sort(d, 1)[:, :12], atol=1e-5)
+
+
+@pytest.mark.parametrize("order", ["input", "random", "cell", "cluster", "no table"])
+def test_k3_tile_plan_covers_every_run(cloud, rng, order):
+    """K3's bookkeeping: the queries sorted by cell (a permutation that
+    round-trips), their z-column runs, and per tile of TILE queries the
+    union of the runs for each offset, which holds every non-empty run of
+    the tile's queries; tiles with no run for an offset get (0, 0)."""
+    from shot_fpfh_tpu_torch.ops.radius_pca import TILE, tile_plan
+
+    pts = cloud
+    if order == "cluster":   # one dense cell: unions past the kernel's staging buffer
+        pts = np.concatenate([cloud, cloud[0] + rng.uniform(0, 1e-3, (3000, 3))]).astype(np.float32)
+    if order == "no table":   # one far point: runs found by binary search
+        pts = np.concatenate([cloud, [[5e3, 5e3, 5e3]]]).astype(np.float32)
+    q = np.concatenate([pts[: 700], np.full((3, 3), FAR, np.float32)])
+    if order == "random":
+        q = q[rng.permutation(len(q))]
+    grid = t_grid.build_grid(pts, 0.8)
+    assert grid.has_table == (order != "no table")
+    if order == "cell":
+        q = grid.packed_sorted[:700, :3].numpy()
+    qt = torch.tensor(q)
+    plan = tile_plan(grid, qt)
+    n = len(q)
+    assert torch.equal(torch.sort(plan.order).values, torch.arange(n))
+    assert torch.equal(plan.queries, qt[plan.order])
+    back = torch.empty_like(plan.queries)
+    back[plan.order] = plan.queries
+    assert torch.equal(back, qt)
+    start, end = t_grid._zcolumn_runs(grid, qt)
+    assert torch.equal(plan.start, start[plan.order]) and torch.equal(plan.end, end[plan.order])
+    cells = t_grid._query_cells(grid, plan.queries)
+    ids = (cells[:, 0] * grid.dims[1] + cells[:, 1]) * grid.dims[2] + cells[:, 2]
+    assert bool((ids[1:] >= ids[:-1]).all())                 # cell order
+    tile = torch.arange(n) // TILE
+    assert plan.lo.shape == plan.hi.shape == (-(-n // TILE), start.shape[1])
+    nonempty = plan.end > plan.start
+    assert bool((~nonempty | (plan.start >= plan.lo[tile])).all())
+    assert bool((~nonempty | (plan.end <= plan.hi[tile])).all())
+    # tight: each bound is some query's run end, or (0, 0) with no run
+    for t in range(plan.lo.shape[0]):
+        ne = nonempty[tile == t]
+        for k in range(start.shape[1]):
+            runs = ne[:, k]
+            if runs.any():
+                assert int(plan.lo[t, k]) == int(plan.start[tile == t][runs, k].min())
+                assert int(plan.hi[t, k]) == int(plan.end[tile == t][runs, k].max())
+            else:
+                assert int(plan.lo[t, k]) == int(plan.hi[t, k]) == 0
+    if order == "cluster":
+        assert int((plan.hi - plan.lo).sum(1).max()) > 2048

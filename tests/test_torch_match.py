@@ -14,6 +14,7 @@ import torch
 from shot_fpfh_tpu.ops.pallas_match import top2_matmul_pallas
 from shot_fpfh_tpu.registration import matching as j_match
 from shot_fpfh_tpu_torch import _kernels
+from shot_fpfh_tpu_torch.ops import match as match_ops
 from shot_fpfh_tpu_torch.ops.match import top2_match
 from shot_fpfh_tpu_torch.registration import matching as t_match
 
@@ -75,3 +76,72 @@ def test_matchers_match_reference(rng, algo):
     np.testing.assert_array_equal(ts, js)
     np.testing.assert_array_equal(tr, jr)
     assert 3 not in ts and 50 not in ts
+
+
+def _duplicate_laden(rng, n, m, dim=40):
+    """Small whole numbers (every product and sum exact in f32, so bf16 and
+    f32 give the same exact distances) with repeated ref rows and scan rows
+    copied into the refs: many exact ties, first and second place alike."""
+    a = rng.integers(-2, 3, size=(n, dim)).astype(np.float32)
+    b = rng.integers(-2, 3, size=(m, dim)).astype(np.float32)
+    b[m // 3: 2 * (m // 3)] = b[: m // 3]
+    b[m - n // 2:] = a[: n // 2]
+    b[5:9] = b[m - 1]
+    valid = rng.uniform(size=m) > 0.1
+    return torch.tensor(a), torch.tensor(b), torch.tensor(valid)
+
+
+def _split_columns(m, splits):
+    """K2's column splits: split s takes ref tiles [s·T/S, (s+1)·T/S)."""
+    tiles = -(-m // match_ops.TILE)
+    bounds = [tiles * s // splits for s in range(splits + 1)]
+    return [(min(m, t0 * match_ops.TILE), min(m, t1 * match_ops.TILE))
+            for t0, t1 in zip(bounds, bounds[1:])]
+
+
+def _top2_split_plain(a, b, valid, use_bf16, splits):
+    """The kernel's decomposition with the twin's pieces: per column split,
+    the rows' top-2 (``top2_rows``), merged in split order (``top2_merge``)."""
+    ac, bc = match_ops.rounded(a, use_bf16), match_ops.rounded(b, use_bf16)
+    an, bn = (ac * ac).sum(-1), (bc * bc).sum(-1)
+    inf = float("inf")
+    carry = (torch.zeros(len(a), dtype=torch.int64), torch.full((len(a),), inf),
+             torch.full((len(a),), inf))
+    for c0, c1 in _split_columns(len(b), splits):
+        if c1 > c0:
+            d2 = torch.clamp((an[:, None] + bn[None, c0:c1]) - 2.0 * (ac @ bc[c0:c1].T), min=0.0)
+            d2 = torch.where(valid[None, c0:c1], d2, inf)
+            i1, d1, second = match_ops.top2_rows(d2)
+            carry = match_ops.top2_merge(carry, (i1 + c0, d1, second))
+    return carry
+
+
+@pytest.mark.parametrize("use_bf16", [False, True])
+@pytest.mark.parametrize("splits", [1, 2, 3, 7, 13])
+def test_k2_split_and_merge_rule_equals_twin(rng, use_bf16, splits):
+    """The kernel's decomposition (column splits of whole 128-ref tiles,
+    each split's top-2 merged in split order) run with the twin's pieces
+    gives the twin's indices and distances exactly, ties included."""
+    a, b, valid = _duplicate_laden(rng, 300, 1500)
+    got = _top2_split_plain(a, b, valid, use_bf16, splits)
+    want = match_ops.top2_match_plain(a, b, valid, use_bf16)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    # the ties are there: refs equal to a scan row are found at distance 0
+    assert bool((want[1] == 0).any()) and bool((want[2] == want[1]).any())
+
+
+@pytest.mark.parametrize("n,m,sms", [(4096, 4096, 132), (6531, 6634, 132), (50_000, 50_000, 132),
+                                     (1, 5, 132), (300, 1500, 2), (10, 0, 132)])
+def test_k2_column_splits_fill_one_wave(n, m, sms):
+    """Splits fill at most one wave of two blocks an SM (at least one
+    split, at most one a ref tile) and cover the refs in order, once."""
+    splits = match_ops.column_splits(n, m, sms)
+    tiles = -(-m // match_ops.TILE)
+    row_blocks = -(-n // match_ops.TILE)
+    assert 1 <= splits <= max(1, tiles)
+    assert splits == 1 or row_blocks * splits <= match_ops.BLOCKS_PER_SM * sms
+    cols = _split_columns(m, splits)
+    assert len(cols) == splits and cols[0][0] == 0 and cols[-1][1] == m
+    assert all(c1 == d0 for (_, c1), (d0, _) in zip(cols, cols[1:]))
+    assert all(c0 % match_ops.TILE == 0 for c0, _ in cols)

@@ -155,6 +155,11 @@ FEATURE_ATOL, FEATURE_ANGLE_ATOL = 1e-6, 1e-4
 # compute_pca_based_features
 BASIC_ANGLE_COLS, FEATURE_ANGLE_COLS = (0,), (8, 9, 10, 11)
 
+# the CUDA kernels of K1, K5, K7 and K8 as csrc/ names them (their device
+# time alone is read from the profiler)
+K1_KERNEL, K5_KERNEL = "shot_hist_kernel", "shot_runs_kernel"
+K7_KERNEL, K8_KERNEL = "radius_dist_kernel", "fetch_windows_kernel"
+
 # each path and the kernels its measured run must launch (and must not):
 # every window route fetches through K8, every ICP's grid 1-NN runs K7
 WINDOW, NN = "fetch_windows", "radius_dist"
@@ -201,6 +206,32 @@ def cuda_ms(fn, reps: int = 10) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def kernel_ms(fn, kernel: str, reps: int = 10) -> float:
+    """Mean device milliseconds of a launch of the port's CUDA kernel
+    ``kernel`` (its name in csrc/, launched once a call of ``fn``), from
+    ``torch.profiler`` over ``reps`` calls after a warm-up: the kernel alone,
+    without its wrapper's host work; the mean is over the launches the
+    profiler recorded.  A trace that recorded none of them (it happens, now
+    and then) is taken again, up to three times; nan after that."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        times = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and (m := _LOCAL_KERNEL.match(e.name)) and m.group(1) == kernel]
+        if times:
+            return sum(times) / len(times) / 1e3
+    return float("nan")
 
 
 def check(cond: bool, message: str) -> None:
@@ -497,6 +528,8 @@ def parity_k1(terrain: ShotTerrain):
     stats = {"own frames": flip_rule(hist_k, hist_pk, "K1 own frames"),
              "given frames": flip_rule(hist_g, hist_p, "K1 given frames")}
     ms = cuda_ms(lambda: shot_binning_histogram(vals, dist_inf, kp, None, radius))
+    alone = kernel_ms(lambda: shot_binning_histogram(vals, dist_inf, kp, None, radius),
+                      K1_KERNEL)
     plain_ms = cuda_ms(lambda: shot_binning_histogram_plain(vals, dist_inf, kp, None, radius))
     q, _, w = vals.shape
     # the bytes this run's data needs: every lane's distance, and the six
@@ -506,8 +539,8 @@ def parity_k1(terrain: ShotTerrain):
     b = bound((6 * n_lanes + q * w + q * 3 + q * (352 + 9)) * 4, n_lanes * OPS_SHOT_NEIGHBOR)
     print(f"phase 3 K1 shot_binning_histogram: {q} keypoints x window {w}: "
           f"frames max err {frame_err:.2e}, (flip fraction, max diff) {stats}; "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms "
-          f"({b['bound_by']})", flush=True)
+          f"kernel {ms:.3f} ms (alone {alone:.4f} ms), plain {plain_ms:.3f} ms, bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']})", flush=True)
 
     # bi-scale mode: frames from the rf plane, bins from the descriptor plane
     bi_vals, bi_dist, rf_dist = terrain.window(bi_scale=True)
@@ -521,6 +554,7 @@ def parity_k1(terrain: ShotTerrain):
     check(bi_frame_err <= K1_FRAME_ATOL, f"K1 bi-scale frames error {bi_frame_err}")
     stats["bi-scale"] = flip_rule(bi_hist, bi_hist_p, "K1 bi-scale")
     bi_ms = cuda_ms(lambda: shot_binning_histogram(*args, **rf))
+    bi_alone = kernel_ms(lambda: shot_binning_histogram(*args, **rf), K1_KERNEL)
     bi_plain_ms = cuda_ms(lambda: shot_binning_histogram_plain(*args, **rf))
     w_bi = bi_vals.shape[2]
     # both planes at every lane; x y z at the lanes finite in either plane,
@@ -532,8 +566,8 @@ def parity_k1(terrain: ShotTerrain):
     print(f"phase 3 K1 bi-scale mode: {q} keypoints x window {w_bi}, frames at "
           f"{terrain.rf_radius}, bins at {terrain.bi_radius}: frames max err "
           f"{bi_frame_err:.2e}, (flip fraction, max diff) {stats['bi-scale']}; kernel "
-          f"{bi_ms:.3f} ms, plain {bi_plain_ms:.3f} ms, bound {bi_b['bound_ms']:.4f} ms "
-          f"({bi_b['bound_by']})", flush=True)
+          f"{bi_ms:.3f} ms (alone {bi_alone:.4f} ms), plain {bi_plain_ms:.3f} ms, bound "
+          f"{bi_b['bound_ms']:.4f} ms ({bi_b['bound_by']})", flush=True)
     return dict(max_abs_err=max(st[1] for st in stats.values()), ms=ms, plain_ms=plain_ms,
                 library_ms=None, **b)
 
@@ -614,6 +648,9 @@ def parity_k5(terrain: ShotTerrain):
     ms = cuda_ms(lambda: shot_descriptor_dma(grid, kp, radius, **rf, **raw))
     plain_ms = cuda_ms(lambda: shot_descriptor_dma_plain(grid, kp, radius, **rf, **raw))
     own_ms = cuda_ms(lambda: shot_descriptor_dma(terrain.grid, kp, terrain.radius, **raw))
+    alone = kernel_ms(lambda: shot_descriptor_dma(grid, kp, radius, **rf, **raw), K5_KERNEL)
+    own_alone = kernel_ms(lambda: shot_descriptor_dma(terrain.grid, kp, terrain.radius, **raw),
+                          K5_KERNEL)
     # the timed call's work: every row of the keypoints' runs tested once,
     # the frame plane's neighbors reduced, the descriptor plane's binned
     start, end = _xyrow_runs(grid, kp)
@@ -628,8 +665,9 @@ def parity_k5(terrain: ShotTerrain):
           f"frame and {n_bin / q:.0f} descriptor neighbors a keypoint): frames max err "
           f"{frame_errs}, (flip fraction, max diff) vs twin {stats}; vs the K1 route "
           f"(parted keypoints, frames err, (flip, max diff)) {route}; bi-scale kernel "
-          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms "
-          f"({b['bound_by']}); own frames at {terrain.radius} kernel {own_ms:.3f} ms",
+          f"{ms:.3f} ms (alone {alone:.4f} ms), plain {plain_ms:.3f} ms, bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']}); own frames at {terrain.radius} kernel "
+          f"{own_ms:.3f} ms (alone {own_alone:.4f} ms)",
           flush=True)
     return dict(max_abs_err=max(st[1] for st in stats.values()), ms=ms, plain_ms=plain_ms,
                 library_ms=None, **b)
@@ -765,14 +803,23 @@ def voxel_sums(dev, rng):
 
 def _runs_case(grid, queries):
     """The K7 / K8 inputs of ``queries`` on ``grid``: its table, the runs and
-    the window width, and the count of window slots inside the runs."""
+    the window width; the count of window slots inside the runs; and the
+    count of distinct table rows those slots read (the union of the runs,
+    each cut where its query's window is full), which a bound reads once."""
     import torch
 
     from shot_fpfh_tpu_torch.ops.grid_hash import _zcolumn_runs
 
     start, end = _zcolumn_runs(grid, queries)
-    lanes = float(torch.clamp((end - start).sum(1), max=grid.window_cap).sum())
-    return (grid.packed_sorted, queries, start, end, grid.window_cap), lanes
+    w, n = grid.window_cap, grid.packed_sorted.shape[0]
+    length = torch.clamp(end - start, min=0)
+    kept = torch.minimum(length, torch.clamp(w - (torch.cumsum(length, 1) - length), min=0))
+    lanes = float(kept.sum())
+    edges = torch.zeros(n + 1, dtype=torch.int64, device=start.device)
+    edges.index_add_(0, start.reshape(-1), torch.ones_like(start.reshape(-1)))
+    edges.index_add_(0, (start + kept).reshape(-1), -torch.ones_like(start.reshape(-1)))
+    rows = float((torch.cumsum(edges, 0)[:n] > 0).sum())
+    return (grid.packed_sorted, queries, start, end, w), lanes, rows
 
 
 def _max_abs_diff(got, want) -> float:
@@ -784,28 +831,41 @@ def _max_abs_diff(got, want) -> float:
 
 
 def parity_k8(label: str, grid, queries) -> dict:
-    """K8 against its twin on every output (``torch.equal``); bound: the
-    window written ((Q, W) slots of F + 1 floats, a bool and an int64), the
-    run rows read once, a distance per row."""
+    """K8 against its twin on every output (``torch.equal``), with the rows
+    plane and without it (the mode the window routes call); bound: the
+    window written ((Q, W) slots of F + 1 floats, a bool and, with rows, an
+    int64), the run rows read once, a distance per row.  The returned
+    timings are those of the mode without rows."""
     import torch
 
     from shot_fpfh_tpu_torch.ops.radius_runs import fetch_windows, fetch_windows_plain
 
-    args, lanes = _runs_case(grid, queries)
+    args, lanes, rows = _runs_case(grid, queries)
     got, want = fetch_windows(*args), fetch_windows_plain(*args)
+    no_rows = fetch_windows(*args, with_rows=False)
     torch.cuda.synchronize()
     for name, g, w in zip(("vals", "dist", "valid", "rows"), got, want):
         check(torch.equal(g, w), f"K8 {label}: {name} differs from the plain version")
+    check(no_rows[3] is None, f"K8 {label}: rows returned without rows")
+    for name, g, w in zip(("vals", "dist", "valid"), no_rows, want):
+        check(torch.equal(g, w), f"K8 {label} without rows: {name} differs from the plain version")
     err = max(_max_abs_diff(got[0], want[0]), _max_abs_diff(got[1], want[1]))
-    ms = cuda_ms(lambda: fetch_windows(*args))
+    rows_ms = cuda_ms(lambda: fetch_windows(*args))
+    ms = cuda_ms(lambda: fetch_windows(*args, with_rows=False))
+    alone = kernel_ms(lambda: fetch_windows(*args, with_rows=False), K8_KERNEL)
+    rows_alone = kernel_ms(lambda: fetch_windows(*args), K8_KERNEL)
     plain_ms = cuda_ms(lambda: fetch_windows_plain(*args))
     q, f, w = got[0].shape
-    b = bound(q * w * (4 * f + 4 + 1 + 8) + lanes * 4 * f + q * 12 + args[2].numel() * 16,
-              lanes * OPS_DIST_TEST)
+    read = rows * 4 * f + q * 12 + args[2].numel() * 16
+    b_rows = bound(q * w * (4 * f + 4 + 1 + 8) + read, lanes * OPS_DIST_TEST)
+    b = bound(q * w * (4 * f + 4 + 1) + read, lanes * OPS_DIST_TEST)
     print(f"phase 3 K8 fetch_windows ({label}): {q} queries x window {w}, {f} features, "
           f"halo {grid.halo}, {lanes / q:.0f} rows a query: vals, dist, valid and rows "
-          f"bit-identical (max abs err {err}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-          f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})", flush=True)
+          f"bit-identical with and without the rows plane (max abs err {err}); with rows: "
+          f"kernel {rows_ms:.3f} ms (alone {rows_alone:.4f} ms), bound "
+          f"{b_rows['bound_ms']:.4f} ms; without: kernel {ms:.3f} ms (alone {alone:.4f} ms), "
+          f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}); plain {plain_ms:.3f} ms",
+          flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
 
 
@@ -817,22 +877,24 @@ def parity_k7(label: str, grid, queries, radius: float) -> dict:
 
     from shot_fpfh_tpu_torch.ops.radius_runs import radius_dist, radius_dist_plain
 
-    args, lanes = _runs_case(grid, queries)
+    args, lanes, rows = _runs_case(grid, queries)
     got, want = radius_dist(*args, radius), radius_dist_plain(*args, radius)
     torch.cuda.synchronize()
     for name, g, w in zip(("rows", "dist"), got, want):
         check(torch.equal(g, w), f"K7 {label}: {name} differs from the plain version")
     err = _max_abs_diff(got[1], want[1])
     ms = cuda_ms(lambda: radius_dist(*args, radius))
+    alone = kernel_ms(lambda: radius_dist(*args, radius), K7_KERNEL)
     plain_ms = cuda_ms(lambda: radius_dist_plain(*args, radius))
     q, w = got[0].shape
     inside = float(torch.isfinite(got[1]).sum())
-    b = bound(q * w * (4 + 8) + lanes * 12 + q * 12 + args[2].numel() * 16,
+    b = bound(q * w * (4 + 8) + rows * 12 + q * 12 + args[2].numel() * 16,
               lanes * OPS_DIST_TEST)
     print(f"phase 3 K7 radius_dist ({label}): {q} queries x window {w}, halo {grid.halo}, "
           f"radius {radius}, {lanes / q:.0f} rows and {inside / q:.1f} within the radius a "
-          f"query: rows and distances bit-identical (max abs err {err}); kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})",
+          f"query: rows and distances bit-identical (max abs err {err}); kernel {ms:.3f} ms "
+          f"(alone {alone:.4f} ms), plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']})",
           flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
 
@@ -885,9 +947,10 @@ class _LogLines(logging.Handler):
         self.logger.removeHandler(self)
 
 
-# a kernel as the profiler names a file-local one, and the kernels that
-# csrc/ defines
-_LOCAL_KERNEL = re.compile(r"^(?:void )?\(anonymous namespace\)::(\w+)")
+# a kernel as the profiler names a file-local one (a template's arguments
+# kept, so two instances of one template are two entries), and the kernels
+# that csrc/ defines
+_LOCAL_KERNEL = re.compile(r"^(?:void )?\(anonymous namespace\)::(\w+)(<[^>(]*>)?")
 _DEFINED_KERNEL = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(")
 
 
@@ -920,8 +983,9 @@ def _profiled(fn, out_dir: Path):
     for e in on_card:
         match = _LOCAL_KERNEL.match(e.name)
         if match and match.group(1) in ours:
-            n, ms = kernels.get(match.group(1), (0, 0.0))
-            kernels[match.group(1)] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
+            name = match.group(1) + (match.group(2) or "")
+            n, ms = kernels.get(name, (0, 0.0))
+            kernels[name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
     busy_us = sum(e.time_range.elapsed_us() for e in on_card)
     return result, wall, busy_us / 1e6, kernels
 

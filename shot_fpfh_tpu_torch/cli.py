@@ -3,7 +3,10 @@
 Port of ``shot_fpfh_tpu.cli`` (console script ``register_point_clouds_torch``):
 load clouds → k-NN normals → keypoints → descriptors (single-, bi- or
 multiscale SHOT, or FPFH) → matching → RANSAC → ICP → metrics → aligned
-``.ply`` outputs, with per-stage timings and the same YAML config.
+``.ply`` outputs, with per-stage timings and the same YAML config.  When
+``--conf_file_path`` gives the exact transform, the matches are checked
+against it (the count of incorrect matches is logged) and RANSAC's error is
+logged.
 ``--device`` picks the torch device (default ``cuda``).  Bi-scale SHOT takes
 its frames at ``--radius`` and its bins at ``--radius`` × ``--phi``;
 multiscale SHOT runs ``--n_scales`` scales at ``--radius`` × ``--phi``^s and,
@@ -211,6 +214,8 @@ def main(argv=None) -> int:
                                       reject_threshold=match_cfg.reject_threshold,
                                       threshold_multiplier=match_cfg.threshold_multiplier)
     timer("Matching")
+    if exact_transform is not None:
+        pipeline.analyze_matches(match_cfg.matching_algorithm, exact_transform)
 
     logger.info(ransac_cfg.help_message())
     transform_ransac, inlier_ratio = pipeline.run_ransac(

@@ -1,33 +1,37 @@
-// SHOT per-keypoint stage shared by K1 (shot_fused.cu, window route) and K5
-// (shot_runs.cu, xy-row run route), as the TPU kernels share
-// pallas_shot_fused.py::_binning_histogram_body.
+// SHOT per-keypoint stage: the per-neighbor terms and frame steps that K1
+// (shot_fused.cu, window route, one warp a keypoint) and K5 (shot_runs.cu,
+// xy-row run route, one block a keypoint) share, as the TPU kernels share
+// pallas_shot_fused.py::_binning_histogram_body, and K5's block body.
 //
-// One thread block serves one keypoint, in three passes over its neighbors:
-//   1. block-reduce the (r_frame − d)-weighted covariance over the frame
-//      plane; one thread runs the cyclic Jacobi of ops/eigh3.py (4 sweeps,
-//      atan2/cos/sin rotations, ascending sort network), taking x = largest,
-//      z = smallest axis;
-//   2. block-reduce the x/z majority sign votes over the frame plane (a tie
-//      keeps the sign), y = z × x, identity for an empty frame plane;
+// Three passes over a keypoint's neighbors:
+//   1. reduce the (r_frame − d)-weighted covariance over the frame plane
+//      (add_covariance); the cyclic Jacobi of ops/eigh3.py (eigh3x3: 4
+//      sweeps, atan2/cos/sin rotations, ascending sort network) gives
+//      x = largest, z = smallest axis (frame_axes);
+//   2. reduce the x/z majority sign votes over the frame plane (add_votes; a
+//      tie keeps the sign), y = z × x, identity for an empty frame plane
+//      (signed_frame);
 //   3. bin every neighbor of the descriptor plane with d > 0 by the
-//      reference conventions (ops/descriptor_bins.py) and atomicAdd its five
-//      weighted contributions, in f32, into a 352-float histogram in shared
-//      memory.
+//      reference conventions (ops/descriptor_bins.py) into five weighted
+//      contributions (bin_weights), added in f32 into a 352-float histogram
+//      in shared memory.
 // The frame plane is the descriptor plane, except in bi-scale mode, where it
 // holds the neighbors within the frame radius.  With given frames (multiscale
 // sharing) passes 1–2 are skipped.
 //
-// A neighbor source supplies the planes.  It has two member templates that
-// call f on the calling thread's strided share of the neighbors:
+// K5's block body (keypoint_histogram) takes a neighbor source with two
+// member templates that call f on the calling thread's strided share of the
+// neighbors:
 //   frame_neighbors(f): f(cx, cy, cz, d) for each frame-plane neighbor;
 //   bin_neighbors(f):   f(cx, cy, cz, nx, ny, nz, rho) for each
 //                       descriptor-plane neighbor with rho > 0,
 // where (cx, cy, cz) is the neighbor minus the keypoint.
 //
-// The float32 order of every step is that of the plain PyTorch twins
-// (ops/shot_fused.py), and the sources are built -fmad=false: SHOT's bins are
-// hard in all but one dimension, so a last-bit change moves a neighbor's
-// weight to another bin.
+// The float32 order of every per-neighbor step is that of the plain PyTorch
+// twins (ops/shot_fused.py), and the sources are built -fmad=false: SHOT's
+// bins are hard in all but one dimension, so a last-bit change moves a
+// neighbor's weight to another bin.  The order of the sums over neighbors
+// (covariance, votes, histogram) is free.
 #pragma once
 
 #include <math.h>
@@ -154,10 +158,11 @@ __device__ __forceinline__ void add_votes(float (&votes)[4], float cx, float cy,
   votes[pz < 0.f ? 2 : 3] += 1.f;
 }
 
-// Pass 3 term: one neighbor's soft bins, added into the shared histogram.
-__device__ __forceinline__ void bin_neighbor(float* hist, const Frame& f, float cx, float cy,
-                                             float cz, float nx, float ny, float nz, float rho,
-                                             float r) {
+// Pass 3 term: one neighbor's five soft-bin contributions, as histogram
+// indices (cos_bin * 32 + cell) and weights.
+__device__ __forceinline__ void bin_weights(const Frame& f, float cx, float cy, float cz,
+                                            float nx, float ny, float nz, float rho, float r,
+                                            int (&idx)[5], float (&wt)[5]) {
   const float half = r / 2.0f, r34 = r * 0.75f, r14 = r * 0.25f;
   const float lx = cx * f.x0 + cy * f.x1 + cz * f.x2;
   const float ly = cx * f.y0 + cy * f.y1 + cz * f.y2;
@@ -176,18 +181,20 @@ __device__ __forceinline__ void bin_neighbor(float* hist, const Frame& f, float 
   const float abs_cos = fabsf(delta_cos);
   const int cos_nb = wrap(cos_bin + sgn(delta_cos), kCos);
 
-  const float inner = (rho > half && rho < r34) ? (r34 - rho) / half : 0.f;
-  const float outer = (rho < half && rho > r14) ? (rho - r14) / half : 0.f;
-  const float husk_cur = (rho < half ? 1.0f - fabsf(rho - r14) / half : 0.f) +
-                         (rho > half ? 1.0f - fabsf(rho - r34) / half : 0.f);
-
+  // each two-sided weight of the reference (twin: ops/descriptor_bins.py)
+  // divides only its taken side: that division has the twin's operands, and
+  // the other side's 0.f that the twin adds changes nothing (the taken side
+  // is never -0), so the weights are the twin's bit for bit
   const bool at_edge = fabsf(phi - kHalfPi) < 1e-10f;
-  const float upper = (((phi > kHalfPi) || (at_edge && lz <= 0.f)) && phi <= kPi34)
-                          ? (kPi34 - phi) / kHalfPi : 0.f;
-  const float lower = (((phi < kHalfPi) && (!at_edge || lz > 0.f)) && phi >= kPi14)
-                          ? (phi - kPi14) / kHalfPi : 0.f;
-  const float vert_cur = (phi < kHalfPi ? 1.0f - fabsf(phi - kPi14) / kHalfPi : 0.f) +
-                         (phi >= kHalfPi ? 1.0f - fabsf(phi - kPi34) / kHalfPi : 0.f);
+  const bool husk_nb_on = rad_bin ? rho < r34 : (rho < half && rho > r14);
+  const float husk_nb = husk_nb_on ? (rad_bin ? r34 - rho : rho - r14) / half : 0.f;
+  const float husk_cur =
+      rho != half ? 1.0f - fabsf(rho - (rho < half ? r14 : r34)) / half : 0.f;
+  const bool vert_nb_on =
+      elev_bin ? (((phi < kHalfPi) && (!at_edge || lz > 0.f)) && phi >= kPi14)
+               : (((phi > kHalfPi) || (at_edge && lz <= 0.f)) && phi <= kPi34);
+  const float vert_nb = vert_nb_on ? (elev_bin ? phi - kPi14 : kPi34 - phi) / kHalfPi : 0.f;
+  const float vert_cur = 1.0f - fabsf(phi - (phi < kHalfPi ? kPi14 : kPi34)) / kHalfPi;
 
   const float delta_az = fminf(
       fmaxf((theta - (kNegPi + (float)az_bin * kAzSize)) / kAzSize - 0.5f, -0.5f), 0.5f);
@@ -195,18 +202,71 @@ __device__ __forceinline__ void bin_neighbor(float* hist, const Frame& f, float 
   const int az_nb = wrap(az_bin + sgn(delta_az), 8);
 
   const int base = cell_index(az_bin, elev_bin, rad_bin);
-  const float w_same = (1.0f - abs_cos) + husk_cur + vert_cur + (1.0f - abs_az);
-  const float w_husk = rad_bin == 0 ? outer : inner;
-  const float w_vert = elev_bin == 0 ? upper : lower;
-  float* hc = hist + cos_bin * kLo;
-  atomicAdd(hc + base, w_same);
-  atomicAdd(hc + cell_index(az_bin, elev_bin, 1 - rad_bin), w_husk);
-  atomicAdd(hc + cell_index(az_bin, 1 - elev_bin, rad_bin), w_vert);
-  atomicAdd(hc + cell_index(az_nb, elev_bin, rad_bin), abs_az);
-  atomicAdd(hist + cos_nb * kLo + base, abs_cos);
+  const int hc = cos_bin * kLo;
+  idx[0] = hc + base;
+  wt[0] = (1.0f - abs_cos) + husk_cur + vert_cur + (1.0f - abs_az);
+  idx[1] = hc + cell_index(az_bin, elev_bin, 1 - rad_bin);
+  wt[1] = husk_nb;
+  idx[2] = hc + cell_index(az_bin, 1 - elev_bin, rad_bin);
+  wt[2] = vert_nb;
+  idx[3] = hc + cell_index(az_nb, elev_bin, rad_bin);
+  wt[3] = abs_az;
+  idx[4] = cos_nb * kLo + base;
+  wt[4] = abs_cos;
 }
 
-// The three passes for the block's keypoint.  `frame_in` (9 floats,
+// Pass 3 term of the block body: one neighbor's soft bins, added into the
+// shared histogram with one atomic each.
+__device__ __forceinline__ void bin_neighbor(float* hist, const Frame& f, float cx, float cy,
+                                             float cz, float nx, float ny, float nz, float rho,
+                                             float r) {
+  int idx[5];
+  float wt[5];
+  bin_weights(f, cx, cy, cz, nx, ny, nz, rho, r, idx, wt);
+#pragma unroll
+  for (int c = 0; c < 5; ++c) atomicAdd(hist + idx[c], wt[c]);
+}
+
+// The Jacobi frame of a reduced covariance: the x axis (largest eigenvalue)
+// and the z axis (smallest), from s = {Σw, Σw·cx·cx, Σw·cx·cy, Σw·cx·cz,
+// Σw·cy·cy, Σw·cy·cz, Σw·cz·cz, count}.
+__device__ __forceinline__ void frame_axes(const float (&s)[8], float (&x)[3], float (&z)[3]) {
+  const float wsum = fmaxf(s[0], 1e-12f);
+  const float cov[3][3] = {{s[1] / wsum, s[2] / wsum, s[3] / wsum},
+                           {s[2] / wsum, s[4] / wsum, s[5] / wsum},
+                           {s[3] / wsum, s[5] / wsum, s[6] / wsum}};
+  float ev[3], vec[3][3];
+  eigh3x3(cov, ev, vec);
+  for (int i = 0; i < 3; ++i) {
+    x[i] = vec[i][2];
+    z[i] = vec[i][0];
+  }
+}
+
+// The signed frame, row-major (columns x, y, z): x and z flipped where the
+// votes {x < 0, x >= 0, z < 0, z >= 0} say so (a tie keeps the sign),
+// y = z × x; the identity when the frame plane was empty (count s7 == 0).
+__device__ __forceinline__ void signed_frame(const float (&x)[3], const float (&z)[3],
+                                             const float (&votes)[4], float s7,
+                                             float (&frame)[9]) {
+  const float fx = votes[0] > votes[1] ? -1.f : 1.f;
+  const float fz = votes[2] > votes[3] ? -1.f : 1.f;
+  float xa[3] = {x[0] * fx, x[1] * fx, x[2] * fx};
+  float za[3] = {z[0] * fz, z[1] * fz, z[2] * fz};
+  float ya[3] = {za[1] * xa[2] - za[2] * xa[1], za[2] * xa[0] - za[0] * xa[2],
+                 za[0] * xa[1] - za[1] * xa[0]};
+  if (s7 == 0.f) {
+    for (int i = 0; i < 3; ++i) xa[i] = ya[i] = za[i] = 0.f;
+    xa[0] = ya[1] = za[2] = 1.f;
+  }
+  for (int i = 0; i < 3; ++i) {
+    frame[3 * i] = xa[i];
+    frame[3 * i + 1] = ya[i];
+    frame[3 * i + 2] = za[i];
+  }
+}
+
+// K5's three passes for the block's keypoint.  `frame_in` (9 floats,
 // row-major) gives the frame, or is null to compute it from the frame plane
 // with radius `r_frame`; computed frames go to `frame_out` (9 floats).
 // Leaves the histogram in `hist_s` (kDim floats) and the frame in `frame`
@@ -225,18 +285,14 @@ __device__ float keypoint_histogram(const Source& src, float r, float r_frame,
         [&](float cx, float cy, float cz, float d) { add_covariance(s, cx, cy, cz, d, r_frame); });
     block_sum<8>(s, scratch);
     if (threadIdx.x == 0) {
-      const float wsum = fmaxf(s[0], 1e-12f);
-      const float cov[3][3] = {{s[1] / wsum, s[2] / wsum, s[3] / wsum},
-                               {s[2] / wsum, s[4] / wsum, s[5] / wsum},
-                               {s[3] / wsum, s[5] / wsum, s[6] / wsum}};
-      float ev[3], vec[3][3];
-      eigh3x3(cov, ev, vec);
-      frame[0] = vec[0][2];  // x axis: largest eigenvalue
-      frame[3] = vec[1][2];
-      frame[6] = vec[2][2];
-      frame[2] = vec[0][0];  // z axis: smallest eigenvalue
-      frame[5] = vec[1][0];
-      frame[8] = vec[2][0];
+      float x[3], z[3];
+      frame_axes(s, x, z);
+      frame[0] = x[0];
+      frame[3] = x[1];
+      frame[6] = x[2];
+      frame[2] = z[0];
+      frame[5] = z[1];
+      frame[8] = z[2];
     }
     __syncthreads();
     const float x0 = frame[0], x1 = frame[3], x2 = frame[6];
@@ -247,22 +303,10 @@ __device__ float keypoint_histogram(const Source& src, float r, float r_frame,
     });
     block_sum<4>(votes, scratch);
     if (threadIdx.x == 0) {
-      const float fx = votes[0] > votes[1] ? -1.f : 1.f;
-      const float fz = votes[2] > votes[3] ? -1.f : 1.f;
-      float xa[3] = {x0 * fx, x1 * fx, x2 * fx};
-      float za[3] = {z0 * fz, z1 * fz, z2 * fz};
-      float ya[3] = {za[1] * xa[2] - za[2] * xa[1], za[2] * xa[0] - za[0] * xa[2],
-                     za[0] * xa[1] - za[1] * xa[0]};
-      if (s[7] == 0.f) {  // empty frame plane: identity frame
-        for (int i = 0; i < 3; ++i) xa[i] = ya[i] = za[i] = 0.f;
-        xa[0] = ya[1] = za[2] = 1.f;
-      }
-      for (int i = 0; i < 3; ++i) {
-        frame[3 * i] = xa[i];
-        frame[3 * i + 1] = ya[i];
-        frame[3 * i + 2] = za[i];
-      }
-      for (int i = 0; i < 9; ++i) frame_out[i] = frame[i];
+      const float x[3] = {x0, x1, x2}, z[3] = {z0, z1, z2};
+      float signed_rf[9];
+      signed_frame(x, z, votes, s[7], signed_rf);
+      for (int i = 0; i < 9; ++i) frame[i] = frame_out[i] = signed_rf[i];
     }
   } else if (threadIdx.x < 9) {
     frame[threadIdx.x] = frame_in[threadIdx.x];

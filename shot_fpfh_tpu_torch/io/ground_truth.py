@@ -2,7 +2,7 @@
 
 ``bmesh`` lines carry a translation then a quaternion in ``q3, q0, q1, q2``
 order; the scan→ref transform is ``T_ref⁻¹ ∘ T_scan`` with the correct
-SE(3) inverse.
+SE(3) inverse.  :func:`nn_distance_histogram` checks a candidate transform.
 """
 
 from __future__ import annotations
@@ -10,7 +10,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .._device import resolve
 from ..core.transform import RigidTransform, quaternion_to_matrix
+from ..ops.neighbors import as_f32, nearest_neighbor
 
 
 def quaternion_wxyz_to_rotation_matrix(quaternion) -> np.ndarray:
@@ -42,3 +44,14 @@ def get_transform_from_conf_file(conf_file_name: str, scan_file_name: str,
     ref_key = ref_file_name.split("/")[-1].replace(".ply", "")
     scan_key = scan_file_name.split("/")[-1].replace(".ply", "")
     return conf[ref_key].inverse() @ conf[scan_key]
+
+
+def nn_distance_histogram(scan, ref, transformation: RigidTransform, bins: int = 100,
+                          device=None):
+    """``np.histogram`` of the moved scan's 1-NN distances to the ref under
+    a candidate transform: the data of the reference's ``check_transform``
+    plot (ground_truth_retrieval.py:51-61)."""
+    dev = resolve(device, scan)
+    moved = transformation.to(dev).apply(as_f32(scan, dev))
+    dist, _ = nearest_neighbor(moved, as_f32(ref, dev))
+    return np.histogram(dist.cpu().numpy(), bins=bins)

@@ -101,7 +101,7 @@ def compute_spfh(cloud_points, normals, radius, n_bins: int, k_max: int = 128,
 def _spfh_window_block(grid: HashGrid, qc, qn, radius, n_bins: int, decorrelated: bool):
     """Count-normalized SPFH of one query block over its grid windows,
     binned by K4 (its plain twin on CPU tensors)."""
-    vals, d, win_ok, _ = window_distances(grid, qc)
+    vals, d, win_ok, _ = window_distances(grid, qc, with_rows=False)
     ok = win_ok & (d <= radius)
     count = torch.clamp(ok.sum(-1), min=1).to(torch.float32)
     dist_inf = torch.where(ok, d, torch.full_like(d, float("inf")))

@@ -25,6 +25,7 @@ import logging
 import torch
 
 from .._device import resolve
+from ..analysis import plot_neighborhood_sizes
 from ..ops.eigh3 import eigh3x3, pca_eigh
 from ..ops.grid_hash import (
     AUTO_GRID_MIN_POINTS,
@@ -185,7 +186,7 @@ def _pca_moments_window(grid, q, radius):
     step = query_chunk(grid, 8)
     for s in range(0, q.shape[0], step):
         qc = q[s:s + step]
-        vals, d, win_ok, _ = window_distances(grid, qc)
+        vals, d, win_ok, _ = window_distances(grid, qc, with_rows=False)
         ok = win_ok & (d <= radius)
         count = torch.clamp(ok.sum(-1).to(torch.float32), min=1.0)
         rel = torch.where(ok[:, None, :], vals[:, :3, :] - qc[:, :, None], 0.0)
@@ -243,13 +244,14 @@ def compute_pca_based_features(query_points, cloud_points, radius, k_max: int = 
     ``compute_pca_based_features``, pca_based_descriptors.py:187-244):
     eigensum, eigen square sum, omnivariance, eigenentropy, linearity,
     planarity, sphericity, curvature change, four verticality-style angles,
-    the 8 moments and the neighborhood size."""
-    if verbose:
-        raise NotImplementedError(
-            "verbose=True plots the neighborhood sizes (analysis.plot_neighborhood_sizes), "
-            "which is not ported yet (ROADMAP.md, Queue 1, item 10: analysis.py)")
+    the 8 moments and the neighborhood size.  ``verbose`` logs the
+    neighborhood-size statistics and draws their histogram
+    (:func:`shot_fpfh_tpu_torch.analysis.plot_neighborhood_sizes`; a
+    device→host copy)."""
     w, v, moments, sizes = local_pca_with_moments(query_points, cloud_points, radius, k_max,
                                                   device)
+    if verbose:
+        plot_neighborhood_sizes(sizes)
     lbd3, lbd2, lbd1 = w[..., 0], w[..., 1], w[..., 2] + 1e-6
     normals, principal_axis = v[..., :, 0], v[..., :, 2]
     eigensum = w.sum(-1)

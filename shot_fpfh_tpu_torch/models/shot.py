@@ -118,7 +118,7 @@ def _shot_window_chunked(grid, kp, local_rfs, radius, normalize,
     inf = float("inf")
     for s in range(0, kp.shape[0], step):
         qc = kp[s:s + step]
-        vals, d, valid, _ = window_distances(grid, qc)
+        vals, d, valid, _ = window_distances(grid, qc, with_rows=False)
         rf_dist_inf = None
         if local_rfs is None and rf_radius is not None:
             rf_dist_inf = torch.where(valid & (d <= rf_radius), d, torch.full_like(d, inf))

@@ -266,14 +266,15 @@ def window_rows(grid: HashGrid, queries: torch.Tensor):
     return window_slots(start, end, grid.window_cap, grid.packed_sorted.shape[0])
 
 
-def window_distances(grid: HashGrid, queries: torch.Tensor):
+def window_distances(grid: HashGrid, queries: torch.Tensor, with_rows: bool = True):
     """The window fetch of every window consumer (K8, ``ops.radius_runs``):
     returns ``(vals (Q, F, W), dist (Q, W), valid (Q, W), rows (Q, W))``
     with feature-first gathered ``[points | extras]`` rows, the distance of
-    each candidate, and ``valid`` marking true window rows (callers apply
-    their own radius mask on ``dist``)."""
+    each candidate, ``valid`` marking true window rows (callers apply their
+    own radius mask on ``dist``) and each slot's sorted row, or None for
+    ``rows`` when ``with_rows`` is False (not written on the card)."""
     start, end = _zcolumn_runs(grid, queries)
-    return fetch_windows(grid.packed_sorted, queries, start, end, grid.window_cap)
+    return fetch_windows(grid.packed_sorted, queries, start, end, grid.window_cap, with_rows)
 
 
 def window_radius_dist(grid: HashGrid, queries: torch.Tensor, radius):

@@ -3,7 +3,8 @@
 Counterparts of ``shot_fpfh_tpu/ops/pallas_radius.py``:
 
 - K8, ``fetch_windows_pallas`` (``_fetch_kernel``): the dense window fetch —
-  each candidate's table row, feature first, and its distance;
+  each candidate's table row, feature first, and its distance (and, unless
+  the caller drops it, its row);
 - K7, ``grid_radius_search_pallas`` (``_dist_kernel``): the masked candidate
   distances a radius search selects from (``d`` where ``d <= radius``, else
   +inf); top-k and the value gather stay outside, as there.
@@ -84,21 +85,23 @@ def _checked(table, queries, start, end):
             end.contiguous())
 
 
-def fetch_windows(table, queries, start, end, w: int):
+def fetch_windows(table, queries, start, end, w: int, with_rows: bool = True):
     """K8: ``(vals (Q, F, W), dist (Q, W), valid (Q, W), rows (Q, W))`` of
-    each query's window (see the module docstring)."""
+    each query's window (see the module docstring); ``rows`` is None when
+    ``with_rows`` is False, and the kernel then does not write it."""
     if queries.device.type == "cpu":
-        return fetch_windows_plain(table, queries, start, end, w)
+        vals, dist, valid, rows = fetch_windows_plain(table, queries, start, end, w)
+        return vals, dist, valid, rows if with_rows else None
     device, table, queries, start, end = _checked(table, queries, start, end)
     q, f = queries.shape[0], table.shape[1]
     vals = torch.empty((q, f, w), dtype=torch.float32, device=device)
     dist = torch.empty((q, w), dtype=torch.float32, device=device)
     valid = torch.empty((q, w), dtype=torch.bool, device=device)
-    rows = torch.empty((q, w), dtype=torch.int64, device=device)
+    rows = torch.empty((q, w), dtype=torch.int64, device=device) if with_rows else None
     if q and w:
         _kernels.launch("fetch_windows", device, table.data_ptr(), f, queries.data_ptr(),
                         start.data_ptr(), end.data_ptr(), start.shape[1], q, w,
-                        vals.data_ptr(), dist.data_ptr(), valid.data_ptr(), rows.data_ptr())
+                        vals.data_ptr(), dist.data_ptr(), valid.data_ptr(), _kernels.ptr(rows))
     return vals, dist, valid, rows
 
 

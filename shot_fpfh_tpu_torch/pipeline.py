@@ -4,9 +4,9 @@ Holds the scan/ref clouds on the host, memoizes each stage's result
 (recomputed only on ``force_recompute``), and runs the stages on
 ``device`` (default ``cuda``): random, greedy-coverage or voxel keypoints,
 single-, bi- or multiscale SHOT or FPFH, nearest / ratio-test / threshold
-matching, RANSAC, ICP, and the post-ICP metrics.
-Stage timings go to ``self.metrics``.  Dispatcher branches this port does not cover yet raise
-``NotImplementedError`` naming the ROADMAP.md item that will port them.
+matching, RANSAC, ICP, the post-ICP metrics, and the ground-truth match
+analysis when the exact transform is known.  Stage timings go to
+``self.metrics``.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ._device import resolve
+from .analysis import get_incorrect_matches, lowe_ratio_split
 from .core.transform import RigidTransform, rotation_angle
 from .io.ply import write_ply
 from .keypoints import (
@@ -44,10 +45,6 @@ from .utils.perf import StageMetrics
 logger = logging.getLogger(__name__)
 
 _STATE_ARRAYS = ("scan_keypoints", "ref_keypoints", "scan_descriptors", "ref_descriptors")
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, {item})")
 
 
 @dataclass
@@ -237,7 +234,22 @@ class RegistrationPipeline:
         self.metrics.stop(matches=len(self.matches[0]))
 
     def analyze_matches(self, matching_algorithm, exact_transformation: RigidTransform):
-        raise _not_ported("ground-truth match analysis (analysis.py)", "Queue 1, item 10")
+        """Ground-truth accounting on the matched keypoints' coordinates:
+        logs how many matches are incorrect and returns the per-match flags,
+        or for ``double`` / ``ratio`` matching the Lowe ratios split into
+        correct and incorrect (:mod:`.analysis`)."""
+        incorrect = get_incorrect_matches(
+            self.scan[self.scan_keypoints[self.matches[0]]],
+            self.ref[self.ref_keypoints[self.matches[1]]], exact_transformation,
+            device=self.device)
+        logger.info("%d incorrect matches out of %d matches and %d descriptors.",
+                    incorrect.sum(), len(self.matches[0]), len(self.scan_descriptors))
+        if matching_algorithm in ("double", "ratio"):
+            return lowe_ratio_split(
+                self.scan[self.scan_keypoints], self.ref[self.ref_keypoints],
+                exact_transformation, self.scan_descriptors, self.ref_descriptors,
+                device=self.device)
+        return incorrect
 
     # ---------------------------------------------------------------- RANSAC --
     def run_ransac(self, *, n_draws: int = 10000, draw_size: int = 4,

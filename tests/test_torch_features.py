@@ -107,10 +107,18 @@ def test_pca_features_match_reference(sheet, route):
     np.testing.assert_array_equal(feats[:, 20], j_feats[:, 20])
 
 
-def test_pca_features_verbose_is_not_ported(sheet):
+def test_pca_features_verbose_is_not_ported(sheet, caplog, tmp_path, monkeypatch):
+    """``verbose=True`` logs the neighborhood-size statistics, draws their
+    histogram in the working directory and leaves the features as they are."""
+    import logging
+
     q, pts = sheet
-    with pytest.raises(NotImplementedError, match="item 10"):
-        t_nm.compute_pca_based_features(q, pts, RADIUS, verbose=True, device="cpu")
+    monkeypatch.chdir(tmp_path)
+    with caplog.at_level(logging.INFO, logger="shot_fpfh_tpu_torch.analysis"):
+        feats = t_nm.compute_pca_based_features(q, pts, RADIUS, verbose=True, device="cpu")
+    assert any("Average size of neighborhoods" in r.getMessage() for r in caplog.records)
+    assert (tmp_path / "neighborhood_sizes.png").is_file()
+    assert torch.equal(feats, t_nm.compute_pca_based_features(q, pts, RADIUS, device="cpu"))
 
 
 def _match_case(rng):

@@ -299,6 +299,124 @@ def test_k1_shot_kernel_bi_scale(cuda, rng):
     _assert_shot_flip_rule(hist, shot_binning_histogram_plain(vals, dist, kp, rfs, 1.2))
 
 
+def _k1_window(rng, q, w, fill, device, radius=1.0):
+    """A synthetic K1 input: q keypoints, each with a window of w lanes
+    around it, each lane finite with probability ``fill`` (d is the lane's
+    distance to the keypoint, within ``radius``); unit normals."""
+    pts = rng.normal(scale=0.3, size=(q, 3, w)) * np.array([1.0, 0.6, 0.2])[None, :, None]
+    pts *= np.minimum(1.0, 0.95 * radius / np.linalg.norm(pts, axis=1, keepdims=True))
+    kp = rng.normal(size=(q, 3))
+    nrm = rng.normal(size=(q, 3, w)) + np.array([0.0, 0.0, 3.0])[None, :, None]
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    vals = np.concatenate([pts + kp[:, :, None], nrm], axis=1).astype(np.float32)
+    dist = np.linalg.norm(pts, axis=1).astype(np.float32)
+    dist[rng.uniform(size=(q, w)) >= fill] = np.inf
+    return tuple(torch.tensor(a, device=device) for a in (vals, dist, kp.astype(np.float32)))
+
+
+def _check_k1(vals, dist, kp, radius, rf_dist=None, rf_radius=None):
+    """K1 in its three modes against the twin: frames within 5e-4, the
+    histograms by the flip rule under the same frames."""
+    rf = dict(rf_dist_inf=rf_dist, rf_radius=rf_radius)
+    hist, rfs = _counted("shot_binning_histogram",
+                         lambda: shot_binning_histogram(vals, dist, kp, None, radius, **rf))
+    _, rfs_p = shot_binning_histogram_plain(vals, dist, kp, None, radius, rf_dist, rf_radius)
+    torch.testing.assert_close(rfs, rfs_p, atol=5e-4, rtol=0)
+    _assert_shot_flip_rule(hist, shot_binning_histogram_plain(vals, dist, kp, rfs, radius))
+    given = _counted("shot_binning_histogram",
+                     lambda: shot_binning_histogram(vals, dist, kp, rfs_p, radius))
+    _assert_shot_flip_rule(given, shot_binning_histogram_plain(vals, dist, kp, rfs_p, radius))
+    return hist, rfs
+
+
+# (keypoints, window width, finite fraction): Q under and not a multiple of
+# the 8 keypoints a block, W under 32 and not a multiple of 4, windows with
+# every lane finite, W past K1's 128-lane load step
+K1_SHAPES = [(1, 5, 0.6), (13, 31, 1.0), (9, 37, 0.5), (40, 721, 0.45), (17, 1000, 1.0),
+             (8, 130, 0.0)]
+
+
+@pytest.mark.parametrize("q,w,fill", K1_SHAPES)
+@pytest.mark.parametrize("bi_scale", [False, True])
+def test_k1_shot_kernel_edge_shapes(cuda, rng, q, w, fill, bi_scale):
+    """Own, given and bi-scale frames on synthetic windows; a window with no
+    finite lane gets the identity frame and a zero histogram."""
+    vals, dist, kp = _k1_window(rng, q, w, fill, cuda)
+    dist[0] = float("inf")
+    rf = {}
+    if bi_scale:   # the frame plane: the lanes within 0.6 of the keypoint
+        rf = dict(rf_dist=torch.where(dist <= 0.6, dist, torch.full_like(dist, float("inf"))),
+                  rf_radius=0.6)
+    hist, rfs = _check_k1(vals, dist, kp, 1.0, **rf)
+    assert not hist[0].any() and torch.equal(rfs[0].cpu(), torch.eye(3))
+    assert (float(hist.sum()) > 0) == (fill > 0 and q > 1)
+
+
+def test_k1_shot_kernel_tied_sign_votes(cuda, rng):
+    """Neighbors in ± pairs about the keypoint (at the origin): each
+    projection splits the votes evenly, so a tie keeps the Jacobi's signs in
+    both packages; one window also holds its keypoint (d = 0: in the frame
+    plane, not binned)."""
+    half = rng.normal(size=(6, 3, 40)) * np.array([0.5, 0.3, 0.05])[None, :, None]
+    pts = np.concatenate([half, -half], axis=2)
+    pts[1, :, 0] = 0.0
+    nrm = np.broadcast_to(np.array([0.0, 0.0, 1.0])[None, :, None], pts.shape)
+    vals = torch.tensor(np.concatenate([pts, nrm], axis=1).astype(np.float32), device=cuda)
+    dist = torch.tensor(np.linalg.norm(pts, axis=1).astype(np.float32), device=cuda)
+    kp = torch.zeros((6, 3), device=cuda)
+    _check_k1(vals, dist, kp, float(dist.max()) * 1.01)
+
+
+def _synthetic_runs(rng, q, n_runs, n, device, longest=80):
+    """Runs of sorted rows: lengths 0..longest (a third of them empty, many
+    past 32 rows), starts anywhere in an n-row table."""
+    lengths = rng.integers(0, longest + 1, size=(q, n_runs))
+    lengths[rng.uniform(size=(q, n_runs)) < 1 / 3] = 0
+    start = rng.integers(0, n - longest, size=(q, n_runs))
+    return (torch.tensor(start, device=device), torch.tensor(start + lengths, device=device),
+            int(lengths.sum(1).max()))
+
+
+@pytest.mark.parametrize("features", [3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("n_runs", [9, 25, 40])
+def test_k8_fetch_windows_kernel_synthetic_runs(cuda, rng, features, n_runs):
+    """K8 equals its twin bit for bit, with and without the rows plane, on
+    synthetic runs (empty ones, runs past 32 rows, more runs than a warp
+    has lanes) at windows wider than the runs, of every width mod 4, and
+    narrower (the runs cut at W)."""
+    n, q = 5000, 45
+    table = torch.tensor(rng.normal(size=(n, features)).astype(np.float32), device=cuda)
+    queries = torch.tensor(rng.normal(size=(q, 3)).astype(np.float32), device=cuda)
+    start, end, total = _synthetic_runs(rng, q, n_runs, n, cuda)
+    for w in (total + 3, total + 4, total + 5, total + 6, total // 3, 1, 2, 3, 33):
+        want = fetch_windows_plain(table, queries, start, end, w)
+        got = _counted("fetch_windows", lambda: fetch_windows(table, queries, start, end, w))
+        for g, x in zip(got, want):
+            assert torch.equal(g, x), w
+        got = fetch_windows(table, queries, start, end, w, with_rows=False)
+        assert got[3] is None
+        for g, x in zip(got[:3], want[:3]):
+            assert torch.equal(g, x), w
+
+
+@pytest.mark.parametrize("features", [3, 6, 8])
+@pytest.mark.parametrize("n_runs", [9, 25, 40])
+def test_k7_radius_dist_kernel_synthetic_runs(cuda, rng, features, n_runs):
+    """K7 on the same synthetic runs: bit-identical to its twin at every
+    window width mod 4 and at a width that cuts the runs, on tables of 3 to
+    8 columns."""
+    n, q = 5000, 45
+    table = torch.tensor(rng.normal(size=(n, features)).astype(np.float32), device=cuda)
+    queries = torch.tensor(rng.normal(size=(q, 3)).astype(np.float32), device=cuda)
+    start, end, total = _synthetic_runs(rng, q, n_runs, n, cuda)
+    for w in (total + 3, total + 4, total + 5, total + 6, total // 3, 1, 3):
+        for radius in (1.5, float("inf")):
+            got = _counted("radius_dist",
+                           lambda: radius_dist(table, queries, start, end, w, radius))
+            want = radius_dist_plain(table, queries, start, end, w, radius)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (w, radius)
+
+
 @pytest.mark.parametrize("mode", ["own", "given", "bi_scale"])
 def test_k5_shot_runs_kernel(cuda, rng, mode):
     """K5 against its twin: frames atol 5e-4, histograms (min-neighborhood

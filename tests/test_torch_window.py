@@ -121,6 +121,18 @@ def test_k7_twin_is_the_masked_k8_twin(rng):
         assert torch.equal(k7_d, torch.where(ok & (d <= radius), d, inf))
 
 
+def test_window_without_rows_is_the_window(rng):
+    """``with_rows=False`` (the window routes' call) returns the same
+    values, distances and validity and no rows."""
+    cloud, extras, q = _case(rng, True)
+    tg = t_grid.build_grid(cloud, 0.4, extras=extras, halo=2, device="cpu")
+    full = t_grid.window_distances(tg, torch.tensor(q))
+    short = t_grid.window_distances(tg, torch.tensor(q), with_rows=False)
+    assert short[3] is None and full[3] is not None
+    for a, b in zip(short[:3], full[:3]):
+        assert torch.equal(a, b)
+
+
 def _reference_grid(rng):
     pts = (rng.normal(size=(350, 3)) * 2.0).astype(np.float32)
     extras = rng.normal(size=(350, 3)).astype(np.float32)

@@ -155,9 +155,9 @@ FEATURE_ATOL, FEATURE_ANGLE_ATOL = 1e-6, 1e-4
 # compute_pca_based_features
 BASIC_ANGLE_COLS, FEATURE_ANGLE_COLS = (0,), (8, 9, 10, 11)
 
-# the CUDA kernels of K1, K5, K7 and K8 as csrc/ names them (their device
-# time alone is read from the profiler)
-K1_KERNEL, K5_KERNEL = "shot_hist_kernel", "shot_runs_kernel"
+# the CUDA kernels of K1, K4, K5, K7 and K8 as csrc/ names them (their
+# device time alone is read from the profiler)
+K1_KERNEL, K4_KERNEL, K5_KERNEL = "shot_hist_kernel", "spfh_hist_kernel", "shot_runs_kernel"
 K7_KERNEL, K8_KERNEL = "radius_dist_kernel", "fetch_windows_kernel"
 
 # each path and the kernels its measured run must launch (and must not):
@@ -506,7 +506,22 @@ class ShotTerrain:
                 torch.where(valid & (d <= self.rf_radius), d, inf))
 
 
-def parity_k1(terrain: ShotTerrain):
+def with_library(lib, fn):
+    """``fn()`` with the kernel wrappers launching into ``lib`` (another
+    build's library) instead of this checkout's."""
+    from shot_fpfh_tpu_torch import _kernels
+
+    saved, _kernels._lib = _kernels.library(), lib
+    try:
+        return fn()
+    finally:
+        _kernels._lib = saved
+
+
+def parity_k1(terrain: ShotTerrain, other=None):
+    """K1 in its three modes against its twin, timed; with ``other`` (the
+    library of another build of the kernels), its outputs also held equal,
+    bit for bit, to that build's on the same inputs."""
     import torch
 
     from shot_fpfh_tpu_torch.ops.shot_fused import (
@@ -568,6 +583,18 @@ def parity_k1(terrain: ShotTerrain):
           f"{bi_frame_err:.2e}, (flip fraction, max diff) {stats['bi-scale']}; kernel "
           f"{bi_ms:.3f} ms (alone {bi_alone:.4f} ms), plain {bi_plain_ms:.3f} ms, bound "
           f"{bi_b['bound_ms']:.4f} ms ({bi_b['bound_by']})", flush=True)
+    if other is not None:
+        from shot_fpfh_tpu_torch import _kernels
+
+        calls = {"own frames": lambda: shot_binning_histogram(vals, dist_inf, kp, None, radius),
+                 "given frames": lambda: (shot_binning_histogram(vals, dist_inf, kp, rfs_p,
+                                                                 radius),),
+                 "bi-scale": lambda: shot_binning_histogram(*args, **rf)}
+        lib = _kernels.load(other)
+        same = {label: all(torch.equal(x, y) for x, y in zip(call(), with_library(lib, call)))
+                for label, call in calls.items()}
+        check(all(same.values()), f"K1 differs from the build at {other}: {same}")
+        print(f"phase 3 K1 equal, bit for bit, to the build at {other}: {same}", flush=True)
     return dict(max_abs_err=max(st[1] for st in stats.values()), ms=ms, plain_ms=plain_ms,
                 library_ms=None, **b)
 
@@ -651,23 +678,33 @@ def parity_k5(terrain: ShotTerrain):
     alone = kernel_ms(lambda: shot_descriptor_dma(grid, kp, radius, **rf, **raw), K5_KERNEL)
     own_alone = kernel_ms(lambda: shot_descriptor_dma(terrain.grid, kp, terrain.radius, **raw),
                           K5_KERNEL)
-    # the timed call's work: every row of the keypoints' runs tested once,
-    # the frame plane's neighbors reduced, the descriptor plane's binned
-    start, end = _xyrow_runs(grid, kp)
-    lanes = float((end - start).sum())
     q = kp.shape[0]
-    n_bin = float(_route_counts(grid, kp, radius)[0].sum()) - q    # the keypoint itself: d = 0
-    n_frame = float(_route_counts(grid, kp, terrain.rf_radius)[0].sum())
-    b = bound(grid.packed_sorted.numel() * 4 + q * 12 + start.numel() * 16 + q * (352 + 10) * 4,
-              lanes * OPS_DIST_TEST + n_frame * OPS_SHOT_FRAME + n_bin * OPS_SHOT_BIN)
-    print(f"phase 3 K5 shot_runs: {q} keypoints x {start.shape[1]} xy-row runs (bi-scale "
+
+    def work(grid, radius, rf_radius):
+        """The timed call's work: every row of the keypoints' runs tested
+        once, the frame plane's neighbors reduced, the descriptor plane's
+        binned; ``(rows, frame and binned neighbors, runs, bound)``."""
+        start, end = _xyrow_runs(grid, kp)
+        lanes = float((end - start).sum())
+        n_bin = float(_route_counts(grid, kp, radius)[0].sum()) - q   # the keypoint itself: d = 0
+        n_frame = float(_route_counts(grid, kp, rf_radius)[0].sum())
+        b = bound(grid.packed_sorted.numel() * 4 + q * 12 + start.numel() * 16
+                  + q * (352 + 10) * 4,
+                  lanes * OPS_DIST_TEST + n_frame * OPS_SHOT_FRAME + n_bin * OPS_SHOT_BIN)
+        return lanes, n_frame, n_bin, start.shape[1], b
+
+    lanes, n_frame, n_bin, n_runs, b = work(grid, radius, terrain.rf_radius)
+    own_lanes, _, own_bin, _, own_b = work(terrain.grid, terrain.radius, terrain.radius)
+    print(f"phase 3 K5 shot_runs: {q} keypoints x {n_runs} xy-row runs (bi-scale "
           f"grid: longest run {grid.xyrow_run_cap}, {lanes / q:.0f} rows, {n_frame / q:.0f} "
           f"frame and {n_bin / q:.0f} descriptor neighbors a keypoint): frames max err "
           f"{frame_errs}, (flip fraction, max diff) vs twin {stats}; vs the K1 route "
           f"(parted keypoints, frames err, (flip, max diff)) {route}; bi-scale kernel "
           f"{ms:.3f} ms (alone {alone:.4f} ms), plain {plain_ms:.3f} ms, bound "
-          f"{b['bound_ms']:.4f} ms ({b['bound_by']}); own frames at {terrain.radius} kernel "
-          f"{own_ms:.3f} ms (alone {own_alone:.4f} ms)",
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']}); own frames at {terrain.radius} "
+          f"({own_lanes / q:.0f} rows, {own_bin / q:.0f} neighbors a keypoint) kernel "
+          f"{own_ms:.3f} ms (alone {own_alone:.4f} ms), bound {own_b['bound_ms']:.4f} ms "
+          f"({own_b['bound_by']})",
           flush=True)
     return dict(max_abs_err=max(st[1] for st in stats.values()), ms=ms, plain_ms=plain_ms,
                 library_ms=None, **b)
@@ -696,11 +733,14 @@ def parity_k4(grid):
     from shot_fpfh_tpu_torch.ops.spfh_fused import spfh_histogram, spfh_histogram_plain
 
     # the first chunk of models.fpfh._spfh_window_sorted
-    qc, qn = grid.packed_sorted[:8192, :3], grid.packed_sorted[:8192, 3:6]
+    qc, qn = (grid.packed_sorted[:8192, i:i + 3].contiguous() for i in (0, 3))
     vals, d, valid, _ = window_distances(grid, qc)
     ok = valid & (d <= FPFH_RADIUS)
     dist_inf = torch.where(ok, d, torch.full_like(d, float("inf")))
-    stats, times = {}, {}
+    c, nf, w = vals.shape
+    neighbors = float((ok & (d > 0)).sum())
+    n_finite = float(ok.sum())
+    stats, times, bounds = {}, {}, {}
     for dec in (False, True):
         got = spfh_histogram(vals, dist_inf, qc, qn, 5, dec)
         want = spfh_histogram_plain(vals, dist_inf, qc, qn, 5, dec)
@@ -712,17 +752,27 @@ def parity_k4(grid):
         check(float(want.sum()) > 0, "K4: empty histograms")
         stats[dec] = (flip, top)
         times[dec] = (cuda_ms(lambda: spfh_histogram(vals, dist_inf, qc, qn, 5, dec)),
+                      kernel_ms(lambda: spfh_histogram(vals, dist_inf, qc, qn, 5, dec),
+                                K4_KERNEL),
                       cuda_ms(lambda: spfh_histogram_plain(vals, dist_inf, qc, qn, 5, dec)))
-    c, nf, w = vals.shape
-    neighbors = float((ok & (d > 0)).sum())
-    b = bound((c * nf * w + c * w + c * 6 + c * 125) * 4,
-              c * w * 2 + neighbors * OPS_SPFH_NEIGHBOR)
-    ms, plain_ms = times[False]
-    print(f"phase 3 K4 spfh_histogram: 8192 queries x window {w}, radius {FPFH_RADIUS}: "
-          f"(fraction differing, max count diff) joint {stats[False]}, decorrelated "
-          f"{stats[True]}; joint kernel {ms:.3f} ms plain {plain_ms:.3f} ms, decorrelated "
-          f"kernel {times[True][0]:.3f} ms plain {times[True][1]:.3f} ms; bound "
-          f"{b['bound_ms']:.4f} ms ({b['bound_by']})", flush=True)
+        # the bytes this run's data needs (K1's rule): every lane's distance,
+        # and the six value planes only at the finite lanes, which K4 reads
+        bounds[dec] = bound((c * w + 6 * n_finite + c * 6 + c * got.shape[1]) * 4,
+                            c * w * 2 + neighbors * OPS_SPFH_NEIGHBOR)
+    # the rule of the earlier PRs: every value plane at every lane
+    all_planes = bound((c * nf * w + c * w + c * 6 + c * 125) * 4,
+                       c * w * 2 + neighbors * OPS_SPFH_NEIGHBOR)
+    ms, alone, plain_ms = times[False]
+    dec_ms, dec_alone, dec_plain = times[True]
+    b, dec_b = bounds[False], bounds[True]
+    print(f"phase 3 K4 spfh_histogram: 8192 queries x window {w}, radius {FPFH_RADIUS} "
+          f"({n_finite / c:.0f} finite lanes a query): (fraction differing, max count diff) "
+          f"joint {stats[False]}, decorrelated {stats[True]}; joint kernel {ms:.3f} ms "
+          f"(alone {alone:.4f} ms) plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']}); decorrelated kernel {dec_ms:.3f} ms (alone {dec_alone:.4f} ms) "
+          f"plain {dec_plain:.3f} ms, bound {dec_b['bound_ms']:.4f} ms ({dec_b['bound_by']}); "
+          f"joint bound with every value plane read {all_planes['bound_ms']:.4f} ms",
+          flush=True)
     return dict(max_abs_err=max(s[1] for s in stats.values()), ms=ms, plain_ms=plain_ms,
                 library_ms=None, **b)
 
@@ -1311,6 +1361,9 @@ def main(argv=None) -> int:
     parser.add_argument("--profile", type=Path, default=None, metavar="DIR",
                         help="profile the main path with torch.profiler; write the "
                              "op table and a chrome trace to DIR")
+    parser.add_argument("--k1-bits-against", type=Path, default=None, metavar="LIB",
+                        help="hold K1's phase-3 outputs equal, bit for bit, to those of the "
+                             "kernel library LIB (another build of csrc/)")
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1327,7 +1380,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     terrain = ShotTerrain(dev, rng)
-    k1, k5 = parity_k1(terrain), parity_k5(terrain)
+    k1, k5 = parity_k1(terrain, args.k1_bits_against), parity_k5(terrain)
     k8 = parity_k8("K1's keypoints and grid", terrain.grid, terrain.kp)
     k8_more = [parity_k8("the bi-scale grid", terrain.bi_grid, terrain.kp)]
     del terrain

@@ -58,7 +58,7 @@ _SIGNATURES = {
     "radius_pca": _GRID + [_P, _P, _P, _I, _P, _P, _P, _P],
     "spfh_histogram": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "spfh_runs": [_P, _I, _P, _P, _P, _P, _I, _I, _F, _I, _I, _P, _P],
-    "shot_runs": [_P, _I, _P, _P, _P, _I, _I, _P, _F, _F, _P, _P, _P, _P],
+    "shot_runs": [_P, _I, _P, _P, _F, _L, _L, _L, _I, _I, _P, _I, _P, _F, _F, _P, _P, _P, _P],
     "fetch_windows": [_P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     "radius_dist": [_P, _I, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P],
 }
@@ -151,19 +151,24 @@ def build() -> Path:
     return lib_path
 
 
+def load(path: Path) -> ctypes.CDLL:
+    """The kernel library at ``path``, its C entry points typed."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.shot_error_string.argtypes = [ctypes.c_int]
+    lib.shot_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first use)."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            lib.shot_error_string.argtypes = [ctypes.c_int]
-            lib.shot_error_string.restype = ctypes.c_char_p
-            _lib = lib
+            _lib = load(build())
     return _lib
 
 
@@ -185,10 +190,14 @@ def require_cuda(*tensors: torch.Tensor) -> torch.device:
 def launch(name: str, device: torch.device, *args) -> None:
     """Call C entry point ``name`` on ``device``'s current stream; raise on
     a launch error; count the launch."""
-    lib = library()
-    with torch.cuda.device(device):
-        err = getattr(lib, name)(*args, torch.cuda.current_stream(device).cuda_stream)
+    fn = getattr(library(), name)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if device.index == torch.cuda.current_device():
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError_t {err} "
-                           f"({lib.shot_error_string(err).decode()})")
+                           f"({library().shot_error_string(err).decode()})")
     launch_counts[name] += 1

@@ -1,7 +1,7 @@
-// SHOT per-keypoint stage: the per-neighbor terms and frame steps that K1
-// (shot_fused.cu, window route, one warp a keypoint) and K5 (shot_runs.cu,
-// xy-row run route, one block a keypoint) share, as the TPU kernels share
-// pallas_shot_fused.py::_binning_histogram_body, and K5's block body.
+// SHOT per-keypoint stage shared by K1 (shot_fused.cu, window route) and K5
+// (shot_runs.cu, xy-row run route), as the TPU kernels share
+// pallas_shot_fused.py::_binning_histogram_body: the per-neighbor terms, the
+// frame steps, and the warp body both kernels run, one warp a keypoint.
 //
 // Three passes over a keypoint's neighbors:
 //   1. reduce the (r_frame − d)-weighted covariance over the frame plane
@@ -19,13 +19,27 @@
 // holds the neighbors within the frame radius.  With given frames (multiscale
 // sharing) passes 1–2 are skipped.
 //
-// K5's block body (keypoint_histogram) takes a neighbor source with two
-// member templates that call f on the calling thread's strided share of the
-// neighbors:
-//   frame_neighbors(f): f(cx, cy, cz, d) for each frame-plane neighbor;
-//   bin_neighbors(f):   f(cx, cy, cz, nx, ny, nz, rho) for each
-//                       descriptor-plane neighbor with rho > 0,
-// where (cx, cy, cz) is the neighbor minus the keypoint.
+// The warp body (keypoint_histogram) reduces passes 1–2 with xor shuffles,
+// which leave the same sums, bit for bit, in every lane, so every lane runs
+// the Jacobi and holds the frame in registers.  Pass 3 compacts the
+// neighbors by ballot into a 64-slot list in shared memory and bins them 32
+// at a time, so the atan2/acos work runs on full warps; lanes that add to
+// the same bin sum their weights by shuffles first (warp_add), so each
+// distinct bin of a step takes one atomic.  It takes a neighbor source, a
+// struct whose members every lane of the warp calls together (no lambdas,
+// whose calls need not inline: the whole body inlines, so its state stays in
+// registers):
+//   covariance(s, r_frame): adds the lane's share of the frame plane's
+//                           add_covariance terms to s;
+//   votes(x, z, v):         adds the lane's share of its add_votes terms;
+//   Cursor, start(), next(cursor, take): pass 3's candidates, kUnroll a
+//                           lane at each step, the same number of steps in
+//                           every lane (false when done); take[u]: the
+//                           candidate is in the descriptor plane with d > 0;
+//   item(cursor, u):        the item of the lane's candidate u of the step
+//                           next just took;
+//   bin(f, r, item, idx, wt): bin_weights of a listed item under frame f
+//                           (none, idx left -1, if it has d = 0).
 //
 // The float32 order of every per-neighbor step is that of the plain PyTorch
 // twins (ops/shot_fused.py), and the sources are built -fmad=false: SHOT's
@@ -40,7 +54,8 @@
 
 namespace shot {
 
-constexpr int kThreads = 256;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kUnroll = 4;  // candidates a lane loads at once
 constexpr int kCos = 11, kLo = 32, kDim = kCos * kLo;
 // the reference's double constants, rounded once to float32
 constexpr double kPiD = 3.14159265358979323846;
@@ -57,7 +72,7 @@ __device__ __forceinline__ int wrap(int v, int n) {
 }
 
 // One Jacobi rotation zeroing a[p][q] (same update order as ops/eigh3.py).
-__device__ inline void jacobi_rotate(float a[3][3], float v[3][3], int p, int q) {
+__device__ __forceinline__ void jacobi_rotate(float a[3][3], float v[3][3], int p, int q) {
   const int r = 3 - p - q;
   const float app = a[p][p], aqq = a[q][q], apq = a[p][q];
   const float apr = a[p][r], aqr = a[q][r];
@@ -77,7 +92,7 @@ __device__ inline void jacobi_rotate(float a[3][3], float v[3][3], int p, int q)
 }
 
 // Symmetric 3x3 eigh: eigenvalues ascending in w, eigenvectors as columns.
-__device__ inline void eigh3x3(const float cov[3][3], float w[3], float vec[3][3]) {
+__device__ __forceinline__ void eigh3x3(const float cov[3][3], float w[3], float vec[3][3]) {
   float scale = 0.f;
   for (int i = 0; i < 3; ++i)
     for (int j = 0; j < 3; ++j) scale = fmaxf(scale, fabsf(cov[i][j]));
@@ -107,8 +122,10 @@ __device__ inline void eigh3x3(const float cov[3][3], float w[3], float vec[3][3
       col[j] = tc;
     }
   }
+  // v's column col[c], selected rather than indexed, so v stays in registers
   for (int r = 0; r < 3; ++r)
-    for (int c = 0; c < 3; ++c) vec[r][c] = v[r][col[c]];
+    for (int c = 0; c < 3; ++c)
+      vec[r][c] = col[c] == 0 ? v[r][0] : (col[c] == 1 ? v[r][1] : v[r][2]);
 }
 
 __device__ __forceinline__ int azimuth_bin(float x, float y) {
@@ -215,18 +232,6 @@ __device__ __forceinline__ void bin_weights(const Frame& f, float cx, float cy, 
   wt[4] = abs_cos;
 }
 
-// Pass 3 term of the block body: one neighbor's soft bins, added into the
-// shared histogram with one atomic each.
-__device__ __forceinline__ void bin_neighbor(float* hist, const Frame& f, float cx, float cy,
-                                             float cz, float nx, float ny, float nz, float rho,
-                                             float r) {
-  int idx[5];
-  float wt[5];
-  bin_weights(f, cx, cy, cz, nx, ny, nz, rho, r, idx, wt);
-#pragma unroll
-  for (int c = 0; c < 5; ++c) atomicAdd(hist + idx[c], wt[c]);
-}
-
 // The Jacobi frame of a reduced covariance: the x axis (largest eigenvalue)
 // and the z axis (smallest), from s = {Σw, Σw·cx·cx, Σw·cx·cy, Σw·cx·cz,
 // Σw·cy·cy, Σw·cy·cz, Σw·cz·cz, count}.
@@ -266,61 +271,107 @@ __device__ __forceinline__ void signed_frame(const float (&x)[3], const float (&
   }
 }
 
-// K5's three passes for the block's keypoint.  `frame_in` (9 floats,
-// row-major) gives the frame, or is null to compute it from the frame plane
-// with radius `r_frame`; computed frames go to `frame_out` (9 floats).
-// Leaves the histogram in `hist_s` (kDim floats) and the frame in `frame`
-// (9 floats) of shared memory, after a barrier; `scratch` holds
-// 8 * (blockDim.x / 32) floats.  Returns the number of neighbors this thread
-// binned.
-template <class Source>
-__device__ float keypoint_histogram(const Source& src, float r, float r_frame,
-                                    const float* frame_in, float* frame_out, float* hist_s,
-                                    float* scratch, float* frame) {
-  for (int i = threadIdx.x; i < kDim; i += blockDim.x) hist_s[i] = 0.f;
+// Sums N values over the warp.  The xor butterfly adds a + b in one lane
+// and b + a in its partner, so every lane ends with the same sums.
+template <int N>
+__device__ __forceinline__ void warp_allsum(float (&v)[N]) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+    for (int k = 0; k < N; ++k) v[k] += __shfl_xor_sync(kFull, v[k], off);
+}
 
+// hist[idx] += wt for every lane of the warp (all lanes call it; idx < 0
+// adds nothing).  Lanes with the same idx sum their weights by shuffles in a
+// tree over their ranks, and the lowest of them adds the sum: one atomic a
+// distinct bin.
+__device__ __forceinline__ void warp_add(float* hist, int idx, float wt) {
+  const int lane = threadIdx.x & 31;
+  const unsigned peers = __match_any_sync(kFull, idx);
+  unsigned rank = __popc(peers & ((1u << lane) - 1u));   // peers below this lane
+  unsigned above = peers & ~((2u << lane) - 1u);         // peers above it
+  float sum = wt;
+  while (__any_sync(kFull, above)) {
+    const int next = __ffs(above);  // 1 + the next peer above, or 0
+    const float t = __shfl_sync(kFull, sum, (next - 1) & 31);
+    if (next) sum += t;
+    // odd ranks have been summed into the peer below them: drop them
+    above &= ~__ballot_sync(kFull, rank & 1u);
+    rank >>= 1;
+  }
+  if (idx >= 0 && lane == __ffs(peers) - 1) atomicAdd(hist + idx, sum);
+}
+
+// Bins item i of every lane (i < 0: none) into the warp's histogram.
+template <class Source>
+__device__ __forceinline__ void bin_lanes(const Source& src, const Frame& f, float r, float* hist,
+                                          int i) {
+  int idx[5] = {-1, -1, -1, -1, -1};
+  float wt[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
+  if (i >= 0) src.bin(f, r, i, idx, wt);
+#pragma unroll
+  for (int c = 0; c < 5; ++c) warp_add(hist, idx[c], wt[c]);
+}
+
+// One keypoint, one warp: its frame (the 9 row-major floats of frame_in, or,
+// when frame_in is null, computed from the source's frame plane with radius
+// r_frame and written to frame_out) and its histogram, added into `hist`
+// (kDim floats of shared memory, zeroed by the caller, complete at return);
+// `list` is 64 ints of shared memory.  Returns the number of candidates
+// listed (take), the same in every lane.
+template <class Source>
+__device__ __forceinline__ int keypoint_histogram(Source& src, float r, float r_frame,
+                                                  const float* frame_in, float* frame_out,
+                                                  float* hist, int* list) {
+  const int lane = threadIdx.x & 31;
+  float frame[9];  // row-major rf, the same in every lane: columns x, y, z
   if (frame_in == nullptr) {
     float s[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    src.frame_neighbors(
-        [&](float cx, float cy, float cz, float d) { add_covariance(s, cx, cy, cz, d, r_frame); });
-    block_sum<8>(s, scratch);
-    if (threadIdx.x == 0) {
-      float x[3], z[3];
-      frame_axes(s, x, z);
-      frame[0] = x[0];
-      frame[3] = x[1];
-      frame[6] = x[2];
-      frame[2] = z[0];
-      frame[5] = z[1];
-      frame[8] = z[2];
-    }
-    __syncthreads();
-    const float x0 = frame[0], x1 = frame[3], x2 = frame[6];
-    const float z0 = frame[2], z1 = frame[5], z2 = frame[8];
+    float x[3] = {0.f, 0.f, 0.f}, z[3] = {0.f, 0.f, 0.f};
+    src.covariance(s, r_frame);
+    warp_allsum(s);
+    frame_axes(s, x, z);
     float votes[4] = {0.f, 0.f, 0.f, 0.f};
-    src.frame_neighbors([&](float cx, float cy, float cz, float) {
-      add_votes(votes, cx, cy, cz, x0, x1, x2, z0, z1, z2);
-    });
-    block_sum<4>(votes, scratch);
-    if (threadIdx.x == 0) {
-      const float x[3] = {x0, x1, x2}, z[3] = {z0, z1, z2};
-      float signed_rf[9];
-      signed_frame(x, z, votes, s[7], signed_rf);
-      for (int i = 0; i < 9; ++i) frame[i] = frame_out[i] = signed_rf[i];
-    }
-  } else if (threadIdx.x < 9) {
-    frame[threadIdx.x] = frame_in[threadIdx.x];
+    src.votes(x, z, votes);
+    warp_allsum(votes);
+    signed_frame(x, z, votes, s[7], frame);
+    if (lane == 0)
+      for (int i = 0; i < 9; ++i) frame_out[i] = frame[i];
+  } else {
+    for (int i = 0; i < 9; ++i) frame[i] = frame_in[i];
   }
-  __syncthreads();
-
   const Frame f(frame);
-  float n_binned = 0.f;
-  src.bin_neighbors([&](float cx, float cy, float cz, float nx, float ny, float nz, float rho) {
-    bin_neighbor(hist_s, f, cx, cy, cz, nx, ny, nz, rho, r);
-    n_binned += 1.f;
-  });
-  __syncthreads();
-  return n_binned;
+  __syncwarp();  // the histogram is zeroed
+
+  // pass 3: list the candidates with 0 < d <= r as they stream, bin them 32
+  // at a time
+  const unsigned below = (1u << lane) - 1u;
+  int n = 0;       // listed items not binned yet (the same in every lane)
+  int listed = 0;
+  typename Source::Cursor cursor = src.start();
+  bool take[kUnroll];
+  while (src.next(cursor, take)) {
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const unsigned ballot = __ballot_sync(kFull, take[u]);
+      if (take[u]) list[n + __popc(ballot & below)] = src.item(cursor, u);
+      n += __popc(ballot);
+      listed += __popc(ballot);
+      if (n >= 32) {
+        __syncwarp();
+        const int i = list[lane];
+        const int carry = lane < n - 32 ? list[32 + lane] : 0;
+        __syncwarp();
+        if (lane < n - 32) list[lane] = carry;
+        n -= 32;
+        bin_lanes(src, f, r, hist, i);
+      }
+    }
+  }
+  __syncwarp();
+  if (n > 0) bin_lanes(src, f, r, hist, lane < n ? list[lane] : -1);
+  __syncwarp();
+  return listed;
 }
 
 }  // namespace shot

@@ -27,6 +27,9 @@
 //   - Each warp adds into its own 352-float histogram in shared memory;
 //     lanes that add to the same bin (__match_any_sync) sum their weights by
 //     shuffles first, so each distinct bin of a step takes one atomic.
+// The warp body (passes, reductions, list, binning) is shot.cuh's
+// keypoint_histogram, which K5 runs on its xy-row runs; this file gives it
+// the window as its neighbor source.
 // Bound on the H100: bytes (the dist plane and the finite lanes' six value
 // planes, read once); each binned neighbor costs ~150 operations.
 #include "common.cuh"
@@ -34,87 +37,84 @@
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kWarps = 8;   // keypoints a block, one warp each
-constexpr int kUnroll = 4;  // window lanes a thread loads at once
+constexpr int kWarps = 8;  // keypoints a block, one warp each
+using shot::kUnroll;       // window lanes a thread loads at once
 
-// Sums N values over the warp.  The xor butterfly adds a + b in one lane
-// and b + a in its partner, so every lane ends with the same sums.
-template <int N>
-__device__ __forceinline__ void warp_allsum(float (&v)[N]) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-#pragma unroll
-    for (int k = 0; k < N; ++k) v[k] += __shfl_xor_sync(kFull, v[k], off);
-}
-
-// hist[idx] += wt for every lane of the warp (all lanes call it; idx < 0
-// adds nothing).  Lanes with the same idx sum their weights by shuffles in a
-// tree over their ranks, and the lowest of them adds the sum: one atomic a
-// distinct bin.
-__device__ __forceinline__ void warp_add(float* hist, int idx, float wt) {
-  const int lane = threadIdx.x & 31;
-  const unsigned peers = __match_any_sync(kFull, idx);
-  unsigned rank = __popc(peers & ((1u << lane) - 1u));   // peers below this lane
-  unsigned above = peers & ~((2u << lane) - 1u);         // peers above it
-  float sum = wt;
-  while (__any_sync(kFull, above)) {
-    const int next = __ffs(above);  // 1 + the next peer above, or 0
-    const float t = __shfl_sync(kFull, sum, (next - 1) & 31);
-    if (next) sum += t;
-    // odd ranks have been summed into the peer below them: drop them
-    above &= ~__ballot_sync(kFull, rank & 1u);
-    rank >>= 1;
-  }
-  if (idx >= 0 && lane == __ffs(peers) - 1) atomicAdd(hist + idx, sum);
-}
-
+// One keypoint's window as a neighbor source of shot::keypoint_histogram:
+// the frame passes stride the frame plane, kUnroll loads a lane in flight;
+// an item is a window lane.
 struct Window {
   const float *vx, *vy, *vz, *nx, *ny, *nz;
   const float* dist;        // descriptor plane: distance or +inf
   const float* frame_dist;  // frame plane: dist, or the bi-scale rf_dist
   float kx, ky, kz;
   int w;
-};
 
-// Pass 1 (kVotes false): the covariance sums of add_covariance; pass 2:
-// the sign votes of add_votes against the axes x and z.
-template <bool kVotes, int N>
-__device__ __forceinline__ void frame_pass(const Window& win, float r_frame, const float (&x)[3],
-                                           const float (&z)[3], float (&acc)[N]) {
-  const int lane = threadIdx.x & 31;
-  for (int base = 0; base < win.w; base += 32 * kUnroll) {
-    float d[kUnroll];
+  // pass 1 (kVotes false): the covariance sums of add_covariance; pass 2:
+  // the sign votes of add_votes against the axes x and z
+  template <bool kVotes, int N>
+  __device__ __forceinline__ void frame_pass(float r_frame, const float (&x)[3],
+                                             const float (&z)[3], float (&acc)[N]) const {
+    const int lane = threadIdx.x & 31;
+    for (int base = 0; base < w; base += 32 * kUnroll) {
+      float d[kUnroll];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int i = base + 32 * u + lane;
-      d[u] = i < win.w ? win.frame_dist[i] : INFINITY;
-    }
+      for (int u = 0; u < kUnroll; ++u) {
+        const int i = base + 32 * u + lane;
+        d[u] = i < w ? frame_dist[i] : INFINITY;
+      }
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (!(d[u] < INFINITY)) continue;
-      const int i = base + 32 * u + lane;
-      const float cx = win.vx[i] - win.kx, cy = win.vy[i] - win.ky, cz = win.vz[i] - win.kz;
-      if constexpr (kVotes)
-        shot::add_votes(acc, cx, cy, cz, x[0], x[1], x[2], z[0], z[1], z[2]);
-      else
-        shot::add_covariance(acc, cx, cy, cz, d[u], r_frame);
+      for (int u = 0; u < kUnroll; ++u) {
+        if (!(d[u] < INFINITY)) continue;
+        const int i = base + 32 * u + lane;
+        const float cx = vx[i] - kx, cy = vy[i] - ky, cz = vz[i] - kz;
+        if constexpr (kVotes)
+          shot::add_votes(acc, cx, cy, cz, x[0], x[1], x[2], z[0], z[1], z[2]);
+        else
+          shot::add_covariance(acc, cx, cy, cz, d[u], r_frame);
+      }
     }
   }
-  warp_allsum(acc);
-}
 
-// Bins window lane i (i < 0: none) of every lane into the warp's histogram.
-__device__ __forceinline__ void bin_lanes(const Window& win, const shot::Frame& f, float r,
-                                          float* hist, int i) {
-  int idx[5] = {-1, -1, -1, -1, -1};
-  float wt[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
-  if (i >= 0)
-    shot::bin_weights(f, win.vx[i] - win.kx, win.vy[i] - win.ky, win.vz[i] - win.kz, win.nx[i],
-                      win.ny[i], win.nz[i], win.dist[i], r, idx, wt);
+  __device__ __forceinline__ void covariance(float (&s)[8], float r_frame) const {
+    const float none[3] = {0.f, 0.f, 0.f};
+    frame_pass<false>(r_frame, none, none, s);
+  }
+
+  __device__ __forceinline__ void votes(const float (&x)[3], const float (&z)[3],
+                                        float (&v)[4]) const {
+    frame_pass<true>(0.f, x, z, v);
+  }
+
+  // pass 3's candidates: the window's lanes, kUnroll a lane in flight
+  using Cursor = int;  // the next step's first lane
+  __device__ __forceinline__ int start() const { return 0; }
+
+  __device__ __forceinline__ bool next(int& base, bool (&take)[kUnroll]) const {
+    if (base >= w) return false;
+    const int lane = threadIdx.x & 31;
+    float rho[kUnroll];
 #pragma unroll
-  for (int c = 0; c < 5; ++c) warp_add(hist, idx[c], wt[c]);
-}
+    for (int u = 0; u < kUnroll; ++u) {
+      const int i = base + 32 * u + lane;
+      rho[u] = i < w ? dist[i] : INFINITY;
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) take[u] = rho[u] < INFINITY && rho[u] > 0.f;
+    base += 32 * kUnroll;
+    return true;
+  }
+
+  __device__ __forceinline__ int item(int base, int u) const {
+    return base - 32 * kUnroll + 32 * u + (threadIdx.x & 31);
+  }
+
+  __device__ __forceinline__ void bin(const shot::Frame& f, float r, int i, int (&idx)[5],
+                                      float (&wt)[5]) const {
+    shot::bin_weights(f, vx[i] - kx, vy[i] - ky, vz[i] - kz, nx[i], ny[i], nz[i], dist[i], r,
+                      idx, wt);
+  }
+};
 
 __global__ void __launch_bounds__(32 * kWarps)
 shot_hist_kernel(const float* __restrict__ vals, const float* __restrict__ dist,
@@ -128,7 +128,6 @@ shot_hist_kernel(const float* __restrict__ vals, const float* __restrict__ dist,
   const int qi = blockIdx.x * kWarps + warp;
   if (qi >= q) return;  // whole warps leave; no block barrier follows
   float* h = hist_s[warp];
-  int* list = list_s[warp];
   for (int k = lane; k < shot::kDim / 4; k += 32)
     reinterpret_cast<float4*>(h)[k] = make_float4(0.f, 0.f, 0.f, 0.f);
 
@@ -146,55 +145,10 @@ shot_hist_kernel(const float* __restrict__ vals, const float* __restrict__ dist,
   win.kz = kp[3 * qi + 2];
   win.w = w_len;
 
-  float frame[9];  // row-major rf, the same in every lane: columns x, y, z
-  if (rfs_in == nullptr) {
-    const float r_frame = rf_dist == nullptr ? radius : rf_radius;
-    float s[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    float x[3] = {0.f, 0.f, 0.f}, z[3] = {0.f, 0.f, 0.f};
-    frame_pass<false>(win, r_frame, x, z, s);
-    shot::frame_axes(s, x, z);
-    float votes[4] = {0.f, 0.f, 0.f, 0.f};
-    frame_pass<true>(win, r_frame, x, z, votes);
-    shot::signed_frame(x, z, votes, s[7], frame);
-    if (lane == 0)
-      for (int i = 0; i < 9; ++i) rfs_out[9 * qi + i] = frame[i];
-  } else {
-    for (int i = 0; i < 9; ++i) frame[i] = rfs_in[9 * qi + i];
-  }
-  const shot::Frame f(frame);
-  __syncwarp();  // the histogram is zeroed
-
-  // pass 3: stream the descriptor plane, list its lanes with 0 < d < inf,
-  // bin them 32 at a time
-  const unsigned below = (1u << lane) - 1u;
-  int n = 0;  // listed lanes not binned yet (the same in every lane)
-  for (int base = 0; base < w_len; base += 32 * kUnroll) {
-    float rho[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int i = base + 32 * u + lane;
-      rho[u] = i < w_len ? win.dist[i] : INFINITY;
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const bool take = rho[u] < INFINITY && rho[u] > 0.f;
-      const unsigned ballot = __ballot_sync(kFull, take);
-      if (take) list[n + __popc(ballot & below)] = base + 32 * u + lane;
-      n += __popc(ballot);
-      if (n >= 32) {
-        __syncwarp();
-        const int i = list[lane];
-        const int carry = lane < n - 32 ? list[32 + lane] : 0;
-        __syncwarp();
-        if (lane < n - 32) list[lane] = carry;
-        n -= 32;
-        bin_lanes(win, f, radius, h, i);
-      }
-    }
-  }
-  __syncwarp();
-  if (n > 0) bin_lanes(win, f, radius, h, lane < n ? list[lane] : -1);
-  __syncwarp();
+  shot::keypoint_histogram(win, radius, rf_dist == nullptr ? radius : rf_radius,
+                           rfs_in == nullptr ? nullptr : rfs_in + 9 * qi,
+                           rfs_out == nullptr ? nullptr : rfs_out + 9 * qi, h,
+                           list_s[warp]);
 
   float4* out = reinterpret_cast<float4*>(hist + (long long)qi * shot::kDim);
   for (int k = lane; k < shot::kDim / 4; k += 32) out[k] = reinterpret_cast<const float4*>(h)[k];

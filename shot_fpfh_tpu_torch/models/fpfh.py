@@ -111,7 +111,8 @@ def _spfh_window_block(grid: HashGrid, qc, qn, radius, n_bins: int, decorrelated
 def _spfh_window_sorted(grid: HashGrid, radius, n_bins: int, decorrelated: bool,
                         chunk: int = 8192):
     """SPFH of every cloud point in grid-sorted order, ``(N, D)``."""
-    pts, nrm = grid.packed_sorted[:, :3], grid.packed_sorted[:, 3:6]
+    # contiguous once, so each chunk goes to the kernels without a copy
+    pts, nrm = (grid.packed_sorted[:, i:i + 3].contiguous() for i in (0, 3))
     return torch.cat([
         _spfh_window_block(grid, pts[s:s + chunk], nrm[s:s + chunk], radius, n_bins,
                            decorrelated)

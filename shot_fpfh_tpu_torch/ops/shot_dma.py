@@ -11,9 +11,10 @@ each route keeps its reference's rule.
 
 - K5, :func:`shot_descriptor_dma` (``shot_descriptor_dma``): SHOT frames,
   soft bins and the 352-bin histogram in one kernel (``csrc/shot_runs.cu``,
-  sharing K1's stage in ``csrc/shot.cuh``), in K1's three modes (own, given
-  and bi-scale frames); the caller's finalization (count rule, L2 norm)
-  stays in PyTorch.
+  running K1's warp body in ``csrc/shot.cuh``), in K1's three modes (own,
+  given and bi-scale frames); the kernel finds each keypoint's runs from the
+  grid's cell-start table, and the caller's finalization (count rule, L2
+  norm) stays in PyTorch.
 - K6, :func:`spfh_block_dma` (``spfh_block_dma``, ``spfh_sorted_dma``): the
   SPFH divided by the neighborhood count, self included
   (``csrc/spfh_runs.cu``).
@@ -30,6 +31,7 @@ qualifying grid.
 
 from __future__ import annotations
 
+import math
 import os
 
 import torch
@@ -78,6 +80,14 @@ def _run_rows(grid: HashGrid, queries):
     rows = start[:, :, None] + j                                   # (C, R, cap)
     in_run = (rows < end[:, :, None]).reshape(queries.shape[0], -1)
     return torch.where(in_run, rows.reshape(queries.shape[0], -1), 0), in_run
+
+
+def _frame_halo(grid: HashGrid, rf_radius: float) -> int:
+    """The smallest halo whose xy-row runs hold every point within
+    ``rf_radius`` of a keypoint, at most the grid's: the cells' float32
+    rounding (a few ulps of the grid's extent in cells) is added first."""
+    margin = 1e-6 * (max(grid.dims) + 1)
+    return min(grid.halo, math.ceil(rf_radius / grid.cell_size + margin))
 
 
 def _shot_chunk_plain(grid: HashGrid, q, radius, rfs, rf_radius):
@@ -142,17 +152,23 @@ def shot_descriptor_dma(grid: HashGrid, keypoints: torch.Tensor, radius, rfs=Non
         raise ValueError(f"bad keypoint or frame shapes {tuple(keypoints.shape)}")
     if any(t.dtype != torch.float32 for t in tensors) or not table.is_contiguous():
         raise ValueError("run kernel inputs must be float32 (table contiguous)")
+    if table.shape[0] >= 2 ** 31 or 2 * grid.halo + 1 > 32:
+        raise ValueError("the SHOT run kernel lists table rows as 32-bit ints and holds "
+                         "one run a lane (halo <= 15)")
     kp = keypoints.contiguous()
-    start, end = (t.contiguous() for t in _xyrow_runs(grid, kp))
     rfs_in = None if rfs is None else rfs.reshape(q, 9).contiguous()
     hist = torch.empty((q, SHOT_DIM), dtype=torch.float32, device=kp.device)
     rfs_out = (torch.empty((q, 3, 3), dtype=torch.float32, device=kp.device)
                if rfs is None else None)
     count = torch.empty(q, dtype=torch.float32, device=kp.device)
-    _kernels.launch("shot_runs", device, table.data_ptr(), table.shape[1], kp.data_ptr(),
-                    start.data_ptr(), end.data_ptr(), start.shape[1], q, _kernels.ptr(rfs_in),
-                    float(radius), float(radius if rf_radius is None else rf_radius),
-                    hist.data_ptr(), _kernels.ptr(rfs_out), count.data_ptr())
+    rf = float(radius if rf_radius is None else rf_radius)
+    # the kernel finds each keypoint's xy-row runs (_xyrow_runs) itself, and
+    # walks the frame plane over the runs of the halo that covers rf
+    _kernels.launch("shot_runs", device, table.data_ptr(), table.shape[1],
+                    grid.cell_starts.data_ptr(), grid.origin.data_ptr(), grid.cell_size,
+                    *grid.dims, grid.halo, _frame_halo(grid, rf), kp.data_ptr(), q,
+                    _kernels.ptr(rfs_in), float(radius), rf, hist.data_ptr(),
+                    _kernels.ptr(rfs_out), count.data_ptr())
     return (shot_finalize(hist, count, normalize, min_neighborhood_size),
             rfs if rfs_out is None else rfs_out)
 

@@ -24,8 +24,9 @@ from .. import _kernels
 from .descriptor_bins import darboux_angles
 from .histogram import batched_histogram, bin_index, factored_histogram
 
-# the kernel's histogram lives in shared memory (48 KB without opt-in)
-_MAX_SMEM_FLOATS = 48 * 1024 // 4
+# a warp's histogram and its 64-slot lane list live in shared memory (48 KB
+# without opt-in)
+_MAX_SMEM_FLOATS = 48 * 1024 // 4 - 64
 
 
 def spfh_dim(n_bins: int, decorrelated: bool) -> int:

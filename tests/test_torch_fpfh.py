@@ -111,11 +111,35 @@ def test_darboux_angles_match_reference(rng):
     assert (np.abs(got[0].numpy()) > 1).any()    # v unnormalized: alpha leaves [-1, 1]
 
 
-@pytest.mark.parametrize("decorrelated", [False, True])
-def test_k4_plain_matches_reference_kernel(rng, decorrelated):
-    q, qn, vals, dist_inf = window_case(rng, q=11, w=160, query_normals=True)
-    dist_inf[4] = np.inf                          # an empty window
-    vals[1][:, ~np.isfinite(dist_inf[1])] = np.nan  # poisoned padding lanes
+def one_bin_case(rng, q=11, w=160):
+    """Every neighbor of a query at one offset with one normal, so all its
+    counts fall into one joint bin; lane 0 is the query itself (d = 0), and
+    the last query has a single neighbor."""
+    kp = rng.normal(size=(q, 3))
+    off = rng.normal(scale=0.2, size=(q, 3))
+    unit = [rng.normal(size=(q, 3)) + np.array([0.0, 0.0, 3.0]) for _ in range(2)]
+    nrm, qn = (u / np.linalg.norm(u, axis=1, keepdims=True) for u in unit)
+    pts = np.repeat((kp + off)[:, :, None], w, 2)
+    pts[:, :, 0] = kp
+    vals = np.concatenate([pts, np.repeat(nrm[:, :, None], w, 2), np.zeros((q, 2, w))], axis=1)
+    dist_inf = np.repeat(np.linalg.norm(off, axis=1)[:, None], w, 1)
+    dist_inf[:, 0] = 0.0
+    dist_inf[:, 1::5] = np.inf
+    dist_inf[-1, 3:] = np.inf
+    return tuple(a.astype(np.float32) for a in (kp, qn, vals, dist_inf))
+
+
+@pytest.mark.parametrize("decorrelated,case", [
+    pytest.param(False, "window", id="False"), pytest.param(True, "window", id="True"),
+    pytest.param(False, "one_bin", id="one_bin-False"),
+    pytest.param(True, "one_bin", id="one_bin-True")])
+def test_k4_plain_matches_reference_kernel(rng, decorrelated, case):
+    if case == "window":
+        q, qn, vals, dist_inf = window_case(rng, q=11, w=160, query_normals=True)
+        dist_inf[4] = np.inf                          # an empty window
+        vals[1][:, ~np.isfinite(dist_inf[1])] = np.nan  # poisoned padding lanes
+    else:
+        q, qn, vals, dist_inf = one_bin_case(rng)
     want = np.asarray(j_spfh_histogram(
         jnp.asarray(vals), jnp.asarray(dist_inf), jnp.asarray(q), jnp.asarray(qn),
         n_bins=5, decorrelated=decorrelated, interpret=True))
@@ -125,7 +149,13 @@ def test_k4_plain_matches_reference_kernel(rng, decorrelated):
     assert _kernels.launch_counts == before        # CPU tensors: plain twin
     assert got.shape == (11, 15 if decorrelated else 125)
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
-    assert not got[4].any() and float(got.sum()) > 0
+    if case == "window":
+        assert not got[4].any() and float(got.sum()) > 0
+    else:   # one bin a row (one per angle decorrelated), every neighbor counted
+        assert int((got > 0).sum(1).max()) == (3 if decorrelated else 1)
+        n = (np.isfinite(dist_inf) & (dist_inf > 0)).sum(1) * (3 if decorrelated else 1)
+        np.testing.assert_array_equal(got.sum(1).numpy(), n.astype(np.float32))
+        assert n[-1] == (3 if decorrelated else 1)
 
 
 @pytest.mark.parametrize("kind", ["surface", "volume"])

@@ -440,6 +440,93 @@ def test_k5_shot_runs_kernel(cuda, rng, mode):
     assert float(hist.sum()) > 0
 
 
+# K5 lists a warp's frame-plane rows in shared memory (kFrameSlots in
+# csrc/shot_runs.cu); a larger frame plane walks the runs again
+K5_FRAME_SLOTS = 1024
+
+
+def _k5_cloud(rng):
+    """``(points, normals, special keypoints)``: a 20k-point surface on
+    [-3, 3]² with random unit normals, a cluster of 3,000 points within 0.06
+    of one surface point, and 40 ± pairs (whole multiples of 1/64, so each
+    pair is exactly symmetric) about a point 2 above the surface.  The
+    special keypoints: the cluster's surface point, the pairs' center (tied
+    sign votes), a point 0.6 above the surface far from both (no neighbor
+    within 0.5, some within 1.2) and a far point."""
+    xy = rng.uniform(-3, 3, size=(20_000, 2))
+    z = 0.4 * np.sin(xy[:, 0]) * np.cos(0.7 * xy[:, 1])
+    surface = np.column_stack([xy, z]) + rng.normal(scale=0.01, size=(20_000, 3))
+    hub = surface[0]
+    cluster = hub + rng.uniform(-0.03, 0.03, size=(3000, 3))
+    center = np.array([0.5, -0.25, 2.0])
+    v = np.stack([rng.integers(-20, 21, 40), rng.integers(-12, 13, 40),
+                  rng.integers(-2, 3, 40)], axis=1) / 64.0
+    v[(v == 0).all(axis=1)] = [1 / 64.0, 0.0, 0.0]
+    pts = np.concatenate([surface, cluster, center + v, center - v]).astype(np.float32)
+    nrm = rng.normal(size=pts.shape)
+    nrm = (nrm / np.linalg.norm(nrm, axis=1, keepdims=True)).astype(np.float32)
+    away = np.minimum(np.linalg.norm(xy - hub[:2], axis=1), np.linalg.norm(xy - center[:2], axis=1))
+    above = surface[int(np.argmax(away))] + np.array([0.0, 0.0, 0.6])
+    special = np.stack([hub, center, above, np.full(3, 1e6)]).astype(np.float32)
+    return pts, nrm, special
+
+
+def _check_k5(grid, kp, radius, rf_radius=None):
+    """K5 with its own (or bi-scale) frames and with given frames against the
+    twin: frames within 5e-4, the histograms by the flip rule under the same
+    frames, and the same neighborhoods kept by the min-neighborhood rule
+    (which reads the kernel's neighbor count) at several thresholds."""
+    raw = dict(normalize=False, min_neighborhood_size=-1)
+    hist, rfs = _counted("shot_runs", lambda: shot_dma.shot_descriptor_dma(
+        grid, kp, radius, rf_radius=rf_radius, **raw))
+    _, rfs_p = shot_dma.shot_descriptor_dma_plain(grid, kp, radius, rf_radius=rf_radius, **raw)
+    torch.testing.assert_close(rfs, rfs_p, atol=5e-4, rtol=0)
+    _assert_shot_flip_rule(hist, shot_dma.shot_descriptor_dma_plain(grid, kp, radius, rfs=rfs,
+                                                                    **raw)[0])
+    given = _counted("shot_runs", lambda: shot_dma.shot_descriptor_dma(grid, kp, radius,
+                                                                       rfs=rfs_p, **raw))[0]
+    _assert_shot_flip_rule(given, shot_dma.shot_descriptor_dma_plain(grid, kp, radius, rfs=rfs_p,
+                                                                     **raw)[0])
+    for m in (0, 100, 1000):
+        for rf in (dict(rf_radius=rf_radius), dict(rfs=rfs_p)):
+            kept = shot_dma.shot_descriptor_dma(grid, kp, radius, normalize=False,
+                                                min_neighborhood_size=m, **rf)[0].any(1)
+            kept_p = shot_dma.shot_descriptor_dma_plain(grid, kp, radius, normalize=False,
+                                                        min_neighborhood_size=m, **rf)[0].any(1)
+            assert torch.equal(kept, kept_p), (m, rf.keys())
+    return hist, rfs
+
+
+@pytest.mark.parametrize("n_surface", [1, 13, 61])
+@pytest.mark.parametrize("bi_scale", [False, True])
+def test_k5_shot_runs_kernel_edge_cases(cuda, rng, n_surface, bi_scale):
+    """K5 on keypoint counts off the 8 a block (5, 17, 65), runs past 32 rows
+    and empty runs (the cloud's edge, the far point), a frame plane past the
+    shared list (the cluster: passes 2 and 3 walk the runs again), tied sign
+    votes, and a keypoint whose frame plane is empty: the identity frame,
+    with bins in bi-scale mode (descriptor plane at 1.2) and none with own
+    frames (nothing within 0.5).  The far keypoint: zero row, identity."""
+    from shot_fpfh_tpu_torch.ops.grid_hash import _xyrow_runs
+
+    pts, nrm, special = _k5_cloud(rng)
+    radius, rf_radius = (1.2, 0.4) if bi_scale else (0.5, None)
+    grid = build_grid(torch.tensor(pts, device=cuda), radius / 2,
+                      extras=torch.tensor(nrm, device=cuda), halo=2)
+    assert grid.use_xyrow
+    edge = int(np.argmin(pts[:20_000, 0]))
+    surf = np.concatenate([[edge], rng.choice(20_000, n_surface - 1, replace=False)])
+    kp = torch.tensor(np.concatenate([pts[surf], special]), device=cuda)
+    start, end = _xyrow_runs(grid, kp)
+    assert int((end - start).max()) > 32 and bool((end == start)[0].any())
+    frame_r = radius if rf_radius is None else rf_radius
+    assert int((np.linalg.norm(pts - special[0], axis=1) <= frame_r).sum()) > K5_FRAME_SLOTS
+    hist, rfs = _check_k5(grid, kp, radius, rf_radius)
+    eye = torch.eye(3)
+    assert not hist[-1].any() and torch.equal(rfs[-1].cpu(), eye)
+    assert torch.equal(rfs[-2].cpu(), eye) and bool(hist[-2].any()) == bi_scale
+    assert bool(hist[-4].any()) and bool(hist[-3].any())
+
+
 def test_golden_pair_on_card(cuda):
     """The golden pair (tests/test_reference_parity.py:31) through the port
     on the card: within the measured reference's accuracy envelope, with the
@@ -548,6 +635,73 @@ def test_k4_spfh_kernel(cuda, rng, decorrelated):
     # whole counts: a difference is a neighbor moved by a last-bit angle change
     assert float((diff > 0).float().mean()) <= 1e-3 and float(diff.max()) <= 2.0
     assert float(want.sum()) > 0
+
+
+def _k4_window(rng, q, w, fill, device):
+    """K1's synthetic window (``_k1_window``) with query normals near +z,
+    like the lanes' normals, so most theta fall in range."""
+    vals, dist, qc = _k1_window(rng, q, w, fill, device)
+    qn = rng.normal(size=(q, 3)) + np.array([0.0, 0.0, 3.0])
+    qn /= np.linalg.norm(qn, axis=1, keepdims=True)
+    return vals, dist, qc, torch.tensor(qn.astype(np.float32), device=device)
+
+
+def _k4_counts(vals, dist, qc, qn, decorrelated):
+    got = _counted("spfh_histogram",
+                   lambda: spfh_histogram(vals, dist, qc, qn, 5, decorrelated))
+    return got, spfh_histogram_plain(vals, dist, qc, qn, 5, decorrelated)
+
+
+# (queries, window width, finite fraction): query counts off the 8 a block,
+# W under 32 and not a multiple of 4, windows with every lane finite, and
+# the FPFH chunk's width
+K4_SHAPES = [(1, 5, 0.6), (13, 31, 1.0), (9, 37, 0.5), (17, 1000, 1.0), (8, 130, 0.0),
+             (40, 1372, 0.45)]
+
+
+@pytest.mark.parametrize("q,w,fill", K4_SHAPES)
+@pytest.mark.parametrize("decorrelated", [False, True])
+def test_k4_spfh_kernel_edge_shapes(cuda, rng, q, w, fill, decorrelated):
+    """Whole counts against the twin: a difference is a neighbor moved by a
+    last-bit angle change, at most one such move (two elements) or a
+    per-mille of the elements; an all-invalid window gets a zero row, and a
+    window holding its query (d = 0) does not bin it."""
+    vals, dist, qc, qn = _k4_window(rng, q, w, fill, cuda)
+    dist[0] = float("inf")
+    if q > 1:
+        vals[1, :3, 0] = qc[1]
+        dist[1, 0] = 0.0
+    got, want = _k4_counts(vals, dist, qc, qn, decorrelated)
+    diff = (got - want).abs()
+    assert float((diff > 0).sum()) <= max(2.0, 1e-3 * diff.numel()) and float(diff.max()) <= 2.0
+    assert not got[0].any()
+    assert (float(want.sum()) > 0) == (fill > 0 and q > 1)
+
+
+@pytest.mark.parametrize("decorrelated", [False, True])
+def test_k4_spfh_kernel_one_bin(cuda, rng, decorrelated):
+    """Every neighbor of a window at the same offset with the same normal:
+    all of a window's counts land in one joint bin (one per angle
+    decorrelated), the kernel's aggregated adds equal the twin's counts
+    exactly; one window has a single neighbor."""
+    q, w = 19, 1372
+    qc = rng.normal(size=(q, 3))
+    off = rng.normal(scale=0.2, size=(q, 3))
+    off *= np.minimum(1.0, 0.8 / np.linalg.norm(off, axis=1, keepdims=True))
+    unit = [rng.normal(size=(q, 3)) + np.array([0.0, 0.0, 3.0]) for _ in range(2)]
+    nrm, qn = (u / np.linalg.norm(u, axis=1, keepdims=True) for u in unit)
+    vals = np.concatenate([np.repeat((qc + off)[:, :, None], w, 2),
+                           np.repeat(nrm[:, :, None], w, 2)], axis=1)
+    dist = np.repeat(np.linalg.norm(off, axis=1)[:, None], w, 1)
+    dist[:, ::7] = np.inf
+    dist[3, :] = np.inf
+    dist[3, 5] = np.linalg.norm(off[3])
+    args = [torch.tensor(a.astype(np.float32), device=cuda) for a in (vals, dist, qc, qn)]
+    got, want = _k4_counts(*args, decorrelated)
+    assert torch.equal(got, want)
+    per_row = (torch.isfinite(args[1]) & (args[1] > 0)).sum(1).float()
+    assert torch.equal(got.sum(1), per_row * (3 if decorrelated else 1))
+    assert int((got > 0).sum(1).max()) <= (3 if decorrelated else 1)
 
 
 def test_k6_spfh_runs_kernel(cuda, rng):

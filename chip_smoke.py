@@ -26,7 +26,9 @@ Phases, one line each; any failure exits non-zero with no result line:
    the call, its cell order and the kernel alone timed),
    K4 SPFH window histogram (one 8192-point chunk of a 100k-point terrain,
    radius 0.9, k=30 normals, joint and decorrelated),
-   K6 SPFH over xy-row runs (all 100k points of that terrain), the voxel
+   K6 SPFH over xy-row runs (all 100k points of that terrain, joint and
+   decorrelated, equal to its twin; then held to the K4 window route on the
+   rows whose radius rules agree), the voxel
    sums of ``grid_subsample`` on a skewed cloud (20,000 points in one
    voxel), bit-identical to the CPU's, and K8 window fetch (K1's keypoints
    on its own and on the bi-scale grid; the FPFH chunk; phase 10's queries
@@ -155,9 +157,10 @@ FEATURE_ATOL, FEATURE_ANGLE_ATOL = 1e-6, 1e-4
 # compute_pca_based_features
 BASIC_ANGLE_COLS, FEATURE_ANGLE_COLS = (0,), (8, 9, 10, 11)
 
-# the CUDA kernels of K1, K4, K5, K7 and K8 as csrc/ names them (their
+# the CUDA kernels of K1, K4, K5, K6, K7 and K8 as csrc/ names them (their
 # device time alone is read from the profiler)
 K1_KERNEL, K4_KERNEL, K5_KERNEL = "shot_hist_kernel", "spfh_hist_kernel", "shot_runs_kernel"
+K6_KERNEL = "spfh_runs_kernel"
 K7_KERNEL, K8_KERNEL = "radius_dist_kernel", "fetch_windows_kernel"
 
 # each path and the kernels its measured run must launch (and must not):
@@ -518,6 +521,18 @@ def with_library(lib, fn):
         _kernels._lib = saved
 
 
+def bits_against(label: str, other, calls: dict) -> None:
+    """Hold each call's outputs equal, bit for bit, to those of the same
+    call launching into ``other``, the library of another build of the
+    kernels."""
+    import torch
+
+    same = {mode: all(torch.equal(x, y) for x, y in zip(call(), with_library(other, call)))
+            for mode, call in calls.items()}
+    check(all(same.values()), f"{label} differs from the other build: {same}")
+    print(f"phase 3 {label} equal, bit for bit, to the other build: {same}", flush=True)
+
+
 def parity_k1(terrain: ShotTerrain, other=None):
     """K1 in its three modes against its twin, timed; with ``other`` (the
     library of another build of the kernels), its outputs also held equal,
@@ -584,17 +599,10 @@ def parity_k1(terrain: ShotTerrain, other=None):
           f"{bi_ms:.3f} ms (alone {bi_alone:.4f} ms), plain {bi_plain_ms:.3f} ms, bound "
           f"{bi_b['bound_ms']:.4f} ms ({bi_b['bound_by']})", flush=True)
     if other is not None:
-        from shot_fpfh_tpu_torch import _kernels
-
-        calls = {"own frames": lambda: shot_binning_histogram(vals, dist_inf, kp, None, radius),
-                 "given frames": lambda: (shot_binning_histogram(vals, dist_inf, kp, rfs_p,
-                                                                 radius),),
-                 "bi-scale": lambda: shot_binning_histogram(*args, **rf)}
-        lib = _kernels.load(other)
-        same = {label: all(torch.equal(x, y) for x, y in zip(call(), with_library(lib, call)))
-                for label, call in calls.items()}
-        check(all(same.values()), f"K1 differs from the build at {other}: {same}")
-        print(f"phase 3 K1 equal, bit for bit, to the build at {other}: {same}", flush=True)
+        bits_against("K1", other, {
+            "own frames": lambda: shot_binning_histogram(vals, dist_inf, kp, None, radius),
+            "given frames": lambda: (shot_binning_histogram(vals, dist_inf, kp, rfs_p, radius),),
+            "bi-scale": lambda: shot_binning_histogram(*args, **rf)})
     return dict(max_abs_err=max(st[1] for st in stats.values()), ms=ms, plain_ms=plain_ms,
                 library_ms=None, **b)
 
@@ -621,10 +629,11 @@ def _route_counts(grid, queries, radius):
     return torch.cat(runs), torch.cat(window)
 
 
-def parity_k5(terrain: ShotTerrain):
+def parity_k5(terrain: ShotTerrain, other=None):
     """K5 in its three modes against its twin (frames atol K1_FRAME_ATOL,
     histograms by the flip rule under the same frames), then against the K1
-    window route on the keypoints whose counts agree under both rules."""
+    window route on the keypoints whose counts agree under both rules; with
+    ``other``, its outputs held equal, bit for bit, to that build's."""
     import torch
 
     from shot_fpfh_tpu_torch.ops.grid_hash import _xyrow_runs
@@ -669,6 +678,15 @@ def parity_k5(terrain: ShotTerrain):
         hist_k1 = shot_binning_histogram(vals, dist_inf, kp, rfs, radius)
         route[label] = (parted, err, flip_rule(hist[same], hist_k1[same],
                                                f"K5 vs the K1 route ({label})"))
+
+    if other is not None:
+        own_rfs = results["own"][1]
+        bits_against("K5", other, {
+            "own frames": lambda: shot_descriptor_dma(terrain.grid, kp, terrain.radius, **raw),
+            "given frames": lambda: shot_descriptor_dma(terrain.grid, kp, terrain.radius,
+                                                        rfs=own_rfs, **raw),
+            "bi-scale": lambda: shot_descriptor_dma(terrain.bi_grid, kp, terrain.bi_radius,
+                                                    rf_radius=terrain.rf_radius, **raw)})
 
     grid, radius = terrain.bi_grid, terrain.bi_radius
     rf = dict(rf_radius=terrain.rf_radius)
@@ -778,42 +796,60 @@ def parity_k4(grid):
 
 
 def parity_k6(grid):
+    """K6 in both modes equal to its twin (``torch.equal``: whole counts
+    over the same angles), then the joint mode against the K4 window route
+    on the rows whose two radius rules agree; call, kernel alone and twin
+    timed in both modes."""
     import torch
 
     from shot_fpfh_tpu_torch.models.fpfh import _spfh_window_sorted
     from shot_fpfh_tpu_torch.ops.grid_hash import _xyrow_runs
     from shot_fpfh_tpu_torch.ops.shot_dma import spfh_sorted_dma, spfh_sorted_dma_plain
 
-    got = spfh_sorted_dma(grid, FPFH_RADIUS, 5, False)
-    want = spfh_sorted_dma_plain(grid, FPFH_RADIUS, 5, False)
-    window = _spfh_window_sorted(grid, FPFH_RADIUS, 5, False)
-    torch.cuda.synchronize()
-    err = route_rule(got, want, "K6 vs its twin")
-    # the two routes' radius rules part on a neighbor whose sqrt rounds onto
-    # the radius: that row's count, and with it every bin, moves by one
-    # neighbor (row sum ~1/count); the other rows are held to the rule
-    cnt_runs, cnt_window = _route_counts(grid, grid.packed_sorted[:, :3], FPFH_RADIUS)
-    same = cnt_runs == cnt_window
     n = grid.packed_sorted.shape[0]
-    parted = n - int(same.sum())
-    check(parted <= SPFH_ELEM_FRAC * n,
-          f"K6 vs the K4 route: the radius rules part on {parted} of {n} rows")
-    route_rule(got[same], window[same], "K6 vs the K4 route")
-    ms = cuda_ms(lambda: spfh_sorted_dma(grid, FPFH_RADIUS, 5, False))
-    plain_ms = cuda_ms(lambda: spfh_sorted_dma_plain(grid, FPFH_RADIUS, 5, False))
     # this run's work: every row of the queries' runs is tested, every
     # in-radius neighbor but the query itself binned
     start, end = _xyrow_runs(grid, grid.packed_sorted[:, :3])
     lanes = float((end - start).sum())
-    b = bound(grid.packed_sorted.numel() * 4 + start.numel() * 16 + n * 125 * 4,
-              lanes * OPS_DIST_TEST + (float(cnt_runs.sum()) - n) * OPS_SPFH_NEIGHBOR)
+    cnt_runs, cnt_window = _route_counts(grid, grid.packed_sorted[:, :3], FPFH_RADIUS)
+    neighbors = float(cnt_runs.sum()) - n
+    times, bounds, hists, errs = {}, {}, {}, []
+    for dec in (False, True):
+        got = spfh_sorted_dma(grid, FPFH_RADIUS, 5, dec)
+        want = spfh_sorted_dma_plain(grid, FPFH_RADIUS, 5, dec)
+        torch.cuda.synchronize()
+        errs.append(float((got - want).abs().max()))
+        check(torch.equal(got, want),
+              f"K6 decorrelated={dec}: {int((got != want).sum())} elements differ from the "
+              f"twin, max {float((got - want).abs().max())}")
+        check(float(want.sum()) > 0, "K6: empty histograms")
+        hists[dec] = got
+        times[dec] = (cuda_ms(lambda: spfh_sorted_dma(grid, FPFH_RADIUS, 5, dec)),
+                      kernel_ms(lambda: spfh_sorted_dma(grid, FPFH_RADIUS, 5, dec), K6_KERNEL),
+                      cuda_ms(lambda: spfh_sorted_dma_plain(grid, FPFH_RADIUS, 5, dec)))
+        bounds[dec] = bound(grid.packed_sorted.numel() * 4 + grid.cell_starts.numel() * 8
+                            + n * got.shape[1] * 4,
+                            lanes * OPS_DIST_TEST + neighbors * OPS_SPFH_NEIGHBOR)
+    # the two routes' radius rules part on a neighbor whose sqrt rounds onto
+    # the radius: that row's count, and with it every bin, moves by one
+    # neighbor (row sum ~1/count); the other rows are held to the rule
+    window = _spfh_window_sorted(grid, FPFH_RADIUS, 5, False)
+    same = cnt_runs == cnt_window
+    parted = n - int(same.sum())
+    check(parted <= SPFH_ELEM_FRAC * n,
+          f"K6 vs the K4 route: the radius rules part on {parted} of {n} rows")
+    route_err = route_rule(hists[False][same], window[same], "K6 vs the K4 route")
+    (ms, alone, plain_ms), (dec_ms, dec_alone, dec_plain) = times[False], times[True]
+    b, dec_b = bounds[False], bounds[True]
     print(f"phase 3 K6 spfh_runs: {n} queries x {start.shape[1]} xy-row runs (longest "
-          f"{grid.xyrow_run_cap}, {lanes / n:.0f} rows and "
-          f"{float(cnt_runs.sum()) / n - 1:.0f} neighbors a query): max err vs twin "
-          f"{err:.2e}; K4 route held on the {n - parted} rows whose radius rules agree "
-          f"({parted} part); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-          f"{b['bound_ms']:.4f} ms ({b['bound_by']})", flush=True)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
+          f"{grid.xyrow_run_cap}, {lanes / n:.0f} rows and {neighbors / n:.0f} neighbors a "
+          f"query): equal to the twin in both modes; K4 route held on the {n - parted} rows "
+          f"whose radius rules agree ({parted} part, max diff {route_err:.2e}); joint kernel "
+          f"{ms:.3f} ms (alone {alone:.4f} ms) plain {plain_ms:.3f} ms, bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']}); decorrelated kernel {dec_ms:.3f} ms "
+          f"(alone {dec_alone:.4f} ms) plain {dec_plain:.3f} ms, bound "
+          f"{dec_b['bound_ms']:.4f} ms ({dec_b['bound_by']})", flush=True)
+    return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=None, **b)
 
 
 def voxel_sums(dev, rng):
@@ -1361,9 +1397,9 @@ def main(argv=None) -> int:
     parser.add_argument("--profile", type=Path, default=None, metavar="DIR",
                         help="profile the main path with torch.profiler; write the "
                              "op table and a chrome trace to DIR")
-    parser.add_argument("--k1-bits-against", type=Path, default=None, metavar="LIB",
-                        help="hold K1's phase-3 outputs equal, bit for bit, to those of the "
-                             "kernel library LIB (another build of csrc/)")
+    parser.add_argument("--bits-against", type=Path, default=None, metavar="LIB",
+                        help="hold K1's and K5's phase-3 outputs equal, bit for bit, to those "
+                             "of the kernel library LIB (another build of csrc/)")
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1377,10 +1413,13 @@ def main(argv=None) -> int:
 
     smi = phase_device()
     phase_build()
+    from shot_fpfh_tpu_torch import _kernels
+
+    other = None if args.bits_against is None else _kernels.load(args.bits_against)
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     terrain = ShotTerrain(dev, rng)
-    k1, k5 = parity_k1(terrain, args.k1_bits_against), parity_k5(terrain)
+    k1, k5 = parity_k1(terrain, other), parity_k5(terrain, other)
     k8 = parity_k8("K1's keypoints and grid", terrain.grid, terrain.kp)
     k8_more = [parity_k8("the bi-scale grid", terrain.bi_grid, terrain.kp)]
     del terrain

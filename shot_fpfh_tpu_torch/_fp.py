@@ -7,7 +7,8 @@ distance can differ from the reference's by one ulp, which flips a point on
 a radius boundary or a distance tie in voxel subsampling.  :func:`sqnorm3`
 evaluates the same chain, correctly rounded like the hardware ``fmaf`` of
 the CUDA kernels, so a kernel and its plain twin agree bit for bit.
-:func:`div` keeps cell and bin indices exact the same way.
+:func:`div` keeps cell and bin indices exact the same way, and :func:`sqrt`
+the distances taken from those squares.
 """
 
 from __future__ import annotations
@@ -42,3 +43,15 @@ def div(x: torch.Tensor, scalar: float) -> torch.Tensor:
     which can move a value on a cell or bin edge by one ulp; a 0-d tensor
     divisor takes the true division, as on the CPU and in the reference."""
     return x / torch.tensor(scalar, dtype=torch.float32, device=x.device)
+
+
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Square root of a float32 tensor, correctly rounded on every device.
+    PyTorch's vectorized CPU kernel is not (it parts by one ulp from the
+    correctly rounded root on ~0.6% of float32 inputs), so on the CPU the
+    root is taken in float64 and rounded once to float32, which is exact:
+    float64 carries more than twice float32's precision plus two bits.  On
+    the card ``torch.sqrt`` is correctly rounded, as the kernels' ``sqrtf``."""
+    if x.device.type == "cpu":
+        return torch.sqrt(x.double()).to(x.dtype)
+    return torch.sqrt(x)

@@ -57,7 +57,7 @@ _SIGNATURES = {
     "radius_pca_keys": _GRID + [_P, _I, _P, _P],
     "radius_pca": _GRID + [_P, _P, _P, _I, _P, _P, _P, _P],
     "spfh_histogram": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "spfh_runs": [_P, _I, _P, _P, _P, _P, _I, _I, _F, _I, _I, _P, _P],
+    "spfh_runs": [_P, _I, _P, _P, _F, _L, _L, _L, _I, _P, _P, _I, _I, _F, _I, _I, _P, _P],
     "shot_runs": [_P, _I, _P, _P, _F, _L, _L, _L, _I, _I, _P, _I, _P, _F, _F, _P, _P, _P, _P],
     "fetch_windows": [_P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     "radius_dist": [_P, _I, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P],

@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .._fp import div, sqnorm3
+from .._fp import div, sqnorm3, sqrt
 
 
 def _as_points(points, device=None) -> torch.Tensor:
@@ -61,7 +61,7 @@ def _voxel_segments(points: torch.Tensor, voxel_size):
     counts[:starts.shape[0]] = lengths.to(torch.float32)
     bary = _segment_sums(sorted_pts, lengths) / lengths.to(torch.float32)[:, None]
     diff = sorted_pts - bary[seg]
-    d = torch.sqrt(sqnorm3(diff[:, 0], diff[:, 1], diff[:, 2]))
+    d = sqrt(sqnorm3(diff[:, 0], diff[:, 1], diff[:, 2]))
     return order, seg, counts, d
 
 

@@ -1,0 +1,40 @@
+// A query's xy-row runs of the grid, shared by K5 (shot_runs.cu) and K6
+// (spfh_runs.cu): its cell, and the 2h+1 runs of the cell-sorted table
+// that hold every point within halo·cell_size of it, with the arithmetic of
+// ops/grid_hash.py::_query_cells and ::_xyrow_runs.  Each kernel finds its
+// queries' runs itself from the grid's cell-start table, one run a lane,
+// so the wrapper launches no index ops.
+#pragma once
+
+#include <math.h>
+
+namespace runs {
+
+// grid_hash._query_cells: floor((q − origin) / cell_size), one IEEE division
+__device__ __forceinline__ void query_cell(const float* origin, float cell_size, float x,
+                                           float y, float z, long long (&c)[3]) {
+  c[0] = (long long)floorf(__fdiv_rn(x - origin[0], cell_size));
+  c[1] = (long long)floorf(__fdiv_rn(y - origin[1], cell_size));
+  c[2] = (long long)floorf(__fdiv_rn(z - origin[2], cell_size));
+}
+
+// grid_hash._xyrow_runs for offset k (0 .. 2h) of the cell c: the sorted
+// rows [s, e) of the cells (x+k−h, max(y−h, 0) .. min(y+h, d1−1), all z),
+// consecutive in the z-minor id; (0, 0) off the grid
+__device__ __forceinline__ void xyrow_run(const long long* cell_starts, long long d0,
+                                          long long d1, long long d2, int h,
+                                          const long long (&c)[3], int k, long long& s,
+                                          long long& e) {
+  const long long x = c[0] + k - h;
+  const long long y_lo = c[1] - h > 0 ? c[1] - h : 0;
+  const long long y_hi = c[1] + h < d1 - 1 ? c[1] + h : d1 - 1;
+  s = e = 0;
+  if (x < 0 || x >= d0 || y_hi < y_lo || c[1] < -h || c[1] > d1 + h - 1) return;
+  const long long last = d0 * d1 * d2;
+  const long long lo = (x * d1 + y_lo) * d2, hi = (x * d1 + y_hi + 1) * d2;
+  s = cell_starts[lo < 0 ? 0 : (lo > last ? last : lo)];
+  e = cell_starts[hi < 0 ? 0 : (hi > last ? last : hi)];
+  e = e > s ? e : s;
+}
+
+}  // namespace runs

@@ -18,8 +18,8 @@
 // keypoint's runs of the cell-sorted [x y z nx ny nz ...] table as its
 // neighbor source, so no (Q, W) window is gathered.
 //   - The warp finds its keypoint's runs from the grid's cell-start table
-//     (the arithmetic of grid_hash._xyrow_runs, one run a lane), so the
-//     wrapper launches no index ops.
+//     (runs.cuh, shared with K6: the arithmetic of grid_hash._xyrow_runs,
+//     one run a lane), so the wrapper launches no index ops.
 //   - A walk puts the lanes on consecutive rows of each run, kUnroll rows a
 //     lane in flight.
 //   - Pass 1 walks the runs of the frame plane's own halo (bi-scale: the
@@ -39,6 +39,7 @@
 // atan2f and an acosf each), while the bytes that must cross device memory
 // are the table once and the output rows.
 #include "common.cuh"
+#include "runs.cuh"
 #include "shot.cuh"
 
 namespace {
@@ -47,25 +48,6 @@ constexpr int kWarps = 8;          // keypoints a block, one warp each
 using shot::kFull;
 using shot::kUnroll;               // rows a lane loads at once
 constexpr int kFrameSlots = 1024;  // frame-plane rows a warp lists
-
-// ops/grid_hash.py::_xyrow_runs for offset k (0 .. 2h) of the cell c: the
-// sorted rows [s, e) of the cells (x+k−h, max(y−h, 0) .. min(y+h, d1−1), all
-// z), consecutive in the z-minor id; (0, 0) off the grid
-__device__ __forceinline__ void xyrow_run(const long long* cell_starts, long long d0,
-                                          long long d1, long long d2, int h,
-                                          const long long (&c)[3], int k, long long& s,
-                                          long long& e) {
-  const long long x = c[0] + k - h;
-  const long long y_lo = c[1] - h > 0 ? c[1] - h : 0;
-  const long long y_hi = c[1] + h < d1 - 1 ? c[1] + h : d1 - 1;
-  s = e = 0;
-  if (x < 0 || x >= d0 || y_hi < y_lo || c[1] < -h || c[1] > d1 + h - 1) return;
-  const long long last = d0 * d1 * d2;
-  const long long lo = (x * d1 + y_lo) * d2, hi = (x * d1 + y_hi + 1) * d2;
-  s = cell_starts[lo < 0 ? 0 : (lo > last ? last : lo)];
-  e = cell_starts[hi < 0 ? 0 : (hi > last ? last : hi)];
-  e = e > s ? e : s;
-}
 
 // A walk over a keypoint's runs: the run it is in, and the next step's
 // first row and the run's end
@@ -245,15 +227,15 @@ shot_runs_kernel(const float* __restrict__ table, int stride,
   src.kx = kp[3 * qi];
   src.ky = kp[3 * qi + 1];
   src.kz = kp[3 * qi + 2];
-  // grid_hash._query_cells: floor((q − origin) / cell_size), one IEEE division
-  const long long c[3] = {(long long)floorf(__fdiv_rn(src.kx - origin[0], cell_size)),
-                          (long long)floorf(__fdiv_rn(src.ky - origin[1], cell_size)),
-                          (long long)floorf(__fdiv_rn(src.kz - origin[2], cell_size))};
+  long long c[3];
+  runs::query_cell(origin, cell_size, src.kx, src.ky, src.kz, c);
   src.n_frame_runs = 2 * frame_halo + 1;
   src.run_s = src.run_e = src.frame_s = src.frame_e = 0;
-  if (lane < src.n_runs) xyrow_run(cell_starts, d0, d1, d2, halo, c, lane, src.run_s, src.run_e);
+  if (lane < src.n_runs)
+    runs::xyrow_run(cell_starts, d0, d1, d2, halo, c, lane, src.run_s, src.run_e);
   if (lane < src.n_frame_runs)
-    xyrow_run(cell_starts, d0, d1, d2, frame_halo, c, lane, src.frame_s, src.frame_e);
+    runs::xyrow_run(cell_starts, d0, d1, d2, frame_halo, c, lane, src.frame_s,
+                    src.frame_e);
   src.rr = radius * radius;
   src.rr_frame = rf_radius * rf_radius;
   src.frame_list = frame_s[warp];

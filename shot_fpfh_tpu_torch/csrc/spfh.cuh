@@ -1,6 +1,6 @@
 // SPFH per-neighbor stage shared by K4 (spfh_fused.cu) and K6 (spfh_runs.cu):
-// the reference Darboux angles and numpy-histogramdd binning, and the adds
-// into a histogram in shared memory.  The float32 order of every step is that of
+// the reference Darboux angles and numpy-histogramdd binning, and the
+// warp's adds into a histogram of ints in shared memory.  The float32 order of every step is that of
 // ops/descriptor_bins.py::darboux_angles and ops/histogram.py::bin_index
 // (the sources are built -fmad=false, so each product rounds on its own as
 // in the eager PyTorch twins): SPFH weights are 0/1, so any rounding
@@ -55,9 +55,11 @@ __device__ __forceinline__ int bin_index(float x, float lo, float hi, float widt
   return (int)fminf(fmaxf(raw, 0.f), (float)(n - 1));
 }
 
-// The histogram slots of one valid neighbor, as add_neighbor adds them:
-// joint, idx[0] = its n^3 bin; decorrelated, one slot per in-range angle.
-// Slots that take no count are -1 (K4).
+// The histogram slots of one valid neighbor (self excluded by the caller):
+// joint, idx[0] = its n^3 bin (alpha major, theta minor) when all three
+// angles are in range; decorrelated, one slot per in-range angle in the
+// interleaved layout (bin k: alpha, phi, theta at 3k, 3k+1, 3k+2).  Slots
+// that take no count are -1.
 __device__ __forceinline__ void bin_slots(const Bins& b, bool decorrelated, float alpha,
                                           float phi, float theta, int (&idx)[3]) {
   bool a_in, p_in, t_in;
@@ -74,29 +76,9 @@ __device__ __forceinline__ void bin_slots(const Bins& b, bool decorrelated, floa
   }
 }
 
-// Add one valid neighbor (self excluded by the caller) to `hist`: one count
-// in the joint n^3 bin (alpha major, theta minor) when all three angles are
-// in range, or, decorrelated, one count per in-range angle in the
-// interleaved layout (bin k: alpha, phi, theta at 3k, 3k+1, 3k+2); one
-// atomic a count (K6).
-__device__ __forceinline__ void add_neighbor(float* hist, const Bins& b, bool decorrelated,
-                                             float alpha, float phi, float theta) {
-  bool a_in, p_in, t_in;
-  const int a = bin_index(alpha, -1.f, 1.f, b.width_unit, b.n, &a_in);
-  const int p = bin_index(phi, -1.f, 1.f, b.width_unit, b.n, &p_in);
-  const int t = bin_index(theta, b.lo_theta, b.hi_theta, b.width_theta, b.n, &t_in);
-  if (decorrelated) {
-    if (a_in) atomicAdd(hist + 3 * a, 1.f);
-    if (p_in) atomicAdd(hist + 3 * p + 1, 1.f);
-    if (t_in) atomicAdd(hist + 3 * t + 2, 1.f);
-  } else if (a_in && p_in && t_in) {
-    atomicAdd(hist + (a * b.n + p) * b.n + t, 1.f);
-  }
-}
-
 // hist[idx] += 1 for every lane of the warp (all lanes call it; idx < 0
 // adds nothing): the lanes with the same idx (__match_any_sync) add their
-// number in one atomic by the lowest of them (K4).
+// number in one atomic by the lowest of them.
 __device__ __forceinline__ void warp_count(int* hist, int idx) {
   const unsigned peers = __match_any_sync(0xffffffffu, idx);
   if (idx >= 0 && (int)(threadIdx.x & 31) == __ffs(peers) - 1)

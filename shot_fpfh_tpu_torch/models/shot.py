@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from .._device import resolve
-from .._fp import sqnorm3
+from .._fp import sqnorm3, sqrt
 from ..core.subsampling import grid_subsample
 from ..ops import grid_hash
 from ..ops.grid_hash import build_grid, query_chunk, window_distances
@@ -47,7 +47,7 @@ _FAR = 1.0e6
 def _masked_offsets(keypoints, neighbor_points, mask):
     """``(centered (Q, K, 3) zeroed where masked out, rho (Q, K))``."""
     centered = torch.where(mask[..., None], neighbor_points - keypoints[:, None, :], 0.0)
-    return centered, torch.sqrt(sqnorm3(centered[..., 0], centered[..., 1], centered[..., 2]))
+    return centered, sqrt(sqnorm3(centered[..., 0], centered[..., 1], centered[..., 2]))
 
 
 def local_reference_frames(keypoints, neighbor_points, mask, radius) -> torch.Tensor:

@@ -36,7 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .._fp import div, sqnorm3
+from .._fp import div, sqnorm3, sqrt
 from .neighbors import Neighborhoods, _sq_dists, as_f32, knn, radius_search
 from .radius_runs import fetch_windows, radius_dist, window_slots
 
@@ -373,7 +373,7 @@ def kth_distance_bound(sample, points, k: int) -> torch.Tensor:
     reference uses ``approx_max_k``, which only ever biases it up)."""
     d2 = torch.clamp(_sq_dists(sample, points), min=0.0)
     kth = torch.topk(d2, k, dim=1, largest=False, sorted=True).values[:, -1]
-    return torch.sqrt(torch.clamp(kth, min=0.0))
+    return sqrt(torch.clamp(kth, min=0.0))
 
 
 def quantized_kth_radius(kth) -> float:

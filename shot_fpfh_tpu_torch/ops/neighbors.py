@@ -14,7 +14,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .._fp import sqnorm3
+from .._fp import sqnorm3, sqrt
 
 _MAX_TILE_ELEMS = 1 << 26
 
@@ -55,7 +55,7 @@ def _chunk(n_points: int) -> int:
 
 def _exact_dist(queries, points, idx):
     diff = queries[:, None, :] - points[idx]
-    return torch.sqrt(sqnorm3(diff[..., 0], diff[..., 1], diff[..., 2]))
+    return sqrt(sqnorm3(diff[..., 0], diff[..., 1], diff[..., 2]))
 
 
 def _topk_smallest(queries, points, k: int, r2=None):
@@ -138,4 +138,4 @@ def nearest_neighbor(queries, points):
         torch.argmin(_sq_dists(queries[s:s + step], points), dim=-1)
         for s in range(0, queries.shape[0], step)])
     diff = queries - points[idx]
-    return torch.sqrt(sqnorm3(diff[:, 0], diff[:, 1], diff[:, 2])), idx
+    return sqrt(sqnorm3(diff[:, 0], diff[:, 1], diff[:, 2])), idx

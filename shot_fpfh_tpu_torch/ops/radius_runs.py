@@ -27,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from .. import _kernels
-from .._fp import sqnorm3
+from .._fp import sqnorm3, sqrt
 
 
 def window_slots(start: torch.Tensor, end: torch.Tensor, w: int, n: int):
@@ -46,7 +46,7 @@ def window_slots(start: torch.Tensor, end: torch.Tensor, w: int, n: int):
 
 def _distances(cand, queries):
     """``(Q, W)`` distances of gathered ``(Q, W, >=3)`` rows to the queries."""
-    return torch.sqrt(sqnorm3(*(cand[..., i] - queries[:, i:i + 1] for i in range(3))))
+    return sqrt(sqnorm3(*(cand[..., i] - queries[:, i:i + 1] for i in range(3))))
 
 
 def fetch_windows_plain(table, queries, start, end, w: int):

@@ -37,7 +37,7 @@ import os
 import torch
 
 from .. import _kernels
-from .._fp import sqnorm3
+from .._fp import sqnorm3, sqrt
 from .descriptor_bins import darboux_angles
 from .grid_hash import _CHUNK_ELEMS, HashGrid, _xyrow_runs, check_radius_contract
 from .shot_fused import SHOT_DIM, shot_binning_histogram_plain, shot_finalize
@@ -45,8 +45,9 @@ from .spfh_fused import spfh_dim, spfh_from_angles
 
 _DMA = {"enabled": None}  # None: resolve from SHOT_FPFH_DMA on first use
 
-# the kernel keeps one histogram per warp, 8 warps a block, in shared memory
-_MAX_SMEM_FLOATS = 48 * 1024 // 4 // 8
+# K6 keeps one histogram of ints and a 256-row ring per warp, 8 warps a
+# block, in the 227 KB of shared memory a block can have on the H100
+_MAX_SMEM_BINS = 232_448 // 4 // 8 - 256
 
 
 def dma_kernel_enabled() -> bool:
@@ -96,7 +97,7 @@ def _shot_chunk_plain(grid: HashGrid, q, radius, rfs, rf_radius):
     rows, in_run = _run_rows(grid, q)
     vals = grid.packed_sorted[rows]                                # (C, W, F)
     rho2 = sqnorm3(*(vals[..., i] - q[:, i:i + 1] for i in range(3)))
-    d = torch.sqrt(rho2)
+    d = sqrt(rho2)
     inf = torch.full_like(d, float("inf"))
 
     def plane(r):
@@ -194,7 +195,7 @@ def spfh_block_dma_plain(grid: HashGrid, qc, qn, radius, n_bins: int, decorrelat
         nx, ny, nz = (torch.where(ok, vals[..., i], 0.0) for i in range(3, 6))
         ux, uy, uz = (u[:, i:i + 1] for i in range(3))
         alpha, phi, theta = darboux_angles(dx, dy, dz, nx, ny, nz, ux, uy, uz,
-                                           torch.where(valid, torch.sqrt(rho2), 1.0))
+                                           torch.where(valid, sqrt(rho2), 1.0))
         hist = spfh_from_angles(alpha, phi, theta, valid, n_bins, decorrelated)
         out.append(hist / torch.clamp(ok.sum(-1).to(torch.float32), min=1.0)[:, None])
     if not out:
@@ -209,34 +210,41 @@ def spfh_block_dma(grid: HashGrid, qc: torch.Tensor, qn: torch.Tensor, radius,
     if qc.device.type == "cpu":
         return spfh_block_dma_plain(grid, qc, qn, radius, n_bins, decorrelated)
     _check_run_grid(grid, radius)
-    device = _kernels.require_cuda(qc, qn, grid.packed_sorted)
+    table = grid.packed_sorted
+    device = _kernels.require_cuda(qc, qn, table)
     c = qc.shape[0]
     if qc.shape != (c, 3) or qn.shape != (c, 3):
         raise ValueError(f"bad query shapes {tuple(qc.shape)}, {tuple(qn.shape)}")
-    table = grid.packed_sorted
     if any(t.dtype != torch.float32 for t in (qc, qn, table)) or not table.is_contiguous():
         raise ValueError("run kernel inputs must be float32 (table contiguous)")
+    if table.shape[0] >= 2 ** 30 or 2 * grid.halo + 1 > 32:
+        raise ValueError("the SPFH run kernel walks table rows as 32-bit ints (at most 2^30 "
+                         "rows) and holds one run a lane (halo <= 15)")
     d_out = spfh_dim(n_bins, decorrelated)
-    if not 0 < d_out <= _MAX_SMEM_FLOATS:
+    if not 0 < d_out <= _MAX_SMEM_BINS:
         raise ValueError(f"n_bins={n_bins} gives {d_out} bins; the kernel holds at most "
-                         f"{_MAX_SMEM_FLOATS} per warp in shared memory")
-    qc, qn = qc.contiguous(), qn.contiguous()
-    start, end = (t.contiguous() for t in _xyrow_runs(grid, qc))
+                         f"{_MAX_SMEM_BINS} per warp in shared memory")
+    # the kernel reads query i at i * stride(0) from each base: the rows of
+    # two (C, 3) arrays, or of the table itself (spfh_sorted_dma)
+    if qc.stride(1) != 1 or qn.stride(1) != 1 or qc.stride(0) != qn.stride(0):
+        qc, qn = qc.contiguous(), qn.contiguous()
     out = torch.empty((c, d_out), dtype=torch.float32, device=qc.device)
-    _kernels.launch("spfh_runs", device, table.data_ptr(), table.shape[1], qc.data_ptr(),
-                    qn.data_ptr(), start.data_ptr(), end.data_ptr(), start.shape[1], c,
+    # the kernel finds each query's xy-row runs (_xyrow_runs) itself
+    _kernels.launch("spfh_runs", device, table.data_ptr(), table.shape[1],
+                    grid.cell_starts.data_ptr(), grid.origin.data_ptr(), grid.cell_size,
+                    *grid.dims, grid.halo, qc.data_ptr(), qn.data_ptr(), qc.stride(0), c,
                     float(radius), n_bins, int(decorrelated), out.data_ptr())
     return out
 
 
 def _sorted_queries(grid: HashGrid):
-    return (grid.packed_sorted[:, :3].contiguous(), grid.packed_sorted[:, 3:6].contiguous())
+    return grid.packed_sorted[:, :3], grid.packed_sorted[:, 3:6]
 
 
 def spfh_sorted_dma(grid: HashGrid, radius, n_bins: int, decorrelated: bool):
     """SPFH of every cloud point in grid-sorted order over the run route:
     the contract of ``models.fpfh._spfh_window_sorted`` (count-normalized
-    ``(N, D)``, queries and normals from the sorted table)."""
+    ``(N, D)``, queries and normals the sorted table's own rows)."""
     return spfh_block_dma(grid, *_sorted_queries(grid), radius, n_bins, decorrelated)
 
 

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from .._device import resolve
+from .._fp import sqrt
 from ..ops.match import top2_match
 from ..ops.neighbors import as_f32
 
@@ -33,14 +34,14 @@ def nearest_descriptor(a: torch.Tensor, b: torch.Tensor, b_valid: torch.Tensor,
                        use_bf16: bool = True):
     """Per-row nearest neighbor of ``a`` in ``b``: ``(idx, dist)``."""
     idx, d1_sq, _ = top2_match(a, b, b_valid, use_bf16)
-    return idx, torch.sqrt(d1_sq)
+    return idx, sqrt(d1_sq)
 
 
 def top2_descriptor(a: torch.Tensor, b: torch.Tensor, b_valid: torch.Tensor,
                     use_bf16: bool = True):
     """Nearest and second-nearest: ``(idx1, d1, d2)``."""
     idx, d1_sq, d2_sq = top2_match(a, b, b_valid, use_bf16)
-    return idx, torch.sqrt(d1_sq), torch.sqrt(d2_sq)
+    return idx, sqrt(d1_sq), sqrt(d2_sq)
 
 
 def _split_nonzero(desc, device=None):

@@ -704,14 +704,124 @@ def test_k4_spfh_kernel_one_bin(cuda, rng, decorrelated):
     assert int((got > 0).sum(1).max()) <= (3 if decorrelated else 1)
 
 
-def test_k6_spfh_runs_kernel(cuda, rng):
+@pytest.mark.parametrize("decorrelated", [False, True])
+def test_k6_spfh_runs_kernel(cuda, rng, decorrelated):
+    """Whole counts over K4's angles: the count-normalized rows equal the
+    twin's, bit for bit, on every point of a cloud (grid-sorted queries,
+    read from the table's own rows)."""
     grid = _spfh_grid(rng, cuda, 0.5)
     assert grid.use_xyrow
-    got = _counted("spfh_runs", lambda: shot_dma.spfh_sorted_dma(grid, 0.5, 5, False))
-    want = shot_dma.spfh_sorted_dma_plain(grid, 0.5, 5, False)
-    diff = (got - want).abs()
-    assert float((diff > 1e-4).float().mean()) <= 1e-3
-    torch.testing.assert_close(got.sum(1), want.sum(1), atol=1e-3, rtol=0)
+    got = _counted("spfh_runs", lambda: shot_dma.spfh_sorted_dma(grid, 0.5, 5, decorrelated))
+    want = shot_dma.spfh_sorted_dma_plain(grid, 0.5, 5, decorrelated)
+    assert torch.equal(got, want)
+    assert float(want.sum()) > 0
+
+
+@pytest.mark.parametrize("halo", [1, 2, 3])
+@pytest.mark.parametrize("decorrelated", [False, True])
+def test_k6_spfh_runs_kernel_edge_cases(cuda, rng, halo, decorrelated):
+    """K6 equal to its twin at halo 1, 2 and 3 on 67 queries (off the 8 a
+    block): 40 cloud points in random order, 24 consecutive grid-sorted
+    points (blocks that straddle cell columns), the point of least x (empty
+    runs), a point off the grid at 1e6 (every run empty: a zero row) and a
+    point 5 above the surface (runs full of rows, none in radius: a zero
+    row); runs longer than one walk step of 128 rows."""
+    from shot_fpfh_tpu_torch.ops.grid_hash import _xyrow_runs
+
+    radius = 0.5
+    pts = _surface(rng, 30_000, cuda)
+    nrm = torch.nn.functional.normalize(torch.randn_like(pts), dim=1)
+    grid = build_grid(pts, radius / halo, extras=nrm, halo=halo)
+    assert grid.use_xyrow and grid.halo == halo
+    table = grid.packed_sorted
+    edge = int(torch.argmin(pts[:, 0]))
+    idx = torch.tensor(rng.choice(pts.shape[0], 40, replace=False), device=cuda)
+    far = torch.tensor([[1e6, 1e6, 1e6], [0.0, 0.0, 5.0]], device=cuda)
+    qc = torch.cat([pts[idx], table[5000:5024, :3], pts[edge:edge + 1], far])
+    qn = torch.cat([nrm[idx], table[5000:5024, 3:6], nrm[edge:edge + 1],
+                    torch.tensor([[0.0, 0.0, 1.0]] * 2, device=cuda)])
+    start, end = _xyrow_runs(grid, qc)
+    assert int((end - start).max()) > 128 and bool((end == start)[-3].any())
+    assert bool((end == start)[-2].all()) and bool((end > start)[-1].any())
+    got = _counted("spfh_runs", lambda: shot_dma.spfh_block_dma(grid, qc, qn, radius, 5,
+                                                                decorrelated))
+    want = shot_dma.spfh_block_dma_plain(grid, qc, qn, radius, 5, decorrelated)
+    assert torch.equal(got, want)
+    assert not got[-2:].any() and bool(got[:-2].any(1).all())
+
+
+# phi and theta bin edges of 5 bins (away from 0, where the angles of a
+# flat patch sit)
+K6_PHI_EDGES, K6_THETA_EDGES = (-0.6, -0.2, 0.2, 0.6), (-0.6 * np.pi / 2, -0.2 * np.pi / 2,
+                                                     0.2 * np.pi / 2, 0.6 * np.pi / 2)
+
+
+def _k6_edge_cloud(rng, sites=8, per_edge=120):
+    """``(points, normals, queries)``: the 30k-point surface with random
+    unit normals, plus, around each of ``sites`` surface points, points on
+    the cones whose phi (query normal +z) is a bin edge of 5 bins, with
+    normals that put their theta on a bin edge too; the queries are the
+    sites.  The angles then land within a few ulps of the edges, where a
+    last-bit difference from the twin would move a count."""
+    xy = rng.uniform(-3, 3, size=(30_000, 2))
+    z = 0.4 * np.sin(xy[:, 0]) * np.cos(0.7 * xy[:, 1])
+    surface = np.column_stack([xy, z]) + rng.normal(scale=0.01, size=(30_000, 3))
+    nrm = rng.normal(size=surface.shape)
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    centers = surface[rng.choice(30_000, sites, replace=False)]
+    pts, nms = [surface], [nrm]
+    for q in centers:
+        for c in K6_PHI_EDGES:
+            rho = rng.uniform(0.05, 0.45, per_edge)
+            az = rng.uniform(0, 2 * np.pi, per_edge)
+            rxy = rho * np.sqrt(1 - c * c)
+            d = np.column_stack([rxy * np.cos(az), rxy * np.sin(az), rho * c])
+            tau = rng.choice(K6_THETA_EDGES, per_edge)
+            beta = np.arctan(np.tan(tau) / rxy)
+            pts.append(q + d)
+            nms.append(np.column_stack([np.sin(beta) * np.cos(az), np.sin(beta) * np.sin(az),
+                                        np.cos(beta)]))
+    return (np.concatenate(pts).astype(np.float32), np.concatenate(nms).astype(np.float32),
+            centers.astype(np.float32))
+
+
+@pytest.mark.parametrize("decorrelated", [False, True])
+def test_k6_spfh_runs_kernel_bin_edges(cuda, rng, decorrelated):
+    """Neighbors whose phi and theta lie on bin edges (up to float32
+    rounding): the rows still equal the twin's bit for bit."""
+    pts, nrm, sites = _k6_edge_cloud(rng)
+    grid = build_grid(torch.tensor(pts, device=cuda), 0.25, extras=torch.tensor(nrm, device=cuda),
+                      halo=2)
+    assert grid.use_xyrow
+    qc = torch.tensor(sites, device=cuda)
+    qn = torch.tensor([[0.0, 0.0, 1.0]] * len(sites), device=cuda)
+    # the edge points' phi within 2e-5 of an edge
+    d = pts[30_000:].reshape(len(sites), -1, 3) - sites[:, None, :]
+    phi = d[..., 2] / np.linalg.norm(d, axis=-1)
+    near = np.abs(phi[..., None] - np.array(K6_PHI_EDGES)).min(-1) < 2e-5
+    assert near.sum() > 1000
+    got = _counted("spfh_runs", lambda: shot_dma.spfh_block_dma(grid, qc, qn, 0.5, 5,
+                                                                decorrelated))
+    want = shot_dma.spfh_block_dma_plain(grid, qc, qn, 0.5, 5, decorrelated)
+    assert torch.equal(got, want)
+    assert float(want.sum()) > 0
+
+
+@pytest.mark.parametrize("n_bins", [1, 11])
+def test_k6_spfh_runs_kernel_bin_counts(cuda, rng, n_bins):
+    """One bin, and 11^3 joint bins, whose per-warp histograms need more
+    than 48 KB of shared memory a block: equal to the twin in both modes,
+    on transposed (non-unit-stride) query arrays."""
+    grid = _spfh_grid(rng, cuda, 0.5)
+    qc = grid.packed_sorted[:1000, :3].t().contiguous().t()
+    qn = grid.packed_sorted[:1000, 3:6].t().contiguous().t()
+    assert qc.stride(1) != 1
+    for dec in (False, True):
+        got = _counted("spfh_runs", lambda: shot_dma.spfh_block_dma(grid, qc, qn, 0.5, n_bins,
+                                                                    dec))
+        want = shot_dma.spfh_block_dma_plain(grid, qc, qn, 0.5, n_bins, dec)
+        assert torch.equal(got, want)
+        assert float(want.sum()) > 0
 
 
 @pytest.mark.parametrize("run_route", [False, True])

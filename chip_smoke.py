@@ -60,9 +60,18 @@ Phases, one line each; any failure exits non-zero with no result line:
    normals, sphericity, the basic and the 21-column features: K3 and K8),
    held to the port's plain CPU run within 1e-6 (the angle columns 1e-4);
 11. single-scale SHOT with ``--matching_algorithm threshold`` and with
-   ``--selection_algorithm random``, one measured run each.
-Phases 4–9 run cold, then measured, each accepted within the same bounds;
-every window route launches K8, and every ICP K7.
+   ``--selection_algorithm random``, one measured run each;
+12. the single-program path (``--fused`` with ``--selection_algorithm
+   subsampling --neighborhood_size 0.15``): single-scale SHOT on the window
+   route (K8 + K1) and on the run route (K5), and FPFH (K8 + K4, K7), each
+   cold, then measured, accepted within the same bounds, with one K2 (f32)
+   launch, K3 (normals) and K7 (ICP); beside each, the staged path on the
+   same keypoints, and the host syncs of one ``fused_registration`` call by
+   leg (``torch.cuda.set_sync_debug_mode("warn")``).  Phase 3 also holds K8,
+   K1 and K5 on the fused SHOT grid (cell 0.9, halo 1, the full 100k scan)
+   and K2 in f32 at the fused path's keypoint count.
+Phases 4–9 and 12 run cold, then measured, each accepted within the same
+bounds; every window route launches K8, and every ICP K7.
 """
 
 from __future__ import annotations
@@ -172,6 +181,14 @@ FPFH_RUN_PATH = ("top2_match", "radius_pca", "spfh_runs", NN)
 SHOT_RUN_PATH = ("shot_runs", "top2_match", "radius_pca", NN)
 MULTISCALE_PATH = ("shot_binning_histogram", "top2_match", WINDOW, NN)
 ITERATIVE_PATH = (NN, WINDOW, "shot_binning_histogram", "top2_match", "radius_pca")
+
+# phase 12: the fused program's keypoints (the CLI's fused set-up) and the
+# kernels each of its runs must launch: its SHOT grid (cell = radius, halo
+# 1) takes K8 + K1 or K5, its FPFH grid K8 + K4 and K7; K2 once, in f32;
+# K3 in the CLI's normals; K7 in ICP
+FUSED_FLAGS = ["--selection_algorithm", "subsampling", "--neighborhood_size",
+               str(KEYPOINT_VOXEL)]
+FUSED_SHOT_CELL = 0.9
 
 
 def make_terrain(n: int, rng: np.random.Generator, scale: float = 10.0,
@@ -392,7 +409,9 @@ def parity_k2(dev, rng, n: int, dim: int, modes=(False, True), m: int | None = N
         i_k, d1_k, d2_k = top2_match(a, b, valid, bf16)
         i_p, d1_p, d2_p = top2_match_plain(a, b, valid, bf16)
         torch.cuda.synchronize()
-        agree = float((i_k == i_p).float().mean())
+        # counted, not averaged: a float32 mean over a row count that is no
+        # power of two is not exactly 1 when every index agrees
+        agree = int((i_k == i_p).sum()) / n
         rel = float(((d1_k - d1_p).abs() / d1_p.abs()).max())
         check(agree >= K2_MIN_AGREE[bf16], f"K2 {dim} bf16={bf16}: index agreement {agree}")
         check(rel <= K2_D1_RTOL[bf16], f"K2 {dim} bf16={bf16}: d1 relative error {rel}")
@@ -409,7 +428,7 @@ def parity_k2(dev, rng, n: int, dim: int, modes=(False, True), m: int | None = N
         f"ms (kernel faster: {v['ms'] < v['library_ms']}) bound {v['bound_ms']:.4f} ms "
         f"({v['bound_by']})" for k, v in res.items()),
         flush=True)
-    return res[True]
+    return res[modes[-1]]
 
 
 def parity_k2_ties(dev, rng, n: int = 4096, dim: int = 352) -> None:
@@ -985,6 +1004,83 @@ def parity_k7(label: str, grid, queries, radius: float) -> dict:
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
 
 
+def parity_fused_shapes(pair, dev) -> None:
+    """K8, K1 and K5 at the fused program's SHOT shapes (the scan's
+    keypoints at voxel KEYPOINT_VOXEL on its full-cloud grid of cell
+    FUSED_SHOT_CELL, halo 1, k=30 normals: K8 and K1 on the first keypoint
+    chunk of the window route, K5 on 4096 keypoints), K2 in f32 at the
+    fused path's padded keypoint count; each against its twin as above."""
+    import torch
+
+    from shot_fpfh_tpu_torch.core.subsampling import grid_subsample
+    from shot_fpfh_tpu_torch.models.normals import compute_normals
+    from shot_fpfh_tpu_torch.ops.grid_hash import (
+        _xyrow_runs,
+        build_grid,
+        query_chunk,
+        window_distances,
+    )
+    from shot_fpfh_tpu_torch.ops.shot_dma import shot_descriptor_dma, shot_descriptor_dma_plain
+    from shot_fpfh_tpu_torch.ops.shot_fused import (
+        shot_binning_histogram,
+        shot_binning_histogram_plain,
+    )
+
+    scan = torch.tensor(pair.scan, device=dev)
+    grid = build_grid(scan, FUSED_SHOT_CELL, extras=compute_normals(scan, scan, k=30,
+                                                                     device=dev))
+    check(grid.use_xyrow and grid.xyrow_run_cap > 0, "the fused SHOT grid is not an xy-row grid")
+    kp = scan[torch.as_tensor(grid_subsample(scan, KEYPOINT_VOXEL), device=dev)]
+    chunk = kp[:min(4096, query_chunk(grid, 8))]
+    parity_k8("the fused SHOT grid", grid, chunk)
+    radius = FUSED_SHOT_CELL
+    vals, d, valid, _ = window_distances(grid, chunk, with_rows=False)
+    dist_inf = torch.where(valid & (d <= radius), d, torch.full_like(d, float("inf")))
+    hist, rfs = shot_binning_histogram(vals, dist_inf, chunk, None, radius)
+    _, rfs_p = shot_binning_histogram_plain(vals, dist_inf, chunk, None, radius)
+    hist_p = shot_binning_histogram_plain(vals, dist_inf, chunk, rfs, radius)
+    torch.cuda.synchronize()
+    k1_err = float((rfs - rfs_p).abs().max())
+    check(k1_err <= K1_FRAME_ATOL, f"K1 on the fused grid: frames error {k1_err}")
+    k1_flip = flip_rule(hist, hist_p, "K1 on the fused grid")
+    k1_ms = cuda_ms(lambda: shot_binning_histogram(vals, dist_inf, chunk, None, radius))
+    k1_alone = kernel_ms(lambda: shot_binning_histogram(vals, dist_inf, chunk, None, radius),
+                         K1_KERNEL)
+    q, _, w = vals.shape
+    n_lanes = float(torch.isfinite(dist_inf).sum())     # parity_k1's rule
+    k1_b = bound((6 * n_lanes + q * w + q * 3 + q * (352 + 9)) * 4,
+                 n_lanes * OPS_SHOT_NEIGHBOR)
+    raw = dict(normalize=False, min_neighborhood_size=-1)
+    kp5 = kp[:4096]
+    hist5, rfs5 = shot_descriptor_dma(grid, kp5, radius, **raw)
+    _, rfs5_p = shot_descriptor_dma_plain(grid, kp5, radius, **raw)
+    hist5_p, _ = shot_descriptor_dma_plain(grid, kp5, radius, rfs=rfs5, **raw)
+    torch.cuda.synchronize()
+    k5_err = float((rfs5 - rfs5_p).abs().max())
+    check(k5_err <= K1_FRAME_ATOL, f"K5 on the fused grid: frames error {k5_err}")
+    k5_flip = flip_rule(hist5, hist5_p, "K5 on the fused grid")
+    k5_ms = cuda_ms(lambda: shot_descriptor_dma(grid, kp5, radius, **raw))
+    k5_alone = kernel_ms(lambda: shot_descriptor_dma(grid, kp5, radius, **raw), K5_KERNEL)
+    # parity_k5's rule: every row of the runs tested, the frame plane's
+    # neighbors reduced and the descriptor plane's binned (one radius here)
+    start, end = _xyrow_runs(grid, kp5)
+    n_in = float(_route_counts(grid, kp5, radius)[0].sum())
+    q5 = kp5.shape[0]
+    k5_b = bound(grid.packed_sorted.numel() * 4 + q5 * 12 + start.numel() * 16
+                 + q5 * (352 + 10) * 4,
+                 float((end - start).sum()) * OPS_DIST_TEST + n_in * OPS_SHOT_FRAME
+                 + (n_in - q5) * OPS_SHOT_BIN)
+    print(f"phase 3 K1 and K5 on the fused SHOT grid (cell {FUSED_SHOT_CELL}, halo 1, "
+          f"window {grid.window_cap}, longest xy-row run {grid.xyrow_run_cap}): K1 "
+          f"{q} keypoints frames max err {k1_err:.2e}, (flip fraction, max diff) {k1_flip}, "
+          f"kernel {k1_ms:.3f} ms (alone {k1_alone:.4f} ms), bound {k1_b['bound_ms']:.4f} ms "
+          f"({k1_b['bound_by']}); K5 {q5} keypoints frames max err {k5_err:.2e}, (flip "
+          f"fraction, max diff) {k5_flip}, kernel {k5_ms:.3f} ms (alone {k5_alone:.4f} ms), "
+          f"bound {k5_b['bound_ms']:.4f} ms ({k5_b['bound_by']})", flush=True)
+    n_pad = -(-kp.shape[0] // 256) * 256
+    parity_k2(dev, np.random.default_rng(2), n_pad, 352, modes=(False,))
+
+
 def feature_queries(pair) -> np.ndarray:
     """Phase 10's FEATURE_QUERIES query points: every k-th point of the ref."""
     return pair.ref[::pair.ref.shape[0] // FEATURE_QUERIES][:FEATURE_QUERIES]
@@ -1390,6 +1486,80 @@ def phase_options(pair: SmokePair) -> dict:
     return launches
 
 
+def _leg_syncs(pair: SmokePair, argv_extra: list[str]) -> dict:
+    """One more ``cli.main`` run with each leg of ``fused_registration``
+    wrapped: the host syncs it makes under
+    ``torch.cuda.set_sync_debug_mode("warn")``, by leg (``between legs``:
+    the call's own, outside its legs), each as {source line: count}."""
+    import warnings
+    from collections import Counter
+
+    import torch
+
+    from shot_fpfh_tpu_torch import cli
+    from shot_fpfh_tpu_torch.registration import fused
+
+    legs = {"descriptors": "_cloud_descriptors", "matching": "_ratio_match",
+            "RANSAC": "_ransac", "ICP": "icp_loop", "between legs": "fused_registration"}
+    sites = {leg: Counter() for leg in legs}
+    saved = {attr: getattr(fused, attr) for attr in legs.values()}
+
+    def counted(leg, fn):
+        def run(*args, **kwargs):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                before = torch.cuda.get_sync_debug_mode()
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    torch.cuda.set_sync_debug_mode(before)
+                    sites[leg].update(f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                                      if "called a synchronizing" in str(w.message))
+        return run
+
+    for leg, attr in legs.items():
+        setattr(fused, attr, counted(leg, saved[attr]))
+    try:
+        check(cli.main(pair.argv + argv_extra) == 0, "fused run with sync counting: rejected")
+    finally:
+        for attr, fn in saved.items():
+            setattr(fused, attr, fn)
+    return {leg: dict(c) for leg, c in sites.items()}
+
+
+def phase_fused_paths(pair: SmokePair) -> dict:
+    """Phase 12: the fused program (``--fused``) for single-scale SHOT on
+    the window route and on the run route and for FPFH, each beside the
+    staged path on the same keypoints; the fused run launches K2 once."""
+    from shot_fpfh_tpu_torch.ops.shot_dma import set_dma_kernel
+
+    fpfh = ["--descriptor_choice", "fpfh", "--radius", str(FPFH_RADIUS)]
+    cases = (("SHOT, window route", [], False, SHOT_PATH, ("shot_runs",)),
+             ("SHOT, run route", [], True, SHOT_RUN_PATH, ("shot_binning_histogram",)),
+             ("FPFH", fpfh, False, FPFH_WINDOW_PATH, ("spfh_runs",)))
+    launches = {}
+    for label, extra, run_route, must, must_not in cases:
+        set_dma_kernel(run_route)
+        try:
+            staged = pair.run(f"staged {label}, subsampling keypoints", FUSED_FLAGS + extra,
+                              must, must_not, cold=False)
+            r = pair.run(f"fused {label}", FUSED_FLAGS + extra + ["--fused"], must, must_not)
+            syncs = _leg_syncs(pair, FUSED_FLAGS + extra + ["--fused"])
+        finally:
+            set_dma_kernel(False)
+        check(r["launches"]["top2_match"] == 1,
+              f"fused {label}: K2 launched {r['launches']['top2_match']} times, not once")
+        check([st["stage"] for st in r["stages"]] == ["fused"],
+              f"fused {label}: stages {[st['stage'] for st in r['stages']]}")
+        print(_describe(f"phase 12 fused {label}", r)
+              + f"; staged on the same keypoints: wall {staged['wall']:.3f} s, stages "
+              + ", ".join(f"{st['stage']} {st['seconds']:.3f} s" for st in staged["stages"])
+              + f"; host syncs of one fused_registration call by leg: {syncs}", flush=True)
+        launches[f"fused {label}"] = r["launches"]
+    return launches
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -1440,6 +1610,7 @@ def main(argv=None) -> int:
     voxel_sums(dev, rng)
     pair = SmokePair()
     k7, k8_features = parity_pair_paths(pair, dev)
+    parity_fused_shapes(pair, dev)
     k8["max_abs_err"] = max(r["max_abs_err"] for r in (k8, k8_features, *k8_more))
     paths = {"SHOT": phase_shot_path(pair, args.profile)}
     paths["FPFH window"], paths["FPFH runs"] = phase_fpfh_path(pair)
@@ -1447,6 +1618,7 @@ def main(argv=None) -> int:
     paths["iterative"] = phase_iterative_path(pair)
     paths["PCA features"] = phase_features(pair, dev)
     paths.update(phase_options(pair))
+    paths.update(phase_fused_paths(pair))
     # kernel -> (source, TPU kernel it replaces, parity and timings, the
     # path whose launches the line reports)
     results = {

@@ -41,8 +41,10 @@ def div(x: torch.Tensor, scalar: float) -> torch.Tensor:
     """``x / scalar`` as one float32 division on every device.  PyTorch's
     CUDA kernel divides by a Python scalar as a multiply by its reciprocal,
     which can move a value on a cell or bin edge by one ulp; a 0-d tensor
-    divisor takes the true division, as on the CPU and in the reference."""
-    return x / torch.tensor(scalar, dtype=torch.float32, device=x.device)
+    divisor takes the true division, as on the CPU and in the reference.
+    The divisor is filled on the device (``torch.tensor`` would copy it from
+    the host and wait for the copy)."""
+    return x / torch.full((), scalar, dtype=torch.float32, device=x.device)
 
 
 def sqrt(x: torch.Tensor) -> torch.Tensor:

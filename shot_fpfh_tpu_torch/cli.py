@@ -10,9 +10,12 @@ logged.
 ``--device`` picks the torch device (default ``cuda``).  Bi-scale SHOT takes
 its frames at ``--radius`` and its bins at ``--radius`` × ``--phi``;
 multiscale SHOT runs ``--n_scales`` scales at ``--radius`` × ``--phi``^s and,
-unless ``--no-share_local_rfs``, shares the first scale's frames.  Options
-this port does not cover yet (``--fused``, more than one device, the debug
-checks) raise ``NotImplementedError`` naming their ROADMAP.md item; the
+unless ``--no-share_local_rfs``, shares the first scale's frames.
+``--fused`` runs keypoints through ICP as one device call
+(``RegistrationPipeline.run_fused``) where the reference's fused program
+covers the config, and otherwise warns and stages.  Options this port does
+not cover yet (more than one device, the debug checks) raise
+``NotImplementedError`` naming their ROADMAP.md item; the
 reference's ``--mesh_axis``, its second names of flags (``--n_procs``,
 ``--normals_computation_k``) and its no-op ``--disable_progress_bars`` are
 not accepted.  Exit code 0 means the registration was accepted.
@@ -122,16 +125,31 @@ def _check_supported(compute_cfg) -> None:
         raise NotImplementedError(
             "--n_devices > 1 is not ported yet (ROADMAP.md, Queue 1, item 14: "
             "multi-GPU)")
-    if compute_cfg.fused:
-        raise NotImplementedError(
-            "--fused is not ported yet (ROADMAP.md, Queue 1, item 13: "
-            "single-program path)")
     if compute_cfg.debug_shot:
         raise NotImplementedError(
             "--debug_shot is not ported yet (ROADMAP.md, Queue 1, item 5)")
     if compute_cfg.debug_nans:
         raise NotImplementedError(
             "--debug_nans is not ported yet (ROADMAP.md, Queue 1, item 10)")
+
+
+def _fused_refusal(kp_cfg, desc_cfg, match_cfg, compute_cfg) -> str | None:
+    """Why ``--fused`` stages instead (the reference CLI's reasons, in its
+    order), or None when the fused program covers the config."""
+    if kp_cfg.selection_algorithm != "subsampling" or not kp_cfg.neighborhood_size:
+        return "keypoint selection must be 'subsampling' with a neighborhood_size"
+    if desc_cfg.descriptor_choice not in ("shot_single_scale", "shot_bi_scale",
+                                          "shot_multiscale", "shot_multi_scale", "fpfh"):
+        return "descriptor must be shot_single_scale/shot_bi_scale/shot_multiscale/fpfh"
+    if match_cfg.matching_algorithm not in ("simple", "ratio", "double"):
+        return "matching must be simple/ratio/double"
+    if (desc_cfg.descriptor_choice in ("shot_multiscale", "shot_multi_scale")
+            and not desc_cfg.share_local_rfs):
+        return ("the fused multiscale leg always shares first-scale local frames; drop "
+                "--no-share_local_rfs")
+    if compute_cfg.state_cache:
+        return "the fused program has no resumable intermediate state"
+    return None
 
 
 def _file_id(path: str):
@@ -142,42 +160,12 @@ def _file_id(path: str):
         return [path, -1, -1]
 
 
-def main(argv=None) -> int:
-    args = parse_args(argv)
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
-    config = load_config_from_yaml(args.config, vars(args))
-    compute_cfg = config["compute"]
-    _check_supported(compute_cfg)
-    device = torch.device(args.device)
-    timer = checkpoint()
-
-    def normals_callback(query_points, cloud_points, *, k=None, radius=None,
-                         pre_computed_normals=None):
-        return compute_normals(query_points, cloud_points, k=k, radius=radius,
-                               pre_computed_normals=pre_computed_normals,
-                               device=device).cpu().numpy()
-
-    scan, scan_normals = get_data(args.scan_file_path, k=compute_cfg.normals_k,
-                                  normals_computation_callback=normals_callback)
-    ref, ref_normals = get_data(args.ref_file_path, k=compute_cfg.normals_k,
-                                normals_computation_callback=normals_callback)
-    timer("Data loading + normals")
-
-    exact_transform = None
-    if args.conf_file_path and os.path.exists(args.conf_file_path):
-        try:
-            exact_transform = get_transform_from_conf_file(
-                args.conf_file_path, args.scan_file_path, args.ref_file_path)
-        except (KeyError, ValueError) as exc:
-            logger.warning("Could not recover ground truth: %s", exc)
-
-    pipeline = RegistrationPipeline(
-        scan=scan, scan_normals=scan_normals, ref=ref, ref_normals=ref_normals,
-        k_max_descriptor=compute_cfg.k_max_descriptor, k_max_fpfh=compute_cfg.k_max_fpfh,
-        device=device)
-    kp_cfg, desc_cfg = config["keypoint_selection"], config["descriptor"]
+def _run_staged(args, pipeline, config, exact_transform, timer):
+    """Keypoints, descriptors, matching, RANSAC and ICP as separate stages;
+    returns the RANSAC and ICP transforms and the ICP RMS."""
+    compute_cfg, kp_cfg, desc_cfg = (config["compute"], config["keypoint_selection"],
+                                     config["descriptor"])
     match_cfg, ransac_cfg, icp_cfg = config["matching"], config["ransac"], config["icp"]
-
     # cache key: every section that determines the cached state, plus the
     # input clouds (a cache of another pair or config is never resumed)
     state_key = hashlib.sha256(json.dumps(
@@ -234,6 +222,78 @@ def main(argv=None) -> int:
     logger.info("ICP RMS: %.4f (converged: %s)", rms, converged)
     logger.info("ICP transform:\n%r", transform_icp)
     timer("ICP")
+    return transform_ransac, transform_icp, rms
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
+    config = load_config_from_yaml(args.config, vars(args))
+    compute_cfg = config["compute"]
+    _check_supported(compute_cfg)
+    device = torch.device(args.device)
+    timer = checkpoint()
+
+    def normals_callback(query_points, cloud_points, *, k=None, radius=None,
+                         pre_computed_normals=None):
+        return compute_normals(query_points, cloud_points, k=k, radius=radius,
+                               pre_computed_normals=pre_computed_normals,
+                               device=device).cpu().numpy()
+
+    scan, scan_normals = get_data(args.scan_file_path, k=compute_cfg.normals_k,
+                                  normals_computation_callback=normals_callback)
+    ref, ref_normals = get_data(args.ref_file_path, k=compute_cfg.normals_k,
+                                normals_computation_callback=normals_callback)
+    timer("Data loading + normals")
+
+    exact_transform = None
+    if args.conf_file_path and os.path.exists(args.conf_file_path):
+        try:
+            exact_transform = get_transform_from_conf_file(
+                args.conf_file_path, args.scan_file_path, args.ref_file_path)
+        except (KeyError, ValueError) as exc:
+            logger.warning("Could not recover ground truth: %s", exc)
+
+    pipeline = RegistrationPipeline(
+        scan=scan, scan_normals=scan_normals, ref=ref, ref_normals=ref_normals,
+        k_max_descriptor=compute_cfg.k_max_descriptor, k_max_fpfh=compute_cfg.k_max_fpfh,
+        device=device)
+    kp_cfg, desc_cfg = config["keypoint_selection"], config["descriptor"]
+    match_cfg, ransac_cfg, icp_cfg = config["matching"], config["ransac"], config["icp"]
+
+    use_fused = False
+    if compute_cfg.fused:
+        reason = _fused_refusal(kp_cfg, desc_cfg, match_cfg, compute_cfg)
+        if reason:
+            logger.warning("--fused requested but staging instead: %s", reason)
+        use_fused = reason is None
+
+    if use_fused:
+        logger.info("Fused single-program registration (radius=%s).", desc_cfg.radius)
+        ratio = (match_cfg.reject_threshold
+                 if match_cfg.matching_algorithm in ("ratio", "double") else 1.0)
+        res = pipeline.run_fused(
+            keypoint_voxel=kp_cfg.neighborhood_size, icp_voxel=icp_cfg.voxel_size,
+            radius=desc_cfg.radius, descriptor_choice=desc_cfg.descriptor_choice,
+            phi=desc_cfg.phi, n_scales=desc_cfg.n_scales, fpfh_n_bins=desc_cfg.fpfh_n_bins,
+            ratio_threshold=ratio, ransac_threshold=ransac_cfg.max_inliers_distance,
+            d_max=icp_cfg.d_max, rms_threshold=icp_cfg.rms_threshold,
+            min_neighborhood_size=desc_cfg.min_neighborhood_size,
+            n_draws=ransac_cfg.n_draws, draw_size=ransac_cfg.draw_size,
+            max_iter=icp_cfg.max_iter, point_to_plane=icp_cfg.icp_type == "point_to_plane",
+            seed=ransac_cfg.seed)
+        transform_ransac, transform_icp = res.ransac_transform, res.icp_transform
+        inlier_ratio, rms = float(res.ransac_inlier_ratio), float(res.icp_rms)
+        converged = bool(res.icp_converged)
+        logger.info("Fused: %d matches, RANSAC inlier ratio %.3f", int(res.n_matches),
+                    inlier_ratio)
+        logger.info("RANSAC transform:\n%r", transform_ransac)
+        logger.info("ICP RMS: %.4f (converged: %s)", rms, converged)
+        logger.info("ICP transform:\n%r", transform_icp)
+        timer("Fused registration")
+    else:
+        transform_ransac, transform_icp, rms = _run_staged(args, pipeline, config,
+                                                           exact_transform, timer)
 
     eval_cfg = config["registration_evaluation"]
     overlap, kp_inliers = pipeline.compute_metrics_post_icp(

@@ -173,7 +173,7 @@ class ComputeConfig(Config):
     n_devices: int = 0            # 0 or 1: one device (more are not ported)
     debug_nans: bool = False      # NaN checks of debug runs (not ported)
     debug_shot: bool = False      # SHOT bin/weight sanity checks (not ported)
-    fused: bool = False           # single-program registration path (not ported)
+    fused: bool = False           # single-program registration path (one device)
     state_cache: str = ""         # npz path for descriptor checkpoint/resume
 
     def help_message(self) -> str:

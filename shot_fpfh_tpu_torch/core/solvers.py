@@ -57,7 +57,9 @@ def solve_point_to_plane(scan: torch.Tensor, ref: torch.Tensor,
     # sets solvable in f32
     trace = gtg.diagonal(dim1=-2, dim2=-1).sum(-1)
     gtg = gtg + torch.eye(6, dtype=dtype, device=scan.device) * 1e-8 * trace[..., None, None]
-    x = torch.linalg.solve(gtg, gth)
+    # solve_ex leaves the solver's status on the device (solve would read it
+    # back and wait); the Tikhonov term keeps the system nonsingular
+    x = torch.linalg.solve_ex(gtg, gth).result
     return RigidTransform(euler_xyz_to_matrix(x[..., :3]), x[..., 3:])
 
 

@@ -137,6 +137,13 @@ def _fpfh_window_aggregate(grid: HashGrid, spfh_sorted, kp_sorted_idx, radius):
     return torch.cat(out) if out else spfh_sorted.new_zeros((0, spfh_sorted.shape[1]))
 
 
+def _sorted_rows(grid: HashGrid, idx: torch.Tensor) -> torch.Tensor:
+    """Original cloud indices ``idx`` as rows of ``grid``'s sorted table."""
+    inv = torch.empty_like(grid.orig_idx)
+    inv[grid.orig_idx] = torch.arange(grid.orig_idx.shape[0], device=idx.device)
+    return inv[idx]
+
+
 def _fpfh_aggregate(spfh, nbr_idx, nbr_dist, nbr_mask, keypoint_indices,
                     kp_chunk: int = 256):
     """FPFH(p) = SPFH(p) + (Σ_{j, d>0} SPFH(j)/d_j) / |N(p)| over keypoints."""
@@ -173,8 +180,6 @@ def compute_fpfh_descriptor(keypoint_indices, cloud_points, normals, radius,
             spfh_sorted = spfh_sorted_dma(grid, radius, n_bins, decorrelated)
         else:
             spfh_sorted = _spfh_window_sorted(grid, radius, n_bins, decorrelated)
-        inv_perm = torch.empty_like(grid.orig_idx)
-        inv_perm[grid.orig_idx] = torch.arange(n, device=cloud.device)
-        return _fpfh_window_aggregate(grid, spfh_sorted, inv_perm[kp], radius)
+        return _fpfh_window_aggregate(grid, spfh_sorted, _sorted_rows(grid, kp), radius)
     spfh, nbr = compute_spfh(cloud, nrm, radius, n_bins, k_max, decorrelated)
     return _fpfh_aggregate(spfh, nbr.idx, nbr.dist, nbr.mask, kp)

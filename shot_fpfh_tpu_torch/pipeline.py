@@ -5,7 +5,8 @@ Holds the scan/ref clouds on the host, memoizes each stage's result
 ``device`` (default ``cuda``): random, greedy-coverage or voxel keypoints,
 single-, bi- or multiscale SHOT or FPFH, nearest / ratio-test / threshold
 matching, RANSAC, ICP, the post-ICP metrics, and the ground-truth match
-analysis when the exact transform is known.  Stage timings go to
+analysis when the exact transform is known; or all of registration in one
+device call (:meth:`RegistrationPipeline.run_fused`).  Stage timings go to
 ``self.metrics``.
 """
 
@@ -297,6 +298,58 @@ class RegistrationPipeline:
         logger.info("ICP ran %d/%d iterations (converged: %s).",
                     out.n_iters, max_iter, out.has_converged)
         return out.transform, out.rms, out.has_converged
+
+    # ----------------------------------------------------------------- fused --
+    def run_fused(self, *, keypoint_voxel: float, icp_voxel: float, radius: float,
+                  descriptor_choice: str = "shot_single_scale", phi: float = 3.0,
+                  n_scales: int = 2, fpfh_n_bins: int = 5, ratio_threshold: float = 0.9,
+                  ransac_threshold: float = 0.3, d_max: float = 0.3,
+                  rms_threshold: float = 1e-4, min_neighborhood_size: int = 10,
+                  n_draws: int = 2048, draw_size: int = 4, max_iter: int = 40,
+                  point_to_plane: bool = True, seed: int = 72):
+        """The whole registration as one device call
+        (``registration.fused.register_pair``): keypoints by grid
+        subsampling, descriptors, ratio matching, RANSAC and ICP with no
+        host round-trip between them but ICP's block reads — the path the
+        CLI runs under ``--fused``.
+
+        ``descriptor_choice`` covers the reference's default configs:
+        ``shot_single_scale``, ``shot_bi_scale`` (frames at ``radius``, bins
+        at ``radius * phi``), ``shot_multiscale`` (scales ``radius * phi**i``
+        with shared first-scale frames, concatenated to 352·n_scales
+        columns) and ``fpfh``.  Returns the ``FusedResult``; the keypoint
+        indices it derived are recorded on the pipeline, so the post-ICP
+        metrics see the keypoints the staged path would."""
+        from .registration.fused import register_pair
+
+        desc_kwargs = {}
+        desc_radius = radius
+        if descriptor_choice == "shot_bi_scale":
+            desc_kwargs["rf_radius"] = radius
+            desc_radius = radius * phi
+        elif descriptor_choice in ("shot_multiscale", "shot_multi_scale"):
+            desc_kwargs["descriptor"] = "shot_multiscale"
+            desc_kwargs["ms_radii"] = tuple(float(radius * phi ** i) for i in range(n_scales))
+        elif descriptor_choice == "fpfh":
+            desc_kwargs["descriptor"] = "fpfh"
+            desc_kwargs["fpfh_n_bins"] = fpfh_n_bins
+        elif descriptor_choice != "shot_single_scale":
+            raise ValueError(
+                f"run_fused does not cover descriptor_choice={descriptor_choice!r}")
+
+        self.metrics.start("fused")
+        res = register_pair(
+            self.scan, self.scan_normals, self.ref, self.ref_normals,
+            keypoint_voxel=keypoint_voxel, icp_voxel=icp_voxel, radius=desc_radius, seed=seed,
+            ratio_threshold=ratio_threshold, ransac_threshold=ransac_threshold, d_max=d_max,
+            rms_threshold=rms_threshold, k_max=self.k_max_descriptor,
+            min_neighborhood_size=min_neighborhood_size, n_draws=n_draws,
+            draw_size=draw_size, max_iter=max_iter, point_to_plane=point_to_plane,
+            device=self.device, **desc_kwargs)
+        self.metrics.stop(matches=int(res.n_matches), icp_rms=float(res.icp_rms))
+        self.scan_keypoints = res.scan_keypoint_idx
+        self.ref_keypoints = res.ref_keypoint_idx
+        return res
 
     # ---------------------------------------------------------------- metrics --
     def compute_metrics_post_icp(self, transformation_icp: RigidTransform,

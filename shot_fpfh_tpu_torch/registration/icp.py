@@ -8,6 +8,12 @@ weights the inliers within ``d_max``, solves the increment, and composes it.
 The loop stops after ``max_iter`` iterations or once the iteration's RMS is
 below ``rms_threshold`` (that iteration's increment is still applied), and
 reports how many iterations ran.
+
+The loop's state lives on the device (:func:`icp_loop`, JAX's ``_icp_loop``
+``lax.while_loop``): an iteration after ``done`` leaves it unchanged, so the
+host enqueues ``ICP_BLOCK`` iterations at a time and reads ``done`` once a
+block.  The staged ICP and the fused program (``registration.fused``) run
+this one loop.
 """
 
 from __future__ import annotations
@@ -23,6 +29,21 @@ from ..core.transform import RigidTransform
 from ..ops.grid_hash import AUTO_GRID_MIN_POINTS, build_grid, grid_nearest_neighbor
 from ..ops.neighbors import as_f32, nearest_neighbor
 
+# iterations enqueued between two host reads of ``done``: a converged loop
+# runs at most ICP_BLOCK - 1 no-op iterations, and a 50-iteration loop
+# waits on the card 7 times instead of 50
+ICP_BLOCK = 8
+
+
+class IcpResult(NamedTuple):
+    """The loop's final state, on the device: ``n_iters`` (int32),
+    ``rms`` and ``has_converged`` are 0-d tensors."""
+
+    transform: RigidTransform
+    rms: torch.Tensor
+    has_converged: torch.Tensor
+    n_iters: torch.Tensor
+
 
 class IcpHostResult(NamedTuple):
     """``(transform, rms, has_converged, n_iters)`` — the reference's
@@ -34,39 +55,73 @@ class IcpHostResult(NamedTuple):
     n_iters: int
 
 
+def _step(state, scan_sub, ref, ref_normals, d_max, rms_threshold, grid, weights):
+    """One iteration of JAX's ``_icp_loop`` body, a no-op once ``done``."""
+    i, rot, t, rms, done = state
+    tf = RigidTransform(rot, t)
+    moved = tf.apply(scan_sub)
+    dist, nn = (grid_nearest_neighbor(grid, moved) if grid is not None
+                else nearest_neighbor(moved, ref))
+    w = (dist <= d_max).to(torch.float32)
+    if weights is not None:
+        w = w * weights
+    wsum = torch.clamp(w.sum(), min=1.0)
+    target = ref[nn]
+    if ref_normals is not None:
+        delta = solve_point_to_plane(moved, target, ref_normals[nn], w)
+        residual = ((moved - target) * ref_normals[nn]).sum(-1).abs()
+        new_rms = (residual * w).sum() / wsum
+    else:
+        delta = solve_point_to_point(moved, target, w)
+        # a grid window miss reports inf; its weight is 0 but 0·inf² is NaN
+        safe = torch.where(w > 0, dist, torch.zeros_like(dist))
+        new_rms = torch.sqrt((w * safe ** 2).sum() / wsum)
+    composed = delta @ tf
+    live = ~done
+    return (i + live.to(i.dtype), torch.where(live, composed.rotation, rot),
+            torch.where(live, composed.translation, t), torch.where(live, new_rms, rms),
+            torch.where(live, new_rms < rms_threshold, done))
+
+
+def icp_loop(scan_sub, ref, ref_normals, init: RigidTransform, d_max: float, max_iter: int,
+             rms_threshold: float, grid=None, weights=None) -> IcpResult:
+    """ICP from ``init`` on the points ``scan_sub`` (every tensor on one
+    device): point-to-plane with ``ref_normals``, point-to-point without;
+    1-NN through ``grid`` (a grid of the ref at cell ``d_max``) or brute
+    force.  ``weights``: optional per-point validity (0 on padding rows).
+    Iterates while fewer than ``max_iter`` ran and the last RMS was not
+    below ``rms_threshold``; the state stays on the device and the host
+    reads ``done`` once every ``ICP_BLOCK`` iterations."""
+    dev = scan_sub.device
+    state = (torch.zeros((), dtype=torch.int32, device=dev),
+             init.rotation.to(device=dev, dtype=torch.float32),
+             init.translation.to(device=dev, dtype=torch.float32),
+             torch.full((), float("inf"), dtype=torch.float32, device=dev),
+             torch.zeros((), dtype=torch.bool, device=dev))
+    issued = 0
+    while issued < max_iter:
+        block = min(ICP_BLOCK, max_iter - issued)
+        for _ in range(block):
+            state = _step(state, scan_sub, ref, ref_normals, d_max, rms_threshold, grid,
+                          weights)
+        issued += block
+        if bool(state[4]):
+            break
+    i, rot, t, rms, done = state
+    return IcpResult(RigidTransform(rot, t), rms, done, i)
+
+
 def _icp(scan, ref, ref_normals, init: RigidTransform, d_max, voxel_size,
          max_iter, rms_threshold, device) -> IcpHostResult:
     ref_t = as_f32(ref, resolve(device, ref))
     scan_t = as_f32(scan, ref_t.device)
     sub = torch.as_tensor(grid_subsample(scan_t, voxel_size), device=ref_t.device)
-    scan_sub = scan_t[sub]
     normals = None if ref_normals is None else as_f32(ref_normals, ref_t.device)
     grid = (build_grid(ref_t, float(d_max)) if ref_t.shape[0] >= AUTO_GRID_MIN_POINTS
             else None)
-    tf = init.to(ref_t.device)
-    rms = torch.tensor(float("inf"))
-    done = False
-    n_iters = 0
-    while n_iters < max_iter and not done:
-        moved = tf.apply(scan_sub)
-        dist, nn = (grid_nearest_neighbor(grid, moved) if grid is not None
-                    else nearest_neighbor(moved, ref_t))
-        w = (dist <= d_max).to(torch.float32)
-        wsum = torch.clamp(w.sum(), min=1.0)
-        target = ref_t[nn]
-        if normals is not None:
-            delta = solve_point_to_plane(moved, target, normals[nn], w)
-            residual = ((moved - target) * normals[nn]).sum(-1).abs()
-            rms = (residual * w).sum() / wsum
-        else:
-            delta = solve_point_to_point(moved, target, w)
-            # a grid window miss reports inf; its weight is 0 but 0·inf² is NaN
-            safe = torch.where(w > 0, dist, torch.zeros_like(dist))
-            rms = torch.sqrt((w * safe ** 2).sum() / wsum)
-        tf = delta @ tf
-        n_iters += 1
-        done = bool(rms < rms_threshold)
-    return IcpHostResult(tf, float(rms), done, n_iters)
+    out = icp_loop(scan_t[sub], ref_t, normals, init, d_max, max_iter, rms_threshold, grid)
+    return IcpHostResult(out.transform, float(out.rms), bool(out.has_converged),
+                         int(out.n_iters))
 
 
 def icp_point_to_point(scan, ref, transformation_init: RigidTransform, d_max: float,

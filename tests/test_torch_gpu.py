@@ -994,3 +994,132 @@ def test_pca_features_on_card_match_cpu(cuda, rng):
     angle[8:12] = True
     torch.testing.assert_close(feats[:, ~angle], feats_c[:, ~angle], atol=1e-6, rtol=0)
     torch.testing.assert_close(feats[:, angle], feats_c[:, angle], atol=1e-4, rtol=0)
+
+
+def _fused_pair(rng, n=25_000):
+    """A terrain pair (scan = exact rigid motion of ref) above the grid
+    threshold, with CPU k=20 normals shared by both devices."""
+    from shot_fpfh_tpu_torch.models.normals import compute_normals
+
+    ref = make_terrain(n, rng, scale=5.0, n_bumps=12)
+    rot = rotation_about([0.3, -0.2, 1.0], np.deg2rad(12.0))
+    trans = np.array([0.3, -0.2, 0.1])
+    scan = (ref @ rot.T + trans).astype(np.float32)
+    normals = [compute_normals(c, c, k=20, device="cpu").numpy() for c in (scan, ref)]
+    return scan, normals[0], ref, normals[1], rot, trans
+
+
+def test_fused_registration_on_card_matches_cpu(cuda, rng):
+    """``register_pair`` on the card (K8 + K1, K2 in f32, K7) against the
+    CPU with the same injected Gumbel noise: the same keypoints, matches
+    within the flip rule's reach (1%), ICP transforms within 1e-3 and both
+    within 1e-2 of the ground truth."""
+    from shot_fpfh_tpu_torch.core.subsampling import grid_subsample
+    from shot_fpfh_tpu_torch.core.transform import rotation_angle
+    from shot_fpfh_tpu_torch.registration import fused
+
+    scan, sn, ref, rn, rot, trans = _fused_pair(rng)
+    kw = dict(keypoint_voxel=0.3, icp_voxel=0.2, radius=0.9, n_draws=1024, ratio_threshold=0.9,
+              ransac_threshold=0.3, d_max=0.3, min_neighborhood_size=10)
+    q = -(-len(grid_subsample(scan, kw["keypoint_voxel"], device="cpu")) // 256) * 256
+    u = torch.rand((1024 // fused.RANSAC_CHUNK, fused.RANSAC_CHUNK, q),
+                   generator=torch.Generator().manual_seed(5))
+    gumbel = -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32).tiny)))
+    before = dict(_kernels.launch_counts)
+    card = fused.register_pair(scan, sn, ref, rn, device=cuda, gumbel=gumbel, **kw)
+    torch.cuda.synchronize()
+    ran = {k: _kernels.launch_counts[k] - before[k] for k in before}
+    assert ran["top2_match"] == 1
+    assert all(ran[k] > 0 for k in ("shot_binning_histogram", "fetch_windows", "radius_dist"))
+    cpu = fused.register_pair(scan, sn, ref, rn, device="cpu", gumbel=gumbel, **kw)
+    np.testing.assert_array_equal(card.scan_keypoint_idx, cpu.scan_keypoint_idx)
+    np.testing.assert_array_equal(card.ref_keypoint_idx, cpu.ref_keypoint_idx)
+    n_card, n_cpu = int(card.n_matches), int(cpu.n_matches)
+    assert n_cpu > 50 and abs(n_card - n_cpu) <= max(2, n_cpu // 100)
+    assert bool(card.icp_converged) == bool(cpu.icp_converged)
+    tf_card, tf_cpu = card.icp_transform.to("cpu"), cpu.icp_transform
+    assert float(rotation_angle(tf_card.rotation, tf_cpu.rotation)) < 1e-3
+    assert float(torch.linalg.norm(tf_card.translation - tf_cpu.translation)) < 1e-3
+    exact = torch.tensor(rot.T, dtype=torch.float32)
+    for tf in (tf_card, tf_cpu):
+        assert float(rotation_angle(tf.rotation, exact)) < 1e-2
+
+
+def _icp_case(rng, cuda):
+    from shot_fpfh_tpu_torch.core.subsampling import grid_subsample
+    from shot_fpfh_tpu_torch.core.transform import RigidTransform
+    from shot_fpfh_tpu_torch.ops.grid_hash import build_grid
+
+    scan, _, ref, rn, rot, trans = _fused_pair(rng)
+    sub = torch.tensor(scan[grid_subsample(scan, 0.2, device="cpu")], device=cuda)
+    ref_t, rn_t = torch.tensor(ref, device=cuda), torch.tensor(rn, device=cuda)
+    # a start 0.02 rad and 0.03 off the exact scan -> ref transform
+    start_rot = rotation_about([0.5, 0.1, -0.8], 0.02) @ rot.T
+    init = RigidTransform.from_numpy(start_rot, -rot.T @ trans + 0.03, device=cuda)
+    return sub, ref_t, rn_t, init, build_grid(ref_t, 0.3)
+
+
+@pytest.mark.parametrize("point_to_plane", [True, False])
+def test_icp_device_loop_equals_host_read_loop(cuda, rng, monkeypatch, point_to_plane):
+    """The device loop (``done`` read once an ``ICP_BLOCK``) against the same
+    loop reading ``done`` after every iteration (the former host loop),
+    stopped mid-way and run to ``max_iter``: equal iteration counts and
+    convergence, the same transform and RMS bit for bit."""
+    from shot_fpfh_tpu_torch.registration import icp
+
+    sub, ref, rn, init, grid = _icp_case(rng, cuda)
+    nrm = rn if point_to_plane else None
+    args = (sub, ref, nrm, init, 0.3)
+    rms3 = float(icp.icp_loop(*args, 3, 0.0, grid=grid).rms)
+    for max_iter, thr in ((30, rms3 * 1.0001), (30, 0.0)):
+        blocked = icp.icp_loop(*args, max_iter, thr, grid=grid)
+        with monkeypatch.context() as mp:
+            mp.setattr(icp, "ICP_BLOCK", 1)
+            host = icp.icp_loop(*args, max_iter, thr, grid=grid)
+        assert int(blocked.n_iters) == int(host.n_iters)
+        assert bool(blocked.has_converged) == bool(host.has_converged) == (thr > 0)
+        assert int(blocked.n_iters) == (max_iter if thr == 0 else int(host.n_iters))
+        for a, b in ((blocked.transform.rotation, host.transform.rotation),
+                     (blocked.transform.translation, host.transform.translation),
+                     (blocked.rms, host.rms)):
+            assert torch.equal(a, b)
+    assert int(blocked.n_iters) == 30
+
+
+def test_point_to_plane_solve_ex_equals_solve_on_card(cuda, rng, monkeypatch):
+    """``solve_point_to_plane`` takes ``torch.linalg.solve_ex`` (no status
+    read): on ICP's normal equations it equals ``torch.linalg.solve`` bit
+    for bit."""
+    from shot_fpfh_tpu_torch.core.solvers import solve_point_to_plane
+
+    sub, ref, rn, init, _ = _icp_case(rng, cuda)
+    n = sub.shape[0]
+    systems, solve_ex = [], torch.linalg.solve_ex
+    monkeypatch.setattr(torch.linalg, "solve_ex",
+                        lambda a, b: systems.append((a, b)) or solve_ex(a, b))
+    solve_point_to_plane(init.apply(sub), ref[:n], rn[:n], torch.ones(n, device=cuda))
+    (a, b), = systems
+    assert torch.equal(solve_ex(a, b).result, torch.linalg.solve(a, b))
+
+
+def test_icp_loop_reads_the_card_once_a_block(cuda, rng):
+    """Point-to-plane ICP on the grid 1-NN: the only host syncs of the loop
+    are its reads of ``done``, one every ``ICP_BLOCK`` iterations
+    (``torch.cuda.set_sync_debug_mode("warn")``)."""
+    import warnings
+
+    from shot_fpfh_tpu_torch.registration import icp
+
+    sub, ref, rn, init, grid = _icp_case(rng, cuda)
+    icp.icp_loop(sub, ref, rn, init, 0.3, 2, 0.0, grid=grid)     # warm-up
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = icp.icp_loop(sub, ref, rn, init, 0.3, 20, 0.0, grid=grid)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught if "called a synchronizing" in str(w.message)]
+    assert int(out.n_iters) == 20
+    assert len(syncs) == -(-20 // icp.ICP_BLOCK), [str(w.message) for w in syncs]

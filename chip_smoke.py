@@ -69,7 +69,16 @@ Phases, one line each; any failure exits non-zero with no result line:
    same keypoints, and the host syncs of one ``fused_registration`` call by
    leg (``torch.cuda.set_sync_debug_mode("warn")``).  Phase 3 also holds K8,
    K1 and K5 on the fused SHOT grid (cell 0.9, halo 1, the full 100k scan)
-   and K2 in f32 at the fused path's keypoint count.
+   and K2 in f32 at the fused path's keypoint count;
+13. the library's single-device remainder: ``multiscale_top1`` on phase
+   7's two-scale descriptors, card against CPU in both reciprocal modes,
+   timed beside its bound, and one ``match_descriptors`` on the stacks;
+   ``--debug_shot`` (K1 counts the checks in the kernel; 0 violations) and
+   ``--debug_nans`` (every op and kernel launch checked) through
+   ``cli.main``; the sampled ICP and the stats solvers against the CPU;
+   ``trace_annotation`` in a profiler trace.  Phase 3 also holds K1's and
+   K5's debug counters against their twins' (K1's also with unsound
+   weights: a radius an eighth of its window's).
 Phases 4–9 and 12 run cold, then measured, each accepted within the same
 bounds; every window route launches K8, and every ICP K7.
 """
@@ -189,6 +198,23 @@ ITERATIVE_PATH = (NN, WINDOW, "shot_binning_histogram", "top2_match", "radius_pc
 FUSED_FLAGS = ["--selection_algorithm", "subsampling", "--neighborhood_size",
                str(KEYPOINT_VOXEL)]
 FUSED_SHOT_CELL = 0.9
+
+# phase 13: multiscale_top1 on the card against the CPU: indices equal on
+# every row whose two best combined distances (CPU) are more than
+# MS_TIE_GAP apart (the matmuls sum in other orders, so a near tie may go
+# either way); on every row the card's match within MS_TIE_GAP of the
+# CPU's best; distances within MS_DIST_ATOL.  Near-tied rows are bounded
+# at MS_NEAR_TIE_FRAC of all, about twice the most read: 31 of the smoke
+# pair's 6,531 scan rows (0.47%) without the reciprocal filter, 7 with it,
+# in each of four H100 runs.  match_descriptors' card and CPU match sets
+# may part only on near-tied rows (they agreed fully in those runs).  The
+# sampled ICP's
+# iterations and draws, and its limits against the CPU on the same draws;
+# the stats solvers' limit
+MS_TIE_GAP, MS_NEAR_TIE_FRAC, MS_DIST_ATOL = 1e-4, 1e-2, 1e-4
+SAMPLED_ICP_ITERS, SAMPLED_ICP_LIMIT = 20, 100
+SAMPLED_ICP_PTS_ATOL, SAMPLED_ICP_RMS_ATOL = 1e-4, 1e-5
+SOLVER_ATOL = 1e-5
 
 
 def make_terrain(n: int, rng: np.random.Generator, scale: float = 10.0,
@@ -552,6 +578,34 @@ def bits_against(label: str, other, calls: dict) -> None:
     print(f"phase 3 {label} equal, bit for bit, to the other build: {same}", flush=True)
 
 
+def debug_counter_parity(label: str, call, plain, radius: float, inject: bool) -> None:
+    """The SHOT debug counter (``--debug_shot``) of a kernel,
+    ``call(radius, counter)``, against its twin's, ``plain``: none at the
+    real radius; with ``inject``, the kernel told a radius of an eighth of
+    its window's, where a neighbor past ~2.6 of it has a husk weight that
+    drives its weight sum below 0: the same counts in both, some of them
+    unsound weight sums."""
+    import torch
+
+    def counts(r):
+        k, p = (torch.zeros(2, dtype=torch.int32, device="cuda") for _ in range(2))
+        call(r, k)
+        plain(r, p)
+        return k.tolist(), p.tolist()
+
+    real = counts(radius)
+    check(real == ([0, 0], [0, 0]), f"{label} debug counter at the real radius: "
+          f"kernel {real[0]}, twin {real[1]}")
+    line = f"phase 3 {label} debug counter (bad bins, bad weight sums): kernel {real[0]}, " \
+           f"twin {real[1]}"
+    if inject:
+        k, p = counts(radius / 8)
+        check(k == p and k[1] > 0, f"{label} debug counter at an eighth of the radius: "
+              f"kernel {k}, twin {p}")
+        line += f"; told an eighth of the radius: kernel {k}, twin {p}"
+    print(line, flush=True)
+
+
 def parity_k1(terrain: ShotTerrain, other=None):
     """K1 in its three modes against its twin, timed; with ``other`` (the
     library of another build of the kernels), its outputs also held equal,
@@ -576,6 +630,10 @@ def parity_k1(terrain: ShotTerrain, other=None):
     check(frame_err <= K1_FRAME_ATOL, f"K1 frames error {frame_err}")
     stats = {"own frames": flip_rule(hist_k, hist_pk, "K1 own frames"),
              "given frames": flip_rule(hist_g, hist_p, "K1 given frames")}
+    debug_counter_parity(
+        "K1", lambda r, c: shot_binning_histogram(vals, dist_inf, kp, rfs_p, r, violations=c),
+        lambda r, c: shot_binning_histogram_plain(vals, dist_inf, kp, rfs_p, r, violations=c),
+        radius, inject=True)
     ms = cuda_ms(lambda: shot_binning_histogram(vals, dist_inf, kp, None, radius))
     alone = kernel_ms(lambda: shot_binning_histogram(vals, dist_inf, kp, None, radius),
                       K1_KERNEL)
@@ -677,6 +735,13 @@ def parity_k5(terrain: ShotTerrain, other=None):
     given = shot_descriptor_dma(grid, kp, radius, rfs=results["own"][1], **raw)[0]
     given_p = shot_descriptor_dma_plain(grid, kp, radius, rfs=results["own"][1], **raw)[0]
     stats["given"] = flip_rule(given, given_p, "K5 given frames")
+    # K5 bins only the rows its radius holds, so every weight sum it bins
+    # is sound: its counter is held at 0 against the twin's
+    own_rfs = results["own"][1]
+    debug_counter_parity(
+        "K5", lambda r, c: shot_descriptor_dma(grid, kp, r, rfs=own_rfs, violations=c, **raw),
+        lambda r, c: shot_descriptor_dma_plain(grid, kp, r, rfs=own_rfs, violations=c, **raw),
+        radius, inject=False)
 
     # against the K1 window route, on the keypoints whose neighbor sets the
     # two radius rules agree on (both planes in bi-scale mode)
@@ -1271,6 +1336,8 @@ def _describe(phase: str, r: dict) -> str:
 
 
 def phase_shot_path(pair: SmokePair, profile_dir: Path | None = None) -> dict:
+    """Phase 4: the SHOT path, measured (and profiled with ``profile_dir``);
+    returns the measured run's record."""
     from shot_fpfh_tpu_torch import cli
 
     r = pair.run("SHOT path", [], SHOT_PATH)
@@ -1285,7 +1352,7 @@ def phase_shot_path(pair: SmokePair, profile_dir: Path | None = None) -> dict:
                     "card (launches, device ms): "
                     + ", ".join(f"{k} ({n}, {ms:.4f})" for k, (n, ms) in sorted(kernels.items())))
     print(_describe("phase 4 SHOT path", r) + profiled, flush=True)
-    return r["launches"]
+    return r
 
 
 def phase_fpfh_path(pair: SmokePair) -> tuple[dict, dict]:
@@ -1560,6 +1627,213 @@ def phase_fused_paths(pair: SmokePair) -> dict:
     return launches
 
 
+def phase_multiscale_top1(dev) -> str:
+    """Phase 13a: ``multiscale_top1`` on phase 7's saved multiscale
+    descriptors (two 352-column scales) on the card against the CPU, in
+    both reciprocal modes, timed beside its bound; then one
+    ``match_descriptors`` on the stacks with ``threshold_filter``."""
+    import torch
+
+    from shot_fpfh_tpu_torch import _kernels
+    from shot_fpfh_tpu_torch.registration import matching as m
+    from shot_fpfh_tpu_torch.registration.matching import (
+        match_descriptors,
+        multiscale_top1,
+        threshold_filter,
+    )
+
+    saved = np.load(WORK / "multiscale_state.npz")
+    scan_ms, ref_ms = (torch.tensor(saved[k].reshape(len(saved[k]), N_SCALES, 352)
+                                    .transpose(1, 0, 2).copy())
+                       for k in ("scan_descriptors", "ref_descriptors"))
+    s, q, d = scan_ms.shape
+    r = ref_ms.shape[1]
+    scan_d, ref_d = scan_ms.to(dev), ref_ms.to(dev)
+    parts, near = [], {}
+    for recip in (False, True):
+        _kernels.reset_launch_counts()
+        idx, dist = (t.cpu() for t in multiscale_top1(scan_d, ref_d, filter_nonreciprocal=recip))
+        launched = {k: n for k, n in _kernels.launch_counts.items() if n}
+        check(not launched, f"multiscale_top1 launched kernels {launched}")
+        # the CPU's result (multiscale_top1's own two steps) with each row's
+        # second-best combined distance; a near tie at one scale can make a
+        # row reciprocal on one device only: such rows count as near-tied
+        row_ok, r_ok = m._ms_row_mask(scan_ms, ref_ms, recip)
+        idx_c, dist_c, second = m._ms_combined_top1(scan_ms, ref_ms, row_ok, r_ok, second=True)
+        same = (m._ms_row_mask(scan_d, ref_d, recip)[0].cpu() == row_ok).all(0)
+        gap = torch.where(dist_c < m.MS_MAX_VAL, second - dist_c, float("inf"))
+        clear = same & (gap > MS_TIE_GAP)
+        near[recip] = ~clear
+        n_near, n_other = int((~clear).sum()), int((idx != idx_c).sum())
+        check(torch.equal(idx[clear], idx_c[clear]),
+              f"multiscale_top1 (reciprocal {recip}): {int((idx != idx_c)[clear].sum())} "
+              "indices differ from the CPU's on rows without a near tie")
+        # the card's match against the CPU's best combined distance
+        worst = float((dist - dist_c)[same].max())
+        check(worst <= MS_TIE_GAP,
+              f"multiscale_top1 (reciprocal {recip}): a card match is {worst} over the CPU's "
+              "best combined distance")
+        check(n_near <= MS_NEAR_TIE_FRAC * q,
+              f"multiscale_top1 (reciprocal {recip}): {n_near} near-tied rows of {q} "
+              f"({int((~same).sum())} reciprocal on one device only)")
+        err = float((dist - dist_c)[same].abs().max())
+        check(err <= MS_DIST_ATOL, f"multiscale_top1 (reciprocal {recip}): distances off by {err}")
+        ms = cuda_ms(lambda: multiscale_top1(scan_d, ref_d, filter_nonreciprocal=recip))
+        # the row pass of each scale, and in the reciprocal mode the
+        # reciprocal pass of each scale before it
+        flops = 2 * s * q * r * d * (2 if recip else 1)
+        b = bound(4 * s * (q + r) * d + 12 * q, flops)
+        parts.append(f"reciprocal {recip}: {ms:.3f} ms (bound {b['bound_ms']:.4f} ms, "
+                     f"{b['bound_by']}), indices equal to the CPU's on {int(clear.sum())} rows, "
+                     f"{n_near} near-tied rows (gap <= {MS_TIE_GAP}; {int((~same).sum())} "
+                     f"reciprocal on one device only) of {q}, {n_other} matched another ref, "
+                     f"each within {worst:.2e} of the CPU's best, max |dist - CPU| "
+                     f"{err:.2e}, {int((dist < 1000.0).sum())} rows matched")
+    card = match_descriptors(scan_d, ref_d, threshold_filter, threshold_multiplier=10,
+                             verbose=False)
+    cpu = match_descriptors(scan_ms, ref_ms, threshold_filter, threshold_multiplier=10,
+                            verbose=False, device="cpu")
+    on_card, on_cpu = set(zip(*card)), set(zip(*cpu))
+    agree = len(on_card & on_cpu) / max(len(on_card | on_cpu), 1)
+    # the two match sets may part only on the rows near-tied without the
+    # reciprocal filter (match_descriptors' mode here)
+    parted = {int(row) for row, _ in on_card ^ on_cpu}
+    off_tie = sorted(row for row in parted if not near[False][row])
+    check(bool(on_card) and not off_tie,
+          f"multiscale match_descriptors: {len(on_card)} matches, {agree} agree with the CPU; "
+          f"rows {off_tie[:10]} part without a near tie")
+    return (f"phase 13 multiscale_top1: {s} scales x {q} x {r} x {d} (phase 7's descriptors); "
+            + "; ".join(parts) + f"; match_descriptors with threshold_filter (x10): "
+            f"{len(on_card)} matches on the card, {len(on_cpu)} on the CPU, {agree:.4f} agree")
+
+
+def phase_debug_paths(pair: SmokePair, shot: dict) -> dict:
+    """Phase 13b: the SHOT path with ``--debug_shot`` (K1 counts the checks
+    in the kernel, every accumulation's counter read, 0 violations) and
+    with ``--debug_nans`` (every op and every kernel's operands and outputs
+    checked; no NaN), each beside phase 4's wall."""
+    from shot_fpfh_tpu_torch import _kernels
+    from shot_fpfh_tpu_torch.models import shot as shot_model
+
+    reads, checked_kernels = [0], {}
+    saved_read, saved_kernel = shot_model._debug_read, _kernels.check_kernel
+
+    def count_read(counter):
+        reads[0] += counter is not None
+        return saved_read(counter)
+
+    def count_kernel(name, tensors):
+        from shot_fpfh_tpu_torch.utils import debug_nans
+
+        if debug_nans._active:
+            checked_kernels[name] = checked_kernels.get(name, 0) + 1
+        return saved_kernel(name, tensors)
+
+    shot_model._debug_read, _kernels.check_kernel = count_read, count_kernel
+    try:
+        with _LogLines("shot_fpfh_tpu_torch") as log:
+            dbg = pair.run("--debug_shot", ["--debug_shot"], SHOT_PATH, ("shot_runs",),
+                           cold=False)
+        nans = pair.run("--debug_nans", ["--debug_nans"], SHOT_PATH, cold=False)
+    finally:
+        shot_model._debug_read, _kernels.check_kernel = saved_read, saved_kernel
+    summary = [ln for ln in log.lines if ln.startswith("SHOT debug checks:")]
+    check(summary == ["SHOT debug checks: 0 violations"],
+          f"--debug_shot: the checks reported {summary}")
+    k1 = dbg["launches"]["shot_binning_histogram"]
+    check(reads[0] >= k1, f"--debug_shot: {reads[0]} counters read for {k1} K1 launches")
+    for name in SHOT_PATH:
+        check(checked_kernels.get(name, 0) == nans["launches"][name],
+              f"--debug_nans: {checked_kernels.get(name, 0)} of {nans['launches'][name]} "
+              f"launches of {name} checked")
+    print(_describe("phase 13 --debug_shot", dbg)
+          + f"; {reads[0]} SHOT accumulations' counters read ({k1} in K1), 0 violations; "
+          f"phase 4's wall {shot['wall']:.3f} s", flush=True)
+    print(_describe("phase 13 --debug_nans", nans)
+          + f"; kernel launches checked {checked_kernels}, no NaN; phase 4's wall "
+          f"{shot['wall']:.3f} s, errors {shot['rot_err']:.2e} rad, {shot['t_err']:.2e}",
+          flush=True)
+    return {"--debug_shot": dbg["launches"], "--debug_nans": nans["launches"]}
+
+
+def phase_library_rest(pair: SmokePair, dev) -> str:
+    """Phase 13c: the sampled ICP, the stats solvers and the profiler
+    helpers on the card, against the CPU where they compute."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from shot_fpfh_tpu_torch.core import solvers as sv
+    from shot_fpfh_tpu_torch.registration.icp import icp_point_to_point_with_sampling
+    from shot_fpfh_tpu_torch.utils.perf import (
+        start_profiler_trace,
+        stop_profiler_trace,
+        trace_annotation,
+    )
+
+    rng = np.random.default_rng(13)
+    # the scan moved back by the true motion, then 2 degrees off: ICP range
+    back = ((pair.scan - pair.trans) @ pair.rot) @ rotation_about([1.0, 0.5, 0.2],
+                                                                  np.deg2rad(2.0)).T
+    subsets = [rng.choice(len(back), SAMPLED_ICP_LIMIT, replace=False)
+               for _ in range(SAMPLED_ICP_ITERS)]
+    runs = {device: icp_point_to_point_with_sampling(
+        back, pair.ref, ICP_D_MAX, max_iter=SAMPLED_ICP_ITERS, rms_threshold=1e-3,
+        sampling_limit=SAMPLED_ICP_LIMIT, subsets=subsets, device=device)
+        for device in (dev, "cpu")}
+    (pts, rms, _), (pts_c, rms_c, _) = runs[dev], runs["cpu"]
+    pts_err, rms_err = float(np.abs(pts - pts_c).max()), abs(rms - rms_c)
+    check(pts_err <= SAMPLED_ICP_PTS_ATOL and rms_err <= SAMPLED_ICP_RMS_ATOL,
+          f"sampled ICP: points off the CPU's by {pts_err}, RMS by {rms_err}")
+
+    batch = 64
+    scan = torch.tensor(rng.normal(size=(batch, 500, 3)), dtype=torch.float32)
+    angles = torch.tensor(rng.uniform(-0.2, 0.2, size=(batch, 3)), dtype=torch.float32)
+    from shot_fpfh_tpu_torch.core.transform import euler_xyz_to_matrix
+
+    ref = scan @ euler_xyz_to_matrix(angles).transpose(-1, -2) + torch.tensor(
+        rng.normal(size=(batch, 1, 3)), dtype=torch.float32)
+    ref = ref + 0.01 * torch.tensor(rng.normal(size=ref.shape), dtype=torch.float32)
+    normals = torch.nn.functional.normalize(
+        torch.tensor(rng.normal(size=ref.shape), dtype=torch.float32), dim=-1)
+    w = torch.tensor(rng.uniform(0, 1, size=(batch, 500)) > 0.2, dtype=torch.float32)
+
+    def solves(device):
+        s, r, n, ww = (t.to(device) for t in (scan, ref, normals, w))
+        return {"stats": sv.solve_point_to_point_from_stats(*sv.point_to_point_stats(s, r, ww)),
+                "kabsch": sv.solve_point_to_point(s, r, ww),
+                "normal eq": sv.solve_point_to_plane_from_normal_eq(
+                    *sv.point_to_plane_normal_eq(s, r, n, ww)),
+                "plane": sv.solve_point_to_plane(s, r, n, ww)}
+
+    card, cpu = solves(dev), solves("cpu")
+    errs = {}
+    for key in card:
+        errs[key] = max(float((card[key].rotation.cpu() - cpu[key].rotation).abs().max()),
+                        float((card[key].translation.cpu() - cpu[key].translation).abs().max()))
+    for a, b in (("stats", "kabsch"), ("normal eq", "plane")):
+        errs[f"{a} vs {b}"] = max(
+            float((card[a].rotation - card[b].rotation).abs().max()),
+            float((card[a].translation - card[b].translation).abs().max()))
+    check(max(errs.values()) <= SOLVER_ATOL, f"stats solvers: errors {errs}")
+
+    label = "chip_smoke_phase13"
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with trace_annotation(label):
+            (torch.ones(1024, device=dev) * 2).sum()
+        torch.cuda.synchronize()
+    check(any(e.name == label for e in prof.events()), "trace_annotation not in the profile")
+    start_profiler_trace(str(WORK / "trace"))
+    with trace_annotation(label):
+        (torch.ones(1024, device=dev) * 2).sum()
+    trace = Path(stop_profiler_trace())
+    check(trace.is_file() and label in trace.read_text(), "profiler trace without the span")
+    return (f"phase 13 sampled ICP: {len(back)} points, {SAMPLED_ICP_ITERS} iterations of "
+            f"{SAMPLED_ICP_LIMIT} injected samples, d_max {ICP_D_MAX}: RMS {rms:.6f} (CPU "
+            f"{rms_c:.6f}), max |points - CPU| {pts_err:.2e}; stats solvers on {batch} batches "
+            f"of 500 points, max errors {errs} (limit {SOLVER_ATOL}); trace_annotation seen in "
+            f"the profiler's events and in the chrome trace ({trace.stat().st_size} bytes)")
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -1612,13 +1886,17 @@ def main(argv=None) -> int:
     k7, k8_features = parity_pair_paths(pair, dev)
     parity_fused_shapes(pair, dev)
     k8["max_abs_err"] = max(r["max_abs_err"] for r in (k8, k8_features, *k8_more))
-    paths = {"SHOT": phase_shot_path(pair, args.profile)}
+    shot = phase_shot_path(pair, args.profile)
+    paths = {"SHOT": shot["launches"]}
     paths["FPFH window"], paths["FPFH runs"] = phase_fpfh_path(pair)
     paths.update(phase_multiscale_paths(pair))
     paths["iterative"] = phase_iterative_path(pair)
     paths["PCA features"] = phase_features(pair, dev)
     paths.update(phase_options(pair))
     paths.update(phase_fused_paths(pair))
+    print(phase_multiscale_top1(dev), flush=True)
+    paths.update(phase_debug_paths(pair, shot))
+    print(phase_library_rest(pair, dev), flush=True)
     # kernel -> (source, TPU kernel it replaces, parity and timings, the
     # path whose launches the line reports)
     results = {

@@ -13,7 +13,9 @@ existing file.
 
 Every C entry point enqueues its kernel on the stream it is given, checks
 ``cudaGetLastError()`` right after the launch and returns that error code;
-:func:`launch` raises when it is not 0 and counts the launch.
+:func:`launch` raises when it is not 0 and counts the launch.  Under a NaN
+check (``utils.debug_nans``), it then checks the operands and outputs the
+wrapper passes as ``checked``.
 
 Nothing here runs at import: the build happens at the first kernel call, so
 a CPU-only machine (no ``nvcc``, no card) can import every module.
@@ -31,6 +33,8 @@ import time
 from pathlib import Path
 
 import torch
+
+from .utils.debug_nans import check_kernel
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 LIB_NAME = "libshot_kernels.so"
@@ -52,13 +56,14 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # cell size, dims, halo
 _GRID = [_P, _I, _L, _P, _P, _P, _F, _L, _L, _L, _I]
 _SIGNATURES = {
-    "shot_binning_histogram": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P],
+    "shot_binning_histogram": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P, _P],
     "top2_match": [_P] * 11 + [_I] * 6 + [_P],
     "radius_pca_keys": _GRID + [_P, _I, _P, _P],
     "radius_pca": _GRID + [_P, _P, _P, _I, _P, _P, _P, _P],
     "spfh_histogram": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "spfh_runs": [_P, _I, _P, _P, _F, _L, _L, _L, _I, _P, _P, _I, _I, _F, _I, _I, _P, _P],
-    "shot_runs": [_P, _I, _P, _P, _F, _L, _L, _L, _I, _I, _P, _I, _P, _F, _F, _P, _P, _P, _P],
+    "shot_runs": [_P, _I, _P, _P, _F, _L, _L, _L, _I, _I, _P, _I, _P, _F, _F, _P, _P, _P, _P,
+                  _P],
     "fetch_windows": [_P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     "radius_dist": [_P, _I, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P],
 }
@@ -187,9 +192,10 @@ def require_cuda(*tensors: torch.Tensor) -> torch.device:
     return dev
 
 
-def launch(name: str, device: torch.device, *args) -> None:
+def launch(name: str, device: torch.device, *args, checked=()) -> None:
     """Call C entry point ``name`` on ``device``'s current stream; raise on
-    a launch error; count the launch."""
+    a launch error; count the launch; under a NaN check, raise if a tensor
+    of ``checked`` (the kernel's operands and outputs) holds a NaN."""
     fn = getattr(library(), name)
     stream = torch.cuda.current_stream(device).cuda_stream
     if device.index == torch.cuda.current_device():
@@ -201,3 +207,4 @@ def launch(name: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError_t {err} "
                            f"({library().shot_error_string(err).decode()})")
     launch_counts[name] += 1
+    check_kernel(name, checked)

@@ -13,9 +13,13 @@ multiscale SHOT runs ``--n_scales`` scales at ``--radius`` × ``--phi``^s and,
 unless ``--no-share_local_rfs``, shares the first scale's frames.
 ``--fused`` runs keypoints through ICP as one device call
 (``RegistrationPipeline.run_fused``) where the reference's fused program
-covers the config, and otherwise warns and stages.  Options this port does
-not cover yet (more than one device, the debug checks) raise
-``NotImplementedError`` naming their ROADMAP.md item; the
+covers the config, and otherwise warns and stages.  ``--debug_shot`` turns
+on the SHOT binning sanity checks (``models.shot.enable_debug_checks``) and
+``--debug_nans`` runs the registration under a NaN check
+(``utils.debug_nans.NanCheck``, stricter than ``jax_debug_nans``: every op
+is checked); both are off again when ``main`` returns or raises.  More
+than one device is not ported yet and raises ``NotImplementedError``
+naming its ROADMAP.md item; the
 reference's ``--mesh_axis``, its second names of flags (``--n_procs``,
 ``--normals_computation_k``) and its no-op ``--disable_progress_bars`` are
 not accepted.  Exit code 0 means the registration was accepted.
@@ -24,6 +28,7 @@ not accepted.  Exit code 0 means the registration was accepted.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import json
 import logging
@@ -36,7 +41,9 @@ from .configuration import load_config_from_yaml
 from .io.ground_truth import get_transform_from_conf_file
 from .io.ply import get_data
 from .models.normals import compute_normals
+from .models.shot import debug_violation_count, enable_debug_checks
 from .pipeline import RegistrationPipeline
+from .utils.debug_nans import NanCheck
 from .utils.perf import checkpoint
 
 logger = logging.getLogger(__name__)
@@ -125,12 +132,6 @@ def _check_supported(compute_cfg) -> None:
         raise NotImplementedError(
             "--n_devices > 1 is not ported yet (ROADMAP.md, Queue 1, item 14: "
             "multi-GPU)")
-    if compute_cfg.debug_shot:
-        raise NotImplementedError(
-            "--debug_shot is not ported yet (ROADMAP.md, Queue 1, item 5)")
-    if compute_cfg.debug_nans:
-        raise NotImplementedError(
-            "--debug_nans is not ported yet (ROADMAP.md, Queue 1, item 10)")
 
 
 def _fused_refusal(kp_cfg, desc_cfg, match_cfg, compute_cfg) -> str | None:
@@ -231,6 +232,24 @@ def main(argv=None) -> int:
     config = load_config_from_yaml(args.config, vars(args))
     compute_cfg = config["compute"]
     _check_supported(compute_cfg)
+    with contextlib.ExitStack() as debug:
+        if compute_cfg.debug_shot:
+            enable_debug_checks(True)
+            debug.callback(_end_debug_shot)
+        if compute_cfg.debug_nans:
+            debug.enter_context(NanCheck())
+        return _register(args, config)
+
+
+def _end_debug_shot() -> None:
+    logger.info("SHOT debug checks: %d violations", debug_violation_count())
+    enable_debug_checks(False)
+
+
+def _register(args, config) -> int:
+    """Load, register and write out the pair of ``args`` under ``config``;
+    0 when the registration is accepted."""
+    compute_cfg = config["compute"]
     device = torch.device(args.device)
     timer = checkpoint()
 

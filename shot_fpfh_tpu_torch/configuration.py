@@ -171,8 +171,8 @@ class ComputeConfig(Config):
     normals_k: int = 30           # k-NN size for normal estimation
     mesh_axis: str = "points"     # mesh axis name of sharded stages (not ported)
     n_devices: int = 0            # 0 or 1: one device (more are not ported)
-    debug_nans: bool = False      # NaN checks of debug runs (not ported)
-    debug_shot: bool = False      # SHOT bin/weight sanity checks (not ported)
+    debug_nans: bool = False      # NaN check of every op (debug runs)
+    debug_shot: bool = False      # SHOT bin/weight sanity checks (debug runs)
     fused: bool = False           # single-program registration path (one device)
     state_cache: str = ""         # npz path for descriptor checkpoint/resume
 

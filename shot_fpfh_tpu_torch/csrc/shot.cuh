@@ -38,8 +38,15 @@
 //                           candidate is in the descriptor plane with d > 0;
 //   item(cursor, u):        the item of the lane's candidate u of the step
 //                           next just took;
-//   bin(f, r, item, idx, wt): bin_weights of a listed item under frame f
-//                           (none, idx left -1, if it has d = 0).
+//   bin(f, r, item, idx, wt, bad): bin_weights of a listed item under
+//                           frame f (none, idx left -1, if it has d = 0).
+//
+// The debug checks (the CLI's --debug_shot): given a device counter, the
+// warp body adds to it, per binned neighbor, whether any of its five bins
+// left its range (counter[0]) and whether its summed weight is NaN or
+// outside (0, 4 + 1e-3] (counter[1]), the twin's _binning_violations
+// (ops/shot_fused.py); a null counter skips them.  An index outside the
+// histogram is never added (the reference's one-hot drops it).
 //
 // The float32 order of every per-neighbor step is that of the plain PyTorch
 // twins (ops/shot_fused.py), and the sources are built -fmad=false: SHOT's
@@ -176,10 +183,11 @@ __device__ __forceinline__ void add_votes(float (&votes)[4], float cx, float cy,
 }
 
 // Pass 3 term: one neighbor's five soft-bin contributions, as histogram
-// indices (cos_bin * 32 + cell) and weights.
+// indices (cos_bin * 32 + cell) and weights; bad gets bit 0 when a bin is
+// out of its range and bit 1 when the weights' sum is unsound.
 __device__ __forceinline__ void bin_weights(const Frame& f, float cx, float cy, float cz,
                                             float nx, float ny, float nz, float rho, float r,
-                                            int (&idx)[5], float (&wt)[5]) {
+                                            int (&idx)[5], float (&wt)[5], unsigned& bad) {
   const float half = r / 2.0f, r34 = r * 0.75f, r14 = r * 0.25f;
   const float lx = cx * f.x0 + cy * f.x1 + cz * f.x2;
   const float ly = cx * f.y0 + cy * f.y1 + cz * f.y2;
@@ -230,6 +238,13 @@ __device__ __forceinline__ void bin_weights(const Frame& f, float cx, float cy, 
   wt[3] = abs_az;
   idx[4] = cos_nb * kLo + base;
   wt[4] = abs_cos;
+
+  const float total = wt[0] + wt[1] + wt[2] + wt[3] + wt[4];
+  const bool bad_bin = (unsigned)cos_bin >= (unsigned)kCos ||
+                       (unsigned)cos_nb >= (unsigned)kCos || (unsigned)az_bin >= 8u ||
+                       (unsigned)elev_bin >= 2u || (unsigned)rad_bin >= 2u;
+  const bool bad_wt = isnan(total) || total > 4.001f || total <= 0.f;
+  bad = (bad_bin ? 1u : 0u) | (bad_wt ? 2u : 0u);
 }
 
 // The Jacobi frame of a reduced covariance: the x axis (largest eigenvalue)
@@ -281,8 +296,8 @@ __device__ __forceinline__ void warp_allsum(float (&v)[N]) {
     for (int k = 0; k < N; ++k) v[k] += __shfl_xor_sync(kFull, v[k], off);
 }
 
-// hist[idx] += wt for every lane of the warp (all lanes call it; idx < 0
-// adds nothing).  Lanes with the same idx sum their weights by shuffles in a
+// hist[idx] += wt for every lane of the warp (all lanes call it; an idx
+// outside [0, kDim) adds nothing).  Lanes with the same idx sum their weights by shuffles in a
 // tree over their ranks, and the lowest of them adds the sum: one atomic a
 // distinct bin.
 __device__ __forceinline__ void warp_add(float* hist, int idx, float wt) {
@@ -299,30 +314,40 @@ __device__ __forceinline__ void warp_add(float* hist, int idx, float wt) {
     above &= ~__ballot_sync(kFull, rank & 1u);
     rank >>= 1;
   }
-  if (idx >= 0 && lane == __ffs(peers) - 1) atomicAdd(hist + idx, sum);
+  if ((unsigned)idx < (unsigned)kDim && lane == __ffs(peers) - 1) atomicAdd(hist + idx, sum);
 }
 
-// Bins item i of every lane (i < 0: none) into the warp's histogram.
+// Bins item i of every lane (i < 0: none) into the warp's histogram; with
+// a debug counter, counts the lanes' bad bins and bad weight sums into it.
 template <class Source>
 __device__ __forceinline__ void bin_lanes(const Source& src, const Frame& f, float r, float* hist,
-                                          int i) {
+                                          int* viol, int i) {
   int idx[5] = {-1, -1, -1, -1, -1};
   float wt[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
-  if (i >= 0) src.bin(f, r, i, idx, wt);
+  unsigned bad = 0u;
+  if (i >= 0) src.bin(f, r, i, idx, wt, bad);
 #pragma unroll
   for (int c = 0; c < 5; ++c) warp_add(hist, idx[c], wt[c]);
+  if (viol != nullptr) {  // the same in every lane
+    const unsigned bad_bin = __ballot_sync(kFull, bad & 1u);
+    const unsigned bad_wt = __ballot_sync(kFull, bad & 2u);
+    if ((threadIdx.x & 31) == 0 && (bad_bin | bad_wt)) {
+      atomicAdd(viol, __popc(bad_bin));
+      atomicAdd(viol + 1, __popc(bad_wt));
+    }
+  }
 }
 
 // One keypoint, one warp: its frame (the 9 row-major floats of frame_in, or,
 // when frame_in is null, computed from the source's frame plane with radius
 // r_frame and written to frame_out) and its histogram, added into `hist`
 // (kDim floats of shared memory, zeroed by the caller, complete at return);
-// `list` is 64 ints of shared memory.  Returns the number of candidates
-// listed (take), the same in every lane.
+// `list` is 64 ints of shared memory; `viol` the debug counter or null.
+// Returns the number of candidates listed (take), the same in every lane.
 template <class Source>
 __device__ __forceinline__ int keypoint_histogram(Source& src, float r, float r_frame,
                                                   const float* frame_in, float* frame_out,
-                                                  float* hist, int* list) {
+                                                  float* hist, int* list, int* viol) {
   const int lane = threadIdx.x & 31;
   float frame[9];  // row-major rf, the same in every lane: columns x, y, z
   if (frame_in == nullptr) {
@@ -364,12 +389,12 @@ __device__ __forceinline__ int keypoint_histogram(Source& src, float r, float r_
         __syncwarp();
         if (lane < n - 32) list[lane] = carry;
         n -= 32;
-        bin_lanes(src, f, r, hist, i);
+        bin_lanes(src, f, r, hist, viol, i);
       }
     }
   }
   __syncwarp();
-  if (n > 0) bin_lanes(src, f, r, hist, lane < n ? list[lane] : -1);
+  if (n > 0) bin_lanes(src, f, r, hist, viol, lane < n ? list[lane] : -1);
   __syncwarp();
   return listed;
 }

@@ -5,6 +5,8 @@
 // (_binning_histogram_body, _lrf_planes), which builds one-hot operands in
 // VMEM and contracts them on the MXU.
 //
+// viol: the debug checks' two counters (shot.cuh), or null.
+//
 // Input: each keypoint's feature-first window (vals (Q, F, W): x y z nx ny nz
 // planes; dist (Q, W), +inf where invalid).  Three modes, as the TPU kernel:
 //   - own frames: passes 1–2 over the lanes where dist is finite;
@@ -110,9 +112,9 @@ struct Window {
   }
 
   __device__ __forceinline__ void bin(const shot::Frame& f, float r, int i, int (&idx)[5],
-                                      float (&wt)[5]) const {
+                                      float (&wt)[5], unsigned& bad) const {
     shot::bin_weights(f, vx[i] - kx, vy[i] - ky, vz[i] - kz, nx[i], ny[i], nz[i], dist[i], r,
-                      idx, wt);
+                      idx, wt, bad);
   }
 };
 
@@ -121,7 +123,7 @@ shot_hist_kernel(const float* __restrict__ vals, const float* __restrict__ dist,
                  const float* __restrict__ rf_dist, const float* __restrict__ kp,
                  const float* __restrict__ rfs_in, float* __restrict__ hist,
                  float* __restrict__ rfs_out, int q, int nf, int w_len, float radius,
-                 float rf_radius) {
+                 float rf_radius, int* __restrict__ viol) {
   __shared__ __align__(16) float hist_s[kWarps][shot::kDim];
   __shared__ int list_s[kWarps][64];  // pass 3's compacted lanes: one step + carry
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -148,7 +150,7 @@ shot_hist_kernel(const float* __restrict__ vals, const float* __restrict__ dist,
   shot::keypoint_histogram(win, radius, rf_dist == nullptr ? radius : rf_radius,
                            rfs_in == nullptr ? nullptr : rfs_in + 9 * qi,
                            rfs_out == nullptr ? nullptr : rfs_out + 9 * qi, h,
-                           list_s[warp]);
+                           list_s[warp], viol);
 
   float4* out = reinterpret_cast<float4*>(hist + (long long)qi * shot::kDim);
   for (int k = lane; k < shot::kDim / 4; k += 32) out[k] = reinterpret_cast<const float4*>(h)[k];
@@ -160,10 +162,11 @@ SHOT_EXPORT int shot_binning_histogram(const float* vals, const float* dist,
                                        const float* rf_dist, const float* kp,
                                        const float* rfs_in, float* hist, float* rfs_out, int q,
                                        int nf, int w_len, float radius, float rf_radius,
-                                       cudaStream_t stream) {
+                                       int* viol, cudaStream_t stream) {
   if (q <= 0) return 0;
   const int blocks = (q + kWarps - 1) / kWarps;
   shot_hist_kernel<<<blocks, 32 * kWarps, 0, stream>>>(vals, dist, rf_dist, kp, rfs_in, hist,
-                                                       rfs_out, q, nf, w_len, radius, rf_radius);
+                                                       rfs_out, q, nf, w_len, radius, rf_radius,
+                                                       viol);
   return last_launch_error();
 }

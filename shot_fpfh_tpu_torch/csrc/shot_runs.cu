@@ -192,13 +192,13 @@ struct Runs {
   }
 
   __device__ __forceinline__ void bin(const shot::Frame& f, float r, int row, int (&idx)[5],
-                                      float (&wt)[5]) const {
+                                      float (&wt)[5], unsigned& bad) const {
     float dx, dy, dz;
     offsets(row, dx, dy, dz);
     const float rho2 = fmaf(dz, dz, fmaf(dy, dy, dx * dx));
     if (!(rho2 > 0.f)) return;
     const float* p = table + (long long)row * stride;
-    shot::bin_weights(f, dx, dy, dz, p[3], p[4], p[5], sqrtf(rho2), r, idx, wt);
+    shot::bin_weights(f, dx, dy, dz, p[3], p[4], p[5], sqrtf(rho2), r, idx, wt, bad);
   }
 };
 
@@ -209,7 +209,8 @@ shot_runs_kernel(const float* __restrict__ table, int stride,
                  int frame_halo, const float* __restrict__ kp, int q,
                  const float* __restrict__ rfs_in,
                  float radius, float rf_radius, float* __restrict__ hist,
-                 float* __restrict__ rfs_out, float* __restrict__ count) {
+                 float* __restrict__ rfs_out, float* __restrict__ count,
+                 int* __restrict__ viol) {
   __shared__ __align__(16) float hist_s[kWarps][shot::kDim];
   __shared__ int list_s[kWarps][64];  // pass 3's compacted rows: one step + carry
   __shared__ int frame_s[kWarps][kFrameSlots];
@@ -245,7 +246,7 @@ shot_runs_kernel(const float* __restrict__ table, int stride,
   const int n = shot::keypoint_histogram(src, radius, rf_radius,
                                          rfs_in == nullptr ? nullptr : rfs_in + 9 * qi,
                                          rfs_out == nullptr ? nullptr : rfs_out + 9 * qi, h,
-                                         list_s[warp]);
+                                         list_s[warp], viol);
   // the binned rows: the listed frame plane holds the d = 0 rows too
   if (lane == 0) count[qi] = (float)(src.from_list() ? n - src.n_zero : n);
   float4* out = reinterpret_cast<float4*>(hist + (long long)qi * shot::kDim);
@@ -257,18 +258,19 @@ shot_runs_kernel(const float* __restrict__ table, int stride,
 // The grid as ops/grid_hash.py::HashGrid holds it (cell-start table,
 // origin, cell size, dims, halo <= 15); rf_radius is the frame plane's
 // radius: the descriptor radius unless in bi-scale mode, and frame_halo
-// (<= halo) the halo whose runs cover it.
+// (<= halo) the halo whose runs cover it; viol: the debug checks' two
+// counters (shot.cuh), or null.
 SHOT_EXPORT int shot_runs(const float* table, int stride, const long long* cell_starts,
                           const float* origin, float cell_size, long long d0, long long d1,
                           long long d2, int halo, int frame_halo, const float* kp, int q,
                           const float* rfs_in, float radius, float rf_radius, float* hist,
-                          float* rfs_out, float* count, cudaStream_t stream) {
+                          float* rfs_out, float* count, int* viol, cudaStream_t stream) {
   if (q <= 0) return 0;
   if (2 * halo + 1 > 32 || frame_halo < 0 || frame_halo > halo)
     return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = (q + kWarps - 1) / kWarps;
   shot_runs_kernel<<<blocks, 32 * kWarps, 0, stream>>>(
       table, stride, cell_starts, origin, cell_size, d0, d1, d2, halo, frame_halo, kp, q, rfs_in,
-      radius, rf_radius, hist, rfs_out, count);
+      radius, rf_radius, hist, rfs_out, count, viol);
   return last_launch_error();
 }

@@ -21,9 +21,18 @@ per-scale descriptors, each on its own subsampled support, optionally
 sharing the first scale's frames.  Descriptors of neighborhoods with
 ≤ ``min_neighborhood_size`` points are all-zero, the validity convention
 matching consumes.
+
+``enable_debug_checks`` (the CLI's ``--debug_shot``) makes every SHOT
+accumulation count its out-of-range bin indices and unsound weight sums
+among valid neighbors, read the counts back and log them.  The routes stay
+as they are: the brute route's PyTorch binning counts them, and on the grid
+route K1 and K5 count them in the kernel (``ops.shot_fused``), so the checks
+see the bins the card computes.
 """
 
 from __future__ import annotations
+
+import logging
 
 import numpy as np
 import torch
@@ -36,12 +45,52 @@ from ..ops.grid_hash import build_grid, query_chunk, window_distances
 from ..ops.neighbors import as_f32, radius_search
 from ..ops.shot_dma import dma_kernel_enabled, shot_descriptor_dma
 from ..ops.shot_fused import local_frames as _local_rfs_ff
-from ..ops.shot_fused import shot_binning_histogram, soft_histogram
-from ..ops.shot_fused import shot_finalize
+from ..ops.shot_fused import binning_violations as _binning_violations  # noqa: F401
+from ..ops.shot_fused import shot_binning_histogram, shot_finalize, soft_histogram
+
+logger = logging.getLogger(__name__)
 
 # far sentinel of padded keypoints: its window is empty, so its descriptor
 # is zero (the reference pads keypoint sets into 1024-row buckets with it)
 _FAR = 1.0e6
+
+
+# the SHOT binning sanity checks of the CLI's --debug_shot (the
+# reference's sequential-SHOT debug_mode asserts, shot.py:375-379,414-463)
+_DEBUG = {"enabled": False, "violations": 0}
+
+
+def enable_debug_checks(enabled: bool = True) -> None:
+    """Turn the SHOT binning sanity checks on or off; resets the count."""
+    _DEBUG["enabled"] = enabled
+    _DEBUG["violations"] = 0
+
+
+def debug_violation_count() -> int:
+    """Violations counted since the checks were last turned on."""
+    return _DEBUG["violations"]
+
+
+def _debug_report(n_bad_bin, n_bad_weight) -> None:
+    n = int(n_bad_bin) + int(n_bad_weight)
+    if n:
+        _DEBUG["violations"] += n
+        logger.warning(
+            "SHOT debug checks: %d out-of-range bin indices, %d unsound "
+            "quadrilinear weight sums among valid neighbors",
+            int(n_bad_bin), int(n_bad_weight))
+
+
+def _debug_counter(device):
+    """A zeroed ``(bad bins, bad weights)`` counter for one accumulation
+    while the checks are on, else None (no op, no sync)."""
+    return torch.zeros(2, dtype=torch.int32, device=device) if _DEBUG["enabled"] else None
+
+
+def _debug_read(counter) -> None:
+    """Read one accumulation's counter back to the host and report it."""
+    if counter is not None:
+        _debug_report(*counter.tolist())
 
 
 def _masked_offsets(keypoints, neighbor_points, mask):
@@ -61,7 +110,9 @@ def _shot_accumulate(lx, ly, lz, rho, cosine, valid, radius, normalize,
                      min_neighborhood_size):
     """Binning + histogram + finalization from per-neighbor ``(Q, K)``
     local coordinates, distances, cosines and validity."""
-    desc = soft_histogram(lx, ly, lz, rho, cosine, valid, radius)
+    counter = _debug_counter(lx.device)
+    desc = soft_histogram(lx, ly, lz, rho, cosine, valid, radius, counter)
+    _debug_read(counter)
     return shot_finalize(desc, valid.sum(-1), normalize, min_neighborhood_size)
 
 
@@ -85,22 +136,23 @@ def shot_from_window_ff(keypoints, window_vals, window_dist, radius,
     distance-or-inf ``(Q, W)``) through the K1 kernel; returns
     ``(descriptors (Q, 352), frames (Q, 3, 3))``.  Bi-scale: the frames come
     from the ``rf_dist_inf``/``rf_radius`` plane over the same window."""
-    if local_rfs is None:
-        hist, rfs = shot_binning_histogram(window_vals, window_dist, keypoints, None, radius,
-                                           rf_dist_inf=rf_dist_inf, rf_radius=rf_radius)
-    else:
-        rfs = local_rfs
-        hist = shot_binning_histogram(window_vals, window_dist, keypoints, rfs, radius)
+    counter = _debug_counter(window_vals.device)
+    out = shot_binning_histogram(window_vals, window_dist, keypoints, local_rfs, radius,
+                                 rf_dist_inf=rf_dist_inf, rf_radius=rf_radius,
+                                 violations=counter)
+    _debug_read(counter)
+    hist, rfs = out if local_rfs is None else (out, local_rfs)
     count = (torch.isfinite(window_dist) & (window_dist > 0)).sum(-1)
     return shot_finalize(hist, count, normalize, min_neighborhood_size), rfs
 
 
 def _use_dma_kernel(grid) -> bool:
-    """Route the grid SHOT through the run kernel (K5): the run route is on,
+    """Route the grid SHOT through the run kernel (K5): the run route is on
     and the grid is an xy-row grid carrying normals (JAX
-    ``models/shot.py:265-275``)."""
-    return (dma_kernel_enabled() and grid.use_xyrow and grid.xyrow_run_cap > 0
-            and grid.packed_sorted.shape[1] >= 6)
+    ``models/shot.py:265-275``, which also leaves K5 while its debug checks
+    are on; here K5 counts them itself)."""
+    return (dma_kernel_enabled() and grid.use_xyrow
+            and grid.xyrow_run_cap > 0 and grid.packed_sorted.shape[1] >= 6)
 
 
 def _shot_window_chunked(grid, kp, local_rfs, radius, normalize,
@@ -110,9 +162,13 @@ def _shot_window_chunked(grid, kp, local_rfs, radius, normalize,
     exact uncapped radius neighborhood contributes (no top-k, no ``k_max``);
     bi-scale frames come from the ``rf_radius`` neighbors of the same grid."""
     if _use_dma_kernel(grid):
-        return shot_descriptor_dma(grid, kp, radius, rfs=local_rfs, rf_radius=rf_radius,
-                                   normalize=normalize,
-                                   min_neighborhood_size=min_neighborhood_size)
+        counter = _debug_counter(kp.device)
+        out = shot_descriptor_dma(grid, kp, radius, rfs=local_rfs, rf_radius=rf_radius,
+                                  normalize=normalize,
+                                  min_neighborhood_size=min_neighborhood_size,
+                                  violations=counter)
+        _debug_read(counter)
+        return out
     descs, frames = [], []
     step = min(4096, query_chunk(grid, 8))
     inf = float("inf")

@@ -1,8 +1,11 @@
+from .eigh3 import eigh3x3, pca_eigh
 from .grid_hash import AUTO_GRID_MIN_POINTS, HashGrid, build_grid, window_distances
 from .match import top2_match, top2_match_plain
 from .neighbors import Neighborhoods, knn, nearest_neighbor, radius_count, radius_search
 from .radius_pca import radius_pca, radius_pca_plain
 from .shot_dma import (
+    dma_kernel_enabled,
+    set_dma_kernel,
     shot_descriptor_dma,
     shot_descriptor_dma_plain,
     spfh_block_dma,
@@ -13,6 +16,10 @@ from .shot_fused import shot_binning_histogram, shot_binning_histogram_plain
 from .spfh_fused import spfh_histogram, spfh_histogram_plain
 
 __all__ = [
+    "eigh3x3",
+    "pca_eigh",
+    "dma_kernel_enabled",
+    "set_dma_kernel",
     "AUTO_GRID_MIN_POINTS",
     "HashGrid",
     "build_grid",

@@ -129,12 +129,13 @@ def top2_match(a: torch.Tensor, b: torch.Tensor, b_valid: torch.Tensor,
     norms = torch.empty(-(-m // TILE) * TILE + n, dtype=torch.float32, device=device)
     splits = column_splits(n, m, _sm_count(device.index))
     part_i = torch.empty((splits, n), dtype=torch.int32, device=device)
-    part_d = torch.empty((2, splits, n), dtype=torch.float32, device=device)
+    part_d1 = torch.empty((splits, n), dtype=torch.float32, device=device)
+    part_d2 = torch.empty((splits, n), dtype=torch.float32, device=device)
     i1 = torch.empty(n, dtype=torch.int64, device=device)
     d1 = torch.empty(n, dtype=torch.float32, device=device)
     d2 = torch.empty(n, dtype=torch.float32, device=device)
     _kernels.launch("top2_match", device, a.data_ptr(), b.data_ptr(), valid.data_ptr(),
-                    ops.data_ptr(), norms.data_ptr(), part_i.data_ptr(), part_d[0].data_ptr(),
-                    part_d[1].data_ptr(), i1.data_ptr(), d1.data_ptr(), d2.data_ptr(), n, m, dim,
-                    width, splits, int(use_bf16))
+                    ops.data_ptr(), norms.data_ptr(), part_i.data_ptr(), part_d1.data_ptr(),
+                    part_d2.data_ptr(), i1.data_ptr(), d1.data_ptr(), d2.data_ptr(), n, m, dim,
+                    width, splits, int(use_bf16), checked=(a, b, d1, d2))
     return i1, d1, d2

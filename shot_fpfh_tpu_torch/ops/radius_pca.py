@@ -109,7 +109,7 @@ def cell_order(grid: HashGrid, queries: torch.Tensor) -> torch.Tensor:
     device = _kernels.require_cuda(queries, grid.packed_sorted)
     keys = torch.empty(queries.shape[0], dtype=torch.int64, device=device)
     _kernels.launch("radius_pca_keys", device, *_grid_args(grid), queries.data_ptr(),
-                    queries.shape[0], keys.data_ptr())
+                    queries.shape[0], keys.data_ptr(), checked=(queries, grid.packed_sorted))
     return torch.argsort(keys, stable=True)
 
 
@@ -137,5 +137,6 @@ def cell_moments(grid: HashGrid, queries: torch.Tensor, r2: torch.Tensor,
             raise ValueError(f"unions must be two contiguous int64 tensors of shape {shape}")
     sums = torch.empty((q, 10), dtype=torch.float32, device=device)
     _kernels.launch("radius_pca", device, *_grid_args(grid), queries.data_ptr(), r2.data_ptr(),
-                    order.data_ptr(), q, sums.data_ptr(), _kernels.ptr(lo), _kernels.ptr(hi))
+                    order.data_ptr(), q, sums.data_ptr(), _kernels.ptr(lo), _kernels.ptr(hi),
+                    checked=(queries, r2, grid.packed_sorted, sums))
     return sums

@@ -101,7 +101,8 @@ def fetch_windows(table, queries, start, end, w: int, with_rows: bool = True):
     if q and w:
         _kernels.launch("fetch_windows", device, table.data_ptr(), f, queries.data_ptr(),
                         start.data_ptr(), end.data_ptr(), start.shape[1], q, w,
-                        vals.data_ptr(), dist.data_ptr(), valid.data_ptr(), _kernels.ptr(rows))
+                        vals.data_ptr(), dist.data_ptr(), valid.data_ptr(), _kernels.ptr(rows),
+                        checked=(table, queries, vals, dist))
     return vals, dist, valid, rows
 
 
@@ -117,5 +118,6 @@ def radius_dist(table, queries, start, end, w: int, radius: float):
     if q and w:
         _kernels.launch("radius_dist", device, table.data_ptr(), table.shape[1],
                         queries.data_ptr(), start.data_ptr(), end.data_ptr(), start.shape[1],
-                        q, w, float(radius), rows.data_ptr(), dist.data_ptr())
+                        q, w, float(radius), rows.data_ptr(), dist.data_ptr(),
+                        checked=(table, queries, dist))
     return rows, dist

@@ -40,7 +40,7 @@ from .. import _kernels
 from .._fp import sqnorm3, sqrt
 from .descriptor_bins import darboux_angles
 from .grid_hash import _CHUNK_ELEMS, HashGrid, _xyrow_runs, check_radius_contract
-from .shot_fused import SHOT_DIM, shot_binning_histogram_plain, shot_finalize
+from .shot_fused import SHOT_DIM, _check_counter, shot_binning_histogram_plain, shot_finalize
 from .spfh_fused import spfh_dim, spfh_from_angles
 
 _DMA = {"enabled": None}  # None: resolve from SHOT_FPFH_DMA on first use
@@ -91,7 +91,7 @@ def _frame_halo(grid: HashGrid, rf_radius: float) -> int:
     return min(grid.halo, math.ceil(rf_radius / grid.cell_size + margin))
 
 
-def _shot_chunk_plain(grid: HashGrid, q, radius, rfs, rf_radius):
+def _shot_chunk_plain(grid: HashGrid, q, radius, rfs, rf_radius, violations):
     """``(hist, frames, count)`` of one keypoint chunk by the K1 twin over
     the padded runs, the planes set by the run route's radius rule."""
     rows, in_run = _run_rows(grid, q)
@@ -107,13 +107,14 @@ def _shot_chunk_plain(grid: HashGrid, q, radius, rfs, rf_radius):
     dist_inf = plane(radius)
     rf_dist_inf = None if rf_radius is None else plane(rf_radius)
     out = shot_binning_histogram_plain(vals[..., :6].permute(0, 2, 1), dist_inf, q, rfs,
-                                       radius, rf_dist_inf, rf_radius)
+                                       radius, rf_dist_inf, rf_radius, violations)
     hist, frames = out if rfs is None else (out, rfs)
     return hist, frames, (torch.isfinite(dist_inf) & (dist_inf > 0)).sum(-1)
 
 
 def shot_descriptor_dma_plain(grid: HashGrid, keypoints, radius, rfs=None, rf_radius=None,
-                              normalize: bool = True, min_neighborhood_size: int = 100):
+                              normalize: bool = True, min_neighborhood_size: int = 100,
+                              violations=None):
     """PyTorch twin of :func:`shot_descriptor_dma`: each keypoint's runs
     padded to ``xyrow_run_cap`` rows, the same radius rule, K1's twin on
     them, chunked by ``_CHUNK_ELEMS``."""
@@ -123,7 +124,8 @@ def shot_descriptor_dma_plain(grid: HashGrid, keypoints, radius, rfs=None, rf_ra
     hists, frames, counts = [], [], []
     for s in range(0, keypoints.shape[0], step):
         h, f, c = _shot_chunk_plain(grid, keypoints[s:s + step], radius,
-                                    None if rfs is None else rfs[s:s + step], rf_radius)
+                                    None if rfs is None else rfs[s:s + step], rf_radius,
+                                    violations)
         hists.append(h)
         frames.append(f)
         counts.append(c)
@@ -135,14 +137,15 @@ def shot_descriptor_dma_plain(grid: HashGrid, keypoints, radius, rfs=None, rf_ra
 
 def shot_descriptor_dma(grid: HashGrid, keypoints: torch.Tensor, radius, rfs=None,
                         rf_radius=None, normalize: bool = True,
-                        min_neighborhood_size: int = 100):
+                        min_neighborhood_size: int = 100, violations=None):
     """``(desc (Q, 352) finalized, rfs (Q, 3, 3))`` of the keypoints over
     ``grid``'s xy-row runs: frames from the descriptor neighborhood, given
     ``rfs`` (multiscale sharing), or, with ``rf_radius``, from the neighbors
-    within ``rf_radius`` (bi-scale)."""
+    within ``rf_radius`` (bi-scale); the SHOT debug checks count into
+    ``violations`` (``ops.shot_fused``) when it is given."""
     if keypoints.device.type == "cpu":
         return shot_descriptor_dma_plain(grid, keypoints, radius, rfs, rf_radius,
-                                         normalize, min_neighborhood_size)
+                                         normalize, min_neighborhood_size, violations)
     rf_radius = None if rfs is not None else rf_radius
     _check_run_grid(grid, radius if rf_radius is None else max(radius, rf_radius))
     table = grid.packed_sorted
@@ -153,6 +156,7 @@ def shot_descriptor_dma(grid: HashGrid, keypoints: torch.Tensor, radius, rfs=Non
         raise ValueError(f"bad keypoint or frame shapes {tuple(keypoints.shape)}")
     if any(t.dtype != torch.float32 for t in tensors) or not table.is_contiguous():
         raise ValueError("run kernel inputs must be float32 (table contiguous)")
+    _check_counter(violations, keypoints.device)
     if table.shape[0] >= 2 ** 31 or 2 * grid.halo + 1 > 32:
         raise ValueError("the SHOT run kernel lists table rows as 32-bit ints and holds "
                          "one run a lane (halo <= 15)")
@@ -169,7 +173,8 @@ def shot_descriptor_dma(grid: HashGrid, keypoints: torch.Tensor, radius, rfs=Non
                     grid.cell_starts.data_ptr(), grid.origin.data_ptr(), grid.cell_size,
                     *grid.dims, grid.halo, _frame_halo(grid, rf), kp.data_ptr(), q,
                     _kernels.ptr(rfs_in), float(radius), rf, hist.data_ptr(),
-                    _kernels.ptr(rfs_out), count.data_ptr())
+                    _kernels.ptr(rfs_out), count.data_ptr(), _kernels.ptr(violations),
+                    checked=(table, kp, rfs_in, hist, rfs_out, count))
     return (shot_finalize(hist, count, normalize, min_neighborhood_size),
             rfs if rfs_out is None else rfs_out)
 
@@ -233,7 +238,8 @@ def spfh_block_dma(grid: HashGrid, qc: torch.Tensor, qn: torch.Tensor, radius,
     _kernels.launch("spfh_runs", device, table.data_ptr(), table.shape[1],
                     grid.cell_starts.data_ptr(), grid.origin.data_ptr(), grid.cell_size,
                     *grid.dims, grid.halo, qc.data_ptr(), qn.data_ptr(), qc.stride(0), c,
-                    float(radius), n_bins, int(decorrelated), out.data_ptr())
+                    float(radius), n_bins, int(decorrelated), out.data_ptr(),
+                    checked=(table, qc, qn, out))
     return out
 
 

@@ -87,5 +87,6 @@ def spfh_histogram(vals: torch.Tensor, dist_inf: torch.Tensor, queries: torch.Te
     out = torch.empty((c, d_out), dtype=torch.float32, device=vals.device)
     _kernels.launch("spfh_histogram", device, vals.data_ptr(), dist_inf.data_ptr(),
                     queries.data_ptr(), query_normals.data_ptr(), out.data_ptr(), c, nf, w,
-                    n_bins, int(decorrelated))
+                    n_bins, int(decorrelated),
+                    checked=(vals, dist_inf, queries, query_normals, out))
     return out

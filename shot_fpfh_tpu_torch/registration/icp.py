@@ -13,13 +13,16 @@ The loop's state lives on the device (:func:`icp_loop`, JAX's ``_icp_loop``
 ``lax.while_loop``): an iteration after ``done`` leaves it unchanged, so the
 host enqueues ``ICP_BLOCK`` iterations at a time and reads ``done`` once a
 block.  The staged ICP and the fused program (``registration.fused``) run
-this one loop.
+this one loop.  :func:`icp_point_to_point_with_sampling` is the reference's
+legacy variant: each iteration aligns a fresh random subset and moves the
+whole cloud.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .._device import resolve
@@ -139,3 +142,37 @@ def icp_point_to_plane(scan, ref, ref_normals, transformation_init: RigidTransfo
     reference)."""
     return _icp(scan, ref, ref_normals, transformation_init, d_max, voxel_size,
                 max_iter, rms_threshold, device)
+
+
+def icp_point_to_point_with_sampling(scan, ref, d_max: float, max_iter: int = 100,
+                                     rms_threshold: float = 1e-2, sampling_limit: int = 100,
+                                     generator: torch.Generator | None = None, subsets=None,
+                                     device=None) -> tuple[np.ndarray, float, bool]:
+    """Legacy random-sampling point-to-point ICP (reference
+    ``icp_point_to_point_with_sampling``, icp.py:20-78): each iteration
+    draws ``min(sampling_limit, N)`` distinct scan points (from
+    ``generator``, else one seeded 0 on the call's device), aligns them to
+    their brute-force nearest ref points within ``d_max``, and moves the
+    whole cloud; it stops once the inlier RMS is below ``rms_threshold``.
+    ``subsets`` (one index array per iteration) replaces the draws.
+    Returns ``(moved points, rms, rms < rms_threshold)`` on the host."""
+    ref_t = as_f32(ref, resolve(device, ref))
+    points = as_f32(scan, ref_t.device)
+    n = points.shape[0]
+    limit = min(sampling_limit, n)
+    if generator is None and subsets is None:
+        generator = torch.Generator(device=ref_t.device).manual_seed(0)
+    rms = float("inf")
+    for i in range(max_iter):
+        idx = (torch.as_tensor(np.asarray(subsets[i]), device=ref_t.device)
+               if subsets is not None
+               else torch.randperm(n, generator=generator, device=ref_t.device)[:limit])
+        subset = points[idx]
+        dist, nn = nearest_neighbor(subset, ref_t)
+        w = (dist <= d_max).to(torch.float32)
+        tf = solve_point_to_point(subset, ref_t[nn], w)
+        rms = float(torch.sqrt((w * dist ** 2).sum() / torch.clamp(w.sum(), min=1.0)))
+        points = tf.apply(points)
+        if rms < rms_threshold:
+            break
+    return points.cpu().numpy(), rms, rms < rms_threshold

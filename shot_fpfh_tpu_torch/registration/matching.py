@@ -10,8 +10,10 @@ matches whose distance ratio is ≤ the threshold (the corrected ratio test).
 ``match_descriptors`` keeps the nearest matches a distance filter passes
 (``threshold_filter``, ``quantile_filter``, ``left_median_filter``, NumPy on
 the host distances as in the reference), optionally only the reciprocal
-ones.  Its multiscale branch (``multiscale_top1``) is not ported yet
-(ROADMAP.md, Queue 1, item 6).
+ones.  Given ``(n_scales, K, D)`` stacks it matches each scan row to the
+ref row nearest under the elementwise minimum of the per-scale distances
+(``multiscale_top1``: f32 ``torch.matmul`` in chunks of 1024 scan rows,
+so no ``K x K`` matrix is ever held whole).
 """
 
 from __future__ import annotations
@@ -25,9 +27,16 @@ import torch
 from .._device import resolve
 from .._fp import sqrt
 from ..ops.match import top2_match
-from ..ops.neighbors import as_f32
+from ..ops.neighbors import _sq_dists, as_f32
 
 logger = logging.getLogger(__name__)
+
+# scan rows per distance tile of the multiscale matcher
+_CHUNK = 1024
+# sentinel distance of a pair with an all-zero row at a scale (the
+# reference's ``max_val``, matching/matching.py:96); a match whose combined
+# distance reaches it is dropped
+MS_MAX_VAL = 1000.0
 
 
 def nearest_descriptor(a: torch.Tensor, b: torch.Tensor, b_valid: torch.Tensor,
@@ -42,6 +51,93 @@ def top2_descriptor(a: torch.Tensor, b: torch.Tensor, b_valid: torch.Tensor,
     """Nearest and second-nearest: ``(idx1, d1, d2)``."""
     idx, d1_sq, d2_sq = top2_match(a, b, b_valid, use_bf16)
     return idx, sqrt(d1_sq), sqrt(d2_sq)
+
+
+def descriptor_sq_dists(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Dense ``(A, B)`` squared distances ``‖a‖² + ‖b‖² − 2a·b``, clamped
+    at 0 (use only when the matrix fits)."""
+    return _sq_dists(a, b)
+
+
+def _ms_chunk_dists(a_chunk, b, a_ok_chunk, b_ok):
+    """``(chunk, R)`` distances at one scale, ``MS_MAX_VAL`` where either
+    row is all zero."""
+    d = sqrt(descriptor_sq_dists(a_chunk, b))
+    return torch.where(a_ok_chunk[:, None] & b_ok[None, :], d, MS_MAX_VAL)
+
+
+def _ms_scale_pass(a, b, a_ok, b_ok):
+    """One scale's row argmin ``(Q,)`` and column minimum and argmin
+    ``(R,)``, over chunks of scan rows; ties go to the lowest index (an
+    earlier chunk wins a column's tie by the strict ``<``)."""
+    n_ref = b.shape[0]
+    col_d = torch.full((n_ref,), float("inf"), dtype=torch.float32, device=a.device)
+    col_i = torch.zeros(n_ref, dtype=torch.int64, device=a.device)
+    row_i = []
+    for s in range(0, a.shape[0], _CHUNK):
+        d = _ms_chunk_dists(a[s:s + _CHUNK], b, a_ok[s:s + _CHUNK], b_ok)
+        i_local = torch.argmin(d, dim=0)
+        d_local = d.gather(0, i_local[None, :])[0]
+        better = d_local < col_d
+        col_d = torch.where(better, d_local, col_d)
+        col_i = torch.where(better, i_local + s, col_i)
+        row_i.append(torch.argmin(d, dim=1))
+    return torch.cat(row_i), col_d, col_i
+
+
+def _ms_row_mask(scan_ms, ref_ms, filter_nonreciprocal: bool):
+    """``(row_ok (S, Q), ref_ok (S, R))``: the nonzero rows of each scale;
+    with ``filter_nonreciprocal`` only the scan rows whose match at that
+    scale is reciprocal there."""
+    s_ok = (scan_ms != 0).any(dim=2)
+    r_ok = (ref_ms != 0).any(dim=2)
+    if not filter_nonreciprocal:
+        return s_ok, r_ok
+    rows = torch.arange(scan_ms.shape[1], device=scan_ms.device)
+    recip = []
+    for scale in range(scan_ms.shape[0]):
+        row_i, _, col_i = _ms_scale_pass(scan_ms[scale], ref_ms[scale], s_ok[scale],
+                                         r_ok[scale])
+        recip.append(col_i[row_i] == rows)
+    return s_ok & torch.stack(recip), r_ok
+
+
+def _ms_combined_top1(a_ms, b_ms, row_ok_ms, b_ok_ms, second: bool = False):
+    """Row argmin and distance of ``min_s D_s``: per chunk of scan rows, the
+    running elementwise minimum over the scales; with ``second``, each
+    row's second-smallest combined distance too."""
+    n = a_ms.shape[1]
+    idx, dist, dist2 = [], [], []
+    for s in range(0, n, _CHUNK):
+        run = torch.full((min(_CHUNK, n - s), b_ms.shape[1]), MS_MAX_VAL,
+                         dtype=torch.float32, device=a_ms.device)
+        for scale in range(a_ms.shape[0]):
+            run = torch.minimum(run, _ms_chunk_dists(a_ms[scale, s:s + _CHUNK], b_ms[scale],
+                                                     row_ok_ms[scale, s:s + _CHUNK],
+                                                     b_ok_ms[scale]))
+        i = torch.argmin(run, dim=1)
+        idx.append(i)
+        dist.append(run.gather(1, i[:, None])[:, 0])
+        if second:
+            dist2.append(torch.topk(run, 2, dim=1, largest=False).values[:, 1])
+    if second:
+        return torch.cat(idx), torch.cat(dist), torch.cat(dist2)
+    return torch.cat(idx), torch.cat(dist)
+
+
+def multiscale_top1(scan_ms, ref_ms, *, filter_nonreciprocal: bool = False, device=None):
+    """For each scan row of ``(S, Q, D)`` stacks, the ref row nearest under
+    the elementwise minimum over scales of the per-scale distances (a pair
+    with an all-zero row at a scale is ``MS_MAX_VAL`` apart there); with
+    ``filter_nonreciprocal``, a scan row whose match at a scale is not
+    reciprocal at that scale is ``MS_MAX_VAL`` from everything there (the
+    reference's evident intent: its own mask is a silent no-op, PARITY.md).
+    Returns ``(idx (Q,), dist (Q,))`` on the call's device; a row whose
+    distance reaches ``MS_MAX_VAL`` has no match."""
+    dev = resolve(device, scan_ms)
+    scan_ms, ref_ms = as_f32(scan_ms, dev), as_f32(ref_ms, dev)
+    return _ms_combined_top1(scan_ms, ref_ms, *_ms_row_mask(scan_ms, ref_ms,
+                                                             filter_nonreciprocal))
 
 
 def _split_nonzero(desc, device=None):
@@ -112,12 +208,12 @@ def match_descriptors(scan_descriptors, ref_descriptors,
     """Nearest-descriptor matches kept by ``filter_callback(distances,
     **kwargs)``; with ``filter_nonreciprocal`` only matches that are also the
     ref's nearest back, unless fewer than ``n_min_matches`` survive that
-    (reference ``match_descriptors``, matching/matching.py:9-146).  Returns
+    (reference ``match_descriptors``, matching/matching.py:9-146).
+    ``(n_scales, K, D)`` stacks match by :func:`multiscale_top1`.  Returns
     host ``(scan_indices, ref_indices)``."""
     if np.ndim(scan_descriptors) != 2:
-        raise NotImplementedError(
-            "multiscale (n_scales, K, D) descriptor matching is not ported yet "
-            "(ROADMAP.md, Queue 1, item 6: multiscale_top1)")
+        return _match_multiscale(scan_descriptors, ref_descriptors, filter_callback,
+                                 filter_nonreciprocal, verbose, n_min_matches, device, kwargs)
     scan_nz, a = _split_nonzero(scan_descriptors, resolve(device, scan_descriptors))
     ref_nz, b = _split_nonzero(ref_descriptors, a.device)
     idx_t, dist_t = nearest_descriptor(a, b, torch.ones(b.shape[0], dtype=torch.bool,
@@ -136,3 +232,28 @@ def match_descriptors(scan_descriptors, ref_descriptors,
     if verbose:
         logger.info("Kept %d matches out of %d descriptors.", keep.sum(), len(scan_nz))
     return scan_nz[keep], ref_nz[idx[keep]]
+
+
+def _match_multiscale(scan_ms, ref_ms, filter_callback, filter_nonreciprocal, verbose,
+                      n_min_matches, device, kwargs):
+    """``match_descriptors`` on ``(n_scales, K, D)`` stacks: the rows whose
+    combined distance the filter keeps and is under ``MS_MAX_VAL``, as
+    positions among all scan rows; without the reciprocal filter when fewer
+    than ``n_min_matches`` survive it."""
+    idx_t, dist_t = multiscale_top1(scan_ms, ref_ms, filter_nonreciprocal=filter_nonreciprocal,
+                                    device=resolve(device, scan_ms))
+    indices, distances = idx_t.cpu().numpy(), dist_t.cpu().numpy()
+    keep = (filter_callback(distances, **kwargs) if filter_callback is not None
+            else np.ones(len(distances), bool)) & (distances < MS_MAX_VAL)
+    if keep.sum() < n_min_matches and filter_nonreciprocal:
+        logger.warning("Too few reciprocal matches, keeping non-reciprocal matches.")
+        return match_descriptors(scan_ms, ref_ms, filter_callback, filter_nonreciprocal=False,
+                                 verbose=verbose, device=device, **kwargs)
+    if verbose:
+        logger.info("Kept %d matches out of %d descriptors.", keep.sum(), len(distances))
+    return np.nonzero(keep)[0], indices[keep]
+
+
+# the reference's name for the ratio test, so its configs and call sites
+# translate one to one
+double_matching_with_rejects = lowe_matching

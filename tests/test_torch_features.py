@@ -160,12 +160,6 @@ def test_filters_match_reference(rng):
                                       getattr(j_match, name)(d, **kwargs))
 
 
-def test_multiscale_stacks_are_not_ported(rng):
-    stack = np.stack(_match_case(rng)[:1] * 2)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        t_match.match_descriptors(stack, stack, device="cpu")
-
-
 def test_cli_threshold_matching_matches_reference_cli(tmp_path):
     from shot_fpfh_tpu.cli import main as j_main
     from shot_fpfh_tpu_torch.cli import main as t_main

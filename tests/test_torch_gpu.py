@@ -1123,3 +1123,124 @@ def test_icp_loop_reads_the_card_once_a_block(cuda, rng):
     syncs = [w for w in caught if "called a synchronizing" in str(w.message)]
     assert int(out.n_iters) == 20
     assert len(syncs) == -(-20 // icp.ICP_BLOCK), [str(w.message) for w in syncs]
+
+
+def _whole_number_stacks(rng, device=None):
+    """Three 16-column scales of 2,100 x 1,900 rows with values in -3..3
+    (exact distances), repeated rows, and rows empty at one or every scale:
+    ties must resolve to the lowest index on every device."""
+    scan = rng.integers(-3, 4, size=(3, 2100, 16)).astype(np.float32)
+    ref = rng.integers(-3, 4, size=(3, 1900, 16)).astype(np.float32)
+    ref[:, 1000:1100] = ref[:, :100]
+    scan[:, 1500:1600] = scan[:, :100]
+    scan[0, :40] = 0.0
+    scan[:, 77] = 0.0
+    ref[1, 200:260] = 0.0
+    return (torch.tensor(scan, device=device), torch.tensor(ref, device=device))
+
+
+@pytest.mark.parametrize("reciprocal", [False, True])
+def test_multiscale_top1_on_card_equals_cpu(cuda, rng, reciprocal):
+    from shot_fpfh_tpu_torch.registration.matching import multiscale_top1
+
+    scan, ref = _whole_number_stacks(rng)
+    idx, dist = multiscale_top1(scan.to(cuda), ref.to(cuda), filter_nonreciprocal=reciprocal)
+    assert idx.device.type == "cuda"
+    idx_c, dist_c = multiscale_top1(scan, ref, filter_nonreciprocal=reciprocal, device="cpu")
+    assert torch.equal(idx.cpu(), idx_c)
+    assert torch.equal(dist.cpu(), dist_c)
+
+
+def test_debug_nans_raises_in_the_kernel_wrapper(cuda, rng):
+    """Under ``NanCheck`` a NaN in a K2 operand raises from the kernel
+    wrapper, naming the kernel (K2 itself drops a NaN distance, so its
+    outputs alone would not show it); the same call without the NaN
+    passes."""
+    from shot_fpfh_tpu_torch.registration.matching import nearest_descriptor
+    from shot_fpfh_tpu_torch.utils.debug_nans import NanCheck
+
+    a = torch.tensor(rng.normal(size=(300, 352)).astype(np.float32), device=cuda)
+    b = torch.tensor(rng.normal(size=(400, 352)).astype(np.float32), device=cuda)
+    valid = torch.ones(400, dtype=torch.bool, device=cuda)
+    with NanCheck():
+        nearest_descriptor(a, b, valid)
+    a[7, 3] = float("nan")
+    before = _kernels.launch_counts["top2_match"]
+    with pytest.raises(FloatingPointError, match="CUDA kernel top2_match"):
+        with NanCheck():
+            nearest_descriptor(a, b, valid)
+    assert _kernels.launch_counts["top2_match"] == before + 1
+
+
+def test_debug_shot_on_card_counts_in_k1(cuda, rng):
+    """With the SHOT debug checks on, grid-route SHOT on the card still runs
+    K1 (no K5 by default), which counts the checks itself: no violation,
+    and the descriptors within K1's flip rule of those without the checks
+    (the histogram's float atomics may add in another order)."""
+    from chip_smoke import flip_rule
+    from shot_fpfh_tpu_torch.models.normals import compute_normals
+    from shot_fpfh_tpu_torch.models.shot import (
+        compute_shot_descriptor,
+        debug_violation_count,
+        enable_debug_checks,
+    )
+
+    cloud = torch.tensor(make_terrain(30_000, rng, scale=5.0, n_bumps=10), device=cuda)
+    normals = compute_normals(cloud, cloud, k=30, device=cuda)
+    kp = cloud[:500]
+    want, _ = compute_shot_descriptor(kp, cloud, normals, 0.6)
+    _kernels.reset_launch_counts()
+    enable_debug_checks(True)
+    try:
+        got, _ = compute_shot_descriptor(kp, cloud, normals, 0.6)
+        assert debug_violation_count() == 0
+    finally:
+        enable_debug_checks(False)
+    assert _kernels.launch_counts["shot_binning_histogram"] > 0
+    assert _kernels.launch_counts["shot_runs"] == 0
+    assert _kernels.launch_counts["fetch_windows"] > 0
+    assert bool(torch.isfinite(got).all())
+    flip_rule(got, want, "K1 with the checks vs without")
+
+
+@pytest.mark.parametrize("kernel", ["shot_binning_histogram", "shot_runs"])
+def test_debug_counter_matches_twin(cuda, rng, kernel):
+    """K1's and K5's debug counters against their twins': none at the real
+    radius, with the histograms those without a counter give; K1 told an
+    eighth of its window's radius bins neighbors whose husk weights drive
+    their weight sums below 0, and counts them as its twin does (K5 bins
+    only the rows its radius holds, so it has nothing to count)."""
+    from shot_fpfh_tpu_torch.ops.shot_fused import shot_binning_histogram_plain
+
+    pts = _surface(rng, 20_000, cuda)
+    nrm = torch.nn.functional.normalize(torch.randn_like(pts), dim=1)
+    grid = build_grid(pts, 0.3, extras=nrm, halo=2)
+    kp = pts[::79]
+    raw = dict(normalize=False, min_neighborhood_size=-1)
+    if kernel == "shot_runs":
+        assert grid.use_xyrow
+        _, rfs = shot_dma.shot_descriptor_dma_plain(grid, kp, 0.6, **raw)
+
+        def run(fn, r, counter):
+            return fn(grid, kp, r, rfs=rfs, violations=counter, **raw)[0]
+
+        calls, radii = (shot_dma.shot_descriptor_dma, shot_dma.shot_descriptor_dma_plain), (0.6,)
+    else:
+        vals, d, valid, _ = window_distances(grid, kp, with_rows=False)
+        dist = torch.where(valid & (d <= 0.6), d, torch.full_like(d, float("inf")))
+        _, rfs = shot_binning_histogram_plain(vals, dist, kp, None, 0.6)
+
+        def run(fn, r, counter):
+            return fn(vals, dist, kp, rfs, r, violations=counter)
+
+        calls, radii = (shot_binning_histogram, shot_binning_histogram_plain), (0.6, 0.075)
+    without = run(calls[0], 0.6, None)
+    for r in radii:
+        counters = [torch.zeros(2, dtype=torch.int32, device=cuda) for _ in calls]
+        hist = [run(fn, r, c) for fn, c in zip(calls, counters)]
+        k, p = (c.tolist() for c in counters)
+        if r == 0.6:
+            assert k == p == [0, 0]
+            torch.testing.assert_close(hist[0], without, atol=1e-4, rtol=1e-5)
+        else:
+            assert k == p and k[1] > 0

@@ -78,9 +78,26 @@ Phases, one line each; any failure exits non-zero with no result line:
    ``cli.main``; the sampled ICP and the stats solvers against the CPU;
    ``trace_annotation`` in a profiler trace.  Phase 3 also holds K1's and
    K5's debug counters against their twins' (K1's also with unsound
-   weights: a radius an eighth of its window's).
+   weights: a radius an eighth of its window's), and under given frames
+   with a planted NaN (whole frames, one z-axis component): the same
+   counts, NaN in the same histogram entries, the rest by the flip rule;
+14. the mesh (``shot_fpfh_tpu_torch.parallel``): a 1-rank NCCL group in
+   this process runs every sharded stage at the smoke pair's shapes
+   (normals k=30 on the 100k ref; SHOT own, bi-scale and shared frames on
+   the window and run routes; FPFH on both routes; ``ring_match`` of the
+   6,531 x 6,634 x 352 descriptors; multiscale matching in both modes;
+   RANSAC with given draws; ICP on the ref's grid), each equal to the
+   single-device port (``torch.equal`` per row; RANSAC's and ICP's
+   reductions within 1e-5), timed with CUDA events, its launches counted;
+   then two processes sharing the one card over gloo run ``cli.main
+   --n_devices 2`` (SHOT, then FPFH), each accepted, its moved scan within
+   1e-3 of one device's, rank 0 alone writing, each rank launching K1 (or
+   K4/K6), K2, K3 and K7.
 Phases 4–9 and 12 run cold, then measured, each accepted within the same
 bounds; every window route launches K8, and every ICP K7.
+``--bits-against LIB`` also holds K1's and K5's phase-3 outputs equal, bit
+for bit, to those of another build's library and times each alone under
+both builds in turns.
 """
 
 from __future__ import annotations
@@ -566,43 +583,65 @@ def with_library(lib, fn):
         _kernels._lib = saved
 
 
-def bits_against(label: str, other, calls: dict) -> None:
+def bits_against(label: str, other, calls: dict, kernel: str) -> None:
     """Hold each call's outputs equal, bit for bit, to those of the same
     call launching into ``other``, the library of another build of the
-    kernels."""
+    kernels; then time the CUDA kernel ``kernel`` alone in each mode under
+    both builds in turns (other, this, this, other)."""
     import torch
 
     same = {mode: all(torch.equal(x, y) for x, y in zip(call(), with_library(other, call)))
             for mode, call in calls.items()}
     check(all(same.values()), f"{label} differs from the other build: {same}")
-    print(f"phase 3 {label} equal, bit for bit, to the other build: {same}", flush=True)
+    alone = {mode: [round(with_library(lib, lambda: kernel_ms(call, kernel)), 4)
+                    if lib is not None else round(kernel_ms(call, kernel), 4)
+                    for lib in (other, None, None, other)]
+             for mode, call in calls.items()}
+    print(f"phase 3 {label} equal, bit for bit, to the other build: {same}; alone ms (other, "
+          f"this, this, other): {alone}", flush=True)
 
 
-def debug_counter_parity(label: str, call, plain, radius: float, inject: bool) -> None:
+def debug_counter_parity(label: str, call, plain, radius: float, frames, inject: bool) -> None:
     """The SHOT debug counter (``--debug_shot``) of a kernel,
-    ``call(radius, counter)``, against its twin's, ``plain``: none at the
-    real radius; with ``inject``, the kernel told a radius of an eighth of
-    its window's, where a neighbor past ~2.6 of it has a husk weight that
-    drives its weight sum below 0: the same counts in both, some of them
-    unsound weight sums."""
+    ``call(radius, counter, frames)`` returning its histograms, against its
+    twin's, ``plain``: none at the real radius; with ``inject``, the kernel
+    told a radius of an eighth of its window's, where a neighbor past ~2.6
+    of it has a husk weight that drives its weight sum below 0: the same
+    counts in both, some of them unsound weight sums.  Then under
+    ``frames`` with a planted NaN (whole frames, and one z-axis component,
+    which leaves the azimuth finite): the kernel keeps the NaN as the
+    twin's clamps do, so the same counts, NaN in the same histogram entries
+    and the rest by the flip rule."""
     import torch
 
-    def counts(r):
+    def counts(r, f):
         k, p = (torch.zeros(2, dtype=torch.int32, device="cuda") for _ in range(2))
-        call(r, k)
-        plain(r, p)
-        return k.tolist(), p.tolist()
+        hists = call(r, k, f), plain(r, p, f)
+        return k.tolist(), p.tolist(), hists
 
-    real = counts(radius)
+    real = counts(radius, frames)[:2]
     check(real == ([0, 0], [0, 0]), f"{label} debug counter at the real radius: "
           f"kernel {real[0]}, twin {real[1]}")
     line = f"phase 3 {label} debug counter (bad bins, bad weight sums): kernel {real[0]}, " \
            f"twin {real[1]}"
     if inject:
-        k, p = counts(radius / 8)
+        k, p, _ = counts(radius / 8, frames)
         check(k == p and k[1] > 0, f"{label} debug counter at an eighth of the radius: "
               f"kernel {k}, twin {p}")
         line += f"; told an eighth of the radius: kernel {k}, twin {p}"
+    planted = frames.clone()
+    planted[::13] = float("nan")
+    planted[6::13, 0, 2] = float("nan")
+    k, p, (hist_k, hist_p) = counts(radius, planted)
+    nan_k, nan_p = torch.isnan(hist_k), torch.isnan(hist_p)
+    check(k == p and k[1] > 0 and torch.equal(nan_k, nan_p),
+          f"{label} under planted-NaN frames: kernel {k}, twin {p}, NaN entries "
+          f"{int(nan_k.sum())} and {int(nan_p.sum())}, in the same places: "
+          f"{torch.equal(nan_k, nan_p)}")
+    stats = flip_rule(hist_k.nan_to_num(), hist_p.nan_to_num(), f"{label} under NaN frames")
+    line += (f"; planted-NaN frames ({int(torch.isnan(planted).flatten(1).any(1).sum())} of "
+             f"{planted.shape[0]}): kernel {k}, twin {p}, NaN entries {int(nan_k.sum())} in "
+             f"the twin's places, the rest (flip fraction, max diff) {stats}")
     print(line, flush=True)
 
 
@@ -631,9 +670,9 @@ def parity_k1(terrain: ShotTerrain, other=None):
     stats = {"own frames": flip_rule(hist_k, hist_pk, "K1 own frames"),
              "given frames": flip_rule(hist_g, hist_p, "K1 given frames")}
     debug_counter_parity(
-        "K1", lambda r, c: shot_binning_histogram(vals, dist_inf, kp, rfs_p, r, violations=c),
-        lambda r, c: shot_binning_histogram_plain(vals, dist_inf, kp, rfs_p, r, violations=c),
-        radius, inject=True)
+        "K1", lambda r, c, f: shot_binning_histogram(vals, dist_inf, kp, f, r, violations=c),
+        lambda r, c, f: shot_binning_histogram_plain(vals, dist_inf, kp, f, r, violations=c),
+        radius, rfs_p, inject=True)
     ms = cuda_ms(lambda: shot_binning_histogram(vals, dist_inf, kp, None, radius))
     alone = kernel_ms(lambda: shot_binning_histogram(vals, dist_inf, kp, None, radius),
                       K1_KERNEL)
@@ -679,7 +718,7 @@ def parity_k1(terrain: ShotTerrain, other=None):
         bits_against("K1", other, {
             "own frames": lambda: shot_binning_histogram(vals, dist_inf, kp, None, radius),
             "given frames": lambda: (shot_binning_histogram(vals, dist_inf, kp, rfs_p, radius),),
-            "bi-scale": lambda: shot_binning_histogram(*args, **rf)})
+            "bi-scale": lambda: shot_binning_histogram(*args, **rf)}, K1_KERNEL)
     return dict(max_abs_err=max(st[1] for st in stats.values()), ms=ms, plain_ms=plain_ms,
                 library_ms=None, **b)
 
@@ -736,12 +775,13 @@ def parity_k5(terrain: ShotTerrain, other=None):
     given_p = shot_descriptor_dma_plain(grid, kp, radius, rfs=results["own"][1], **raw)[0]
     stats["given"] = flip_rule(given, given_p, "K5 given frames")
     # K5 bins only the rows its radius holds, so every weight sum it bins
-    # is sound: its counter is held at 0 against the twin's
+    # under real frames is sound: its counter is held at 0 against the
+    # twin's there, and to the twin's under planted-NaN frames
     own_rfs = results["own"][1]
     debug_counter_parity(
-        "K5", lambda r, c: shot_descriptor_dma(grid, kp, r, rfs=own_rfs, violations=c, **raw),
-        lambda r, c: shot_descriptor_dma_plain(grid, kp, r, rfs=own_rfs, violations=c, **raw),
-        radius, inject=False)
+        "K5", lambda r, c, f: shot_descriptor_dma(grid, kp, r, rfs=f, violations=c, **raw)[0],
+        lambda r, c, f: shot_descriptor_dma_plain(grid, kp, r, rfs=f, violations=c, **raw)[0],
+        radius, own_rfs, inject=False)
 
     # against the K1 window route, on the keypoints whose neighbor sets the
     # two radius rules agree on (both planes in bi-scale mode)
@@ -770,7 +810,8 @@ def parity_k5(terrain: ShotTerrain, other=None):
             "given frames": lambda: shot_descriptor_dma(terrain.grid, kp, terrain.radius,
                                                         rfs=own_rfs, **raw),
             "bi-scale": lambda: shot_descriptor_dma(terrain.bi_grid, kp, terrain.bi_radius,
-                                                    rf_radius=terrain.rf_radius, **raw)})
+                                                    rf_radius=terrain.rf_radius, **raw)},
+            K5_KERNEL)
 
     grid, radius = terrain.bi_grid, terrain.bi_radius
     rf = dict(rf_radius=terrain.rf_radius)
@@ -1237,6 +1278,15 @@ def _profiled(fn, out_dir: Path):
     return result, wall, busy_us / 1e6, kernels
 
 
+def moved_scan(path: Path) -> np.ndarray:
+    """The scan's points of an aligned ``.ply`` the CLI wrote."""
+    from shot_fpfh_tpu_torch.io.ply import read_ply
+
+    data = read_ply(str(path))
+    is_scan = data["is_scan"] > 0
+    return np.stack([data[c][is_scan] for c in "xyz"], axis=1)
+
+
 class SmokePair:
     """The 100k-point terrain pair (scan = known rigid motion of ref +
     noise) on disk, and the CLI runs over it."""
@@ -1264,18 +1314,16 @@ class SmokePair:
             "--neighborhood_size", str(KEYPOINT_VOXEL), "--min_n_neighbors", "5",
             "--radius", "0.9"]
 
-    def errors(self) -> tuple[float, float]:
-        """(rotation, translation) error of the written post-ICP alignment
-        against the ground truth (scan -> ref: the inverse motion)."""
+    def errors(self, out: Path = WORK / "out") -> tuple[float, float]:
+        """(rotation, translation) error of the post-ICP alignment written
+        to ``out`` against the ground truth (scan -> ref: the inverse
+        motion)."""
         import torch
 
         from shot_fpfh_tpu_torch.core.solvers import solve_point_to_point
         from shot_fpfh_tpu_torch.core.transform import rotation_angle
-        from shot_fpfh_tpu_torch.io.ply import read_ply
 
-        data = read_ply(str(WORK / "out" / "scan_on_ref_post_icp.ply"))
-        is_scan = data["is_scan"] > 0
-        moved = np.stack([data[c][is_scan] for c in "xyz"], axis=1)
+        moved = moved_scan(out / "scan_on_ref_post_icp.ply")
         got = solve_point_to_point(torch.tensor(self.scan, dtype=torch.float64),
                                    torch.tensor(moved, dtype=torch.float64))
         rot_err = float(rotation_angle(got.rotation, torch.tensor(self.rot.T)))
@@ -1834,6 +1882,327 @@ def phase_library_rest(pair: SmokePair, dev) -> str:
             f"the profiler's events and in the chrome trace ({trace.stat().st_size} bytes)")
 
 
+# phase 14, part 2: the port's CLI on two ranks sharing the one card (gloo;
+# NCCL refuses two ranks on one device), SHOT (a cold run first) and FPFH;
+# each rank writes its record to a JSON file
+MESH_RANKS = 2
+MESH_WORKER = r"""
+import json, sys, time
+import torch
+rank, store, root, spec = int(sys.argv[1]), sys.argv[2], sys.argv[3], json.loads(sys.argv[4])
+sys.path.insert(0, root)
+from shot_fpfh_tpu_torch import _kernels, cli
+from shot_fpfh_tpu_torch.parallel import make_mesh
+mesh = make_mesh(device="cuda", init_method="file://" + store, rank=rank, world_size=2,
+                 timeout=600)
+out = {"backend": mesh.backend, "device": str(mesh.device)}
+for label, argv in spec["runs"]:
+    tag = f"{spec['work']}/mesh2_{label}_rank{rank}"
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = cli.main(argv + ["--n_devices", "2", "--output_dir", tag, "--metrics_json", tag + ".json"])
+    torch.cuda.synchronize()
+    out[label] = {"rc": rc, "wall": time.perf_counter() - t0,
+                  "launches": dict(_kernels.launch_counts)}
+with open(f"{spec['work']}/mesh2_rank{rank}.json", "w") as f:
+    json.dump(out, f)
+"""
+# the 1-rank stages against one device: reductions (RANSAC's transform, ICP)
+# within MESH_SUM_ATOL, everything per row equal
+MESH_SUM_ATOL = 1e-5
+# two ranks against one: the moved scan within 1e-3 (JAX
+# tests/test_mesh_pipeline.py::test_cli_n_devices_same_transform)
+MESH_MOVED_ATOL = 1e-3
+
+
+def _stage(fn):
+    """``fn()``'s result, its CUDA-event milliseconds and the kernel
+    launches it made (counts set to 0 just before, read just after)."""
+    import torch
+
+    from shot_fpfh_tpu_torch import _kernels
+
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end), {k: v for k, v in _kernels.launch_counts.items() if v}
+
+
+def _all_equal(got, want) -> bool:
+    import torch
+
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    want = want if isinstance(want, (tuple, list)) else (want,)
+    return all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def _all_close(got, want):
+    """True when every pair is within MESH_SUM_ATOL, else the differences."""
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    want = want if isinstance(want, (tuple, list)) else (want,)
+    diffs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+    return True if max(diffs) <= MESH_SUM_ATOL else diffs
+
+
+def phase_mesh_one_rank(pair: SmokePair) -> dict:
+    """Phase 14, part 1: a 1-rank NCCL group in this process; every sharded
+    stage at the smoke pair's shapes held to the single-device port on the
+    same inputs: equal (``torch.equal``) per row (normals, SHOT in its three
+    modes on both routes, FPFH on both routes, the ring's top-2, multiscale
+    matching; SHOT's scale 2 on the brute route, whose histogram sums in no
+    fixed order, within MESH_SUM_ATOL), RANSAC's count equal and its
+    transform and ICP's within MESH_SUM_ATOL.  Each stage's CUDA-event time and launches (and the
+    single-device call's time) are printed; returns the launches summed
+    over the sharded stages."""
+    import torch
+    import torch.distributed as dist
+
+    from shot_fpfh_tpu_torch.core.subsampling import grid_subsample
+    from shot_fpfh_tpu_torch.core.transform import rotation_angle
+    from shot_fpfh_tpu_torch.keypoints import select_keypoints_with_density_threshold
+    from shot_fpfh_tpu_torch.models.fpfh import compute_fpfh_descriptor
+    from shot_fpfh_tpu_torch.models.normals import compute_normals
+    from shot_fpfh_tpu_torch.models.shot import ShotComputer, compute_shot_descriptor
+    from shot_fpfh_tpu_torch.ops.grid_hash import build_grid
+    from shot_fpfh_tpu_torch.ops.shot_dma import set_dma_kernel
+    from shot_fpfh_tpu_torch.parallel import make_mesh, sharded
+    from shot_fpfh_tpu_torch.parallel.mesh import all_reduce_sum
+    from shot_fpfh_tpu_torch.registration import icp, matching, ransac
+
+    store = WORK / "nccl_store"
+    store.unlink(missing_ok=True)
+    mesh = make_mesh(device="cuda", init_method=f"file://{store}", rank=0, world_size=1,
+                     timeout=300)
+    check(dist.get_backend() == "nccl" and mesh.backend == "nccl" and mesh.size == 1,
+          f"phase 14: a 1-rank group on {dist.get_backend()}, mesh {mesh}")
+    dev = mesh.device
+    # NCCL sets its communicator up at the first collective: once, here
+    _, setup_ms, _ = _stage(lambda: all_reduce_sum(torch.zeros(1, device=dev), mesh))
+    total, lines = {}, []
+
+    def stage(label, sharded_fn, single_fn, compare=_all_equal):
+        got, ms, launches = _stage(sharded_fn)
+        want, single_ms, _ = _stage(single_fn)
+        ok = compare(got, want)
+        check(ok is True, f"phase 14 {label}: the 1-rank mesh differs from one device ({ok})")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        lines.append(f"{label} {ms:.3f} ms (one device {single_ms:.3f}), launches {launches}")
+        return got
+
+    ref, scan = (torch.as_tensor(c, device=dev) for c in (pair.ref, pair.scan))
+    ref_n = stage(f"normals k=30 ({ref.shape[0]} points)",
+                  lambda: sharded.sharded_normals(ref, ref, mesh, k=30),
+                  lambda: compute_normals(ref, ref, k=30, device=dev))
+    scan_n = compute_normals(scan, scan, k=30, device=dev)
+    kp, sup, shot = {}, {}, {}
+    for side, cloud, nrm in (("scan", scan, scan_n), ("ref", ref, ref_n)):
+        kp[side] = select_keypoints_with_density_threshold(cloud, KEYPOINT_VOXEL, 5, device=dev)
+        sup[side] = [(cloud[i], nrm[i]) for i in (
+            torch.as_tensor(grid_subsample(cloud, r / 10), device=dev) for r in (0.9, 0.9 * PHI))]
+    kp_ref = ref[torch.as_tensor(kp["ref"], device=dev)]
+    kp_scan = scan[torch.as_tensor(kp["scan"], device=dev)]
+    shot_kw = dict(k_max=512, min_neighborhood_size=100)
+    single = ShotComputer(pad_queries_to=1, device=dev, **shot_kw)
+    for route in ("window", "runs"):
+        set_dma_kernel(route == "runs")
+        try:
+            (s_pts, s_nrm), (s2_pts, s2_nrm) = sup["ref"]
+            own = stage(f"SHOT {route} route, own frames",
+                        lambda: sharded.sharded_shot_descriptors(
+                            kp_ref, s_pts, s_nrm, 0.9, mesh, return_rfs=True, **shot_kw),
+                        lambda: compute_shot_descriptor(kp_ref, s_pts, s_nrm, 0.9, **shot_kw))
+            stage(f"SHOT {route} route, bi-scale",
+                  lambda: sharded.sharded_shot_descriptors(
+                      kp_ref, s_pts, s_nrm, 0.9 * PHI, mesh, rf_radius=0.9, **shot_kw),
+                  lambda: single.compute_descriptor_bi_scale(s_pts, s_nrm, kp_ref, 0.9,
+                                                             0.9 * PHI))
+            # scale 2's support (under 20k points) takes the brute route, whose
+            # histogram is PyTorch's index_add_: float atomics on the card, in
+            # no fixed order, so two runs of one device part in the last bits
+            shared = stage(f"SHOT {route} route, shared frames (scale 2, brute route)",
+                           lambda: sharded.sharded_shot_descriptors(
+                               kp_ref, s2_pts, s2_nrm, 0.9 * PHI, mesh, shared_rfs=own[1],
+                               **shot_kw),
+                           lambda: compute_shot_descriptor(kp_ref, s2_pts, s2_nrm, 0.9 * PHI,
+                                                           local_rfs=own[1], **shot_kw)[0],
+                           _all_close)
+            if route == "window":
+                shot["ref"] = (own[0], shared)
+        finally:
+            set_dma_kernel(False)
+    (s_pts, s_nrm), (s2_pts, s2_nrm) = sup["scan"]
+    scan_desc, scan_rfs = compute_shot_descriptor(kp_scan, s_pts, s_nrm, 0.9, **shot_kw)
+    shot["scan"] = (scan_desc, compute_shot_descriptor(kp_scan, s2_pts, s2_nrm, 0.9 * PHI,
+                                                       local_rfs=scan_rfs, **shot_kw)[0])
+    kp_idx = torch.as_tensor(kp["ref"], device=dev)
+    for route in ("window", "runs"):
+        set_dma_kernel(route == "runs")
+        try:
+            stage(f"FPFH {route} route",
+                  lambda: sharded.sharded_fpfh(kp_idx, ref, ref_n, FPFH_RADIUS, mesh),
+                  lambda: compute_fpfh_descriptor(kp_idx, ref, ref_n, FPFH_RADIUS, device=dev))
+        finally:
+            set_dma_kernel(False)
+
+    a_nz = torch.nonzero((shot["scan"][0] != 0).any(1))[:, 0]
+    b_nz = torch.nonzero((shot["ref"][0] != 0).any(1))[:, 0]
+    a, b = shot["scan"][0][a_nz], shot["ref"][0][b_nz]
+    ring = stage(f"ring_match {a.shape[0]} x {b.shape[0]} x {a.shape[1]}",
+                 lambda: tuple(sharded.ring_match(a, b, mesh)),
+                 lambda: matching.top2_descriptor(
+                     a, b, torch.ones(b.shape[0], dtype=torch.bool, device=dev)))
+    scan_ms, ref_ms = (torch.stack(shot[side]) for side in ("scan", "ref"))
+    for recip in (False, True):
+        stage(f"multiscale match (2, {scan_ms.shape[1]} | {ref_ms.shape[1]}, 352), "
+              f"reciprocal {recip}",
+              lambda: sharded.sharded_multiscale_match(scan_ms, ref_ms, mesh,
+                                                       filter_nonreciprocal=recip),
+              lambda: matching.multiscale_top1(scan_ms, ref_ms, filter_nonreciprocal=recip))
+    scan_m = kp_scan[a_nz]
+    ref_m = kp_ref[b_nz[ring[0]]]
+    draws = ransac.sample_draws(scan_m.shape[0], 10_000, 4, torch.Generator().manual_seed(72))
+
+    def ransac_close(got, want):
+        count = round(float(got[0]) * scan_m.shape[0]) == round(float(want[0]) * scan_m.shape[0])
+        return count and _all_close((got[1].rotation, got[1].translation),
+                                    (want[1].rotation, want[1].translation))
+
+    ransac_out = stage(
+        f"RANSAC {scan_m.shape[0]} matches x 10000 given draws",
+        lambda: sharded.sharded_ransac(scan_m, ref_m, None, mesh, draws=draws,
+                                       distance_threshold=1.0),
+        lambda: ransac.ransac_on_matches(scan_m, ref_m, draws=draws, distance_threshold=1.0),
+        ransac_close)
+    scan_sub = scan[torch.as_tensor(grid_subsample(scan, ICP_VOXEL), device=dev)]
+    init = ransac_out[1]
+
+    def icp_close(got, want):
+        return got[3] == int(want.n_iters) and _all_close(
+            (got[0].rotation, got[0].translation, torch.tensor(got[1])),
+            (want.transform.rotation, want.transform.translation, want.rms.cpu()))
+
+    tf, rms, conv, n_iters = stage(
+        f"ICP point-to-plane, {scan_sub.shape[0]} points, K7 on the ref's grid",
+        lambda: sharded.sharded_icp(scan_sub, ref, ref_n, init, mesh, d_max=ICP_D_MAX,
+                                    max_iter=50, rms_threshold=1e-3),
+        lambda: icp.icp_loop(scan_sub, ref, ref_n, init, ICP_D_MAX, 50, 1e-3,
+                             grid=build_grid(ref, ICP_D_MAX)),
+        icp_close)
+    rot_err = float(rotation_angle(tf.rotation.double().cpu(), torch.tensor(pair.rot.T)))
+    t_err = float(np.linalg.norm(tf.translation.double().cpu().numpy()
+                                 - (-pair.rot.T @ pair.trans)))
+    check(rot_err < MAIN_ROT_TOL and t_err < MAIN_T_TOL,
+          f"phase 14 1-rank ICP: rotation error {rot_err}, translation error {t_err}")
+    for name in ("shot_binning_histogram", "shot_runs", "top2_match", "radius_pca",
+                 "spfh_histogram", "spfh_runs", "radius_dist", "fetch_windows"):
+        check(total.get(name, 0) > 0, f"phase 14: the 1-rank stages never launched {name}")
+    dist.destroy_process_group()
+    print(f"phase 14 mesh, 1-rank NCCL group ({mesh.device}, first collective "
+          f"{setup_ms:.1f} ms): every per-row stage equal to "
+          f"one device (scale 2's brute-route SHOT, RANSAC and ICP within {MESH_SUM_ATOL}); "
+          f"ICP {n_iters} iterations, "
+          f"rotation error {rot_err:.2e} rad, translation error {t_err:.2e}; stages: "
+          + "; ".join(lines), flush=True)
+    return total
+
+
+def phase_mesh_two_ranks(pair: SmokePair) -> dict:
+    """Phase 14, part 2: the port's ``cli.main --n_devices 2`` in two
+    processes sharing the one card over gloo, on the smoke pair with
+    ``config/default.yaml`` (SHOT: a cold run, then a measured one) and
+    with ``--descriptor_choice fpfh``.  Each run accepted within the main
+    path's bounds, its moved scan within MESH_MOVED_ATOL of one device's,
+    only rank 0 writing, and each rank launching K1, K2, K3 and K7 (FPFH:
+    K4 or K6 for K1).  Returns rank 0's launches of each measured run."""
+    import os
+
+    import torch
+
+    from shot_fpfh_tpu_torch import cli
+
+    fpfh = ["--descriptor_choice", "fpfh", "--radius", str(FPFH_RADIUS)]
+    runs = [("shot_cold", []), ("shot", []), ("fpfh", fpfh)]
+    base = [a for a in pair.argv]
+    for flag in ("--output_dir", "--metrics_json"):     # each rank gets its own
+        i = base.index(flag)
+        del base[i:i + 2]
+    singles = {}
+    for label, extra in runs[1:]:
+        out = WORK / f"mesh1_{label}"
+        check(cli.main(base + extra + ["--n_devices", "1", "--output_dir", str(out)]) == 0,
+              f"phase 14 one device, {label}: registration rejected")
+        torch.cuda.synchronize()
+        singles[label] = moved_scan(out / "scan_on_ref_post_icp.ply")
+    store = WORK / "gloo_store"
+    store.unlink(missing_ok=True)
+    spec = json.dumps({"work": str(WORK), "runs": [(lbl, base + ex) for lbl, ex in runs]})
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "MASTER_ADDR",
+                        "MASTER_PORT")}
+    logs = [open(WORK / f"mesh2_rank{r}.log", "w") for r in range(MESH_RANKS)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", MESH_WORKER, str(r), str(store), str(ROOT),
+                               spec], env=env, stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(MESH_RANKS)]
+    try:
+        codes = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    elapsed = time.perf_counter() - t0
+    for r, code in enumerate(codes):
+        tail = (WORK / f"mesh2_rank{r}.log").read_text()[-3000:]
+        check(code == 0, f"phase 14 two ranks: rank {r} exited {code}:\n{tail}")
+    ranks = [json.loads((WORK / f"mesh2_rank{r}.json").read_text()) for r in range(MESH_RANKS)]
+    check(all(r["backend"] == "gloo" for r in ranks),
+          f"phase 14 two ranks: backends {[r['backend'] for r in ranks]}")
+    needs = {"shot": ("shot_binning_histogram", "top2_match", "radius_pca", "radius_dist"),
+             "fpfh": ("top2_match", "radius_pca", "radius_dist")}
+    parts, launches = [], {}
+    for label in ("shot", "fpfh"):
+        for r, rec in enumerate(ranks):
+            run = rec[label]
+            check(run["rc"] == 0, f"phase 14 two ranks, {label}: rank {r} rejected")
+            for name in needs[label]:
+                check(run["launches"][name] > 0, f"phase 14 two ranks, {label}: rank {r} "
+                      f"never launched {name}")
+            if label == "fpfh":
+                check(run["launches"]["spfh_histogram"] + run["launches"]["spfh_runs"] > 0,
+                      f"phase 14 two ranks, fpfh: rank {r} launched neither K4 nor K6")
+        out = WORK / f"mesh2_{label}_rank0"
+        check(not (WORK / f"mesh2_{label}_rank1").exists(),
+              f"phase 14 two ranks, {label}: rank 1 wrote outputs")
+        rot_err, t_err = pair.errors(out)
+        check(rot_err < MAIN_ROT_TOL and t_err < MAIN_T_TOL,
+              f"phase 14 two ranks, {label}: rotation error {rot_err}, translation {t_err}")
+        moved_err = float(np.abs(moved_scan(out / "scan_on_ref_post_icp.ply")
+                                 - singles[label]).max())
+        check(moved_err < MESH_MOVED_ATOL,
+              f"phase 14 two ranks, {label}: moved scan {moved_err} from one device's")
+        launches[label] = ranks[0][label]["launches"]
+        stages = json.loads((WORK / f"mesh2_{label}_rank0.json").read_text())["stages"]
+        parts.append(
+            f"{label}: accepted, rotation error {rot_err:.2e} rad, translation error "
+            f"{t_err:.2e}, moved scan within {moved_err:.2e} of one device's; wall (rank 0, "
+            f"rank 1) {ranks[0][label]['wall']:.3f}, {ranks[1][label]['wall']:.3f} s; "
+            "stages " + ", ".join(f"{s['stage']} {s['seconds']:.3f} s" for s in stages)
+            + "; launches by rank "
+            + str([{k: v for k, v in rec[label]['launches'].items() if v} for rec in ranks]))
+    print(f"phase 14 mesh, two ranks sharing one card over gloo (not a scaling number; "
+          f"cold SHOT run {ranks[0]['shot_cold']['wall']:.3f} s, processes "
+          f"{elapsed:.1f} s in all): " + "; ".join(parts), flush=True)
+    return {"mesh 2-rank SHOT": launches["shot"], "mesh 2-rank FPFH": launches["fpfh"]}
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -1843,7 +2212,8 @@ def main(argv=None) -> int:
                              "op table and a chrome trace to DIR")
     parser.add_argument("--bits-against", type=Path, default=None, metavar="LIB",
                         help="hold K1's and K5's phase-3 outputs equal, bit for bit, to those "
-                             "of the kernel library LIB (another build of csrc/)")
+                             "of the kernel library LIB (another build of csrc/), and time "
+                             "each alone under both builds in turns")
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1897,6 +2267,8 @@ def main(argv=None) -> int:
     print(phase_multiscale_top1(dev), flush=True)
     paths.update(phase_debug_paths(pair, shot))
     print(phase_library_rest(pair, dev), flush=True)
+    paths["mesh 1-rank"] = phase_mesh_one_rank(pair)
+    paths.update(phase_mesh_two_ranks(pair))
     # kernel -> (source, TPU kernel it replaces, parity and timings, the
     # path whose launches the line reports)
     results = {
@@ -1922,7 +2294,7 @@ def main(argv=None) -> int:
          "launches": paths[path][name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"],
-         "launches_by_path": {p: counts[name] for p, counts in paths.items()}}
+         "launches_by_path": {p: counts.get(name, 0) for p, counts in paths.items()}}
         for name, (src, rep, r, path) in results.items()]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

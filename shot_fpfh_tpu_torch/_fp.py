@@ -9,6 +9,15 @@ evaluates the same chain, correctly rounded like the hardware ``fmaf`` of
 the CUDA kernels, so a kernel and its plain twin agree bit for bit.
 :func:`div` keeps cell and bin indices exact the same way, and :func:`sqrt`
 the distances taken from those squares.
+
+On the CPU, PyTorch evaluates a float32 ``atan2``, ``acos``, ``cos``,
+``sin`` or ``pow`` with a vectorized approximation in the body of a tensor
+and with the C library in its last few elements, which can part by one ulp:
+a row's result then depends on where the row sits in its batch, and a shard
+of the rows would not equal the whole.  :func:`atan2`, :func:`acos`,
+:func:`cos`, :func:`sin` and :func:`pow` take them in float64 on the CPU and
+round once to float32, which gives both code paths the same float32 result;
+on the card the float32 functions are used as they are.
 """
 
 from __future__ import annotations
@@ -57,3 +66,35 @@ def sqrt(x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return torch.sqrt(x.double()).to(x.dtype)
     return torch.sqrt(x)
+
+
+def _f64_on_cpu(fn, *args: torch.Tensor) -> torch.Tensor:
+    if args[0].device.type == "cpu":
+        return fn(*(a.double() if isinstance(a, torch.Tensor) else a
+                    for a in args)).to(args[0].dtype)
+    return fn(*args)
+
+
+def atan2(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``atan2(y, x)``, the same for a row wherever it sits in the tensor."""
+    return _f64_on_cpu(torch.atan2, y, x)
+
+
+def acos(x: torch.Tensor) -> torch.Tensor:
+    """``acos(x)``, the same for a row wherever it sits in the tensor."""
+    return _f64_on_cpu(torch.acos, x)
+
+
+def cos(x: torch.Tensor) -> torch.Tensor:
+    """``cos(x)``, the same for a row wherever it sits in the tensor."""
+    return _f64_on_cpu(torch.cos, x)
+
+
+def sin(x: torch.Tensor) -> torch.Tensor:
+    """``sin(x)``, the same for a row wherever it sits in the tensor."""
+    return _f64_on_cpu(torch.sin, x)
+
+
+def pow(x: torch.Tensor, e) -> torch.Tensor:
+    """``x ** e``, the same for a row wherever it sits in the tensor."""
+    return _f64_on_cpu(torch.pow, x, e)

@@ -17,18 +17,26 @@ covers the config, and otherwise warns and stages.  ``--debug_shot`` turns
 on the SHOT binning sanity checks (``models.shot.enable_debug_checks``) and
 ``--debug_nans`` runs the registration under a NaN check
 (``utils.debug_nans.NanCheck``, stricter than ``jax_debug_nans``: every op
-is checked); both are off again when ``main`` returns or raises.  More
-than one device is not ported yet and raises ``NotImplementedError``
-naming its ROADMAP.md item; the
-reference's ``--mesh_axis``, its second names of flags (``--n_procs``,
-``--normals_computation_k``) and its no-op ``--disable_progress_bars`` are
-not accepted.  Exit code 0 means the registration was accepted.
+is checked); both are off again when ``main`` returns or raises.
+``--n_devices`` (or the reference's ``--n_procs``) other than 1 builds a
+mesh over the ranks of the launch (``parallel.make_mesh``; ``--mesh_axis``
+must be ``points``): under ``torchrun --nproc_per_node N ... --n_devices N``
+normals, descriptors, matching, RANSAC and ICP shard over the N ranks,
+every rank logs the same result and rank 0 alone writes the outputs; in a
+single process the mesh has one rank and the stages run on one device;
+in a launch of more than one rank, ``--n_devices 1`` raises ``ValueError``.
+``--fused`` in a launch of more than one rank is not ported yet and raises
+``NotImplementedError`` (ROADMAP.md, Queue 1, item 14, step 4).
+``--normals_computation_k`` is a second name of ``--normals_k`` and
+``--disable_progress_bars`` does nothing, as in the reference.  Exit code 0
+means the registration was accepted.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import hashlib
 import json
 import logging
@@ -42,7 +50,10 @@ from .io.ground_truth import get_transform_from_conf_file
 from .io.ply import get_data
 from .models.normals import compute_normals
 from .models.shot import debug_violation_count, enable_debug_checks
+from .parallel import make_mesh
+from .parallel.mesh import launch_size
 from .pipeline import RegistrationPipeline
+from .registration.fused import MESH_REFUSAL
 from .utils.debug_nans import NanCheck
 from .utils.perf import checkpoint
 
@@ -111,27 +122,39 @@ def parse_args(argv=None) -> argparse.Namespace:
                          help="torch device the stages run on (cuda, cuda:N or cpu)")
     compute.add_argument("--k_max_descriptor", type=int, default=None)
     compute.add_argument("--k_max_fpfh", type=int, default=None)
-    compute.add_argument("--normals_k", type=int, default=None,
-                         help="Number of neighbors used to compute normals.")
+    compute.add_argument("--normals_k", "--normals_computation_k", type=int, default=None,
+                         dest="normals_k",
+                         help="Number of neighbors used to compute normals (reference "
+                              "name: --normals_computation_k).")
     compute.add_argument("--share_local_rfs", action=argparse.BooleanOptionalAction,
                          default=None,
                          help="Share the first scale's local reference frames across "
                               "multiscale SHOT scales (config default: true).")
+    compute.add_argument("--disable_progress_bars", action="store_true",
+                         help="Reference-compatibility no-op: the stages have no "
+                              "progress bars.")
     compute.add_argument("--state_cache", type=str, default=None,
                          help="npz path: save/resume keypoints+descriptors+matches")
     compute.add_argument("--fused", action="store_const", const=True, default=None)
     compute.add_argument("--debug_nans", action="store_const", const=True, default=None)
     compute.add_argument("--debug_shot", action="store_const", const=True, default=None)
     compute.add_argument("--n_devices", type=int, default=None,
-                         help="0 or 1: one device (more are not ported yet)")
+                         help="Ranks of the 1-D mesh the stages shard over (0 = every "
+                              "rank of the launch, 1 = one device); launch N ranks with "
+                              "torchrun --nproc_per_node N.")
+    compute.add_argument("--n_procs", type=int, default=None, dest="n_devices",
+                         help="Reference-compatibility alias for --n_devices.")
+    compute.add_argument("--mesh_axis", type=str, default=None,
+                         help="Name of the mesh axis; must be 'points' (any other value "
+                              "is rejected when the mesh is built).")
     return parser.parse_args(argv)
 
 
 def _check_supported(compute_cfg) -> None:
-    if compute_cfg.n_devices not in (0, 1):
-        raise NotImplementedError(
-            "--n_devices > 1 is not ported yet (ROADMAP.md, Queue 1, item 14: "
-            "multi-GPU)")
+    # refused before any stage runs: with --n_devices 0 a launch of several
+    # ranks is a mesh too
+    if compute_cfg.fused and (compute_cfg.n_devices not in (0, 1) or launch_size() > 1):
+        raise NotImplementedError(MESH_REFUSAL)
 
 
 def _fused_refusal(kp_cfg, desc_cfg, match_cfg, compute_cfg) -> str | None:
@@ -194,7 +217,7 @@ def _run_staged(args, pipeline, config, exact_transform, timer):
         normalize=desc_cfg.normalize, share_local_rfs=desc_cfg.share_local_rfs,
         min_neighborhood_size=desc_cfg.min_neighborhood_size)
     timer("Descriptors")
-    if compute_cfg.state_cache and not state_resumed:
+    if compute_cfg.state_cache and not state_resumed and _writes(pipeline.mesh):
         pipeline.save_state(compute_cfg.state_cache, config_key=state_key)
         logger.info("Saved intermediate state to %s", compute_cfg.state_cache)
 
@@ -246,19 +269,43 @@ def _end_debug_shot() -> None:
     enable_debug_checks(False)
 
 
+def _writes(mesh) -> bool:
+    """Whether this process writes the outputs: rank 0 of the mesh, or the
+    only process."""
+    return mesh is None or mesh.rank == 0
+
+
+def _build_mesh(compute_cfg, device: str):
+    """The mesh the stages shard over (JAX ``cli.py:157-170``): none for
+    ``--n_devices 1``; a mesh of one rank degenerates to one device."""
+    if compute_cfg.n_devices == 1:
+        if launch_size() > 1:    # every rank would register alone and write the outputs
+            raise ValueError(f"--n_devices 1 in a launch of {launch_size()} ranks: launch "
+                             "one process, or pass --n_devices 0 to shard over the launch")
+        return None
+    mesh = make_mesh(compute_cfg.n_devices, axis=compute_cfg.mesh_axis, device=device)
+    if mesh.devices.size <= 1:
+        return None
+    logger.info("Sharding pipeline stages over a %d-rank mesh (axis %r, backend %s), "
+                "rank %d on %s.", mesh.devices.size, mesh.axis, mesh.backend, mesh.rank,
+                mesh.device)
+    return mesh
+
+
+def _normals(query_points, cloud_points, *, device, mesh, **kwargs):
+    return compute_normals(query_points, cloud_points, mesh=mesh, device=device,
+                           **kwargs).cpu().numpy()
+
+
 def _register(args, config) -> int:
     """Load, register and write out the pair of ``args`` under ``config``;
     0 when the registration is accepted."""
     compute_cfg = config["compute"]
-    device = torch.device(args.device)
+    mesh = _build_mesh(compute_cfg, args.device)
+    device = mesh.device if mesh is not None else torch.device(args.device)
     timer = checkpoint()
 
-    def normals_callback(query_points, cloud_points, *, k=None, radius=None,
-                         pre_computed_normals=None):
-        return compute_normals(query_points, cloud_points, k=k, radius=radius,
-                               pre_computed_normals=pre_computed_normals,
-                               device=device).cpu().numpy()
-
+    normals_callback = functools.partial(_normals, device=device, mesh=mesh)
     scan, scan_normals = get_data(args.scan_file_path, k=compute_cfg.normals_k,
                                   normals_computation_callback=normals_callback)
     ref, ref_normals = get_data(args.ref_file_path, k=compute_cfg.normals_k,
@@ -276,7 +323,7 @@ def _register(args, config) -> int:
     pipeline = RegistrationPipeline(
         scan=scan, scan_normals=scan_normals, ref=ref, ref_normals=ref_normals,
         k_max_descriptor=compute_cfg.k_max_descriptor, k_max_fpfh=compute_cfg.k_max_fpfh,
-        device=device)
+        device=device, mesh=mesh)
     kp_cfg, desc_cfg = config["keypoint_selection"], config["descriptor"]
     match_cfg, ransac_cfg, icp_cfg = config["matching"], config["ransac"], config["icp"]
 
@@ -323,7 +370,7 @@ def _register(args, config) -> int:
                 overlap * 100, kp_inliers * 100, "ACCEPTED" if accepted else "REJECTED")
     timer("Metrics")
 
-    if not args.disable_ply_writing:
+    if not args.disable_ply_writing and _writes(pipeline.mesh):
         os.makedirs(args.output_dir, exist_ok=True)
         scan_name = Path(args.scan_file_path).stem
         ref_name = Path(args.ref_file_path).stem
@@ -332,7 +379,7 @@ def _register(args, config) -> int:
             (f"{args.output_dir}/{scan_name}_on_{ref_name}_post_icp.ply", transform_icp))
         timer("Writing outputs")
 
-    if args.metrics_json:
+    if args.metrics_json and _writes(pipeline.mesh):
         with open(args.metrics_json, "w") as f:
             json.dump(pipeline.metrics.summary(), f, indent=2)
     return 0 if accepted else 1

@@ -169,8 +169,8 @@ class ComputeConfig(Config):
     k_max_descriptor: int = 512   # neighborhood cap for SHOT/local RFs
     k_max_fpfh: int = 128         # neighborhood cap for SPFH
     normals_k: int = 30           # k-NN size for normal estimation
-    mesh_axis: str = "points"     # mesh axis name of sharded stages (not ported)
-    n_devices: int = 0            # 0 or 1: one device (more are not ported)
+    mesh_axis: str = "points"     # 1-D mesh axis name for sharded stages
+    n_devices: int = 0            # mesh ranks: 0 = every rank of the launch, 1 = one device
     debug_nans: bool = False      # NaN check of every op (debug runs)
     debug_shot: bool = False      # SHOT bin/weight sanity checks (debug runs)
     fused: bool = False           # single-program registration path (one device)

@@ -73,6 +73,12 @@ constexpr float kAzSize = (float)(2.0 * kPiD / 8.0);
 constexpr float kNegPi = (float)(-kPiD);
 
 __device__ __forceinline__ int sgn(float x) { return (x > 0.f) - (x < 0.f); }
+// x clamped to [lo, hi], a NaN kept, as torch.clamp and jnp.clip keep it
+// (fminf/fmaxf return the other operand for a NaN); a finite x gives
+// fminf(fmaxf(x, lo), hi) bit for bit
+__device__ __forceinline__ float clamp_nan(float x, float lo, float hi) {
+  return isnan(x) ? x : fminf(fmaxf(x, lo), hi);
+}
 __device__ __forceinline__ int wrap(int v, int n) {
   v = v < 0 ? v + n : v;
   return v >= n ? v - n : v;
@@ -192,9 +198,9 @@ __device__ __forceinline__ void bin_weights(const Frame& f, float cx, float cy, 
   const float lx = cx * f.x0 + cy * f.x1 + cz * f.x2;
   const float ly = cx * f.y0 + cy * f.y1 + cz * f.y2;
   const float lz = cx * f.z0 + cy * f.z1 + cz * f.z2;
-  const float cosine = fminf(fmaxf(nx * f.z0 + ny * f.z1 + nz * f.z2, -1.f), 1.f);
+  const float cosine = clamp_nan(nx * f.z0 + ny * f.z1 + nz * f.z2, -1.f, 1.f);
   const float theta = atan2f(ly, lx);
-  const float phi = acosf(fminf(fmaxf(lz / rho, -1.f), 1.f));
+  const float phi = acosf(clamp_nan(lz / rho, -1.f, 1.f));
 
   const float cos_pos = (cosine + 1.0f) * 5.5f - 0.5f;
   const int cos_bin = (int)rintf(cos_pos);  // round half to even
@@ -218,11 +224,14 @@ __device__ __forceinline__ void bin_weights(const Frame& f, float cx, float cy, 
   const bool vert_nb_on =
       elev_bin ? (((phi < kHalfPi) && (!at_edge || lz > 0.f)) && phi >= kPi14)
                : (((phi > kHalfPi) || (at_edge && lz <= 0.f)) && phi <= kPi34);
-  const float vert_nb = vert_nb_on ? (elev_bin ? phi - kPi14 : kPi34 - phi) / kHalfPi : 0.f;
+  // the twin's off side is 0 · (phi term), NaN for a NaN phi (a NaN frame or
+  // normal): kept, so the NaN lands in the bins the twin's does
+  const float vert_nb = vert_nb_on ? (elev_bin ? phi - kPi14 : kPi34 - phi) / kHalfPi
+                                   : (isnan(phi) ? phi : 0.f);
   const float vert_cur = 1.0f - fabsf(phi - (phi < kHalfPi ? kPi14 : kPi34)) / kHalfPi;
 
-  const float delta_az = fminf(
-      fmaxf((theta - (kNegPi + (float)az_bin * kAzSize)) / kAzSize - 0.5f, -0.5f), 0.5f);
+  const float delta_az =
+      clamp_nan((theta - (kNegPi + (float)az_bin * kAzSize)) / kAzSize - 0.5f, -0.5f, 0.5f);
   const float abs_az = fabsf(delta_az);
   const int az_nb = wrap(az_bin + sgn(delta_az), 8);
 

@@ -13,20 +13,23 @@ al. 2009):
 Routes, switched at ``ops.grid_hash.AUTO_GRID_MIN_POINTS`` cloud points
 (read at call time):
 
-- small clouds: brute radius search capped at the ``k_max`` nearest
-  (:func:`compute_spfh`), SPFH in PyTorch, aggregation over the same
-  neighborhoods;
+- small clouds: brute radius search capped at the ``k_max`` nearest, SPFH
+  in PyTorch, aggregation over the keypoints' neighborhoods searched the
+  same way;
 - large clouds: a halo-2 grid whose window holds every uncapped radius
   neighborhood; SPFH of every point in grid order through K4
   (``ops.spfh_fused``) or, with the run route on and an xy-row grid, K6
   (``ops.shot_dma``); the aggregation gathers the neighbors' SPFH rows over
   the same windows (plain PyTorch: a gather and a 1/d weighted sum, as the
   reference leaves it to XLA).
+
+Both routes run their passes over blocks of rows (``parallel.mesh``'s
+``local_rows``/``gather_rows``), so ``parallel.sharded_fpfh`` runs this
+code on each rank's block: one device computes the one block of all rows.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from .._device import resolve
@@ -40,15 +43,20 @@ from ..ops.grid_hash import (
     window_distances,
     window_radius_dist,
 )
-from ..ops.neighbors import Neighborhoods, as_f32
-from ..ops.shot_dma import dma_kernel_enabled, spfh_sorted_dma
+from ..ops.neighbors import Neighborhoods, as_f32, radius_search
+from ..ops.shot_dma import dma_kernel_enabled, spfh_block_dma
 from ..ops.spfh_fused import spfh_from_angles, spfh_histogram
+from ..parallel.mesh import gather_rows, local_rows
 
 # queries per streamed SPFH chunk of compute_spfh's grid route: bounds the
 # (chunk, k_max) Darboux intermediates
 _SPFH_CHUNK = 1 << 14
 # gathered neighbor-SPFH elements per aggregation chunk, (C, W, D)
 _AGG_ELEMS = 1 << 26
+# keypoints per aggregation chunk of the brute route
+_KP_CHUNK = 256
+# far sentinel of padded queries: an empty neighborhood, not the origin's
+_FAR = 1.0e6
 
 
 def _use_dma_spfh(grid: HashGrid) -> bool:
@@ -108,15 +116,23 @@ def _spfh_window_block(grid: HashGrid, qc, qn, radius, n_bins: int, decorrelated
     return spfh_histogram(vals, dist_inf, qc, qn, n_bins, decorrelated) / count[:, None]
 
 
+def _spfh_window_rows(grid: HashGrid, qc, qn, radius, n_bins: int, decorrelated: bool,
+                      chunk: int = 8192):
+    """Count-normalized SPFH of the queries ``qc`` (normals ``qn``) over
+    their grid windows (K4), in query chunks, ``(C, D)``."""
+    # contiguous once, so each chunk goes to the kernels without a copy
+    qc, qn = qc.contiguous(), qn.contiguous()
+    return torch.cat([
+        _spfh_window_block(grid, qc[s:s + chunk], qn[s:s + chunk], radius, n_bins,
+                           decorrelated)
+        for s in range(0, qc.shape[0], chunk)])
+
+
 def _spfh_window_sorted(grid: HashGrid, radius, n_bins: int, decorrelated: bool,
                         chunk: int = 8192):
     """SPFH of every cloud point in grid-sorted order, ``(N, D)``."""
-    # contiguous once, so each chunk goes to the kernels without a copy
-    pts, nrm = (grid.packed_sorted[:, i:i + 3].contiguous() for i in (0, 3))
-    return torch.cat([
-        _spfh_window_block(grid, pts[s:s + chunk], nrm[s:s + chunk], radius, n_bins,
-                           decorrelated)
-        for s in range(0, pts.shape[0], chunk)])
+    return _spfh_window_rows(grid, grid.packed_sorted[:, :3], grid.packed_sorted[:, 3:6],
+                             radius, n_bins, decorrelated, chunk)
 
 
 def _fpfh_window_aggregate(grid: HashGrid, spfh_sorted, kp_sorted_idx, radius):
@@ -145,7 +161,7 @@ def _sorted_rows(grid: HashGrid, idx: torch.Tensor) -> torch.Tensor:
 
 
 def _fpfh_aggregate(spfh, nbr_idx, nbr_dist, nbr_mask, keypoint_indices,
-                    kp_chunk: int = 256):
+                    kp_chunk: int = _KP_CHUNK):
     """FPFH(p) = SPFH(p) + (Σ_{j, d>0} SPFH(j)/d_j) / |N(p)| over keypoints."""
     out = []
     for s in range(0, keypoint_indices.shape[0], kp_chunk):
@@ -159,27 +175,60 @@ def _fpfh_aggregate(spfh, nbr_idx, nbr_dist, nbr_mask, keypoint_indices,
     return torch.cat(out) if out else spfh.new_zeros((0, spfh.shape[1]))
 
 
+def _fpfh_searched(spfh, cloud, kp, radius, k_max: int):
+    """FPFH of the keypoints ``kp`` (cloud indices) over their capped radius
+    neighborhoods, searched again (pass 1 searched only this rank's rows)."""
+    nbr = radius_search(cloud[kp], cloud, radius, k_max)
+    m = nbr.mask & (nbr.dist > 0)
+    weights = torch.where(m, 1.0 / torch.where(m, nbr.dist, 1.0), 0.0)
+    acc = torch.einsum("ckd,ck->cd", spfh[nbr.idx], weights)
+    count = torch.clamp(nbr.mask.sum(-1), min=1).to(torch.float32)
+    return spfh[kp] + acc / count[:, None]
+
+
 def compute_fpfh_descriptor(keypoint_indices, cloud_points, normals, radius,
                             n_bins: int = 5, decorrelated: bool = False, k_max: int = 128,
                             mesh=None, device=None) -> torch.Tensor:
     """FPFH of the keypoints (indices into the cloud): ``(n_keypoints,
     n_bins³)``, or ``(n_keypoints, 3·n_bins)`` when decorrelated (reference
     ``compute_fpfh_descriptor``, descriptors/fpfh.py:16-117).  ``k_max`` caps
-    the brute route's neighborhoods; the grid route is uncapped."""
-    if mesh is not None and np.size(getattr(mesh, "devices", mesh)) > 1:
-        raise NotImplementedError(
-            "FPFH over a multi-device mesh is not ported yet (ROADMAP.md, Queue 1, "
-            "item 14: multi-GPU)")
+    the brute route's neighborhoods; the grid route is uncapped.  With a
+    ``mesh`` of more than one rank both passes shard over it
+    (``parallel.sharded.sharded_fpfh``)."""
+    if mesh is not None and mesh.devices.size > 1:
+        from ..parallel.sharded import sharded_fpfh
+
+        return sharded_fpfh(keypoint_indices, cloud_points, normals, radius, mesh,
+                            n_bins=n_bins, k_max=k_max, decorrelated=decorrelated)
     cloud = as_f32(cloud_points, resolve(device, cloud_points))
     nrm = as_f32(normals, cloud.device)
     kp = torch.as_tensor(keypoint_indices).to(device=cloud.device, dtype=torch.int64)
-    n = cloud.shape[0]
+    return _fpfh(cloud, nrm, kp.reshape(-1), radius, n_bins, decorrelated, k_max)
+
+
+def _fpfh(cloud, nrm, kp, radius, n_bins: int, decorrelated: bool, k_max: int, mesh=None):
+    """Both passes on the cloud's route.  With a ``mesh`` each rank runs
+    pass 1 on its block of the cloud's points (pad queries at the far
+    sentinel: empty neighborhoods) and pass 2 on its block of the
+    keypoints; the SPFH table and the FPFH rows are gathered after each."""
+    n, n_kp = cloud.shape[0], kp.shape[0]
     if n >= grid_hash.AUTO_GRID_MIN_POINTS:
         grid = build_grid(cloud, float(radius) / 2, extras=nrm, halo=2)
-        if _use_dma_spfh(grid):
-            spfh_sorted = spfh_sorted_dma(grid, radius, n_bins, decorrelated)
-        else:
-            spfh_sorted = _spfh_window_sorted(grid, radius, n_bins, decorrelated)
-        return _fpfh_window_aggregate(grid, spfh_sorted, _sorted_rows(grid, kp), radius)
-    spfh, nbr = compute_spfh(cloud, nrm, radius, n_bins, k_max, decorrelated)
-    return _fpfh_aggregate(spfh, nbr.idx, nbr.dist, nbr.mask, kp)
+        spfh_rows = spfh_block_dma if _use_dma_spfh(grid) else _spfh_window_rows
+        table = grid.packed_sorted       # pass 1 in the grid's sorted order
+        spfh = spfh_rows(grid, local_rows(table[:, :3], mesh, fill=_FAR),
+                         local_rows(table[:, 3:6], mesh), radius, n_bins, decorrelated)
+        spfh_sorted = gather_rows(spfh, n, mesh)
+        out = _fpfh_window_aggregate(grid, spfh_sorted, local_rows(_sorted_rows(grid, kp), mesh),
+                                     radius)
+        return gather_rows(out, n_kp, mesh)
+    q = local_rows(cloud, mesh, fill=_FAR)
+    nbr, vals = radius_search_with_values_auto(q, cloud, nrm, radius, k_max)
+    spfh = _spfh_from_values(q, local_rows(nrm, mesh), vals[..., :3], vals[..., 3:6], nbr.dist,
+                             nbr.mask, radius, n_bins, decorrelated)
+    spfh = gather_rows(spfh, n, mesh)
+    kp_rows = local_rows(kp, mesh)
+    out = [_fpfh_searched(spfh, cloud, kp_rows[s:s + _KP_CHUNK], radius, k_max)
+           for s in range(0, kp_rows.shape[0], _KP_CHUNK)]
+    out = torch.cat(out) if out else spfh.new_zeros((0, spfh.shape[1]))
+    return gather_rows(out, n_kp, mesh)

@@ -24,6 +24,7 @@ import logging
 
 import torch
 
+from .. import _fp
 from .._device import resolve
 from ..analysis import plot_neighborhood_sizes
 from ..ops.eigh3 import eigh3x3, pca_eigh
@@ -39,6 +40,7 @@ from ..ops.grid_hash import (
 )
 from ..ops.neighbors import Neighborhoods, as_f32, knn, radius_search
 from ..ops.radius_pca import radius_pca
+from ..parallel.mesh import gather_rows, local_rows
 
 logger = logging.getLogger(__name__)
 
@@ -88,22 +90,33 @@ def _knn_target_radii(grid, queries, k, sample, sample_kth):
     margin = torch.exp(torch.quantile(resid, 0.98)) * 1.15
     qs, qe = _zcolumn_runs(grid, queries)
     wcnt = torch.clamp((qe - qs).sum(1).to(torch.float32), min=1.0)
-    r_q = torch.exp(log_a) * margin * wcnt ** (-e_fit)
+    r_q = torch.exp(log_a) * margin * _fp.pow(wcnt, -e_fit)
     return torch.clamp(r_q, r_hat / 8.0, r_hat)
 
 
-def _streaming_knn_normals(q, c, k, pre, sample_size: int = 512):
-    """k-mode normals for large clouds through one streaming covariance
-    pass (K3) with adaptive per-query radii, then the miss net."""
+def _streaming_grid(c, k, sample_size: int = 512):
+    """The streaming route's shared state, from the cloud alone: a sample
+    of it, the sample's k-th neighbor distances, and the grid at their
+    quantized bound."""
     n = c.shape[0]
     stride = max(1, n // sample_size)
     sample = c[::stride][:sample_size]
     kth = kth_distance_bound(sample, c, k)
-    r_hat = quantized_kth_radius(kth.cpu().numpy())
-    grid = build_grid(c, r_hat)
+    return build_grid(c, quantized_kth_radius(kth.cpu().numpy())), sample, kth
+
+
+def _streaming_pass(grid, sample, kth, q, k, pre):
+    """One streaming covariance pass (K3) at each query's adaptive radius:
+    ``(normals, neighbor counts)``, per query."""
     r_q = _knn_target_radii(grid, q, k, sample, kth)
     cov, _, cnt = radius_pca(grid, q, r_q)
-    normals = _normals_from_cov(cov, pre)
+    return _normals_from_cov(cov, pre), cnt
+
+
+def _knn_net(q, c, k, pre, normals, cnt):
+    """The miss net: queries whose radius held fewer than ``k`` neighbors
+    re-solved from their exact k-NN (in ``normals``, which it returns)."""
+    n = c.shape[0]
     miss = torch.nonzero(cnt < min(k, n))[:, 0]
     if miss.numel():
         if miss.numel() > min(_NET_BUCKET, n):
@@ -138,24 +151,50 @@ def _radius_cov(q, c, radius, k_max: int):
 
 def compute_normals(query_points, cloud_points, *, k: int | None = None,
                     radius: float | None = None, pre_computed_normals=None,
-                    k_max: int = 64, device=None) -> torch.Tensor:
+                    k_max: int = 64, mesh=None, device=None) -> torch.Tensor:
     """PCA normals of ``query_points`` from ``cloud_points`` neighborhoods
     (the ``k`` nearest, or every point within ``radius``: capped at the
     ``k_max`` nearest below ``AUTO_GRID_MIN_POINTS`` cloud points),
     sign-aligned to ``pre_computed_normals`` when given.  Returns a
     ``(Q, 3)`` float32 tensor on ``device`` (default: the cloud tensor's
-    device, ``cuda`` for host arrays)."""
+    device, ``cuda`` for host arrays).  With a ``mesh`` of more than one
+    rank the queries shard over it (``parallel.sharded.sharded_normals``)
+    and the result is on the rank's device."""
     if k is None and radius is None:
         raise ValueError("Provide k or radius.")
+    if mesh is not None and mesh.devices.size > 1:
+        from ..parallel.sharded import sharded_normals
+
+        return sharded_normals(query_points, cloud_points, mesh, k=k, radius=radius,
+                               pre_computed_normals=pre_computed_normals, k_max=k_max)
     q, c = _clouds(query_points, cloud_points, device)
     pre = (None if pre_computed_normals is None
            else as_f32(pre_computed_normals, c.device))
+    return _normals(q, c, k, radius, pre, k_max)
+
+
+def _normals(q_all, c, k, radius, pre_all, k_max: int, mesh=None, sample_size: int = 512):
+    """The routes of :func:`compute_normals`: radius normals through K3 from
+    ``AUTO_GRID_MIN_POINTS`` cloud points (else the capped brute search);
+    k-NN normals through one streaming K3 pass at adaptive per-query radii
+    (large clouds; a ``sample_size`` sample and the grid come from the cloud
+    alone), then
+    the miss net, or exact k-NN.  With a ``mesh`` each rank computes its
+    block of the queries and the blocks are gathered; the net then
+    re-solves, on every rank alike, the queries the gathered counts show
+    under-covered."""
+    n_q = q_all.shape[0]
+    q = local_rows(q_all, mesh)
+    pre = None if pre_all is None else local_rows(pre_all, mesh)
     if k is None:
         _, v = _radius_cov(q, c, radius, k_max)
-        return _flip_to(v[..., :, 0], pre)
-    if c.shape[0] >= AUTO_GRID_MIN_POINTS:
-        return _streaming_knn_normals(q, c, k, pre)
-    return _normals_knn(q, c, k, pre)
+        return gather_rows(_flip_to(v[..., :, 0], pre), n_q, mesh)
+    if c.shape[0] < AUTO_GRID_MIN_POINTS:
+        return gather_rows(_normals_knn(q, c, k, pre), n_q, mesh)
+    grid, sample, kth = _streaming_grid(c, k, sample_size)
+    normals, cnt = _streaming_pass(grid, sample, kth, q, k, pre)
+    return _knn_net(q_all, c, k, pre_all, gather_rows(normals, n_q, mesh),
+                    gather_rows(cnt, n_q, mesh))
 
 
 def compute_sphericity(query_points, cloud_points, radius, k_max: int = 64,

@@ -189,19 +189,27 @@ def _shot_window_chunked(grid, kp, local_rfs, radius, normalize,
     return torch.cat(descs), torch.cat(frames)
 
 
-def compute_shot_descriptor(keypoints, support_points, support_normals, radius, *,
-                            k_max: int = 512, normalize: bool = True,
-                            min_neighborhood_size: int = 100, local_rfs=None,
-                            device=None):
-    """Single-scale SHOT of ``keypoints`` on a support cloud; returns
-    ``((Q, 352) descriptors, (Q, 3, 3) frames)``."""
-    sup = as_f32(support_points, resolve(device, support_points))
-    nrm = as_f32(support_normals, sup.device)
-    kp = as_f32(keypoints, sup.device)
-    if sup.shape[0] >= grid_hash.AUTO_GRID_MIN_POINTS:
-        grid = build_grid(sup, float(radius) / 2, extras=nrm, halo=2)
+def _shot_routed(kp, sup, nrm, radius, *, k_max: int, normalize: bool,
+                 min_neighborhood_size: int, local_rfs=None, rf_radius=None,
+                 use_grid: bool | None = None):
+    """SHOT of the keypoints ``kp`` on the support's route (the grid from
+    ``AUTO_GRID_MIN_POINTS`` support points, or ``use_grid``); returns
+    ``(descriptors, frames)``.  Frames: ``local_rfs`` when given, else from
+    the ``rf_radius`` neighborhoods (bi-scale; the grid's cell then covers
+    both radii), else from the ``radius`` ones.  The one-device entry
+    points and ``parallel.sharded_shot_descriptors`` (on a rank's block of
+    keypoints) all run this."""
+    rf_radius = None if local_rfs is not None else rf_radius
+    if use_grid is None:
+        use_grid = sup.shape[0] >= grid_hash.AUTO_GRID_MIN_POINTS
+    if use_grid:
+        max_r = float(radius) if rf_radius is None else float(max(radius, rf_radius))
+        grid = build_grid(sup, max_r / 2, extras=nrm, halo=2)
         return _shot_window_chunked(grid, kp, local_rfs, radius, normalize,
-                                    min_neighborhood_size)
+                                    min_neighborhood_size, rf_radius=rf_radius)
+    if rf_radius is not None:
+        rf_nbr = radius_search(kp, sup, rf_radius, k_max)
+        local_rfs = local_reference_frames(kp, sup[rf_nbr.idx], rf_nbr.mask, rf_radius)
     nbr = radius_search(kp, sup, radius, k_max)
     nb_pts = torch.where(nbr.mask[..., None], sup[nbr.idx], 0.0)
     nb_nrm = torch.where(nbr.mask[..., None], nrm[nbr.idx], 0.0)
@@ -213,20 +221,39 @@ def compute_shot_descriptor(keypoints, support_points, support_normals, radius, 
     return desc, local_rfs
 
 
+def compute_shot_descriptor(keypoints, support_points, support_normals, radius, *,
+                            k_max: int = 512, normalize: bool = True,
+                            min_neighborhood_size: int = 100, local_rfs=None,
+                            device=None):
+    """Single-scale SHOT of ``keypoints`` on a support cloud; returns
+    ``((Q, 352) descriptors, (Q, 3, 3) frames)``."""
+    sup = as_f32(support_points, resolve(device, support_points))
+    nrm = as_f32(support_normals, sup.device)
+    kp = as_f32(keypoints, sup.device)
+    return _shot_routed(kp, sup, nrm, radius, k_max=k_max, normalize=normalize,
+                        min_neighborhood_size=min_neighborhood_size, local_rfs=local_rfs)
+
+
 class ShotComputer:
     """Single-, bi- and multiscale SHOT front end (the reference's
     ``ShotMultiprocessor``): keypoints are one batch on the device, padded
-    into ``pad_queries_to`` buckets with the far sentinel."""
+    into ``pad_queries_to`` buckets with the far sentinel.  With a ``mesh``
+    of more than one rank every scale shards the keypoints over it
+    (``parallel.sharded.sharded_shot_descriptors``) on the rank's device."""
 
     def __init__(self, normalize: bool = True, share_local_rfs: bool = True,
                  min_neighborhood_size: int = 100, k_max: int = 512,
-                 pad_queries_to: int = 1024, device=None):
+                 pad_queries_to: int = 1024, mesh=None, device=None):
         self.normalize = normalize
         self.share_local_rfs = share_local_rfs
         self.min_neighborhood_size = min_neighborhood_size
         self.k_max = k_max
         self.pad_queries_to = pad_queries_to
-        self.device = device
+        self.mesh = mesh
+        self.device = mesh.device if device is None and mesh is not None else device
+
+    def _use_mesh(self) -> bool:
+        return self.mesh is not None and self.mesh.devices.size > 1
 
     def _support(self, point_cloud, normals, voxel_size):
         pts = as_f32(point_cloud, resolve(self.device, point_cloud))
@@ -246,11 +273,18 @@ class ShotComputer:
         far = np.full((padded - len(kp), 3), _FAR, np.float32)
         return np.concatenate([kp, far]), len(kp)
 
-    def _shot(self, kp, sup, nrm, radius, local_rfs=None):
-        return compute_shot_descriptor(
-            kp, sup, nrm, radius, k_max=self.k_max, normalize=self.normalize,
-            min_neighborhood_size=self.min_neighborhood_size, local_rfs=local_rfs,
-            device=sup.device)
+    def _shot(self, kp, sup, nrm, radius, local_rfs=None, rf_radius=None):
+        """``(descriptors, frames)`` of the keypoints: on one device, or
+        sharded over the mesh (the frames returned stay on the rank)."""
+        opts = dict(k_max=self.k_max, normalize=self.normalize,
+                    min_neighborhood_size=self.min_neighborhood_size, rf_radius=rf_radius)
+        if self._use_mesh():
+            from ..parallel.sharded import sharded_shot_descriptors
+
+            return sharded_shot_descriptors(kp, sup, nrm, radius, self.mesh,
+                                            shared_rfs=local_rfs, return_rfs=True, **opts)
+        return _shot_routed(as_f32(kp, sup.device), sup, nrm, radius, local_rfs=local_rfs,
+                            **opts)
 
     def compute_descriptor_single_scale(self, point_cloud, normals, keypoints,
                                         radius, subsampling_voxel_size=None):
@@ -269,18 +303,8 @@ class ShotComputer:
         bi-scale mode); small supports: brute-searched frames, then SHOT with
         them given."""
         sup, nrm = self._support(point_cloud, normals, subsampling_voxel_size)
-        kp_np, n_kp = self._pad(keypoints)
-        kp = torch.as_tensor(kp_np, device=sup.device)
-        if sup.shape[0] >= grid_hash.AUTO_GRID_MIN_POINTS:
-            max_r = float(max(local_rf_radius, shot_radius))
-            grid = build_grid(sup, max_r / 2, extras=nrm, halo=2)
-            desc, _ = _shot_window_chunked(grid, kp, None, shot_radius, self.normalize,
-                                           self.min_neighborhood_size,
-                                           rf_radius=local_rf_radius)
-            return desc[:n_kp]
-        rf_nbr = radius_search(kp, sup, local_rf_radius, self.k_max)
-        rfs = local_reference_frames(kp, sup[rf_nbr.idx], rf_nbr.mask, local_rf_radius)
-        desc, _ = self._shot(kp, sup, nrm, shot_radius, local_rfs=rfs)
+        kp, n_kp = self._pad(keypoints)
+        desc, _ = self._shot(kp, sup, nrm, shot_radius, rf_radius=local_rf_radius)
         return desc[:n_kp]
 
     def compute_descriptor_multiscale(self, point_cloud, normals, keypoints, radii,

@@ -9,7 +9,7 @@ order; a convention change here must be made there too.
 
 The SPFH kernels (``csrc/spfh_fused.cu``, ``csrc/spfh_runs.cu``) evaluate
 :func:`darboux_angles` in the same float32 order.  Angles come from
-``torch.atan2``/``torch.acos`` (the JAX package's Mosaic
+``_fp.atan2``/``_fp.acos`` (the JAX package's Mosaic
 ``mosaic_atan2`` polynomial was a TPU workaround and is not ported).
 """
 
@@ -19,6 +19,8 @@ import math
 from typing import NamedTuple
 
 import torch
+
+from .._fp import atan2
 
 N_COS = 11   # cosine (normal-angle) bins
 N_AZ = 8     # azimuth octants
@@ -166,5 +168,5 @@ def darboux_angles(dx, dy, dz, nx, ny, nz, ux, uy, uz, d_safe):
     wz = ux * vy - uy * vx
     alpha = vx * nx + vy * ny + vz * nz
     phi = (dx * ux + dy * uy + dz * uz) / d_safe
-    theta = torch.atan2(nx * wx + ny * wy + nz * wz, nx * ux + ny * uy + nz * uz)
+    theta = atan2(nx * wx + ny * wy + nz * wz, nx * ux + ny * uy + nz * uz)
     return alpha, phi, theta

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from .._fp import atan2, cos, sin
+
 _N_SWEEPS = 4
 
 
@@ -22,9 +24,9 @@ def _rotate_planes(a, v, p: int, q: int):
     key = lambda i, j: (i, j) if i <= j else (j, i)  # noqa: E731
     app, aqq, apq = a[key(p, p)], a[key(q, q)], a[key(p, q)]
     apr, aqr = a[key(p, r)], a[key(q, r)]
-    theta = 0.5 * torch.atan2(2.0 * apq, aqq - app)
-    c = torch.cos(theta)
-    s = torch.sin(theta)
+    theta = 0.5 * atan2(2.0 * apq, aqq - app)
+    c = cos(theta)
+    s = sin(theta)
     c2, s2, cs = c * c, s * s, c * s
     out = dict(a)
     out[key(p, p)] = c2 * app - 2.0 * cs * apq + s2 * aqq

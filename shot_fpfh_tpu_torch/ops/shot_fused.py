@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from .. import _kernels
+from .._fp import acos, atan2
 from .descriptor_bins import N_AZ, N_COS, N_ELEV, N_LO, N_RAD, SHOT_DIM, shot_soft_bins
 from .eigh3 import eigh3x3
 
@@ -85,8 +86,8 @@ def soft_histogram(lx, ly, lz, rho, cosine, valid, radius, violations=None) -> t
     counter, the debug checks count into it and out-of-range bins are
     dropped."""
     rho_safe = torch.where(valid, rho, torch.ones_like(rho))
-    theta = torch.atan2(ly, lx)
-    phi = torch.acos(torch.clamp(lz / rho_safe, -1.0, 1.0))
+    theta = atan2(ly, lx)
+    phi = acos(torch.clamp(lz / rho_safe, -1.0, 1.0))
     sb = shot_soft_bins(lx, ly, lz, rho, theta, phi, cosine, radius)
     q = lx.shape[0]
     terms = [(sb.cos_bin, sb.base, sb.w_same), (sb.cos_bin, sb.lo_husk, sb.w_husk_nb),
@@ -97,10 +98,12 @@ def soft_histogram(lx, ly, lz, rho, cosine, valid, radius, violations=None) -> t
         violations += torch.stack(binning_violations(
             sb.cos_bin, sb.cos_nb, sb.az_bin, sb.elev_bin, sb.rad_bin, total_w, valid))
         terms = [_drop_out_of_range(hi, lo, w) for hi, lo, w in terms]
-    vf = valid.to(torch.float32)
     row = (torch.arange(q, device=lx.device) * SHOT_DIM)[:, None]
     idx = torch.cat([(hi.to(torch.int64) * N_LO + lo + row).reshape(-1) for hi, lo, _ in terms])
-    wts = torch.cat([(w * vf).reshape(-1) for _, _, w in terms])
+    # an invalid neighbor adds nothing, as in the kernels, which never bin
+    # it: selected away, not multiplied by 0, so a NaN weight (a NaN frame)
+    # stays out of the histogram
+    wts = torch.cat([torch.where(valid, w, 0.0).reshape(-1) for _, _, w in terms])
     hist = torch.zeros(q * SHOT_DIM, dtype=torch.float32, device=lx.device)
     return hist.index_add_(0, idx, wts).reshape(q, SHOT_DIM)
 

@@ -7,7 +7,10 @@ single-, bi- or multiscale SHOT or FPFH, nearest / ratio-test / threshold
 matching, RANSAC, ICP, the post-ICP metrics, and the ground-truth match
 analysis when the exact transform is known; or all of registration in one
 device call (:meth:`RegistrationPipeline.run_fused`).  Stage timings go to
-``self.metrics``.
+``self.metrics``.  With a ``mesh`` of more than one rank
+(``parallel.make_mesh``) the descriptors, matching, RANSAC and ICP shard
+over it (``parallel.sharded``) on the rank's device, every rank holding the
+same results.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ from .models.fpfh import compute_fpfh_descriptor
 from .models.shot import ShotComputer
 from .ops.grid_hash import AUTO_GRID_MIN_POINTS, build_grid, grid_nearest_neighbor
 from .ops.neighbors import as_f32, nearest_neighbor
-from .registration.icp import icp_point_to_plane, icp_point_to_point
+from .registration.icp import IcpHostResult, icp_point_to_plane, icp_point_to_point
 from .registration.matching import (
     basic_matching,
     lowe_matching,
@@ -67,9 +70,18 @@ class RegistrationPipeline:
     k_max_fpfh: int = 128
     metrics: StageMetrics = field(default_factory=StageMetrics)
     device: torch.device | str = "cuda"
+    # a parallel.Mesh: more than one rank routes the descriptors, matching,
+    # RANSAC and ICP through parallel.sharded, on the rank's device (the
+    # CLI builds it from --n_devices / --mesh_axis); None: one device
+    mesh: object | None = None
 
     def __post_init__(self):
-        self.device = resolve(self.device)
+        self.device = self.mesh.device if self._mesh() is not None else resolve(self.device)
+
+    def _mesh(self):
+        if self.mesh is not None and self.mesh.devices.size > 1:
+            return self.mesh
+        return None
 
     # ------------------------------------------------------------ keypoints --
     def select_keypoints(
@@ -117,7 +129,8 @@ class RegistrationPipeline:
 
     # ----------------------------------------------------------- descriptors --
     def _shot_computer(self, **shot_config) -> ShotComputer:
-        return ShotComputer(k_max=self.k_max_descriptor, device=self.device, **shot_config)
+        return ShotComputer(k_max=self.k_max_descriptor, mesh=self._mesh(), device=self.device,
+                            **shot_config)
 
     def compute_shot_descriptor_single_scale(
         self, radius, subsampling_voxel_size=None, force_recompute: bool = False,
@@ -208,7 +221,7 @@ class RegistrationPipeline:
                     cloud, normals, kp = self._side(side)
                     setattr(self, f"{side}_descriptors", compute_fpfh_descriptor(
                         kp, cloud, normals, radius=radius, n_bins=fpfh_n_bins,
-                        k_max=self.k_max_fpfh, device=self.device))
+                        k_max=self.k_max_fpfh, mesh=self._mesh(), device=self.device))
         self.metrics.stop(descriptors=len(self.scan_keypoints) + len(self.ref_keypoints))
 
     # -------------------------------------------------------------- matching --
@@ -222,16 +235,17 @@ class RegistrationPipeline:
         if matching_algorithm not in ("simple", "double", "ratio", "threshold"):
             raise ValueError("Incorrect matching algorithm selection.")
         self.metrics.start(f"matching[{matching_algorithm}]")
+        mesh = self._mesh()
         if matching_algorithm == "simple":
             self.matches = basic_matching(self.scan_descriptors, self.ref_descriptors,
-                                          device=self.device)
+                                          device=self.device, mesh=mesh)
         elif matching_algorithm == "threshold":
             self.matches = match_descriptors(
                 self.scan_descriptors, self.ref_descriptors, threshold_filter,
-                threshold_multiplier=threshold_multiplier, device=self.device)
+                threshold_multiplier=threshold_multiplier, device=self.device, mesh=mesh)
         else:
             self.matches = lowe_matching(self.scan_descriptors, self.ref_descriptors,
-                                         reject_threshold, device=self.device)
+                                         reject_threshold, device=self.device, mesh=mesh)
         self.metrics.stop(matches=len(self.matches[0]))
 
     def analyze_matches(self, matching_algorithm, exact_transformation: RigidTransform):
@@ -258,14 +272,23 @@ class RegistrationPipeline:
                    exact_transformation: RigidTransform | None = None,
                    draws=None) -> tuple[RigidTransform, float]:
         """RANSAC over the matched keypoints; draws come from a CPU
-        generator seeded with ``seed`` (the same on every device), or from
-        ``draws`` when given."""
+        generator seeded with ``seed`` (the same on every device and rank),
+        or from ``draws`` when given."""
         self.metrics.start("ransac")
         scan_m = as_f32(self.scan[self.scan_keypoints[self.matches[0]]], self.device)
         ref_m = as_f32(self.ref[self.ref_keypoints[self.matches[1]]], self.device)
-        ratio, transform = ransac_on_matches(
-            scan_m, ref_m, generator=torch.Generator().manual_seed(seed), draws=draws,
-            n_draws=n_draws, draw_size=draw_size, distance_threshold=max_inliers_distance)
+        generator = torch.Generator().manual_seed(seed)
+        mesh = self._mesh()
+        if mesh is not None:
+            from .parallel.sharded import sharded_ransac
+
+            ratio, transform = sharded_ransac(
+                scan_m, ref_m, generator, mesh, draws=draws, n_draws=n_draws,
+                draw_size=draw_size, distance_threshold=max_inliers_distance)
+        else:
+            ratio, transform = ransac_on_matches(
+                scan_m, ref_m, generator=generator, draws=draws, n_draws=n_draws,
+                draw_size=draw_size, distance_threshold=max_inliers_distance)
         ratio = float(ratio)
         self.metrics.stop(draws=n_draws)
         if exact_transformation is not None:
@@ -285,7 +308,18 @@ class RegistrationPipeline:
         if icp_type not in ("point_to_point", "point_to_plane"):
             raise ValueError("Incorrect ICP type selected.")
         self.metrics.start(f"icp[{icp_type}]")
-        if icp_type == "point_to_point":
+        mesh = self._mesh()
+        if mesh is not None:
+            from .core.subsampling import grid_subsample
+            from .parallel.sharded import sharded_icp
+
+            scan = as_f32(self.scan, self.device)
+            sub = torch.as_tensor(grid_subsample(scan, voxel_size), device=scan.device)
+            out = IcpHostResult(*sharded_icp(
+                scan[sub], self.ref, self.ref_normals if icp_type == "point_to_plane" else None,
+                transformation_init, mesh, d_max=d_max, max_iter=max_iter,
+                rms_threshold=rms_threshold, point_to_plane=icp_type == "point_to_plane"))
+        elif icp_type == "point_to_point":
             out = icp_point_to_point(self.scan, self.ref, transformation_init, d_max=d_max,
                                      voxel_size=voxel_size, max_iter=max_iter,
                                      rms_threshold=rms_threshold, device=self.device)
@@ -345,7 +379,7 @@ class RegistrationPipeline:
             rms_threshold=rms_threshold, k_max=self.k_max_descriptor,
             min_neighborhood_size=min_neighborhood_size, n_draws=n_draws,
             draw_size=draw_size, max_iter=max_iter, point_to_plane=point_to_plane,
-            device=self.device, **desc_kwargs)
+            mesh=self._mesh(), device=self.device, **desc_kwargs)
         self.metrics.stop(matches=int(res.n_matches), icp_rms=float(res.icp_rms))
         self.scan_keypoints = res.scan_keypoint_idx
         self.ref_keypoints = res.ref_keypoint_idx

@@ -31,7 +31,8 @@ call's device seeded with ``seed``; it cannot reproduce ``jax.random``, so
 ``gumbel`` injects the noise instead (the parity tests pass JAX's).
 
 Not ported here: ``fused_registration_mesh`` and ``register_pair`` over a
-multi-device mesh (ROADMAP.md, Queue 1, item 14: multi-GPU).
+mesh of more than one rank (ROADMAP.md, Queue 1, item 14, step 4); both
+raise :data:`MESH_REFUSAL`.
 """
 
 from __future__ import annotations
@@ -289,6 +290,11 @@ def _padded(rows: torch.Tensor, mult: int):
     return out, torch.arange(target, device=rows.device) < n
 
 
+MESH_REFUSAL = ("the single-program path over a mesh of more than one rank "
+                "(fused_registration_mesh) is not ported yet (ROADMAP.md, Queue 1, "
+                "item 14, step 4); run without --fused to stage the sharded pipeline")
+
+
 def register_pair(scan, scan_normals, ref, ref_normals, *, keypoint_voxel: float,
                   icp_voxel: float, radius: float, seed: int = 72, pad_multiple: int = 256,
                   mesh=None, device=None, **fused_kwargs) -> FusedResult:
@@ -302,9 +308,7 @@ def register_pair(scan, scan_normals, ref, ref_normals, *, keypoint_voxel: float
     cell ``d_max`` (``d_max`` pinned, default 0.3).  Returns the result
     with the keypoint indices."""
     if mesh is not None and np.size(getattr(mesh, "devices", mesh)) > 1:
-        raise NotImplementedError(
-            "register_pair over a multi-device mesh is not ported yet (ROADMAP.md, "
-            "Queue 1, item 14: multi-GPU)")
+        raise NotImplementedError(MESH_REFUSAL)
     dev = resolve(device, scan)
     scan_t, ref_t = as_f32(scan, dev), as_f32(ref, dev)
     scan_n, ref_n = as_f32(scan_normals, dev), as_f32(ref_normals, dev)

@@ -26,7 +26,13 @@ import numpy as np
 import torch
 
 from .._device import resolve
-from ..core.solvers import solve_point_to_plane, solve_point_to_point
+from ..core.solvers import (
+    point_to_plane_normal_eq,
+    point_to_point_stats,
+    solve_point_to_plane_from_normal_eq,
+    solve_point_to_point,
+    solve_point_to_point_from_stats,
+)
 from ..core.subsampling import grid_subsample
 from ..core.transform import RigidTransform
 from ..ops.grid_hash import AUTO_GRID_MIN_POINTS, build_grid, grid_nearest_neighbor
@@ -58,8 +64,11 @@ class IcpHostResult(NamedTuple):
     n_iters: int
 
 
-def _step(state, scan_sub, ref, ref_normals, d_max, rms_threshold, grid, weights):
-    """One iteration of JAX's ``_icp_loop`` body, a no-op once ``done``."""
+def _step(state, scan_sub, ref, ref_normals, d_max, rms_threshold, grid, weights, reduce):
+    """One iteration of JAX's ``_icp_loop`` body, a no-op once ``done``.
+    With ``reduce`` (a sum over the shards of the points) the solver runs
+    on its summed statistics: point-to-plane's normal equations, or
+    point-to-point's Kabsch sums."""
     i, rot, t, rms, done = state
     tf = RigidTransform(rot, t)
     moved = tf.apply(scan_sub)
@@ -68,17 +77,25 @@ def _step(state, scan_sub, ref, ref_normals, d_max, rms_threshold, grid, weights
     w = (dist <= d_max).to(torch.float32)
     if weights is not None:
         w = w * weights
-    wsum = torch.clamp(w.sum(), min=1.0)
     target = ref[nn]
     if ref_normals is not None:
-        delta = solve_point_to_plane(moved, target, ref_normals[nn], w)
-        residual = ((moved - target) * ref_normals[nn]).sum(-1).abs()
-        new_rms = (residual * w).sum() / wsum
+        nrm = ref_normals[nn]
+        residual = ((moved - target) * nrm).sum(-1).abs()
+        sums = (*point_to_plane_normal_eq(moved, target, nrm, w), (residual * w).sum(), w.sum())
+        gtg, gth, r_sum, w_sum = sums if reduce is None else reduce(sums)
+        delta = solve_point_to_plane_from_normal_eq(gtg, gth)
+        new_rms = r_sum / torch.clamp(w_sum, min=1.0)
     else:
-        delta = solve_point_to_point(moved, target, w)
         # a grid window miss reports inf; its weight is 0 but 0·inf² is NaN
         safe = torch.where(w > 0, dist, torch.zeros_like(dist))
-        new_rms = torch.sqrt((w * safe ** 2).sum() / wsum)
+        if reduce is None:
+            delta = solve_point_to_point(moved, target, w)
+            w_sum, sq_sum = w.sum(), (w * safe ** 2).sum()
+        else:
+            w_sum, s_sum, r_sum, srt, sq_sum = reduce((
+                *point_to_point_stats(moved, target, w), (w * safe ** 2).sum()))
+            delta = solve_point_to_point_from_stats(w_sum, s_sum, r_sum, srt)
+        new_rms = torch.sqrt(sq_sum / torch.clamp(w_sum, min=1.0))
     composed = delta @ tf
     live = ~done
     return (i + live.to(i.dtype), torch.where(live, composed.rotation, rot),
@@ -87,14 +104,17 @@ def _step(state, scan_sub, ref, ref_normals, d_max, rms_threshold, grid, weights
 
 
 def icp_loop(scan_sub, ref, ref_normals, init: RigidTransform, d_max: float, max_iter: int,
-             rms_threshold: float, grid=None, weights=None) -> IcpResult:
+             rms_threshold: float, grid=None, weights=None, reduce=None) -> IcpResult:
     """ICP from ``init`` on the points ``scan_sub`` (every tensor on one
     device): point-to-plane with ``ref_normals``, point-to-point without;
     1-NN through ``grid`` (a grid of the ref at cell ``d_max``) or brute
     force.  ``weights``: optional per-point validity (0 on padding rows).
-    Iterates while fewer than ``max_iter`` ran and the last RMS was not
-    below ``rms_threshold``; the state stays on the device and the host
-    reads ``done`` once every ``ICP_BLOCK`` iterations."""
+    ``reduce``: for ``scan_sub`` a shard of the points, a function summing
+    a tuple of tensors over the shards (``parallel.sharded.sharded_icp``);
+    every shard then solves the same increment and stops at the same
+    iteration.  Iterates while fewer than ``max_iter`` ran and the last RMS
+    was not below ``rms_threshold``; the state stays on the device and the
+    host reads ``done`` once every ``ICP_BLOCK`` iterations."""
     dev = scan_sub.device
     state = (torch.zeros((), dtype=torch.int32, device=dev),
              init.rotation.to(device=dev, dtype=torch.float32),
@@ -106,12 +126,18 @@ def icp_loop(scan_sub, ref, ref_normals, init: RigidTransform, d_max: float, max
         block = min(ICP_BLOCK, max_iter - issued)
         for _ in range(block):
             state = _step(state, scan_sub, ref, ref_normals, d_max, rms_threshold, grid,
-                          weights)
+                          weights, reduce)
         issued += block
         if bool(state[4]):
             break
     i, rot, t, rms, done = state
     return IcpResult(RigidTransform(rot, t), rms, done, i)
+
+
+def nn_grid(ref: torch.Tensor, d_max: float):
+    """The grid of the ref that ICP's 1-NN runs over (cell ``d_max``), from
+    ``AUTO_GRID_MIN_POINTS`` ref points up; None (brute force) below."""
+    return build_grid(ref, float(d_max)) if ref.shape[0] >= AUTO_GRID_MIN_POINTS else None
 
 
 def _icp(scan, ref, ref_normals, init: RigidTransform, d_max, voxel_size,
@@ -120,9 +146,8 @@ def _icp(scan, ref, ref_normals, init: RigidTransform, d_max, voxel_size,
     scan_t = as_f32(scan, ref_t.device)
     sub = torch.as_tensor(grid_subsample(scan_t, voxel_size), device=ref_t.device)
     normals = None if ref_normals is None else as_f32(ref_normals, ref_t.device)
-    grid = (build_grid(ref_t, float(d_max)) if ref_t.shape[0] >= AUTO_GRID_MIN_POINTS
-            else None)
-    out = icp_loop(scan_t[sub], ref_t, normals, init, d_max, max_iter, rms_threshold, grid)
+    out = icp_loop(scan_t[sub], ref_t, normals, init, d_max, max_iter, rms_threshold,
+                   nn_grid(ref_t, d_max))
     return IcpHostResult(out.transform, float(out.rms), bool(out.has_converged),
                          int(out.n_iters))
 

@@ -13,7 +13,9 @@ the host distances as in the reference), optionally only the reciprocal
 ones.  Given ``(n_scales, K, D)`` stacks it matches each scan row to the
 ref row nearest under the elementwise minimum of the per-scale distances
 (``multiscale_top1``: f32 ``torch.matmul`` in chunks of 1024 scan rows,
-so no ``K x K`` matrix is ever held whole).
+so no ``K x K`` matrix is ever held whole).  Given a ``mesh`` of more than
+one rank, the matchers shard the scan rows over it (``parallel.sharded``:
+``ring_match``, ``sharded_multiscale_match``).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from .._device import resolve
 from .._fp import sqrt
 from ..ops.match import top2_match
 from ..ops.neighbors import _sq_dists, as_f32
+from ..parallel.mesh import all_gather_rows
 
 logger = logging.getLogger(__name__)
 
@@ -85,19 +88,27 @@ def _ms_scale_pass(a, b, a_ok, b_ok):
     return torch.cat(row_i), col_d, col_i
 
 
-def _ms_row_mask(scan_ms, ref_ms, filter_nonreciprocal: bool):
+def _ms_row_mask(scan_ms, ref_ms, filter_nonreciprocal: bool, mesh=None):
     """``(row_ok (S, Q), ref_ok (S, R))``: the nonzero rows of each scale;
     with ``filter_nonreciprocal`` only the scan rows whose match at that
-    scale is reciprocal there."""
+    scale is reciprocal there.  With a ``mesh`` the scan rows are the
+    rank's block (``parallel.sharded_multiscale_match``): each scale's
+    column minima are gathered from every rank, ties to the lowest rank,
+    so the mask is the one device's."""
     s_ok = (scan_ms != 0).any(dim=2)
     r_ok = (ref_ms != 0).any(dim=2)
     if not filter_nonreciprocal:
         return s_ok, r_ok
-    rows = torch.arange(scan_ms.shape[1], device=scan_ms.device)
+    start = 0 if mesh is None else mesh.rank * scan_ms.shape[1]
+    rows = torch.arange(start, start + scan_ms.shape[1], device=scan_ms.device)
     recip = []
     for scale in range(scan_ms.shape[0]):
-        row_i, _, col_i = _ms_scale_pass(scan_ms[scale], ref_ms[scale], s_ok[scale],
-                                         r_ok[scale])
+        row_i, col_d, col_i = _ms_scale_pass(scan_ms[scale], ref_ms[scale], s_ok[scale],
+                                             r_ok[scale])
+        if mesh is not None:
+            all_d = all_gather_rows(col_d[None], mesh)            # (ranks, R)
+            all_i = all_gather_rows((col_i + start)[None], mesh)
+            col_i = all_i.gather(0, torch.argmin(all_d, dim=0)[None])[0]
         recip.append(col_i[row_i] == rows)
     return s_ok & torch.stack(recip), r_ok
 
@@ -148,24 +159,42 @@ def _split_nonzero(desc, device=None):
     return nz.cpu().numpy(), d[nz]
 
 
-def basic_matching(scan_descriptors, ref_descriptors, device=None):
+def _use_mesh(mesh) -> bool:
+    return mesh is not None and mesh.devices.size > 1
+
+
+def _device(device, like, mesh):
+    """The call's device: the rank's under a mesh of more than one rank."""
+    return mesh.device if _use_mesh(mesh) else resolve(device, like)
+
+
+def _top2(a, b, mesh):
+    """``(idx, d1, d2)`` of each ``a`` row among the ``b`` rows: K2 on one
+    device, or the ring over a mesh (``parallel.sharded.ring_match``)."""
+    if _use_mesh(mesh):
+        from ..parallel.sharded import ring_match
+
+        return ring_match(a, b, mesh)
+    return top2_descriptor(a, b, torch.ones(b.shape[0], dtype=torch.bool, device=b.device))
+
+
+def basic_matching(scan_descriptors, ref_descriptors, device=None, mesh=None):
     """Each non-empty scan descriptor matched to its nearest non-empty ref
-    descriptor; returns host ``(scan_indices, ref_indices)``."""
-    scan_nz, a = _split_nonzero(scan_descriptors, resolve(device, scan_descriptors))
+    descriptor; returns host ``(scan_indices, ref_indices)``.  With a
+    ``mesh`` of more than one rank the ref tiles ride the ring."""
+    scan_nz, a = _split_nonzero(scan_descriptors, _device(device, scan_descriptors, mesh))
     ref_nz, b = _split_nonzero(ref_descriptors, a.device)
-    idx, _ = nearest_descriptor(a, b, torch.ones(b.shape[0], dtype=torch.bool,
-                                                 device=b.device))
+    idx = _top2(a, b, mesh)[0]
     return scan_nz, ref_nz[idx.cpu().numpy()]
 
 
 def lowe_matching(scan_descriptors, ref_descriptors, threshold: float = 0.8,
-                  verbose: bool = True, device=None):
+                  verbose: bool = True, device=None, mesh=None):
     """Ratio-test matching: keep matches with ``d1/d2 <= threshold``
     (``d2 == 0`` counts as ratio 1)."""
-    scan_nz, a = _split_nonzero(scan_descriptors, resolve(device, scan_descriptors))
+    scan_nz, a = _split_nonzero(scan_descriptors, _device(device, scan_descriptors, mesh))
     ref_nz, b = _split_nonzero(ref_descriptors, a.device)
-    idx, d1, d2 = top2_descriptor(a, b, torch.ones(b.shape[0], dtype=torch.bool,
-                                                   device=b.device))
+    idx, d1, d2 = _top2(a, b, mesh)
     ratio = torch.where(d2 > 0, d1 / torch.where(d2 > 0, d2, torch.ones_like(d2)),
                         torch.ones_like(d1))
     mask = (ratio <= threshold).cpu().numpy()
@@ -204,26 +233,27 @@ def left_median_filter(distances: np.ndarray) -> np.ndarray:
 def match_descriptors(scan_descriptors, ref_descriptors,
                       filter_callback: FilterFunction | None = None,
                       filter_nonreciprocal: bool = False, verbose: bool = True,
-                      n_min_matches: int = 100, device=None, **kwargs):
+                      n_min_matches: int = 100, device=None, mesh=None, **kwargs):
     """Nearest-descriptor matches kept by ``filter_callback(distances,
     **kwargs)``; with ``filter_nonreciprocal`` only matches that are also the
     ref's nearest back, unless fewer than ``n_min_matches`` survive that
     (reference ``match_descriptors``, matching/matching.py:9-146).
-    ``(n_scales, K, D)`` stacks match by :func:`multiscale_top1`.  Returns
-    host ``(scan_indices, ref_indices)``."""
+    ``(n_scales, K, D)`` stacks match by :func:`multiscale_top1`.  With a
+    ``mesh`` of more than one rank the ring matches the rows
+    (``parallel.sharded.ring_match``; stacks: ``sharded_multiscale_match``).
+    Returns host ``(scan_indices, ref_indices)``."""
     if np.ndim(scan_descriptors) != 2:
         return _match_multiscale(scan_descriptors, ref_descriptors, filter_callback,
-                                 filter_nonreciprocal, verbose, n_min_matches, device, kwargs)
-    scan_nz, a = _split_nonzero(scan_descriptors, resolve(device, scan_descriptors))
+                                 filter_nonreciprocal, verbose, n_min_matches, device, mesh,
+                                 kwargs)
+    scan_nz, a = _split_nonzero(scan_descriptors, _device(device, scan_descriptors, mesh))
     ref_nz, b = _split_nonzero(ref_descriptors, a.device)
-    idx_t, dist_t = nearest_descriptor(a, b, torch.ones(b.shape[0], dtype=torch.bool,
-                                                        device=b.device))
+    idx_t, dist_t, _ = _top2(a, b, mesh)
     idx, dist = idx_t.cpu().numpy(), dist_t.cpu().numpy()
     keep = (filter_callback(dist, **kwargs) if filter_callback is not None
             else np.ones(len(dist), bool))
     if filter_nonreciprocal:
-        back, _ = nearest_descriptor(b, a, torch.ones(a.shape[0], dtype=torch.bool,
-                                                      device=a.device))
+        back = _top2(b, a, mesh)[0]
         reciprocal = back.cpu().numpy()[idx] == np.arange(len(idx))
         if (keep & reciprocal).sum() >= n_min_matches:
             keep = keep & reciprocal
@@ -235,20 +265,27 @@ def match_descriptors(scan_descriptors, ref_descriptors,
 
 
 def _match_multiscale(scan_ms, ref_ms, filter_callback, filter_nonreciprocal, verbose,
-                      n_min_matches, device, kwargs):
+                      n_min_matches, device, mesh, kwargs):
     """``match_descriptors`` on ``(n_scales, K, D)`` stacks: the rows whose
     combined distance the filter keeps and is under ``MS_MAX_VAL``, as
     positions among all scan rows; without the reciprocal filter when fewer
     than ``n_min_matches`` survive it."""
-    idx_t, dist_t = multiscale_top1(scan_ms, ref_ms, filter_nonreciprocal=filter_nonreciprocal,
-                                    device=resolve(device, scan_ms))
+    if _use_mesh(mesh):
+        from ..parallel.sharded import sharded_multiscale_match
+
+        idx_t, dist_t = sharded_multiscale_match(scan_ms, ref_ms, mesh,
+                                                 filter_nonreciprocal=filter_nonreciprocal)
+    else:
+        idx_t, dist_t = multiscale_top1(scan_ms, ref_ms,
+                                        filter_nonreciprocal=filter_nonreciprocal,
+                                        device=resolve(device, scan_ms))
     indices, distances = idx_t.cpu().numpy(), dist_t.cpu().numpy()
     keep = (filter_callback(distances, **kwargs) if filter_callback is not None
             else np.ones(len(distances), bool)) & (distances < MS_MAX_VAL)
     if keep.sum() < n_min_matches and filter_nonreciprocal:
         logger.warning("Too few reciprocal matches, keeping non-reciprocal matches.")
         return match_descriptors(scan_ms, ref_ms, filter_callback, filter_nonreciprocal=False,
-                                 verbose=verbose, device=device, **kwargs)
+                                 verbose=verbose, device=device, mesh=mesh, **kwargs)
     if verbose:
         logger.info("Kept %d matches out of %d descriptors.", keep.sum(), len(distances))
     return np.nonzero(keep)[0], indices[keep]

@@ -19,6 +19,7 @@ import torch
 from ..core.solvers import solve_point_to_point
 from ..core.transform import RigidTransform
 from ..ops.neighbors import as_f32
+from ..parallel.mesh import all_reduce_sums, local_rows
 
 _DRAW_CHUNK = 512
 
@@ -57,7 +58,18 @@ def ransac_on_matches(scan_matched, ref_matched, generator: torch.Generator | No
         draws = sample_draws(m, n_draws, draw_size, generator, scan.device)
     elif not isinstance(draws, torch.Tensor):
         draws = torch.as_tensor(np.array(draws))   # a copy: host arrays may be read-only
-    draws = draws.to(scan.device).long()
+    return _search(scan, ref, draws.to(scan.device).long(), distance_threshold)
+
+
+def _search(scan, ref, draws, distance_threshold: float, mesh=None):
+    """The chunked search over ``draws`` (on the matches' device): each
+    chunk's transforms solved, their inliers counted, the best kept.  With
+    a ``mesh`` every rank solves the same transforms and counts them over
+    its block of the matches, and the counts are summed over the ranks
+    (whole numbers, exact)."""
+    m = scan.shape[0]
+    # a pad row's ref is at infinity: never an inlier
+    scan_rows, ref_rows = local_rows(scan, mesh), local_rows(ref, mesh, fill=float("inf"))
     thr2 = torch.tensor(distance_threshold, dtype=torch.float32) ** 2
     best_count = torch.tensor(-1, device=scan.device)
     best_rot = torch.eye(3, device=scan.device)
@@ -65,8 +77,9 @@ def ransac_on_matches(scan_matched, ref_matched, generator: torch.Generator | No
     for s in range(0, draws.shape[0], _DRAW_CHUNK):
         idx = draws[s:s + _DRAW_CHUNK]
         tf = solve_point_to_point(scan[idx], ref[idx])
-        moved = torch.einsum("cij,mj->cmi", tf.rotation, scan) + tf.translation[:, None, :]
-        counts = (((moved - ref[None]) ** 2).sum(-1) <= thr2.to(scan.device)).sum(-1)
+        moved = torch.einsum("cij,mj->cmi", tf.rotation, scan_rows) + tf.translation[:, None, :]
+        inlier = ((moved - ref_rows[None]) ** 2).sum(-1) <= thr2.to(scan.device)
+        counts, = all_reduce_sums((inlier.sum(-1),), mesh)
         i = torch.argmax(counts)
         better = counts[i] > best_count
         best_count = torch.where(better, counts[i], best_count)

@@ -240,8 +240,8 @@ def test_compute_fpfh_descriptor_grid_route(rng, monkeypatch, route, decorrelate
         monkeypatch.setattr(mod, "AUTO_GRID_MIN_POINTS", 1000)
     monkeypatch.setitem(shot_dma._DMA, "enabled", route == "runs")
     calls = []
-    monkeypatch.setattr(t_fpfh, "spfh_sorted_dma",
-                        lambda *a: calls.append(1) or shot_dma.spfh_sorted_dma(*a))
+    monkeypatch.setattr(t_fpfh, "spfh_block_dma",
+                        lambda *a: calls.append(1) or shot_dma.spfh_block_dma(*a))
     kp = np.arange(0, 1500, 11)
     got = t_fpfh.compute_fpfh_descriptor(kp, pts, nrm, 0.5, 5, decorrelated=decorrelated,
                                          device="cpu")

@@ -1209,7 +1209,11 @@ def test_debug_counter_matches_twin(cuda, rng, kernel):
     radius, with the histograms those without a counter give; K1 told an
     eighth of its window's radius bins neighbors whose husk weights drive
     their weight sums below 0, and counts them as its twin does (K5 bins
-    only the rows its radius holds, so it has nothing to count)."""
+    only the rows its radius holds, so it has nothing to count there).
+    Under given frames with a planted NaN (whole frames, and one z-axis
+    component, which leaves the azimuth finite) both kernels keep the NaN
+    as their twins' clamps do: the same counts, NaN in the same histogram
+    entries, the rest by the flip rule."""
     from shot_fpfh_tpu_torch.ops.shot_fused import shot_binning_histogram_plain
 
     pts = _surface(rng, 20_000, cuda)
@@ -1221,8 +1225,8 @@ def test_debug_counter_matches_twin(cuda, rng, kernel):
         assert grid.use_xyrow
         _, rfs = shot_dma.shot_descriptor_dma_plain(grid, kp, 0.6, **raw)
 
-        def run(fn, r, counter):
-            return fn(grid, kp, r, rfs=rfs, violations=counter, **raw)[0]
+        def run(fn, r, counter, frames=rfs):
+            return fn(grid, kp, r, rfs=frames, violations=counter, **raw)[0]
 
         calls, radii = (shot_dma.shot_descriptor_dma, shot_dma.shot_descriptor_dma_plain), (0.6,)
     else:
@@ -1230,8 +1234,8 @@ def test_debug_counter_matches_twin(cuda, rng, kernel):
         dist = torch.where(valid & (d <= 0.6), d, torch.full_like(d, float("inf")))
         _, rfs = shot_binning_histogram_plain(vals, dist, kp, None, 0.6)
 
-        def run(fn, r, counter):
-            return fn(vals, dist, kp, rfs, r, violations=counter)
+        def run(fn, r, counter, frames=rfs):
+            return fn(vals, dist, kp, frames, r, violations=counter)
 
         calls, radii = (shot_binning_histogram, shot_binning_histogram_plain), (0.6, 0.075)
     without = run(calls[0], 0.6, None)
@@ -1244,3 +1248,67 @@ def test_debug_counter_matches_twin(cuda, rng, kernel):
             torch.testing.assert_close(hist[0], without, atol=1e-4, rtol=1e-5)
         else:
             assert k == p and k[1] > 0
+    planted = rfs.clone()
+    planted[::13] = float("nan")
+    planted[6::13, 0, 2] = float("nan")
+    counters = [torch.zeros(2, dtype=torch.int32, device=cuda) for _ in calls]
+    hist = [run(fn, 0.6, c, planted) for fn, c in zip(calls, counters)]
+    k, p = (c.tolist() for c in counters)
+    assert k == p and k[1] > 0
+    nan = torch.isnan(hist[0])
+    assert torch.equal(nan, torch.isnan(hist[1]))
+    if kernel == "shot_runs":   # K5 finalizes: a row of NaN norm is zeroed, as in its twin
+        assert not bool(nan.any()) and not bool(hist[0][::13].any())
+    else:
+        assert bool(nan[::13].any(dim=1).all()) and not bool(nan[1::13].any())
+    _assert_shot_flip_rule(hist[0].nan_to_num(), hist[1].nan_to_num())
+
+
+@pytest.fixture
+def nccl_mesh(cuda, tmp_path):
+    """A 1-rank NCCL group in this process (destroyed after the test)."""
+    import torch.distributed as dist
+
+    from shot_fpfh_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(device="cuda", init_method=f"file://{tmp_path / 'store'}", rank=0,
+                     world_size=1, timeout=120)
+    try:
+        assert dist.get_backend() == "nccl" and mesh.backend == "nccl"
+        yield mesh
+    finally:
+        dist.destroy_process_group()
+
+
+def test_one_rank_nccl_mesh_equals_one_device(nccl_mesh, rng):
+    """``sharded_shot_descriptors`` (window and run routes: K8 + K1, K5) and
+    ``ring_match`` (K2 on the one tile) over a 1-rank NCCL group equal the
+    single-device path, and launch its kernels."""
+    from shot_fpfh_tpu_torch.models.shot import compute_shot_descriptor
+    from shot_fpfh_tpu_torch.parallel import ring_match, sharded_shot_descriptors
+    from shot_fpfh_tpu_torch.registration.matching import top2_descriptor
+
+    dev = nccl_mesh.device
+    pts = _surface(rng, 30_000, dev)
+    nrm = torch.nn.functional.normalize(torch.randn_like(pts), dim=1)
+    kp = pts[::41]
+    descs = []
+    for dma in (False, True):
+        shot_dma.set_dma_kernel(dma)
+        try:
+            kernel = "shot_runs" if dma else "shot_binning_histogram"
+            before = _kernels.launch_counts[kernel]
+            got = sharded_shot_descriptors(kp, pts, nrm, 0.5, nccl_mesh, return_rfs=True,
+                                           min_neighborhood_size=10)
+            assert _kernels.launch_counts[kernel] > before
+            want = compute_shot_descriptor(kp, pts, nrm, 0.5, min_neighborhood_size=10)
+        finally:
+            shot_dma.set_dma_kernel(False)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        descs.append(got[0])
+    a, b = descs[0][::2], descs[1][1::2][:-1]      # an odd ref count pads the tile
+    before = _kernels.launch_counts["top2_match"]
+    got = ring_match(a, b, nccl_mesh)
+    assert _kernels.launch_counts["top2_match"] == before + 1
+    want = top2_descriptor(a, b, torch.ones(b.shape[0], dtype=torch.bool, device=dev))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))

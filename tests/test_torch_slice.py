@@ -171,21 +171,47 @@ def test_port_imports_without_jax():
 
 
 @pytest.mark.parametrize("flag", [["--n_devices", "2"], ["--fused", "--n_devices", "2"]])
-def test_cli_refuses_unported_options(flag):
+def test_cli_refuses_unported_options(flag, tmp_path, rng):
+    """``--n_devices 2`` in one process builds a mesh of the one rank there
+    is, which degenerates to one device as JAX's ``devices[:n]`` does: the
+    run equals ``--n_devices 1``'s.  ``--fused`` over a mesh is still
+    refused (ROADMAP.md, Queue 1, item 14, step 4).  The name is from when
+    both were refusals."""
     from shot_fpfh_tpu_torch.cli import main
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        main(["--device", "cpu", *flag])
+    if "--fused" in flag:
+        with pytest.raises(NotImplementedError, match="item 14, step 4"):
+            main(["--device", "cpu", *flag])
+        return
+    ref = make_terrain(4000, rng, scale=3.0, n_bumps=12)
+    rot = _rotation_about([0.3, -0.2, 1.0], np.deg2rad(12.0))
+    scan = (ref @ rot.T + [0.3, -0.2, 0.1]).astype(np.float32)
+    write_ply(str(tmp_path / "scan.ply"), [scan], ["x", "y", "z"])
+    write_ply(str(tmp_path / "ref.ply"), [ref], ["x", "y", "z"])
+    common = ["--device", "cpu", "--scan_file_path", str(tmp_path / "scan.ply"),
+              "--ref_file_path", str(tmp_path / "ref.ply"), "--conf_file_path", "",
+              "--neighborhood_size", "0.2", "--min_n_neighbors", "2", "--radius", "0.6",
+              "--rho", "20", "--n_draws", "300", "--max_iter", "10", "--normals_k", "20"]
+    for n in ("1", "2"):
+        assert main(common + [*flag[:1], n, "--output_dir", str(tmp_path / n)]) == 0
+    for stage in ("post_ransac", "post_icp"):
+        got, want = (read_ply(str(tmp_path / n / f"scan_on_ref_{stage}.ply")) for n in "21")
+        for c in "xyz":
+            np.testing.assert_array_equal(got[c], want[c])
 
 
 @pytest.mark.parametrize("flag", [["--normals_computation_k", "20"], ["--mesh_axis", "points"],
                                   ["--n_procs", "2"], ["--disable_progress_bars"]])
-def test_cli_has_no_flags_of_unported_features(flag, capsys):
-    from shot_fpfh_tpu_torch.cli import main
+def test_cli_has_no_flags_of_unported_features(flag):
+    """JAX's reference-compatibility flags parse to the values JAX's parser
+    gives them (the name is from when the port refused them)."""
+    from shot_fpfh_tpu.cli import parse_args as j_parse
+    from shot_fpfh_tpu_torch.cli import parse_args as t_parse
 
-    with pytest.raises(SystemExit) as exc:
-        main(["--device", "cpu", *flag])
-    assert exc.value.code == 2 and "unrecognized arguments" in capsys.readouterr().err
+    key = {"--normals_computation_k": "normals_k", "--mesh_axis": "mesh_axis",
+           "--n_procs": "n_devices", "--disable_progress_bars": "disable_progress_bars"}[flag[0]]
+    got, want = vars(t_parse(["--device", "cpu", *flag]))[key], vars(j_parse(flag))[key]
+    assert got == want and got not in (None, False)
 
 
 def test_kernel_build_dir_stays_out_of_site_packages(tmp_path, monkeypatch):

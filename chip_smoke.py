@@ -92,7 +92,21 @@ Phases, one line each; any failure exits non-zero with no result line:
    then two processes sharing the one card over gloo run ``cli.main
    --n_devices 2`` (SHOT, then FPFH), each accepted, its moved scan within
    1e-3 of one device's, rank 0 alone writing, each rank launching K1 (or
-   K4/K6), K2, K3 and K7.
+   K4/K6), K2, K3 and K7;
+15. the fused program and the multi-process entry point over a mesh: a second
+   1-rank NCCL group runs ``fused_registration_mesh`` on the inputs phase
+   12's runs gave ``fused_registration`` (SHOT on the window and run
+   routes, FPFH), each equal to the one-device call through matching
+   (``torch.equal``), RANSAC and ICP within 1e-5, the same launches, with
+   its CUDA-event ms beside the one device's and its host syncs by leg;
+   then phase 14's two processes also run ``cli.main --fused --n_devices
+   2`` (SHOT, FPFH; accepted, the moved scan within 1e-3 of one device's
+   ``--fused``, rank 0 alone writing, each rank launching K8 with K1 or
+   K4, K2, K3 and K7) and, their group destroyed, ``run_multihost`` on the
+   pair's ``.ply`` files through ``initialize_distributed`` (the ranks
+   within 1e-6 of each other and 1e-3 of one process's run, accepted
+   against the ground truth) and one ``scaling_report`` of SHOT (two ranks
+   on one card: not a scaling number).
 Phases 4–9 and 12 run cold, then measured, each accepted within the same
 bounds; every window route launches K8, and every ICP K7.
 ``--bits-against LIB`` also holds K1's and K5's phase-3 outputs equal, bit
@@ -1601,66 +1615,102 @@ def phase_options(pair: SmokePair) -> dict:
     return launches
 
 
-def _leg_syncs(pair: SmokePair, argv_extra: list[str]) -> dict:
-    """One more ``cli.main`` run with each leg of ``fused_registration``
-    wrapped: the host syncs it makes under
-    ``torch.cuda.set_sync_debug_mode("warn")``, by leg (``between legs``:
-    the call's own, outside its legs), each as {source line: count}."""
-    import warnings
-    from collections import Counter
+# the legs of registration.fused.fused_registration, by the module
+# attribute each is ("between legs": the call's own work outside them)
+_FUSED_LEGS = {"descriptors": "_cloud_descriptors", "matching": "_ratio_match",
+               "RANSAC": "_ransac", "ICP": "icp_loop", "between legs": "fused_registration"}
 
-    import torch
 
-    from shot_fpfh_tpu_torch import cli
-    from shot_fpfh_tpu_torch.registration import fused
+class _FusedLegs:
+    """While entered, each leg of ``registration.fused`` is wrapped: its
+    outputs are kept by leg (``outputs``), the last ``fused_registration``
+    call's arguments too (``inputs``), and with ``syncs`` the host syncs
+    each leg makes under ``torch.cuda.set_sync_debug_mode("warn")`` are
+    counted by source line (``sync_counts()``)."""
 
-    legs = {"descriptors": "_cloud_descriptors", "matching": "_ratio_match",
-            "RANSAC": "_ransac", "ICP": "icp_loop", "between legs": "fused_registration"}
-    sites = {leg: Counter() for leg in legs}
-    saved = {attr: getattr(fused, attr) for attr in legs.values()}
+    def __init__(self, syncs: bool = False):
+        from collections import Counter
 
-    def counted(leg, fn):
+        self.syncs = syncs
+        self.sites = {leg: Counter() for leg in _FUSED_LEGS}
+        self.outputs = {leg: [] for leg in _FUSED_LEGS}
+        self.inputs = None
+
+    def __enter__(self):
+        from shot_fpfh_tpu_torch.registration import fused
+
+        self.saved = {attr: getattr(fused, attr) for attr in _FUSED_LEGS.values()}
+        for leg, attr in _FUSED_LEGS.items():
+            setattr(fused, attr, self._wrapped(leg, self.saved[attr]))
+        return self
+
+    def __exit__(self, *exc):
+        from shot_fpfh_tpu_torch.registration import fused
+
+        for attr, fn in self.saved.items():
+            setattr(fused, attr, fn)
+
+    def _wrapped(self, leg, fn):
+        import warnings
+
+        import torch
+
         def run(*args, **kwargs):
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                before = torch.cuda.get_sync_debug_mode()
-                torch.cuda.set_sync_debug_mode("warn")
-                try:
-                    return fn(*args, **kwargs)
-                finally:
-                    torch.cuda.set_sync_debug_mode(before)
-                    sites[leg].update(f"{Path(w.filename).name}:{w.lineno}" for w in caught
-                                      if "called a synchronizing" in str(w.message))
+            if leg == "between legs":
+                self.inputs = (args, kwargs)
+            if not self.syncs:
+                out = fn(*args, **kwargs)
+            else:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    before = torch.cuda.get_sync_debug_mode()
+                    torch.cuda.set_sync_debug_mode("warn")
+                    try:
+                        out = fn(*args, **kwargs)
+                    finally:
+                        torch.cuda.set_sync_debug_mode(before)
+                        self.sites[leg].update(f"{Path(w.filename).name}:{w.lineno}"
+                                               for w in caught
+                                               if "called a synchronizing" in str(w.message))
+            self.outputs[leg].append(out)
+            return out
         return run
 
-    for leg, attr in legs.items():
-        setattr(fused, attr, counted(leg, saved[attr]))
-    try:
+    def sync_counts(self) -> dict:
+        return {leg: dict(c) for leg, c in self.sites.items()}
+
+
+def _leg_syncs(pair: SmokePair, argv_extra: list[str]) -> tuple[dict, tuple]:
+    """One more ``cli.main`` run with each leg of ``fused_registration``
+    wrapped: the host syncs it makes by leg, each as {source line: count},
+    and the arguments ``register_pair`` gave ``fused_registration``."""
+    from shot_fpfh_tpu_torch import cli
+
+    with _FusedLegs(syncs=True) as legs:
         check(cli.main(pair.argv + argv_extra) == 0, "fused run with sync counting: rejected")
-    finally:
-        for attr, fn in saved.items():
-            setattr(fused, attr, fn)
-    return {leg: dict(c) for leg, c in sites.items()}
+    return legs.sync_counts(), legs.inputs
 
 
-def phase_fused_paths(pair: SmokePair) -> dict:
+def phase_fused_paths(pair: SmokePair) -> tuple[dict, dict]:
     """Phase 12: the fused program (``--fused``) for single-scale SHOT on
     the window route and on the run route and for FPFH, each beside the
-    staged path on the same keypoints; the fused run launches K2 once."""
+    staged path on the same keypoints; the fused run launches K2 once.
+    Returns each run's launches, and each case's run route and the
+    arguments its ``fused_registration`` call was given (phase 15)."""
     from shot_fpfh_tpu_torch.ops.shot_dma import set_dma_kernel
 
     fpfh = ["--descriptor_choice", "fpfh", "--radius", str(FPFH_RADIUS)]
     cases = (("SHOT, window route", [], False, SHOT_PATH, ("shot_runs",)),
              ("SHOT, run route", [], True, SHOT_RUN_PATH, ("shot_binning_histogram",)),
              ("FPFH", fpfh, False, FPFH_WINDOW_PATH, ("spfh_runs",)))
-    launches = {}
+    launches, inputs = {}, {}
     for label, extra, run_route, must, must_not in cases:
         set_dma_kernel(run_route)
         try:
             staged = pair.run(f"staged {label}, subsampling keypoints", FUSED_FLAGS + extra,
                               must, must_not, cold=False)
             r = pair.run(f"fused {label}", FUSED_FLAGS + extra + ["--fused"], must, must_not)
-            syncs = _leg_syncs(pair, FUSED_FLAGS + extra + ["--fused"])
+            syncs, inputs[label] = _leg_syncs(pair, FUSED_FLAGS + extra + ["--fused"])
         finally:
             set_dma_kernel(False)
         check(r["launches"]["top2_match"] == 1,
@@ -1672,7 +1722,8 @@ def phase_fused_paths(pair: SmokePair) -> dict:
               + ", ".join(f"{st['stage']} {st['seconds']:.3f} s" for st in staged["stages"])
               + f"; host syncs of one fused_registration call by leg: {syncs}", flush=True)
         launches[f"fused {label}"] = r["launches"]
-    return launches
+        inputs[label] = (run_route, must, inputs[label])
+    return launches, inputs
 
 
 def phase_multiscale_top1(dev) -> str:
@@ -1882,17 +1933,22 @@ def phase_library_rest(pair: SmokePair, dev) -> str:
             f"the profiler's events and in the chrome trace ({trace.stat().st_size} bytes)")
 
 
-# phase 14, part 2: the port's CLI on two ranks sharing the one card (gloo;
-# NCCL refuses two ranks on one device), SHOT (a cold run first) and FPFH;
-# each rank writes its record to a JSON file
+# phase 14, part 2, and phase 15, part 2: two processes sharing the one card
+# (gloo; NCCL refuses two ranks on one device).  Over a file:// store they
+# run the port's CLI with --n_devices 2: staged SHOT (a cold run first) and
+# FPFH, then --fused SHOT and FPFH; then, the group destroyed, run_multihost
+# over initialize_distributed's tcp:// coordinator and one scaling_report.
+# Each rank writes its record to a JSON file
 MESH_RANKS = 2
 MESH_WORKER = r"""
 import json, sys, time
 import torch
+import torch.distributed as dist
 rank, store, root, spec = int(sys.argv[1]), sys.argv[2], sys.argv[3], json.loads(sys.argv[4])
 sys.path.insert(0, root)
 from shot_fpfh_tpu_torch import _kernels, cli
-from shot_fpfh_tpu_torch.parallel import make_mesh
+from shot_fpfh_tpu_torch.parallel import make_mesh, scaling_report
+from shot_fpfh_tpu_torch.parallel.multihost import run_multihost
 mesh = make_mesh(device="cuda", init_method="file://" + store, rank=rank, world_size=2,
                  timeout=600)
 out = {"backend": mesh.backend, "device": str(mesh.device)}
@@ -1904,9 +1960,24 @@ for label, argv in spec["runs"]:
     torch.cuda.synchronize()
     out[label] = {"rc": rc, "wall": time.perf_counter() - t0,
                   "launches": dict(_kernels.launch_counts)}
+dist.destroy_process_group()
+_kernels.reset_launch_counts()
+t0 = time.perf_counter()
+res = run_multihost(*spec["multihost"]["files"], coordinator_address=spec["multihost"]["coord"],
+                    num_processes=2, process_id=rank, device="cuda", timeout=600,
+                    **spec["multihost"]["kwargs"])
+torch.cuda.synchronize()
+out["multihost"] = {"result": res, "wall": time.perf_counter() - t0,
+                    "launches": dict(_kernels.launch_counts)}
+out["scaling"] = {str(k): v for k, v in scaling_report(stage="shot", device="cuda").items()}
 with open(f"{spec['work']}/mesh2_rank{rank}.json", "w") as f:
     json.dump(out, f)
 """
+# run_multihost on the smoke pair: the pair's SHOT radius, JAX's other
+# defaults (keypoints at voxel 0.25, ratio 0.9, 2,000 draws, ICP at 0.1)
+MULTIHOST_KW = {"radius": 0.9}
+# two ranks against one process: equal to 1e-6 (JAX tests/test_multihost.py)
+MULTIHOST_RANKS_ATOL = 1e-6
 # the 1-rank stages against one device: reductions (RANSAC's transform, ICP)
 # within MESH_SUM_ATOL, everything per row equal
 MESH_SUM_ATOL = 1e-5
@@ -2111,22 +2182,110 @@ def phase_mesh_one_rank(pair: SmokePair) -> dict:
     return total
 
 
+def phase_fused_mesh_one_rank(cases: dict) -> dict:
+    """Phase 15, part 1: ``fused_registration_mesh`` over a 1-rank NCCL
+    group in this process, on the inputs phase 12's ``--fused`` runs gave
+    ``fused_registration`` (SHOT on the window and run routes, FPFH: the
+    smoke pair's 24,772 / 24,428 keypoints), each held to the one-device
+    call on the same inputs: equal (``torch.equal``) through matching (each
+    cloud's descriptors, the nearest indices and the match mask), the match
+    count and convergence equal, RANSAC and ICP within MESH_SUM_ATOL, the
+    same launches.  Each call's CUDA-event ms beside the one device's, and
+    the mesh call's host syncs by leg.  Returns each mesh run's launches."""
+    import torch
+    import torch.distributed as dist
+
+    from shot_fpfh_tpu_torch.ops.shot_dma import set_dma_kernel
+    from shot_fpfh_tpu_torch.parallel import make_mesh
+    from shot_fpfh_tpu_torch.parallel.mesh import all_reduce_sum
+    from shot_fpfh_tpu_torch.registration import fused
+
+    store = WORK / "nccl_store_fused"
+    store.unlink(missing_ok=True)
+    mesh = make_mesh(device="cuda", init_method=f"file://{store}", rank=0, world_size=1,
+                     timeout=300)
+    check(dist.get_backend() == "nccl" and mesh.size == 1,
+          f"phase 15: a 1-rank group on {dist.get_backend()}, mesh {mesh}")
+    _, setup_ms, _ = _stage(lambda: all_reduce_sum(torch.zeros(1, device=mesh.device), mesh))
+    launches, lines = {}, []
+    for label, (run_route, must, (args, kw)) in cases.items():
+        set_dma_kernel(run_route)
+        try:
+            with _FusedLegs() as one:
+                want, one_ms, one_launches = _stage(lambda: fused.fused_registration(*args, **kw))
+            with _FusedLegs() as sharded:
+                got, ms, mesh_launches = _stage(
+                    lambda: fused.fused_registration_mesh(mesh, *args, **kw))
+            with _FusedLegs(syncs=True) as counted:
+                fused.fused_registration_mesh(mesh, *args, **kw)
+        finally:
+            set_dma_kernel(False)
+        for leg in ("descriptors", "matching"):
+            check(len(sharded.outputs[leg]) == len(one.outputs[leg]) and all(
+                _all_equal(g, w) for g, w in zip(sharded.outputs[leg], one.outputs[leg])),
+                f"phase 15 {label}: the 1-rank mesh's {leg} differ from one device's")
+        check(int(got.n_matches) == int(want.n_matches)
+              and bool(got.icp_converged) == bool(want.icp_converged),
+              f"phase 15 {label}: matches {int(got.n_matches)} / {int(want.n_matches)}, "
+              f"converged {bool(got.icp_converged)} / {bool(want.icp_converged)}")
+        close = _all_close(
+            (got.ransac_transform.rotation, got.ransac_transform.translation,
+             got.ransac_inlier_ratio, got.icp_transform.rotation, got.icp_transform.translation,
+             got.icp_rms),
+            (want.ransac_transform.rotation, want.ransac_transform.translation,
+             want.ransac_inlier_ratio, want.icp_transform.rotation,
+             want.icp_transform.translation, want.icp_rms))
+        check(close is True, f"phase 15 {label}: RANSAC / ICP differ from one device's {close}")
+        check(mesh_launches == one_launches,
+              f"phase 15 {label}: launches {mesh_launches}, one device {one_launches}")
+        for name in must:
+            if name != "radius_pca":    # K3 runs in the CLI's normals, outside the program
+                check(mesh_launches.get(name, 0) > 0, f"phase 15 {label}: never launched {name}")
+        launches[f"fused mesh 1-rank {label}"] = mesh_launches
+        lines.append(f"{label}: {ms:.3f} ms (one device {one_ms:.3f}), {int(got.n_matches)} "
+                     f"matches, launches {mesh_launches}, host syncs by leg "
+                     f"{counted.sync_counts()}")
+    dist.destroy_process_group()
+    print(f"phase 15 fused program over a 1-rank NCCL group ({mesh.device}, first collective "
+          f"{setup_ms:.1f} ms): equal to one device through matching, RANSAC and ICP within "
+          f"{MESH_SUM_ATOL}, the same launches; " + "; ".join(lines), flush=True)
+    return launches
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
 def phase_mesh_two_ranks(pair: SmokePair) -> dict:
-    """Phase 14, part 2: the port's ``cli.main --n_devices 2`` in two
-    processes sharing the one card over gloo, on the smoke pair with
-    ``config/default.yaml`` (SHOT: a cold run, then a measured one) and
-    with ``--descriptor_choice fpfh``.  Each run accepted within the main
-    path's bounds, its moved scan within MESH_MOVED_ATOL of one device's,
-    only rank 0 writing, and each rank launching K1, K2, K3 and K7 (FPFH:
-    K4 or K6 for K1).  Returns rank 0's launches of each measured run."""
+    """Phase 14, part 2, and phase 15, part 2: two processes sharing the
+    one card over gloo (``MESH_WORKER``), on the smoke pair with
+    ``config/default.yaml``.  Phase 14: ``cli.main --n_devices 2`` staged
+    (SHOT: a cold run, then a measured one; FPFH).  Phase 15: ``--fused``
+    for SHOT and FPFH, then ``run_multihost`` on the pair's ``.ply`` files
+    through ``initialize_distributed`` and one ``scaling_report`` of SHOT.
+    Each CLI run accepted within the main path's bounds, its moved scan
+    within MESH_MOVED_ATOL of one device's (``--fused`` against one
+    device's ``--fused``), only rank 0 writing, and each rank launching K8
+    with K1 (FPFH: K4 or K6), K2, K3 and K7; ``run_multihost`` the same on
+    both ranks (MULTIHOST_RANKS_ATOL), within MESH_MOVED_ATOL of one
+    process's run and accepted against the ground truth.  Returns rank 0's
+    launches of each measured run."""
     import os
 
     import torch
 
     from shot_fpfh_tpu_torch import cli
+    from shot_fpfh_tpu_torch.core.transform import rotation_angle
+    from shot_fpfh_tpu_torch.parallel.multihost import run_multihost
 
     fpfh = ["--descriptor_choice", "fpfh", "--radius", str(FPFH_RADIUS)]
-    runs = [("shot_cold", []), ("shot", []), ("fpfh", fpfh)]
+    fused = FUSED_FLAGS + ["--fused"]
+    runs = [("shot_cold", []), ("shot", []), ("fpfh", fpfh), ("fused_shot", fused),
+            ("fused_fpfh", fused + fpfh)]
     base = [a for a in pair.argv]
     for flag in ("--output_dir", "--metrics_json"):     # each rank gets its own
         i = base.index(flag)
@@ -2135,12 +2294,19 @@ def phase_mesh_two_ranks(pair: SmokePair) -> dict:
     for label, extra in runs[1:]:
         out = WORK / f"mesh1_{label}"
         check(cli.main(base + extra + ["--n_devices", "1", "--output_dir", str(out)]) == 0,
-              f"phase 14 one device, {label}: registration rejected")
+              f"phase 14/15 one device, {label}: registration rejected")
         torch.cuda.synchronize()
         singles[label] = moved_scan(out / "scan_on_ref_post_icp.ply")
+    files = [str(WORK / "scan.ply"), str(WORK / "ref.ply")]
+    t0 = time.perf_counter()
+    single_mh = run_multihost(*files, device="cuda", **MULTIHOST_KW)
+    torch.cuda.synchronize()
+    single_mh_wall = time.perf_counter() - t0
     store = WORK / "gloo_store"
     store.unlink(missing_ok=True)
-    spec = json.dumps({"work": str(WORK), "runs": [(lbl, base + ex) for lbl, ex in runs]})
+    spec = json.dumps({"work": str(WORK), "runs": [(lbl, base + ex) for lbl, ex in runs],
+                       "multihost": {"files": files, "coord": f"127.0.0.1:{_free_port()}",
+                                     "kwargs": MULTIHOST_KW}})
     env = {k: v for k, v in os.environ.items()
            if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "MASTER_ADDR",
                         "MASTER_PORT")}
@@ -2150,7 +2316,7 @@ def phase_mesh_two_ranks(pair: SmokePair) -> dict:
                                spec], env=env, stdout=logs[r], stderr=subprocess.STDOUT)
              for r in range(MESH_RANKS)]
     try:
-        codes = [p.wait(timeout=600) for p in procs]
+        codes = [p.wait(timeout=900) for p in procs]
     finally:
         for p in procs:
             if p.poll() is None:
@@ -2161,46 +2327,91 @@ def phase_mesh_two_ranks(pair: SmokePair) -> dict:
     elapsed = time.perf_counter() - t0
     for r, code in enumerate(codes):
         tail = (WORK / f"mesh2_rank{r}.log").read_text()[-3000:]
-        check(code == 0, f"phase 14 two ranks: rank {r} exited {code}:\n{tail}")
+        check(code == 0, f"phase 14/15 two ranks: rank {r} exited {code}:\n{tail}")
     ranks = [json.loads((WORK / f"mesh2_rank{r}.json").read_text()) for r in range(MESH_RANKS)]
     check(all(r["backend"] == "gloo" for r in ranks),
           f"phase 14 two ranks: backends {[r['backend'] for r in ranks]}")
-    needs = {"shot": ("shot_binning_histogram", "top2_match", "radius_pca", "radius_dist"),
-             "fpfh": ("top2_match", "radius_pca", "radius_dist")}
-    parts, launches = [], {}
-    for label in ("shot", "fpfh"):
+    shot_needs = ("shot_binning_histogram", "fetch_windows", "top2_match", "radius_pca",
+                  "radius_dist")
+    needs = {"shot": shot_needs, "fpfh": ("top2_match", "radius_pca", "radius_dist"),
+             "fused_shot": shot_needs,
+             "fused_fpfh": ("fetch_windows", "top2_match", "radius_pca", "radius_dist")}
+    parts, launches = {14: [], 15: []}, {}
+    for label in ("shot", "fpfh", "fused_shot", "fused_fpfh"):
+        phase = 15 if label.startswith("fused") else 14
         for r, rec in enumerate(ranks):
             run = rec[label]
-            check(run["rc"] == 0, f"phase 14 two ranks, {label}: rank {r} rejected")
+            check(run["rc"] == 0, f"phase {phase} two ranks, {label}: rank {r} rejected")
             for name in needs[label]:
-                check(run["launches"][name] > 0, f"phase 14 two ranks, {label}: rank {r} "
+                check(run["launches"][name] > 0, f"phase {phase} two ranks, {label}: rank {r} "
                       f"never launched {name}")
-            if label == "fpfh":
+            if label.endswith("fpfh"):
                 check(run["launches"]["spfh_histogram"] + run["launches"]["spfh_runs"] > 0,
-                      f"phase 14 two ranks, fpfh: rank {r} launched neither K4 nor K6")
+                      f"phase {phase} two ranks, {label}: rank {r} launched neither K4 nor K6")
         out = WORK / f"mesh2_{label}_rank0"
         check(not (WORK / f"mesh2_{label}_rank1").exists(),
-              f"phase 14 two ranks, {label}: rank 1 wrote outputs")
+              f"phase {phase} two ranks, {label}: rank 1 wrote outputs")
         rot_err, t_err = pair.errors(out)
         check(rot_err < MAIN_ROT_TOL and t_err < MAIN_T_TOL,
-              f"phase 14 two ranks, {label}: rotation error {rot_err}, translation {t_err}")
+              f"phase {phase} two ranks, {label}: rotation error {rot_err}, translation {t_err}")
         moved_err = float(np.abs(moved_scan(out / "scan_on_ref_post_icp.ply")
                                  - singles[label]).max())
         check(moved_err < MESH_MOVED_ATOL,
-              f"phase 14 two ranks, {label}: moved scan {moved_err} from one device's")
-        launches[label] = ranks[0][label]["launches"]
+              f"phase {phase} two ranks, {label}: moved scan {moved_err} from one device's")
+        name = {"shot": "SHOT", "fpfh": "FPFH", "fused_shot": "fused SHOT",
+                "fused_fpfh": "fused FPFH"}[label]
+        launches[f"mesh 2-rank {name}"] = ranks[0][label]["launches"]
         stages = json.loads((WORK / f"mesh2_{label}_rank0.json").read_text())["stages"]
-        parts.append(
+        if phase == 15:
+            check([st["stage"] for st in stages] == ["fused"],
+                  f"phase 15 two ranks, {label}: stages {[st['stage'] for st in stages]}")
+        parts[phase].append(
             f"{label}: accepted, rotation error {rot_err:.2e} rad, translation error "
             f"{t_err:.2e}, moved scan within {moved_err:.2e} of one device's; wall (rank 0, "
             f"rank 1) {ranks[0][label]['wall']:.3f}, {ranks[1][label]['wall']:.3f} s; "
             "stages " + ", ".join(f"{s['stage']} {s['seconds']:.3f} s" for s in stages)
             + "; launches by rank "
             + str([{k: v for k, v in rec[label]['launches'].items() if v} for rec in ranks]))
+    mh = [rec["multihost"]["result"] for rec in ranks]
+    for r, res in enumerate(mh):
+        check(res["process_id"] == r and res["process_count"] == res["n_devices"] == MESH_RANKS,
+              f"phase 15 run_multihost: rank {r} reports {res['process_id']} of "
+              f"{res['process_count']}, {res['n_devices']} devices")
+    for key in ("rotation", "translation"):
+        gap = float(np.abs(np.subtract(mh[0][key], mh[1][key])).max())
+        check(gap <= MULTIHOST_RANKS_ATOL, f"phase 15 run_multihost: the ranks' {key} {gap} apart")
+        gap = float(np.abs(np.subtract(mh[0][key], single_mh[key])).max())
+        check(gap < MESH_MOVED_ATOL, f"phase 15 run_multihost: {key} {gap} from one process's")
+    exact_rot = torch.tensor(pair.rot.T)
+    mh_rot_err = float(rotation_angle(torch.tensor(mh[0]["rotation"], dtype=torch.float64),
+                                      exact_rot))
+    mh_t_err = float(np.linalg.norm(np.asarray(mh[0]["translation"])
+                                    - (-pair.rot.T @ pair.trans)))
+    check(mh_rot_err < MAIN_ROT_TOL and mh_t_err < MAIN_T_TOL,
+          f"phase 15 run_multihost: rotation error {mh_rot_err}, translation {mh_t_err}")
+    launches["multihost 2-rank"] = ranks[0]["multihost"]["launches"]
+    for name in shot_needs:
+        check(launches["multihost 2-rank"][name] > 0,
+              f"phase 15 run_multihost: rank 0 never launched {name}")
+    scaling = ranks[0]["scaling"]
     print(f"phase 14 mesh, two ranks sharing one card over gloo (not a scaling number; "
           f"cold SHOT run {ranks[0]['shot_cold']['wall']:.3f} s, processes "
-          f"{elapsed:.1f} s in all): " + "; ".join(parts), flush=True)
-    return {"mesh 2-rank SHOT": launches["shot"], "mesh 2-rank FPFH": launches["fpfh"]}
+          f"{elapsed:.1f} s in all with phase 15's runs): " + "; ".join(parts[14]), flush=True)
+    print("phase 15 the fused program and run_multihost on two ranks sharing one card over "
+          "gloo (not a scaling number): " + "; ".join(parts[15])
+          + f"; run_multihost ({MULTIHOST_KW}, JAX's other defaults): {mh[0]['n_matches']} "
+          f"matches, RANSAC inlier ratio {mh[0]['ransac_inlier_ratio']:.4f}, ICP RMS "
+          f"{mh[0]['icp_rms']:.6f}, rotation error {mh_rot_err:.2e} rad, translation error "
+          f"{mh_t_err:.2e}, the ranks equal within {MULTIHOST_RANKS_ATOL}, one process's run "
+          f"within {MESH_MOVED_ATOL} (one process {single_mh_wall:.3f} s; ranks "
+          f"{ranks[0]['multihost']['wall']:.3f}, {ranks[1]['multihost']['wall']:.3f} s, "
+          "initialisation included), stages (rank 0) "
+          + ", ".join(f"{st['stage']} {st['seconds']:.3f} s"
+                      for st in mh[0]["stages"]["stages"])
+          + f", launches by rank {[{k: v for k, v in rec['multihost']['launches'].items() if v} for rec in ranks]}"
+          + f"; scaling_report(stage='shot') on rank 0, items/s by device count, not a "
+          f"scaling number (the two ranks share one card): {scaling}", flush=True)
+    return launches
 
 
 def main(argv=None) -> int:
@@ -2263,11 +2474,13 @@ def main(argv=None) -> int:
     paths["iterative"] = phase_iterative_path(pair)
     paths["PCA features"] = phase_features(pair, dev)
     paths.update(phase_options(pair))
-    paths.update(phase_fused_paths(pair))
+    fused_launches, fused_inputs = phase_fused_paths(pair)
+    paths.update(fused_launches)
     print(phase_multiscale_top1(dev), flush=True)
     paths.update(phase_debug_paths(pair, shot))
     print(phase_library_rest(pair, dev), flush=True)
     paths["mesh 1-rank"] = phase_mesh_one_rank(pair)
+    paths.update(phase_fused_mesh_one_rank(fused_inputs))
     paths.update(phase_mesh_two_ranks(pair))
     # kernel -> (source, TPU kernel it replaces, parity and timings, the
     # path whose launches the line reports)

@@ -21,12 +21,12 @@ is checked); both are off again when ``main`` returns or raises.
 ``--n_devices`` (or the reference's ``--n_procs``) other than 1 builds a
 mesh over the ranks of the launch (``parallel.make_mesh``; ``--mesh_axis``
 must be ``points``): under ``torchrun --nproc_per_node N ... --n_devices N``
-normals, descriptors, matching, RANSAC and ICP shard over the N ranks,
-every rank logs the same result and rank 0 alone writes the outputs; in a
-single process the mesh has one rank and the stages run on one device;
-in a launch of more than one rank, ``--n_devices 1`` raises ``ValueError``.
-``--fused`` in a launch of more than one rank is not ported yet and raises
-``NotImplementedError`` (ROADMAP.md, Queue 1, item 14, step 4).
+normals, descriptors, matching, RANSAC and ICP shard over the N ranks (with
+``--fused``, the single program shards over them:
+``registration.fused.fused_registration_mesh``), every rank logs the same
+result and rank 0 alone writes the outputs; in a single process the mesh
+has one rank and the stages run on one device; in a launch of more than
+one rank, ``--n_devices 1`` raises ``ValueError``.
 ``--normals_computation_k`` is a second name of ``--normals_k`` and
 ``--disable_progress_bars`` does nothing, as in the reference.  Exit code 0
 means the registration was accepted.
@@ -53,7 +53,6 @@ from .models.shot import debug_violation_count, enable_debug_checks
 from .parallel import make_mesh
 from .parallel.mesh import launch_size
 from .pipeline import RegistrationPipeline
-from .registration.fused import MESH_REFUSAL
 from .utils.debug_nans import NanCheck
 from .utils.perf import checkpoint
 
@@ -148,13 +147,6 @@ def parse_args(argv=None) -> argparse.Namespace:
                          help="Name of the mesh axis; must be 'points' (any other value "
                               "is rejected when the mesh is built).")
     return parser.parse_args(argv)
-
-
-def _check_supported(compute_cfg) -> None:
-    # refused before any stage runs: with --n_devices 0 a launch of several
-    # ranks is a mesh too
-    if compute_cfg.fused and (compute_cfg.n_devices not in (0, 1) or launch_size() > 1):
-        raise NotImplementedError(MESH_REFUSAL)
 
 
 def _fused_refusal(kp_cfg, desc_cfg, match_cfg, compute_cfg) -> str | None:
@@ -254,7 +246,6 @@ def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
     config = load_config_from_yaml(args.config, vars(args))
     compute_cfg = config["compute"]
-    _check_supported(compute_cfg)
     with contextlib.ExitStack() as debug:
         if compute_cfg.debug_shot:
             enable_debug_checks(True)

@@ -24,8 +24,9 @@ Routes, switched at ``ops.grid_hash.AUTO_GRID_MIN_POINTS`` cloud points
   reference leaves it to XLA).
 
 Both routes run their passes over blocks of rows (``parallel.mesh``'s
-``local_rows``/``gather_rows``), so ``parallel.sharded_fpfh`` runs this
-code on each rank's block: one device computes the one block of all rows.
+``local_rows``/``gather_rows``), so ``parallel.sharded_fpfh`` and the fused
+program's FPFH leg (``registration.fused``) run this code on each rank's
+block: one device computes the one block of all rows.
 """
 
 from __future__ import annotations
@@ -160,21 +161,6 @@ def _sorted_rows(grid: HashGrid, idx: torch.Tensor) -> torch.Tensor:
     return inv[idx]
 
 
-def _fpfh_aggregate(spfh, nbr_idx, nbr_dist, nbr_mask, keypoint_indices,
-                    kp_chunk: int = _KP_CHUNK):
-    """FPFH(p) = SPFH(p) + (Σ_{j, d>0} SPFH(j)/d_j) / |N(p)| over keypoints."""
-    out = []
-    for s in range(0, keypoint_indices.shape[0], kp_chunk):
-        kp = keypoint_indices[s:s + kp_chunk]
-        d = nbr_dist[kp]
-        m = nbr_mask[kp] & (d > 0)
-        weights = torch.where(m, 1.0 / torch.where(m, d, 1.0), 0.0)
-        acc = torch.einsum("ckd,ck->cd", spfh[nbr_idx[kp]], weights)
-        count = torch.clamp(nbr_mask[kp].sum(-1), min=1).to(torch.float32)
-        out.append(spfh[kp] + acc / count[:, None])
-    return torch.cat(out) if out else spfh.new_zeros((0, spfh.shape[1]))
-
-
 def _fpfh_searched(spfh, cloud, kp, radius, k_max: int):
     """FPFH of the keypoints ``kp`` (cloud indices) over their capped radius
     neighborhoods, searched again (pass 1 searched only this rank's rows)."""
@@ -207,28 +193,43 @@ def compute_fpfh_descriptor(keypoint_indices, cloud_points, normals, radius,
 
 
 def _fpfh(cloud, nrm, kp, radius, n_bins: int, decorrelated: bool, k_max: int, mesh=None):
-    """Both passes on the cloud's route.  With a ``mesh`` each rank runs
-    pass 1 on its block of the cloud's points (pad queries at the far
-    sentinel: empty neighborhoods) and pass 2 on its block of the
-    keypoints; the SPFH table and the FPFH rows are gathered after each."""
-    n, n_kp = cloud.shape[0], kp.shape[0]
-    if n >= grid_hash.AUTO_GRID_MIN_POINTS:
+    """Both passes on the cloud's route (a halo-2 grid from
+    ``AUTO_GRID_MIN_POINTS`` points up, built here), each rank computing
+    its block of the keypoints (:func:`_fpfh_rows`); the FPFH rows are
+    gathered after."""
+    grid = None
+    if cloud.shape[0] >= grid_hash.AUTO_GRID_MIN_POINTS:
         grid = build_grid(cloud, float(radius) / 2, extras=nrm, halo=2)
+        kp = _sorted_rows(grid, kp)
+    out = _fpfh_rows(cloud, nrm, local_rows(kp, mesh), radius, n_bins, decorrelated, k_max,
+                     mesh, grid)
+    return gather_rows(out, kp.shape[0], mesh)
+
+
+def _fpfh_rows(cloud, nrm, kp_rows, radius, n_bins: int, decorrelated: bool, k_max: int,
+               mesh=None, grid: HashGrid | None = None):
+    """FPFH of the keypoints ``kp_rows``, this rank's block of them (all of
+    them without a mesh): rows of ``grid``'s sorted table when ``grid``
+    (cell ``radius/2``, halo 2, carrying normals) is given, else cloud
+    indices.  Pass 1 is the SPFH of the rank's block of the cloud's points
+    (pad queries at the far sentinel: empty neighborhoods) — on a grid in
+    its sorted order through K6 (run route) or K8 + K4, else the capped
+    brute search — and one ``all_gather`` of the ``(N, D)`` table; pass 2
+    aggregates over the keypoints' neighborhoods found again (grid: K7).
+    The staged FPFH (:func:`_fpfh`) and the fused program's FPFH leg
+    (``registration.fused``) both run this."""
+    n = cloud.shape[0]
+    if grid is not None:
         spfh_rows = spfh_block_dma if _use_dma_spfh(grid) else _spfh_window_rows
         table = grid.packed_sorted       # pass 1 in the grid's sorted order
         spfh = spfh_rows(grid, local_rows(table[:, :3], mesh, fill=_FAR),
                          local_rows(table[:, 3:6], mesh), radius, n_bins, decorrelated)
-        spfh_sorted = gather_rows(spfh, n, mesh)
-        out = _fpfh_window_aggregate(grid, spfh_sorted, local_rows(_sorted_rows(grid, kp), mesh),
-                                     radius)
-        return gather_rows(out, n_kp, mesh)
+        return _fpfh_window_aggregate(grid, gather_rows(spfh, n, mesh), kp_rows, radius)
     q = local_rows(cloud, mesh, fill=_FAR)
     nbr, vals = radius_search_with_values_auto(q, cloud, nrm, radius, k_max)
     spfh = _spfh_from_values(q, local_rows(nrm, mesh), vals[..., :3], vals[..., 3:6], nbr.dist,
                              nbr.mask, radius, n_bins, decorrelated)
     spfh = gather_rows(spfh, n, mesh)
-    kp_rows = local_rows(kp, mesh)
     out = [_fpfh_searched(spfh, cloud, kp_rows[s:s + _KP_CHUNK], radius, k_max)
            for s in range(0, kp_rows.shape[0], _KP_CHUNK)]
-    out = torch.cat(out) if out else spfh.new_zeros((0, spfh.shape[1]))
-    return gather_rows(out, n_kp, mesh)
+    return torch.cat(out) if out else spfh.new_zeros((0, spfh.shape[1]))

@@ -1,9 +1,15 @@
 """Multi-device registration over a ``torch.distributed`` mesh — port of
-``shot_fpfh_tpu.parallel``: the mesh (``mesh.py``) and the sharded stages
-(``sharded.py``).  JAX's multi-host helpers (``multihost.py``) are not
-ported yet (ROADMAP.md, Queue 1, item 14, step 5)."""
+``shot_fpfh_tpu.parallel``: the mesh (``mesh.py``), the sharded stages
+(``sharded.py``) and the multi-process entry point and its helpers
+(``multihost.py``)."""
 
 from .mesh import POINTS_AXIS, make_mesh, pad_to_multiple, replicate, shard_rows
+from .multihost import (
+    global_keypoint_array,
+    host_local_keypoint_shard,
+    initialize_distributed,
+    scaling_report,
+)
 from .sharded import (
     RingMatchResult,
     ring_match,
@@ -15,6 +21,10 @@ from .sharded import (
 )
 
 __all__ = [
+    "global_keypoint_array",
+    "host_local_keypoint_shard",
+    "initialize_distributed",
+    "scaling_report",
     "POINTS_AXIS",
     "make_mesh",
     "pad_to_multiple",

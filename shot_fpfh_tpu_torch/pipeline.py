@@ -10,7 +10,8 @@ device call (:meth:`RegistrationPipeline.run_fused`).  Stage timings go to
 ``self.metrics``.  With a ``mesh`` of more than one rank
 (``parallel.make_mesh``) the descriptors, matching, RANSAC and ICP shard
 over it (``parallel.sharded``) on the rank's device, every rank holding the
-same results.
+same results; :meth:`RegistrationPipeline.run_fused` then runs the single
+program over it.
 """
 
 from __future__ import annotations
@@ -351,9 +352,11 @@ class RegistrationPipeline:
         ``shot_single_scale``, ``shot_bi_scale`` (frames at ``radius``, bins
         at ``radius * phi``), ``shot_multiscale`` (scales ``radius * phi**i``
         with shared first-scale frames, concatenated to 352·n_scales
-        columns) and ``fpfh``.  Returns the ``FusedResult``; the keypoint
-        indices it derived are recorded on the pipeline, so the post-ICP
-        metrics see the keypoints the staged path would."""
+        columns) and ``fpfh``.  With a mesh of more than one rank the
+        program shards over it (``registration.fused.fused_registration_mesh``)
+        and every rank holds the same result.  Returns the ``FusedResult``;
+        the keypoint indices it derived are recorded on the pipeline, so the
+        post-ICP metrics see the keypoints the staged path would."""
         from .registration.fused import register_pair
 
         desc_kwargs = {}

@@ -30,13 +30,26 @@ Randomness: the Gumbel noise is drawn from a ``torch.Generator`` on the
 call's device seeded with ``seed``; it cannot reproduce ``jax.random``, so
 ``gumbel`` injects the noise instead (the parity tests pass JAX's).
 
-Not ported here: ``fused_registration_mesh`` and ``register_pair`` over a
-mesh of more than one rank (ROADMAP.md, Queue 1, item 14, step 4); both
-raise :data:`MESH_REFUSAL`.
+Over a mesh of ranks (``parallel.mesh``; :func:`fused_registration_mesh`,
+JAX ``fused.py:323-716``) every leg runs the same code on the rank's block
+of rows, through ``local_rows``/``gather_rows``/``all_reduce_sums``, which
+are the identity without a mesh: the keypoints are row-sharded and the
+clouds and grids replicated; FPFH's SPFH pass shards the table rows and
+gathers the ``(N, D)`` table once (``models.fpfh._fpfh_rows``); matching
+keeps the scan rows sharded against the gathered ref descriptors;
+RANSAC's draws are the same on every rank (the match rows gathered once,
+the noise from one seed on one device type) and each rank counts inliers
+over its match rows, the count vector summed by one ``all_reduce`` (whole
+numbers: the first maximum is the one device's); ICP sums its normal
+equations (or Kabsch sums) over the ranks once an iteration
+(``icp_loop(reduce=)``).  Every rank returns the same result.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -47,20 +60,14 @@ from .._fp import sqrt
 from ..core.solvers import solve_point_to_point
 from ..core.subsampling import grid_subsample
 from ..core.transform import RigidTransform
-from ..models.fpfh import (
-    _fpfh_aggregate,
-    _fpfh_window_aggregate,
-    _sorted_rows,
-    _spfh_from_values,
-    _spfh_window_sorted,
-    _use_dma_spfh,
-)
+from ..models.fpfh import _fpfh_rows, _sorted_rows
 from ..models.shot import _shot_window_chunked, local_reference_frames, shot_from_neighborhoods
 from ..ops import grid_hash
-from ..ops.grid_hash import build_grid, radius_search_with_values_auto
+from ..ops.grid_hash import build_grid
 from ..ops.match import top2_match
 from ..ops.neighbors import as_f32, radius_search
-from ..ops.shot_dma import spfh_sorted_dma
+from ..ops.shot_dma import dma_kernel_enabled
+from ..parallel.mesh import agree, all_reduce_sums, gather_rows, local_rows, replicate
 from .icp import icp_loop
 
 # RANSAC draws per Gumbel-top-k chunk (the JAX program's scan step): the
@@ -115,36 +122,31 @@ def _shot(kp, valid, sup, nrm, radius, k_max, min_nb, grid=None, rf_radius=None,
     return (desc, rfs) if return_rfs else desc
 
 
-def _fpfh(kp_idx, valid, sup, nrm, radius, k_max, n_bins, decorrelated, grid=None):
-    """FPFH of the keypoints ``kp_idx``: grid-sorted indices when ``grid``
-    (cell ``radius/2``, halo 2, carrying normals) is given — SPFH of every
-    point through K8 + K4 or K6, aggregation over K7's windows — original
-    cloud indices otherwise (brute search capped at ``k_max``).  Padding
-    rows are zeroed like empty SHOT rows."""
-    if grid is not None:
-        spfh_sorted = (spfh_sorted_dma(grid, radius, n_bins, decorrelated)
-                       if _use_dma_spfh(grid)
-                       else _spfh_window_sorted(grid, radius, n_bins, decorrelated))
-        desc = _fpfh_window_aggregate(grid, spfh_sorted, kp_idx, radius)
-    else:
-        nbr, vals = radius_search_with_values_auto(sup, sup, nrm, radius, k_max)
-        spfh = _spfh_from_values(sup, nrm, vals[..., :3], vals[..., 3:6], nbr.dist, nbr.mask,
-                                 radius, n_bins, decorrelated)
-        desc = _fpfh_aggregate(spfh, nbr.idx, nbr.dist, nbr.mask, kp_idx)
+def _fpfh(kp_idx, valid, sup, nrm, radius, k_max, n_bins, decorrelated, grid=None, mesh=None):
+    """FPFH of the keypoints ``kp_idx`` (the rank's block): grid-sorted
+    indices when ``grid`` (cell ``radius/2``, halo 2, carrying normals) is
+    given — SPFH of every point through K8 + K4 or K6, aggregation over
+    K7's windows — original cloud indices otherwise (brute search capped at
+    ``k_max``); over a mesh each rank's SPFH pass takes its block of the
+    cloud's rows (``models.fpfh._fpfh_rows``).  Padding rows are zeroed
+    like empty SHOT rows."""
+    desc = _fpfh_rows(sup, nrm, kp_idx, radius, n_bins, decorrelated, k_max, mesh, grid)
     return torch.where(valid[:, None], desc, 0.0)
 
 
 def _cloud_descriptors(kp, valid, sup, nrm, kp_idx, grid, fpfh_grid, *, descriptor, radius,
                        k_max, min_neighborhood_size, rf_radius, fpfh_n_bins,
-                       fpfh_decorrelated, ms_radii):
-    """One cloud's descriptor leg: ``(Q, 352)`` SHOT, ``(Q, 352·S)``
-    multiscale SHOT or ``(Q, D)`` FPFH."""
+                       fpfh_decorrelated, ms_radii, mesh=None):
+    """One cloud's descriptor leg on the rank's block of keypoints (``kp``,
+    ``valid``, ``kp_idx``): ``(Q, 352)`` SHOT, ``(Q, 352·S)`` multiscale
+    SHOT or ``(Q, D)`` FPFH."""
     if descriptor == "fpfh":
         return _fpfh(kp_idx, valid, sup, nrm, radius, k_max, fpfh_n_bins, fpfh_decorrelated,
-                     grid=fpfh_grid)
+                     grid=fpfh_grid, mesh=mesh)
     if descriptor == "shot_multiscale":
-        # every scale takes the first (smallest-radius) scale's frames; the
-        # scales concatenate, the reference multiscale workflow's layout
+        # every scale takes the first (smallest-radius) scale's frames (over
+        # a mesh, the rank's own); the scales concatenate, the reference
+        # multiscale workflow's layout
         descs, rfs = [], None
         for r in ms_radii:
             d_s, rfs_s = _shot(kp, valid, sup, nrm, r, k_max, min_neighborhood_size, grid=grid,
@@ -179,14 +181,16 @@ def _gumbel(shape, generator: torch.Generator, device) -> torch.Tensor:
 
 
 def _ransac(src, dst, valid_match, n_matches, ransac_threshold, n_draws, draw_size,
-            generator, gumbel=None):
+            generator, gumbel=None, mesh=None):
     """``(transform, inlier_ratio)`` of the best of ``ceil(n_draws / 256)·256``
     draws of ``draw_size`` valid matches each (masked Gumbel-top-k per
     chunk of 256; ``gumbel``, when given, is the ``(n_chunks, 256, Q)``
     noise).  Every draw is solved in one batched call; inliers (within
-    ``ransac_threshold``, over valid matches) are counted a chunk at a time.
-    The first draw with the most inliers wins: the JAX program's rule (the
-    first maximum within a chunk, a later chunk only with strictly more)."""
+    ``ransac_threshold``, over valid matches) are counted a chunk at a time,
+    over a mesh among the rank's match rows, the counts then summed over the
+    ranks in one ``all_reduce``.  The first draw with the most inliers wins:
+    the JAX program's rule (the first maximum within a chunk, a later chunk
+    only with strictly more)."""
     n_chunks = -(-n_draws // RANSAC_CHUNK)
     if gumbel is not None and gumbel.shape != (n_chunks, RANSAC_CHUNK, src.shape[0]):
         raise ValueError(f"gumbel must have shape {(n_chunks, RANSAC_CHUNK, src.shape[0])}, "
@@ -200,14 +204,15 @@ def _ransac(src, dst, valid_match, n_matches, ransac_threshold, n_draws, draw_si
     draws = torch.cat(draws)
     tf = solve_point_to_point(src[draws], dst[draws])
     thr2 = float(np.float32(ransac_threshold) ** 2)
-    match_w = valid_match.to(torch.float32)
+    src_rows, dst_rows = local_rows(src, mesh), local_rows(dst, mesh)
+    match_w = local_rows(valid_match.to(torch.float32), mesh)
     counts = []
     for s in range(0, draws.shape[0], RANSAC_CHUNK):
         rot, t = tf.rotation[s:s + RANSAC_CHUNK], tf.translation[s:s + RANSAC_CHUNK]
-        moved = torch.einsum("cij,mj->cmi", rot, src) + t[:, None, :]
-        dd = ((moved - dst[None]) ** 2).sum(-1)
+        moved = torch.einsum("cij,mj->cmi", rot, src_rows) + t[:, None, :]
+        dd = ((moved - dst_rows[None]) ** 2).sum(-1)
         counts.append(((dd <= thr2).to(torch.float32) * match_w[None, :]).sum(-1))
-    counts = torch.cat(counts)
+    (counts,) = all_reduce_sums((torch.cat(counts),), mesh)
     # a 1-element index tensor keeps the pick on the device
     best = torch.argmax(counts).view(1)
     ransac_tf = RigidTransform(tf.rotation[best][0], tf.translation[best][0]).normalize_rotation()
@@ -251,33 +256,104 @@ def fused_registration(
     scan_fpfh_grid=None,
     ref_fpfh_grid=None,
     ms_radii=None,                 # multiscale: tuple of scale radii
+    mesh=None,                     # parallel.Mesh: shard every leg over its ranks
 ) -> FusedResult:
     """Descriptors, ratio matching, RANSAC and ICP of one padded pair, on
-    the device the tensors are on (every input on one device)."""
+    the device the tensors are on (every input on one device).  With a
+    ``mesh`` every rank passes the same full inputs on its own device and
+    computes its block of each leg's rows (module docstring); every rank
+    returns the same result."""
     if descriptor not in DESCRIPTORS:
         raise ValueError(f"descriptor must be one of {DESCRIPTORS}, got {descriptor!r}")
+    grids = (scan_grid, ref_grid, ref_icp_grid, scan_fpfh_grid, ref_fpfh_grid)
+    if mesh is not None:
+        # every branch below and the Gumbel stream (one seed, one device
+        # type) must be the same on every rank: one check, before the
+        # first collective
+        agree("the fused program", mesh, DESCRIPTORS.index(descriptor),
+              *(g is not None for g in grids), dma_kernel_enabled(), scan_kp.shape[0],
+              ref_kp.shape[0], scan_sub.shape[0], scan_support.shape[0],
+              ref_support.shape[0], n_draws, draw_size, max_iter, point_to_plane,
+              gumbel is None, scan_kp.device.type == "cuda")
+    rows = functools.partial(local_rows, mesh=mesh)
     opts = dict(descriptor=descriptor, radius=radius, k_max=k_max,
                 min_neighborhood_size=min_neighborhood_size, rf_radius=rf_radius,
                 fpfh_n_bins=fpfh_n_bins, fpfh_decorrelated=fpfh_decorrelated,
-                ms_radii=ms_radii)
-    scan_desc = _cloud_descriptors(scan_kp, scan_kp_valid, scan_support, scan_normals,
-                                   scan_kp_idx, scan_grid, scan_fpfh_grid, **opts)
-    ref_desc = _cloud_descriptors(ref_kp, ref_kp_valid, ref_support, ref_normals, ref_kp_idx,
-                                  ref_grid, ref_fpfh_grid, **opts)
+                ms_radii=ms_radii, mesh=mesh)
+    scan_kp_valid_rows = rows(scan_kp_valid)
+    scan_desc = _cloud_descriptors(
+        rows(scan_kp), scan_kp_valid_rows, scan_support, scan_normals,
+        None if scan_kp_idx is None else rows(scan_kp_idx), scan_grid, scan_fpfh_grid, **opts)
+    ref_desc = gather_rows(_cloud_descriptors(
+        rows(ref_kp), rows(ref_kp_valid), ref_support, ref_normals,
+        None if ref_kp_idx is None else rows(ref_kp_idx), ref_grid, ref_fpfh_grid, **opts),
+        ref_kp.shape[0], mesh)
 
-    nn_idx, valid_match = _ratio_match(scan_desc, scan_kp_valid, ref_desc, ref_kp_valid,
+    # the rank's scan rows against every ref row; RANSAC draws over all the
+    # match rows, so they are gathered once (nearest index and validity)
+    nn_idx, valid_match = _ratio_match(scan_desc, scan_kp_valid_rows, ref_desc, ref_kp_valid,
                                        ratio_threshold)
+    matches = gather_rows(torch.stack((nn_idx, valid_match.to(nn_idx.dtype)), 1),
+                          scan_kp.shape[0], mesh)
+    nn_idx, valid_match = matches[:, 0], matches[:, 1].bool()
     n_matches = valid_match.sum()
 
     generator = torch.Generator(device=scan_kp.device).manual_seed(seed)
     ransac_tf, inlier_ratio = _ransac(scan_kp, ref_kp[nn_idx], valid_match, n_matches,
-                                      ransac_threshold, n_draws, draw_size, generator, gumbel)
+                                      ransac_threshold, n_draws, draw_size, generator, gumbel,
+                                      mesh)
 
-    icp = icp_loop(scan_sub, ref_support, ref_normals if point_to_plane else None, ransac_tf,
-                   d_max, max_iter, rms_threshold, grid=ref_icp_grid,
-                   weights=scan_sub_valid.to(torch.float32))
+    icp = icp_loop(rows(scan_sub), ref_support, ref_normals if point_to_plane else None,
+                   ransac_tf, d_max, max_iter, rms_threshold, grid=ref_icp_grid,
+                   weights=rows(scan_sub_valid.to(torch.float32)),
+                   reduce=None if mesh is None else functools.partial(all_reduce_sums,
+                                                                      mesh=mesh))
     return FusedResult(ransac_tf, icp.transform, inlier_ratio, n_matches, icp.rms,
                        icp.has_converged)
+
+
+def _grid_on(grid, device):
+    """``grid`` with its tensors on ``device`` (None stays None)."""
+    if grid is None:
+        return None
+    return dataclasses.replace(grid, **{
+        f.name: getattr(grid, f.name).to(device) for f in dataclasses.fields(grid)
+        if isinstance(getattr(grid, f.name), torch.Tensor)})
+
+
+_MESH_GRIDS = ("scan_grid", "ref_grid", "ref_icp_grid", "scan_fpfh_grid", "ref_fpfh_grid")
+
+
+def fused_registration_mesh(mesh, scan_kp, scan_kp_valid, ref_kp, ref_kp_valid, scan_support,
+                            scan_normals, ref_support, ref_normals, scan_sub, scan_sub_valid, *,
+                            radius: float, seed: int = 72, gumbel=None,
+                            **kwargs) -> FusedResult:
+    """:func:`fused_registration` sharded over ``mesh`` (JAX
+    ``fused.py:323-716``): every rank passes the same full host arrays or
+    tensors (the keyword arguments are :func:`fused_registration`'s), which
+    are placed on the rank's device; the keypoint and ICP rows shard over
+    the ranks, the clouds and grids are replicated.  The rows of
+    ``scan_kp``, ``ref_kp`` and ``scan_sub`` must divide the mesh
+    (``register_pair`` pads to ``lcm(pad_multiple, mesh size)``).  Returns
+    the same ``FusedResult`` on every rank, on its device."""
+    n_dev = mesh.devices.size
+    for name, arr in (("scan_kp", scan_kp), ("ref_kp", ref_kp), ("scan_sub", scan_sub)):
+        if len(arr) % n_dev:
+            raise ValueError(f"{name} rows ({len(arr)}) must divide the mesh ({n_dev})")
+    dev = mesh.device
+    points = [as_f32(x, dev) for x in (scan_kp, ref_kp, scan_support, scan_normals,
+                                        ref_support, ref_normals, scan_sub)]
+    valid = [replicate(np.asarray(v, bool) if not isinstance(v, torch.Tensor) else v.bool(),
+                       mesh) for v in (scan_kp_valid, ref_kp_valid, scan_sub_valid)]
+    for name in ("scan_kp_idx", "ref_kp_idx"):
+        if kwargs.get(name) is not None:
+            kwargs[name] = replicate(kwargs[name], mesh).long()
+    for name in _MESH_GRIDS:
+        kwargs[name] = _grid_on(kwargs.get(name), dev)
+    skp, rkp, ssup, snrm, rsup, rnrm, sub = points
+    return fused_registration(skp, valid[0], rkp, valid[1], ssup, snrm, rsup, rnrm, sub,
+                              valid[2], radius=radius, seed=seed, gumbel=gumbel, mesh=mesh,
+                              **kwargs)
 
 
 def _padded(rows: torch.Tensor, mult: int):
@@ -290,11 +366,6 @@ def _padded(rows: torch.Tensor, mult: int):
     return out, torch.arange(target, device=rows.device) < n
 
 
-MESH_REFUSAL = ("the single-program path over a mesh of more than one rank "
-                "(fused_registration_mesh) is not ported yet (ROADMAP.md, Queue 1, "
-                "item 14, step 4); run without --fused to stage the sharded pipeline")
-
-
 def register_pair(scan, scan_normals, ref, ref_normals, *, keypoint_voxel: float,
                   icp_voxel: float, radius: float, seed: int = 72, pad_multiple: int = 256,
                   mesh=None, device=None, **fused_kwargs) -> FusedResult:
@@ -305,11 +376,16 @@ def register_pair(scan, scan_normals, ref, ref_normals, *, keypoint_voxel: float
     descriptor legs get grids (SHOT: cell ``max(radius, rf_radius)`` or the
     largest multiscale radius, carrying normals; FPFH: cell ``radius/2``,
     halo 2, keypoints as sorted-order indices) and ICP a grid of the ref at
-    cell ``d_max`` (``d_max`` pinned, default 0.3).  Returns the result
+    cell ``d_max`` (``d_max`` pinned, default 0.3).  With a ``mesh`` of
+    more than one rank (every rank given the same clouds) the rows pad to
+    ``lcm(pad_multiple, mesh size)`` and the program shards over it on the
+    rank's device (:func:`fused_registration_mesh`).  Returns the result
     with the keypoint indices."""
-    if mesh is not None and np.size(getattr(mesh, "devices", mesh)) > 1:
-        raise NotImplementedError(MESH_REFUSAL)
-    dev = resolve(device, scan)
+    use_mesh = mesh is not None and mesh.devices.size > 1
+    if use_mesh:
+        # every row-sharded input must divide the mesh
+        pad_multiple = math.lcm(pad_multiple, mesh.devices.size)
+    dev = mesh.device if use_mesh else resolve(device, scan)
     scan_t, ref_t = as_f32(scan, dev), as_f32(ref, dev)
     scan_n, ref_n = as_f32(scan_normals, dev), as_f32(ref_normals, dev)
     scan_kp_idx = grid_subsample(scan_t, keypoint_voxel)
@@ -346,7 +422,7 @@ def register_pair(scan, scan_normals, ref, ref_normals, *, keypoint_voxel: float
         d_max = fused_kwargs.setdefault("d_max", 0.3)
         grids["ref_icp_grid"] = build_grid(ref_t, float(d_max))
 
-    res = fused_registration(scan_kp, scan_kp_valid, ref_kp, ref_kp_valid, scan_t, scan_n,
-                             ref_t, ref_n, scan_sub, scan_sub_valid, radius=radius, seed=seed,
-                             **grids, **fused_kwargs)
+    run = functools.partial(fused_registration_mesh, mesh) if use_mesh else fused_registration
+    res = run(scan_kp, scan_kp_valid, ref_kp, ref_kp_valid, scan_t, scan_n, ref_t, ref_n,
+              scan_sub, scan_sub_valid, radius=radius, seed=seed, **grids, **fused_kwargs)
     return res._replace(scan_keypoint_idx=scan_kp_idx, ref_keypoint_idx=ref_kp_idx)

@@ -225,11 +225,9 @@ def test_fpfh_leg_matches_jax(pair, monkeypatch, route):
     """Brute route atol 1e-5; the grid routes (K8 + K4's twins or K6's,
     sorted-order keypoints) by the SPFH route rule against JAX's."""
     monkeypatch.setitem(shot_dma._DMA, "enabled", route == "runs")
-    from shot_fpfh_tpu_torch.registration import fused
-
     calls = []
-    monkeypatch.setattr(fused, "spfh_sorted_dma",
-                        lambda *a: calls.append(1) or shot_dma.spfh_sorted_dma(*a))
+    monkeypatch.setattr(t_fpfh, "spfh_block_dma",
+                        lambda *a: calls.append(1) or shot_dma.spfh_block_dma(*a))
     fgrids, kp_idx = (None, None), []
     if route != "brute":
         fgrids = tuple(t_grid.build_grid(_t(sup), RADIUS / 2, extras=_t(nrm), halo=2)
@@ -351,13 +349,6 @@ def test_register_pair_recovers_ground_truth(pair):
     assert _angle(res.icp_transform.rotation, pair.exact.rotation) < 2e-2
     assert float(torch.linalg.norm(res.icp_transform.translation
                                    - torch.as_tensor(np.asarray(pair.exact.translation)))) < 5e-2
-
-
-def test_register_pair_refuses_a_mesh(pair):
-    with pytest.raises(NotImplementedError, match="item 14"):
-        t_fused.register_pair(pair.scan, pair.sn, pair.ref, pair.rn, keypoint_voxel=KP_VOXEL,
-                              icp_voxel=ICP_VOXEL, radius=RADIUS, mesh=np.zeros(2),
-                              device="cpu")
 
 
 # ------------------------------------------------------------ the ICP loop --

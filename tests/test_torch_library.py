@@ -555,11 +555,8 @@ def test_profiler_trace_holds_the_annotation(tmp_path):
 
 
 # JAX public names the port leaves out, with the reason (ROADMAP.md, "Do not
-# port", and Queue 1, item 14)
-MULTIHOST = "parallel/multihost.py is not ported yet (ROADMAP.md, Queue 1, item 14, step 5)"
+# port")
 EXCLUDED = {
-    "parallel": {"global_keypoint_array": MULTIHOST, "host_local_keypoint_shard": MULTIHOST,
-                 "initialize_distributed": MULTIHOST, "scaling_report": MULTIHOST},
     "ops": {"set_window_group": "the grouped feature-planar gather is a TPU workaround",
             "window_group_default": "the grouped feature-planar gather is a TPU workaround",
             "fused_kernels_enabled": "picks Pallas or XLA on a TPU; on the card the kernel "
@@ -580,5 +577,5 @@ def test_public_names_match_jax(module):
     assert not missing
     assert set(excluded) <= names
     assert set(jax_mod.__all__) - set(excluded) <= set(port.__all__)
-    if module == ".parallel":   # JAX's names, all but the multi-host four
-        assert set(port.__all__) <= names and names - set(port.__all__) == set(excluded)
+    if module == ".parallel":   # exactly JAX's names
+        assert not excluded and set(port.__all__) == names

@@ -6,13 +6,17 @@ A module-scoped fixture writes a small pair (``.ply`` and ``.npz``) and
 launches two ranks (``sys.executable -c WORKER``, a ``file://`` store in
 ``tmp_path``, collectives under a 120 s timeout).  Each rank runs the
 pipeline over the mesh (SHOT and FPFH, ratio matching, RANSAC, ICP) and the
-CLI with ``--n_devices 2`` and with ``--n_procs 2``, each rank told its own
+CLI with ``--n_devices 2``, with ``--n_procs 2`` and with ``--fused`` over
+the launch's two ranks (the single program sharded:
+``registration.fused.fused_registration_mesh``), each rank told its own
 output paths, so the test sees that only rank 0 wrote.  Held to one rank:
 the same matches, ICP within 1e-3 rad / 1e-3 (JAX
 ``tests/test_mesh_pipeline.py``), and the CLI's moved scan within 1e-3 of
-``--n_devices 1``'s (JAX ``test_cli_n_devices_same_transform``).  Each
-rank also runs the CLI with ``--n_devices 1`` and with ``--fused``, which a
-launch of two ranks refuses before any stage.
+``--n_devices 1``'s, and with ``--fused`` of one device's ``--fused`` (JAX
+``test_cli_n_devices_same_transform``,
+``test_cli_fused_n_devices_same_transform``).  Each rank also runs the CLI
+with ``--n_devices 1``, which a launch of two ranks refuses before any
+stage.
 """
 
 import json
@@ -37,6 +41,11 @@ from shot_fpfh_tpu_torch.io.ply import read_ply, write_ply  # noqa: E402
 torch.set_num_threads(1)
 
 PIPELINE = dict(keypoint_voxel=0.25, radius=0.5, n_draws=1200, d_max=0.3)
+# the CLI's runs on two ranks: each mesh flag, and --fused over the launch
+# (default --n_devices 0) with the keypoints the fused program covers
+FUSED_ARGS = ["--fused", "--selection_algorithm", "subsampling"]
+CLI_RUNS = {"n_devices": ["--n_devices", "2"], "n_procs": ["--n_procs", "2"],
+            "fused": FUSED_ARGS}
 
 WORKER = r'''
 import json
@@ -61,22 +70,20 @@ for choice in ("shot_single_scale", "fpfh"):
     p, rot, t = run_pipeline(pair, mesh, choice)
     out[choice + "/matches"] = np.stack(p.matches)
     out[choice + "/transform"] = np.concatenate([rot.ravel(), t])
-codes = {}
-for flag in ("--n_devices", "--n_procs"):
-    tag = f"{flag[2:]}_rank{rank}"
-    argv = json.loads(open(tmp + "/cli_args.json").read()) + [
-        flag, "2", "--output_dir", f"{tmp}/{tag}", "--metrics_json", f"{tmp}/{tag}.json"]
-    codes[flag] = cli.main(argv)
-out["codes"] = np.asarray([codes["--n_devices"], codes["--n_procs"]])
-# in a launch of two ranks, --n_devices 1 and --fused (default --n_devices 0)
-# are refused before any stage runs
-for tag, extra in (("one_device", ["--n_devices", "1"]), ("fused", ["--fused"])):
-    try:
-        cli.main(json.loads(open(tmp + "/cli_args.json").read()) + extra
-                 + ["--output_dir", f"{tmp}/{tag}_rank{rank}"])
-        out["refusal/" + tag] = np.asarray("no error")
-    except (ValueError, NotImplementedError) as exc:
-        out["refusal/" + tag] = np.asarray(f"{type(exc).__name__}: {exc}")
+codes = []
+for run, extra in json.loads(open(tmp + "/cli_runs.json").read()).items():
+    tag = f"{run}_rank{rank}"
+    argv = json.loads(open(tmp + "/cli_args.json").read()) + extra + [
+        "--output_dir", f"{tmp}/{tag}", "--metrics_json", f"{tmp}/{tag}.json"]
+    codes.append(cli.main(argv))
+out["codes"] = np.asarray(codes)
+# in a launch of two ranks, --n_devices 1 is refused before any stage runs
+try:
+    cli.main(json.loads(open(tmp + "/cli_args.json").read())
+             + ["--n_devices", "1", "--output_dir", f"{tmp}/one_device_rank{rank}"])
+    out["refusal/one_device"] = np.asarray("no error")
+except ValueError as exc:
+    out["refusal/one_device"] = np.asarray(f"{type(exc).__name__}: {exc}")
 np.savez(f"{tmp}/rank{rank}.npz", **out)
 '''
 
@@ -140,6 +147,7 @@ def ranks(tmp_path_factory):
             "--neighborhood_size", "0.2", "--min_n_neighbors", "2", "--radius", "0.6",
             "--rho", "20", "--n_draws", "300", "--max_iter", "10", "--normals_k", "20"]
     (tmp / "cli_args.json").write_text(json.dumps(argv))
+    (tmp / "cli_runs.json").write_text(json.dumps(CLI_RUNS))
     env = {k: v for k, v in os.environ.items()
            if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
     procs = [subprocess.Popen([sys.executable, "-c", WORKER, str(r), str(tmp / "store"),
@@ -175,11 +183,11 @@ def test_cli_two_ranks_match_one_rank(ranks, flag, tmp_path):
 
     tmp, _, argv, results, logs = ranks
     code = main(argv + ["--n_devices", "1", "--output_dir", str(tmp_path)])
-    column = 0 if flag == "n_devices" else 1
+    column = list(CLI_RUNS).index(flag)
     assert code == 0 and [int(r["codes"][column]) for r in results] == [0, 0]
-    for log in logs:   # every rank logs the result, both runs over the mesh
-        assert log.count("Sharding pipeline stages over a 2-rank mesh") == 2
-        assert log.count("registration ACCEPTED") == 2
+    for log in logs:   # every rank logs the result, every run over the mesh
+        assert log.count("Sharding pipeline stages over a 2-rank mesh") == len(CLI_RUNS)
+        assert log.count("registration ACCEPTED") == len(CLI_RUNS)
     # rank 0 alone wrote its outputs
     assert not (tmp / f"{flag}_rank1").exists() and not (tmp / f"{flag}_rank1.json").exists()
     assert json.loads((tmp / f"{flag}_rank0.json").read_text())["stages"]
@@ -189,13 +197,34 @@ def test_cli_two_ranks_match_one_rank(ranks, flag, tmp_path):
         assert np.abs(got - want).max() < 1e-3
 
 
+def test_cli_fused_two_ranks_match_one_device(ranks, tmp_path):
+    """``--fused`` in a 2-rank launch runs the single program over the mesh
+    (one ``fused`` stage, no staging warning), rank 0 alone writes, and its
+    moved scans are within 1e-3 of one device's ``--fused`` (JAX
+    ``test_cli_fused_n_devices_same_transform``)."""
+    from shot_fpfh_tpu_torch.cli import main
+
+    tmp, _, argv, results, logs = ranks
+    code = main(argv + FUSED_ARGS + ["--n_devices", "1", "--output_dir", str(tmp_path)])
+    assert code == 0 and [int(r["codes"][list(CLI_RUNS).index("fused")]) for r in results] \
+        == [0, 0]
+    for log in logs:
+        assert log.count("Fused single-program registration") == 1
+        assert "staging instead" not in log
+    assert not (tmp / "fused_rank1").exists() and not (tmp / "fused_rank1.json").exists()
+    stages = json.loads((tmp / "fused_rank0.json").read_text())["stages"]
+    assert [s["stage"] for s in stages] == ["fused"] and stages[0]["matches"] > 20
+    for stage in ("post_ransac", "post_icp"):
+        got = _moved_scan(tmp / "fused_rank0" / f"scan_on_ref_{stage}.ply")
+        want = _moved_scan(tmp_path / f"scan_on_ref_{stage}.ply")
+        assert np.abs(got - want).max() < 1e-3
+
+
 @pytest.mark.parametrize("case,error,words", [
-    ("one_device", "ValueError", "--n_devices 1 in a launch of 2 ranks"),
-    ("fused", "NotImplementedError", "item 14, step 4")])
+    ("one_device", "ValueError", "--n_devices 1 in a launch of 2 ranks")])
 def test_cli_refuses_in_a_two_rank_launch(ranks, case, error, words):
     """Every rank of a 2-rank launch refuses ``--n_devices 1`` (each would
-    register alone and write the same outputs) and ``--fused`` (the
-    single-program path over a mesh is not ported) before any stage runs."""
+    register alone and write the same outputs) before any stage runs."""
     tmp, _, _, results, _ = ranks
     for res in results:
         msg = str(res["refusal/" + case])

@@ -170,19 +170,15 @@ def test_port_imports_without_jax():
     subprocess.run([sys.executable, "-E", "-c", code], cwd=REPO, check=True, timeout=120)
 
 
-@pytest.mark.parametrize("flag", [["--n_devices", "2"], ["--fused", "--n_devices", "2"]])
+@pytest.mark.parametrize("flag", [[], ["--fused", "--selection_algorithm", "subsampling"]])
 def test_cli_refuses_unported_options(flag, tmp_path, rng):
     """``--n_devices 2`` in one process builds a mesh of the one rank there
     is, which degenerates to one device as JAX's ``devices[:n]`` does: the
-    run equals ``--n_devices 1``'s.  ``--fused`` over a mesh is still
-    refused (ROADMAP.md, Queue 1, item 14, step 4).  The name is from when
-    both were refusals."""
+    run equals ``--n_devices 1``'s, staged and with ``--fused`` (the fused
+    program, which a mesh of more than one rank shards).  The name is from
+    when both were refusals."""
     from shot_fpfh_tpu_torch.cli import main
 
-    if "--fused" in flag:
-        with pytest.raises(NotImplementedError, match="item 14, step 4"):
-            main(["--device", "cpu", *flag])
-        return
     ref = make_terrain(4000, rng, scale=3.0, n_bumps=12)
     rot = _rotation_about([0.3, -0.2, 1.0], np.deg2rad(12.0))
     scan = (ref @ rot.T + [0.3, -0.2, 0.1]).astype(np.float32)
@@ -193,7 +189,7 @@ def test_cli_refuses_unported_options(flag, tmp_path, rng):
               "--neighborhood_size", "0.2", "--min_n_neighbors", "2", "--radius", "0.6",
               "--rho", "20", "--n_draws", "300", "--max_iter", "10", "--normals_k", "20"]
     for n in ("1", "2"):
-        assert main(common + [*flag[:1], n, "--output_dir", str(tmp_path / n)]) == 0
+        assert main(common + flag + ["--n_devices", n, "--output_dir", str(tmp_path / n)]) == 0
     for stage in ("post_ransac", "post_icp"):
         got, want = (read_ply(str(tmp_path / n / f"scan_on_ref_{stage}.ply")) for n in "21")
         for c in "xyz":

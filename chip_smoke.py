@@ -36,12 +36,19 @@ Phases, one line each; any failure exits non-zero with no result line:
    (all 100k points of the smoke pair's ref on the iterative path's halo-2
    grid; the ICP's subsampled scan against the ref's 1-NN grid), each
    bit-identical to its plain version (``torch.equal`` on every output);
+   K7's 1-NN mode (``nearest``: the ICP's scan against the ref's 1-NN grid,
+   and every ref point on the iterative grid), both outputs equal to its
+   twin and to the route it replaced (K7 in chunks, the row minimum, the
+   gathers), timed beside that route and at each lanes-a-query variant;
+   the CUDA kernels one ICP iteration launches (``torch.profiler``);
 4. SHOT path: the port's ``cli.main`` on a ~100k-point terrain pair (scan =
    known rigid motion of ref + noise) with ``config/default.yaml``, run
    cold once and then measured; the registration must be accepted, within
    1e-2 rad / 1e-2 of the ground truth, and the measured run must have
-   launched K1, K2 and K3.  ``--profile DIR`` adds a third run under
-   ``torch.profiler`` (op table, chrome trace, device-busy share);
+   launched K1, K2 and K3, and K7's 1-NN mode once an ICP iteration and
+   once for the evaluation (51), K7's window never.  ``--profile DIR``
+   adds a third run under ``torch.profiler`` (op table, chrome trace,
+   device-busy share);
 5. FPFH path: the same pair with ``--descriptor_choice fpfh``, cold and
    measured on the window route (launches K2, K3 and K4), then once on the
    run route (``set_dma_kernel(True)``: launches K6 and no K4); each run
@@ -65,9 +72,10 @@ Phases, one line each; any failure exits non-zero with no result line:
    subsampling --neighborhood_size 0.15``): single-scale SHOT on the window
    route (K8 + K1) and on the run route (K5), and FPFH (K8 + K4, K7), each
    cold, then measured, accepted within the same bounds, with one K2 (f32)
-   launch, K3 (normals) and K7 (ICP); beside each, the staged path on the
-   same keypoints, and the host syncs of one ``fused_registration`` call by
-   leg (``torch.cuda.set_sync_debug_mode("warn")``).  Phase 3 also holds K8,
+   launch, K3 (normals) and K7's 1-NN mode (ICP); beside each, the staged
+   path on the same keypoints, and the host syncs of one
+   ``fused_registration`` call by leg
+   (``torch.cuda.set_sync_debug_mode("warn")``).  Phase 3 also holds K8,
    K1 and K5 on the fused SHOT grid (cell 0.9, halo 1, the full 100k scan)
    and K2 in f32 at the fused path's keypoint count;
 13. the library's single-device remainder: ``multiscale_top1`` on phase
@@ -92,7 +100,7 @@ Phases, one line each; any failure exits non-zero with no result line:
    then two processes sharing the one card over gloo run ``cli.main
    --n_devices 2`` (SHOT, then FPFH), each accepted, its moved scan within
    1e-3 of one device's, rank 0 alone writing, each rank launching K1 (or
-   K4/K6), K2, K3 and K7;
+   K4/K6 and K7), K2, K3 and K7's 1-NN mode;
 15. the fused program and the multi-process entry point over a mesh: a second
    1-rank NCCL group runs ``fused_registration_mesh`` on the inputs phase
    12's runs gave ``fused_registration`` (SHOT on the window and run
@@ -102,13 +110,14 @@ Phases, one line each; any failure exits non-zero with no result line:
    then phase 14's two processes also run ``cli.main --fused --n_devices
    2`` (SHOT, FPFH; accepted, the moved scan within 1e-3 of one device's
    ``--fused``, rank 0 alone writing, each rank launching K8 with K1 or
-   K4, K2, K3 and K7) and, their group destroyed, ``run_multihost`` on the
-   pair's ``.ply`` files through ``initialize_distributed`` (the ranks
-   within 1e-6 of each other and 1e-3 of one process's run, accepted
-   against the ground truth) and one ``scaling_report`` of SHOT (two ranks
-   on one card: not a scaling number).
+   K4 and K7, K2, K3 and K7's 1-NN mode) and, their group destroyed,
+   ``run_multihost`` on the pair's ``.ply`` files through
+   ``initialize_distributed`` (the ranks within 1e-6 of each other and
+   1e-3 of one process's run, accepted against the ground truth) and one
+   ``scaling_report`` of SHOT (two ranks on one card: not a scaling
+   number).
 Phases 4–9 and 12 run cold, then measured, each accepted within the same
-bounds; every window route launches K8, and every ICP K7.
+bounds; every window route launches K8, and every ICP K7's 1-NN mode.
 ``--bits-against LIB`` also holds K1's and K5's phase-3 outputs equal, bit
 for bit, to those of another build's library and times each alone under
 both builds in turns.
@@ -191,7 +200,7 @@ VOXEL_CLUSTER = 20_000
 # phase 9's greedy radius (--neighborhood_size): balls of ~62 points, at
 # most ~105 on the smoke terrain, under the 128-neighbor cap; phase 10's
 # feature radius and query count; the ICP's voxel and d_max
-# (config/default.yaml), whose 1-NN grid K7 searches
+# (config/default.yaml), whose 1-NN grid K7's 1-NN mode searches
 ITERATIVE_RADIUS = 0.3
 FEATURE_RADIUS, FEATURE_QUERIES = 0.3, 20_000
 ICP_VOXEL, ICP_D_MAX = 0.2, 0.5
@@ -206,26 +215,32 @@ FEATURE_ATOL, FEATURE_ANGLE_ATOL = 1e-6, 1e-4
 # compute_pca_based_features
 BASIC_ANGLE_COLS, FEATURE_ANGLE_COLS = (0,), (8, 9, 10, 11)
 
-# the CUDA kernels of K1, K4, K5, K6, K7 and K8 as csrc/ names them (their
-# device time alone is read from the profiler)
+# the CUDA kernels of K1, K4, K5, K6, K7 (its window and its 1-NN mode) and
+# K8 as csrc/ names them (their device time alone is read from the profiler)
 K1_KERNEL, K4_KERNEL, K5_KERNEL = "shot_hist_kernel", "spfh_hist_kernel", "shot_runs_kernel"
 K6_KERNEL = "spfh_runs_kernel"
 K7_KERNEL, K8_KERNEL = "radius_dist_kernel", "fetch_windows_kernel"
+NN_KERNEL = "nearest_kernel"
 
 # each path and the kernels its measured run must launch (and must not):
-# every window route fetches through K8, every ICP's grid 1-NN runs K7
-WINDOW, NN = "fetch_windows", "radius_dist"
+# every window route fetches through K8, every ICP's grid 1-NN runs K7's
+# 1-NN mode; FPFH's aggregation and the iterative keypoints run K7's window
+WINDOW, K7, NN = "fetch_windows", "radius_dist", "nearest"
 SHOT_PATH = ("shot_binning_histogram", "top2_match", "radius_pca", WINDOW, NN)
-FPFH_WINDOW_PATH = ("top2_match", "radius_pca", "spfh_histogram", WINDOW, NN)
-FPFH_RUN_PATH = ("top2_match", "radius_pca", "spfh_runs", NN)
+FPFH_WINDOW_PATH = ("top2_match", "radius_pca", "spfh_histogram", WINDOW, K7, NN)
+FPFH_RUN_PATH = ("top2_match", "radius_pca", "spfh_runs", K7, NN)
 SHOT_RUN_PATH = ("shot_runs", "top2_match", "radius_pca", NN)
 MULTISCALE_PATH = ("shot_binning_histogram", "top2_match", WINDOW, NN)
-ITERATIVE_PATH = (NN, WINDOW, "shot_binning_histogram", "top2_match", "radius_pca")
+ITERATIVE_PATH = (K7, NN, WINDOW, "shot_binning_histogram", "top2_match", "radius_pca")
+# the SHOT path's 1-NN launches: one an ICP iteration (50: the threshold
+# 1e-3 lies under the pair's RMS floor) and one for the evaluation's
+# overlap (its keypoint inlier ratio takes the brute route)
+SHOT_NN_LAUNCHES = 51
 
 # phase 12: the fused program's keypoints (the CLI's fused set-up) and the
 # kernels each of its runs must launch: its SHOT grid (cell = radius, halo
 # 1) takes K8 + K1 or K5, its FPFH grid K8 + K4 and K7; K2 once, in f32;
-# K3 in the CLI's normals; K7 in ICP
+# K3 in the CLI's normals; K7's 1-NN mode in ICP
 FUSED_FLAGS = ["--selection_algorithm", "subsampling", "--neighborhood_size",
                str(KEYPOINT_VOXEL)]
 FUSED_SHOT_CELL = 0.9
@@ -1201,34 +1216,146 @@ def parity_fused_shapes(pair, dev) -> None:
     parity_k2(dev, np.random.default_rng(2), n_pad, 352, modes=(False,))
 
 
+def replaced_nearest(grid, queries):
+    """The grid 1-NN as the port ran it before K7's 1-NN mode: K7 at radius
+    +inf in ``query_chunk`` chunks, the row minimum, two gathers."""
+    import torch
+
+    from shot_fpfh_tpu_torch.ops.grid_hash import query_chunk, window_radius_dist
+
+    dist_out, idx_out = [], []
+    step = query_chunk(grid, 4)
+    for s in range(0, queries.shape[0], step):
+        rows, masked = window_radius_dist(grid, queries[s:s + step], float("inf"))
+        best, pos = masked.min(dim=1)
+        dist_out.append(best)
+        idx_out.append(grid.orig_idx[torch.gather(rows, 1, pos[:, None])[:, 0]])
+    return torch.cat(dist_out), torch.cat(idx_out)
+
+
+def parity_nearest(label: str, grid, queries) -> dict:
+    """K7's 1-NN mode against its twin and against the route it replaced,
+    both outputs ``torch.equal``, at each lanes-a-query variant; timed
+    beside that route (its K7 launches alone too); bound: the table's xyz,
+    the cell-start table, ``orig_idx`` and the queries read once, 12 bytes
+    a query written, a distance test for every row of the queries'
+    windows."""
+    import torch
+
+    from shot_fpfh_tpu_torch.ops.grid_hash import query_chunk
+    from shot_fpfh_tpu_torch.ops.radius_runs import nearest, nearest_lanes, nearest_plain
+
+    got, want = nearest(grid, queries), nearest_plain(grid, queries)
+    old = replaced_nearest(grid, queries)
+    torch.cuda.synchronize()
+    for name, g, w, o in zip(("dist", "idx"), got, want, old):
+        check(torch.equal(g, w), f"1-NN {label}: {name} differs from the plain version")
+        check(torch.equal(g, o), f"1-NN {label}: {name} differs from the replaced route")
+    alone = {}
+    for lanes in (32, 8):
+        other = nearest(grid, queries, lanes=lanes)
+        check(torch.equal(other[0], want[0]) and torch.equal(other[1], want[1]),
+              f"1-NN {label}: {lanes} lanes a query differs from the plain version")
+        alone[lanes] = kernel_ms(lambda: nearest(grid, queries, lanes=lanes), NN_KERNEL)
+    err = _max_abs_diff(got[0], want[0])
+    ms = cuda_ms(lambda: nearest(grid, queries))
+    plain_ms = cuda_ms(lambda: nearest_plain(grid, queries))
+    old_ms = cuda_ms(lambda: replaced_nearest(grid, queries))
+    q = queries.shape[0]
+    old_launches = -(-q // query_chunk(grid, 4))
+    old_alone = kernel_ms(lambda: replaced_nearest(grid, queries), K7_KERNEL) * old_launches
+    _, lanes_used, _ = _runs_case(grid, queries)
+    n = grid.packed_sorted.shape[0]
+    b = bound(n * 12 + grid.cell_starts.numel() * 8 + n * 8 + q * 12 + q * 12,
+              lanes_used * OPS_DIST_TEST)
+    print(f"phase 3 K7 1-NN mode nearest ({label}): {q} queries, window cap "
+          f"{grid.window_cap}, halo {grid.halo}, {lanes_used / q:.0f} rows a query, "
+          f"{int(torch.isinf(got[0]).sum())} empty: dist and idx equal to the plain version and "
+          f"to the replaced route (max abs err {err}); kernel {ms:.3f} ms (alone "
+          f"{alone[nearest_lanes(grid.window_cap)]:.4f} ms at "
+          f"{nearest_lanes(grid.window_cap)} lanes a query; 32 / 8 alone "
+          + " / ".join(f"{alone[k]:.4f}" for k in (32, 8))
+          + f" ms), replaced route {old_ms:.3f} ms ({old_launches} K7 launches, alone "
+          f"{old_alone:.4f} ms in all), plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']})", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
+
+
+def _kernel_label(name: str) -> str:
+    """A profiler kernel name without its return type, namespace prefix and
+    template arguments."""
+    name = re.sub(r"^void ", "", name).replace("(anonymous namespace)::", "")
+    return re.split(r"[<(]", name, maxsplit=1)[0]
+
+
+def icp_iteration_kernels(grid, scan_sub, ref, ref_n, init) -> None:
+    """The CUDA kernels one point-to-plane ICP iteration launches on the
+    ref's 1-NN grid (``icp_loop`` with ``max_iter`` 1), by name, from
+    ``torch.profiler``."""
+    from collections import Counter
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from shot_fpfh_tpu_torch.registration import icp
+
+    def one():
+        return icp.icp_loop(scan_sub, ref, ref_n, init, ICP_D_MAX, 1, 1e-3, grid=grid)
+
+    one()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        one()
+        torch.cuda.synchronize()
+    names = Counter(_kernel_label(e.name) for e in prof.events()
+                    if e.device_type == DeviceType.CUDA)
+    check(names.get(NN_KERNEL, 0) == 1,
+          f"one ICP iteration launched {names.get(NN_KERNEL, 0)} 1-NN kernels: {dict(names)}")
+    check(names.get(K7_KERNEL, 0) == 0, f"one ICP iteration launched K7's window: {dict(names)}")
+    print(f"phase 3 one ICP iteration (point-to-plane, {scan_sub.shape[0]} points, "
+          f"icp_loop max_iter 1): {sum(names.values())} operations on the card: "
+          + ", ".join(f"{k} {v}" for k, v in names.most_common()), flush=True)
+
+
 def feature_queries(pair) -> np.ndarray:
     """Phase 10's FEATURE_QUERIES query points: every k-th point of the ref."""
     return pair.ref[::pair.ref.shape[0] // FEATURE_QUERIES][:FEATURE_QUERIES]
 
 
-def parity_pair_paths(pair, dev) -> tuple[dict, dict]:
+def parity_pair_paths(pair, dev) -> tuple[dict, dict, dict]:
     """K7 at its two paths' shapes on the smoke pair: the iterative path's
     search (every ref point on the halo-2 grid of cell 0.15, radius 0.3) and
     the ICP's 1-NN (the scan subsampled at voxel 0.2, moved onto the ref,
-    against the ref's grid of cell d_max, radius +inf); and K8 at the PCA
-    features' (phase 10's queries on the ref's halo-2 grid of cell 0.15,
-    three columns: no normals)."""
+    against the ref's grid of cell d_max, radius +inf); K7's 1-NN mode at
+    the ICP's shape and on the iterative grid, and the kernels of one ICP
+    iteration; and K8 at the PCA features' (phase 10's queries on the ref's
+    halo-2 grid of cell 0.15, three columns: no normals).  Returns K7's,
+    K8's and the 1-NN mode's records (the latter at the ICP's shape)."""
     import torch
 
     from shot_fpfh_tpu_torch.core.subsampling import grid_subsample
+    from shot_fpfh_tpu_torch.core.transform import RigidTransform
+    from shot_fpfh_tpu_torch.models.normals import compute_normals
     from shot_fpfh_tpu_torch.ops.grid_hash import build_grid
 
     ref = torch.tensor(pair.ref, device=dev)
     grid = build_grid(ref, ITERATIVE_RADIUS / 2, halo=2)
     k7 = parity_k7("iterative search", grid, ref, ITERATIVE_RADIUS)
+    parity_nearest("every ref point on the iterative grid", grid, ref)
     scan = torch.tensor(pair.scan, device=dev)
     sub = scan[torch.as_tensor(grid_subsample(scan, ICP_VOXEL), device=dev)]
-    moved = ((sub - torch.tensor(pair.trans, dtype=torch.float32, device=dev))
-             @ torch.tensor(pair.rot, dtype=torch.float32, device=dev))
-    parity_k7("ICP 1-NN", build_grid(ref, ICP_D_MAX), moved, float("inf"))
+    rot = torch.tensor(pair.rot, dtype=torch.float32, device=dev)
+    trans = torch.tensor(pair.trans, dtype=torch.float32, device=dev)
+    moved = (sub - trans) @ rot
+    icp_grid = build_grid(ref, ICP_D_MAX)
+    parity_k7("ICP 1-NN", icp_grid, moved, float("inf"))
+    nn = parity_nearest("ICP", icp_grid, moved)
+    icp_iteration_kernels(icp_grid, sub, ref, compute_normals(ref, ref, k=30, device=dev),
+                          RigidTransform(rot.T.contiguous(), -(trans @ rot)))
     k8 = parity_k8("the PCA features", build_grid(ref, FEATURE_RADIUS / 2, halo=2),
                    torch.tensor(feature_queries(pair), device=dev))
-    return k7, k8
+    return k7, k8, nn
 
 
 class _LogLines(logging.Handler):
@@ -1265,7 +1392,9 @@ def _profiled(fn, out_dir: Path):
     """Run ``fn`` under ``torch.profiler``; write the op table and a chrome
     trace to ``out_dir``; return (result, profiled wall seconds, device-busy
     seconds: the summed time of the kernels and copies run on the card,
-    {port kernel: (launches, device ms)})."""
+    {port kernel: (launches, device ms)}).  The stage timers' annotations
+    appear on the card's timeline too, as ranges over those kernels: they
+    are not counted."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1279,7 +1408,8 @@ def _profiled(fn, out_dir: Path):
     (out_dir / "main_path_ops.txt").write_text(
         prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=120))
     prof.export_chrome_trace(str(out_dir / "main_path_trace.json"))
-    on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     ours = _port_kernels()
     kernels: dict[str, tuple[int, float]] = {}
     for e in on_card:
@@ -1402,7 +1532,10 @@ def phase_shot_path(pair: SmokePair, profile_dir: Path | None = None) -> dict:
     returns the measured run's record."""
     from shot_fpfh_tpu_torch import cli
 
-    r = pair.run("SHOT path", [], SHOT_PATH)
+    r = pair.run("SHOT path", [], SHOT_PATH, (K7,))
+    check(r["launches"][NN] == SHOT_NN_LAUNCHES,
+          f"SHOT path: {r['launches'][NN]} 1-NN launches, not {SHOT_NN_LAUNCHES} (one an ICP "
+          "iteration, one for the evaluation)")
     profiled = ""
     if profile_dir is not None:
         # a third run under the profiler, so its overhead stays out of the
@@ -2158,7 +2291,7 @@ def phase_mesh_one_rank(pair: SmokePair) -> dict:
             (want.transform.rotation, want.transform.translation, want.rms.cpu()))
 
     tf, rms, conv, n_iters = stage(
-        f"ICP point-to-plane, {scan_sub.shape[0]} points, K7 on the ref's grid",
+        f"ICP point-to-plane, {scan_sub.shape[0]} points, K7's 1-NN mode on the ref's grid",
         lambda: sharded.sharded_icp(scan_sub, ref, ref_n, init, mesh, d_max=ICP_D_MAX,
                                     max_iter=50, rms_threshold=1e-3),
         lambda: icp.icp_loop(scan_sub, ref, ref_n, init, ICP_D_MAX, 50, 1e-3,
@@ -2170,7 +2303,7 @@ def phase_mesh_one_rank(pair: SmokePair) -> dict:
     check(rot_err < MAIN_ROT_TOL and t_err < MAIN_T_TOL,
           f"phase 14 1-rank ICP: rotation error {rot_err}, translation error {t_err}")
     for name in ("shot_binning_histogram", "shot_runs", "top2_match", "radius_pca",
-                 "spfh_histogram", "spfh_runs", "radius_dist", "fetch_windows"):
+                 "spfh_histogram", "spfh_runs", K7, NN, "fetch_windows"):
         check(total.get(name, 0) > 0, f"phase 14: the 1-rank stages never launched {name}")
     dist.destroy_process_group()
     print(f"phase 14 mesh, 1-rank NCCL group ({mesh.device}, first collective "
@@ -2270,9 +2403,10 @@ def phase_mesh_two_ranks(pair: SmokePair) -> dict:
     Each CLI run accepted within the main path's bounds, its moved scan
     within MESH_MOVED_ATOL of one device's (``--fused`` against one
     device's ``--fused``), only rank 0 writing, and each rank launching K8
-    with K1 (FPFH: K4 or K6), K2, K3 and K7; ``run_multihost`` the same on
-    both ranks (MULTIHOST_RANKS_ATOL), within MESH_MOVED_ATOL of one
-    process's run and accepted against the ground truth.  Returns rank 0's
+    with K1 (FPFH: K4 or K6 and K7), K2, K3 and K7's 1-NN mode;
+    ``run_multihost`` the same on both ranks (MULTIHOST_RANKS_ATOL), within
+    MESH_MOVED_ATOL of one process's run and accepted against the ground
+    truth.  Returns rank 0's
     launches of each measured run."""
     import os
 
@@ -2331,11 +2465,10 @@ def phase_mesh_two_ranks(pair: SmokePair) -> dict:
     ranks = [json.loads((WORK / f"mesh2_rank{r}.json").read_text()) for r in range(MESH_RANKS)]
     check(all(r["backend"] == "gloo" for r in ranks),
           f"phase 14 two ranks: backends {[r['backend'] for r in ranks]}")
-    shot_needs = ("shot_binning_histogram", "fetch_windows", "top2_match", "radius_pca",
-                  "radius_dist")
-    needs = {"shot": shot_needs, "fpfh": ("top2_match", "radius_pca", "radius_dist"),
+    shot_needs = ("shot_binning_histogram", "fetch_windows", "top2_match", "radius_pca", NN)
+    needs = {"shot": shot_needs, "fpfh": ("top2_match", "radius_pca", K7, NN),
              "fused_shot": shot_needs,
-             "fused_fpfh": ("fetch_windows", "top2_match", "radius_pca", "radius_dist")}
+             "fused_fpfh": ("fetch_windows", "top2_match", "radius_pca", K7, NN)}
     parts, launches = {14: [], 15: []}, {}
     for label in ("shot", "fpfh", "fused_shot", "fused_fpfh"):
         phase = 15 if label.startswith("fused") else 14
@@ -2464,7 +2597,7 @@ def main(argv=None) -> int:
     del grid
     voxel_sums(dev, rng)
     pair = SmokePair()
-    k7, k8_features = parity_pair_paths(pair, dev)
+    k7, k8_features, nn = parity_pair_paths(pair, dev)
     parity_fused_shapes(pair, dev)
     k8["max_abs_err"] = max(r["max_abs_err"] for r in (k8, k8_features, *k8_more))
     shot = phase_shot_path(pair, args.profile)
@@ -2499,6 +2632,8 @@ def main(argv=None) -> int:
                       "shot_fpfh_tpu/ops/pallas_shot_dma.py:337", k6, "FPFH runs"),
         "radius_dist": ("shot_fpfh_tpu_torch/csrc/radius_runs.cu",
                         "shot_fpfh_tpu/ops/pallas_radius.py:497", k7, "iterative"),
+        "nearest": ("shot_fpfh_tpu_torch/csrc/nearest.cu",
+                    "shot_fpfh_tpu/ops/pallas_radius.py:497", nn, "SHOT"),
         "fetch_windows": ("shot_fpfh_tpu_torch/csrc/radius_runs.cu",
                           "shot_fpfh_tpu/ops/pallas_radius.py:467", k8, "iterative"),
     }

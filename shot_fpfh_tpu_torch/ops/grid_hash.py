@@ -18,9 +18,9 @@ reads those runs straight from the sorted table.
 
 The window functions run the kernels of ``ops.radius_runs`` over the runs:
 :func:`window_distances` K8 (the window's values and distances),
-:func:`grid_radius_search` and :func:`grid_nearest_neighbor` K7 (masked
-distances, then ``topk`` or the row minimum in PyTorch); on CPU tensors their
-plain twins.
+:func:`grid_radius_search` K7 (masked distances, then ``topk`` in PyTorch)
+and :func:`grid_nearest_neighbor` K7's 1-NN mode (the minimum taken in the
+kernel); on CPU tensors their plain twins.
 
 Not ported: the content-keyed grid LRU and the G=8/16 grouped
 feature-planar gather (index-bound gather workarounds of the TPU); the
@@ -38,7 +38,7 @@ import torch.nn.functional as F
 
 from .._fp import div, sqnorm3, sqrt
 from .neighbors import Neighborhoods, _sq_dists, as_f32, knn, radius_search
-from .radius_runs import fetch_windows, radius_dist, window_slots
+from .radius_runs import fetch_windows, nearest, radius_dist, window_slots
 
 logger = logging.getLogger(__name__)
 
@@ -355,8 +355,14 @@ def grid_radius_pca(grid: HashGrid, queries, radius):
 
 def grid_nearest_neighbor(grid: HashGrid, queries):
     """1-NN through the grid: exact when the true nearest neighbor lies
-    within ``halo·cell_size``; queries with an empty window get inf."""
+    within ``halo·cell_size``; queries with an empty window get inf.  A grid
+    with a cell-start table takes K7's 1-NN mode (``radius_runs.nearest``),
+    one launch for every query; a grid without one (too many cells) finds
+    its runs by binary search here and keeps the window route: K7 at radius
+    +inf and the row minimum, in chunks of ``query_chunk`` queries."""
     queries = as_f32(queries, grid.device)
+    if grid.has_table:
+        return nearest(grid, queries)
     dist_out, idx_out = [], []
     step = query_chunk(grid, 4)
     for s in range(0, queries.shape[0], step):

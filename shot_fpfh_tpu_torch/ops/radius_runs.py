@@ -20,6 +20,15 @@ slot is ``sqrt(fma(dz, dz, fma(dy, dy, dx·dx)))`` (``_fp.sqnorm3``).
 :func:`fetch_windows` and :func:`radius_dist` launch the CUDA kernels
 (``csrc/radius_runs.cu``) on CUDA tensors and run their plain PyTorch twins
 (:func:`fetch_windows_plain`, :func:`radius_dist_plain`) on CPU tensors.
+
+K7's 1-NN mode, :func:`nearest` (``csrc/nearest.cu``), is the grid 1-NN of
+``grid_nearest_neighbor`` (JAX ``grid_hash.py:834-864``) on a grid with a
+cell-start table: one launch for every query finds each query's cell and
+z-column runs, walks them in window order and keeps the nearest row, the
+lowest window slot winning a tie, and writes ``(dist, orig_idx of the
+row)``; no ``(Q, W)`` window is written.  Its twin,
+:func:`nearest_plain`, is that window (K7's twin at radius +inf) and an
+explicit first-index argmin.
 """
 
 from __future__ import annotations
@@ -121,3 +130,77 @@ def radius_dist(table, queries, start, end, w: int, radius: float):
                         q, w, float(radius), rows.data_ptr(), dist.data_ptr(),
                         checked=(table, queries, dist))
     return rows, dist
+
+
+def nearest_lanes(window_cap: int) -> int:
+    """Lanes a query in the 1-NN kernel for a grid's window cap: a group of
+    lanes walks a window in ceil(rows / lanes) steps, so a narrow window
+    leaves most of a 32-lane group idle, while a wide one wants every lane
+    (on an H100: ICP's cap 626, 527 rows a query, 32 lanes 0.0289 ms alone,
+    8 lanes 0.0326; a halo-2 cap 186, 137 rows a query, 0.1102 and 0.0797;
+    16 lanes won at neither)."""
+    return 32 if window_cap > 384 else 8
+
+
+def first_argmin(x: torch.Tensor):
+    """``(min, first index of it)`` of each row of ``x`` (Q, W) holding no
+    NaN; a row of +inf gives index 0."""
+    best = x.min(dim=1).values
+    slots = torch.arange(x.shape[1], device=x.device).expand_as(x)
+    pos = torch.where(x == best[:, None], slots, x.shape[1]).min(dim=1).values
+    return best, pos
+
+
+def nearest_plain(grid, queries):
+    """PyTorch twin of the 1-NN kernel: ``(dist (Q,), idx (Q,))``, each
+    query's z-column window (K7's twin at radius +inf), its first minimal
+    slot (+inf and slot 0 where no distance is finite) and that slot's row
+    in ``grid.orig_idx``; in chunks of ``query_chunk(grid, 4)`` queries,
+    which bound the window's temporaries."""
+    from .grid_hash import _zcolumn_runs, query_chunk   # grid_hash imports this module
+
+    dist_out, idx_out = [], []
+    step = query_chunk(grid, 4)
+    for s in range(0, queries.shape[0], step):
+        qc = queries[s:s + step]
+        start, end = _zcolumn_runs(grid, qc)
+        rows, masked = radius_dist_plain(grid.packed_sorted, qc, start, end, grid.window_cap,
+                                         float("inf"))
+        best, pos = first_argmin(masked)
+        dist_out.append(best)
+        idx_out.append(grid.orig_idx[torch.gather(rows, 1, pos[:, None])[:, 0]])
+    if not dist_out:
+        return queries.new_zeros((0,)), grid.orig_idx.new_zeros((0,))
+    return torch.cat(dist_out), torch.cat(idx_out)
+
+
+def nearest(grid, queries, lanes: int | None = None):
+    """K7's 1-NN mode: ``(dist (Q,), idx (Q,))`` of each query's nearest row
+    of its z-column window on ``grid`` (a grid with a cell-start table), in
+    one launch; see the module docstring.  ``lanes``: lanes a query (8 or
+    32; default :func:`nearest_lanes` of the window cap)."""
+    if queries.device.type == "cpu":
+        return nearest_plain(grid, queries)
+    if not grid.has_table:
+        raise ValueError("the 1-NN kernel needs a grid with a cell-start table")
+    table = grid.packed_sorted
+    device = _kernels.require_cuda(table, grid.orig_idx, grid.cell_starts, grid.origin, queries)
+    if table.dtype != torch.float32 or table.dim() != 2 or table.shape[1] < 3:
+        raise ValueError(f"table must be (N, >=3) float32, got {tuple(table.shape)} "
+                         f"{table.dtype}")
+    q = queries.shape[0]
+    if queries.dtype != torch.float32 or queries.shape != (q, 3):
+        raise ValueError(f"queries must be (Q, 3) float32, got {tuple(queries.shape)}")
+    lanes = nearest_lanes(grid.window_cap) if lanes is None else lanes
+    if lanes not in (8, 32):
+        raise ValueError(f"lanes must be 8 or 32, got {lanes}")
+    table, queries = table.contiguous(), queries.contiguous()
+    dist = torch.empty(q, dtype=torch.float32, device=device)
+    idx = torch.empty(q, dtype=torch.int64, device=device)
+    if q:
+        _kernels.launch("nearest", device, table.data_ptr(), table.shape[1],
+                        grid.orig_idx.data_ptr(), grid.cell_starts.data_ptr(),
+                        grid.origin.data_ptr(), grid.cell_size, *grid.dims, grid.halo,
+                        grid.window_cap, queries.data_ptr(), q, lanes, dist.data_ptr(),
+                        idx.data_ptr(), checked=(table, queries, dist))
+    return dist, idx

@@ -25,6 +25,7 @@ differ, instead of leaving the next collective to hang.
 
 from __future__ import annotations
 
+import atexit
 import datetime
 import logging
 import os
@@ -85,6 +86,19 @@ def _init_group(device, init_method: str, rank: int, world_size: int, timeout) -
     nccl = own_cards(seen) and dist.is_nccl_available()
     dist.init_process_group("nccl" if nccl else "gloo", store=store, rank=me,
                             world_size=world, **kwargs)
+    atexit.register(shutdown_distributed)
+
+
+def shutdown_distributed() -> None:
+    """End the default process group, if one is up
+    (``destroy_process_group``, local to this rank).  Every group this
+    module starts registers it to run at exit, as
+    ``jax.distributed.initialize`` registers its shutdown: a gloo group
+    left to the interpreter's own teardown now and then aborted the process
+    after its work was done (``terminate called without an active
+    exception``, no Python frame left), whatever its store."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def own_cards(rank_devices: list[str]) -> bool:
@@ -114,7 +128,8 @@ def make_mesh(n_devices: int = 0, axis: str = POINTS_AXIS, *, device=None,
     ``n_devices`` above the world size gives the world, as JAX's
     ``devices[:n]`` truncates; ``n_devices`` below the world size raises,
     since a rank outside the mesh would have nothing to run.  ``timeout``: seconds
-    a collective may wait (a hang then fails)."""
+    a collective may wait (a hang then fails).  A group started here is
+    ended at exit (:func:`shutdown_distributed`)."""
     if axis != POINTS_AXIS:
         raise ValueError(
             f"mesh axis must be {POINTS_AXIS!r} (the name every sharded stage "

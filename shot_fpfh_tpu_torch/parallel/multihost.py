@@ -120,7 +120,8 @@ def initialize_distributed(
     as rank ``process_id`` of ``num_processes`` (JAX
     ``multihost.py:117-135``); a no-op for one process or fewer.  The
     backend is ``parallel.mesh``'s rule, from every rank's ``device``
-    (default ``cuda``); ``timeout``: seconds a collective may wait."""
+    (default ``cuda``); ``timeout``: seconds a collective may wait.  The
+    group is ended at exit (``mesh.shutdown_distributed``)."""
     if num_processes is None or num_processes <= 1:
         logger.info("single-process run: no process group to start")
         return

@@ -27,6 +27,8 @@ from shot_fpfh_tpu_torch.ops.radius_pca import radius_pca, radius_pca_plain  # n
 from shot_fpfh_tpu_torch.ops.radius_runs import (  # noqa: E402
     fetch_windows,
     fetch_windows_plain,
+    nearest,
+    nearest_plain,
     radius_dist,
     radius_dist_plain,
 )
@@ -942,8 +944,51 @@ def test_k7_radius_dist_kernel(cuda, rng, halo, cell, table, normals):
         assert torch.isfinite(got[1]).any() and not torch.isfinite(got[1][-2:]).any()
 
 
+NEAREST_CASES = ["near", "ties", "off grid", "nan"]
+
+
+def _nearest_case(rng, cuda, case, halo):
+    """A 30k-point surface whose last 1,000 points repeat its first 1,000
+    (exact ties) and its grid at halo ``halo`` (cell 0.3 / halo); queries:
+    every seventh point moved by 0.02, then by case the repeated points,
+    points off the grid (empty windows) or NaN queries."""
+    pts = _surface(rng, 30_000, cuda)
+    pts[29_000:] = pts[:1000]
+    grid = build_grid(pts, 0.3 / halo, halo=halo)
+    assert grid.has_table
+    q = pts[::7] + 0.02 * torch.randn(pts[::7].shape, generator=torch.Generator().manual_seed(1)
+                                      ).to(cuda)
+    extra = {"near": pts[:0],
+             "ties": pts[:1000],
+             "off grid": torch.tensor([[1e6, 1e6, 1e6], [-10.0, 0.0, 0.0], [0.0, 0.0, 9.0]],
+                                      device=cuda),
+             "nan": torch.tensor([[float("nan"), 0.0, 0.0], [0.0, float("nan"), 0.0],
+                                  [float("inf"), 0.0, 0.0]], device=cuda)}[case]
+    return grid, torch.cat([q, extra]).contiguous()
+
+
+@pytest.mark.parametrize("case", NEAREST_CASES)
+@pytest.mark.parametrize("halo", [1, 2])
+def test_k7_nearest_kernel(cuda, rng, halo, case):
+    """K7's 1-NN mode equals its twin (``torch.equal``, distance and index)
+    at both lanes-a-query variants: exact ties go to the first window slot,
+    empty windows and NaN queries give +inf and slot 0's row, as the twin."""
+    grid, q = _nearest_case(rng, cuda, case, halo)
+    want = nearest_plain(grid, q)
+    for lanes in (32, 8):
+        got = _counted("nearest", lambda: nearest(grid, q, lanes=lanes))
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), lanes
+    if case == "ties":
+        n = q.shape[0] - 1000
+        assert bool((want[0][n:] == 0).all())
+        assert torch.equal(want[1][n:], torch.arange(1000, device=cuda))
+    if case in ("off grid", "nan"):
+        assert not torch.isfinite(want[0][-3:]).any()
+
+
 def test_window_functions_launch_k7_and_k8(cuda, rng):
-    """On CUDA tensors the grid's window functions run the kernels."""
+    """On CUDA tensors the grid's window functions run the kernels: K8,
+    K7 for the radius search, K7's 1-NN mode (one launch) for the 1-NN."""
     from shot_fpfh_tpu_torch.ops.grid_hash import grid_nearest_neighbor, grid_radius_search
 
     pts = _surface(rng, 30_000, cuda)
@@ -951,7 +996,7 @@ def test_window_functions_launch_k7_and_k8(cuda, rng):
     _counted("fetch_windows", lambda: window_distances(grid, pts[:5000]))
     nbr = _counted("radius_dist", lambda: grid_radius_search(grid, pts[:5000], 0.3, 128))
     assert bool((nbr.count >= 1).all())
-    dist, idx = _counted("radius_dist", lambda: grid_nearest_neighbor(grid, pts[:5000]))
+    dist, idx = _counted("nearest", lambda: grid_nearest_neighbor(grid, pts[:5000]))
     assert bool((dist == 0).all()) and torch.equal(idx, torch.arange(5000, device=cuda))
 
 
@@ -1010,7 +1055,7 @@ def _fused_pair(rng, n=25_000):
 
 
 def test_fused_registration_on_card_matches_cpu(cuda, rng):
-    """``register_pair`` on the card (K8 + K1, K2 in f32, K7) against the
+    """``register_pair`` on the card (K8 + K1, K2 in f32, K7's 1-NN) against the
     CPU with the same injected Gumbel noise: the same keypoints, matches
     within the flip rule's reach (1%), ICP transforms within 1e-3 and both
     within 1e-2 of the ground truth."""
@@ -1030,7 +1075,7 @@ def test_fused_registration_on_card_matches_cpu(cuda, rng):
     torch.cuda.synchronize()
     ran = {k: _kernels.launch_counts[k] - before[k] for k in before}
     assert ran["top2_match"] == 1
-    assert all(ran[k] > 0 for k in ("shot_binning_histogram", "fetch_windows", "radius_dist"))
+    assert all(ran[k] > 0 for k in ("shot_binning_histogram", "fetch_windows", "nearest"))
     cpu = fused.register_pair(scan, sn, ref, rn, device="cpu", gumbel=gumbel, **kw)
     np.testing.assert_array_equal(card.scan_keypoint_idx, cpu.scan_keypoint_idx)
     np.testing.assert_array_equal(card.ref_keypoint_idx, cpu.ref_keypoint_idx)
@@ -1105,7 +1150,8 @@ def test_point_to_plane_solve_ex_equals_solve_on_card(cuda, rng, monkeypatch):
 def test_icp_loop_reads_the_card_once_a_block(cuda, rng):
     """Point-to-plane ICP on the grid 1-NN: the only host syncs of the loop
     are its reads of ``done``, one every ``ICP_BLOCK`` iterations
-    (``torch.cuda.set_sync_debug_mode("warn")``)."""
+    (``torch.cuda.set_sync_debug_mode("warn")``), and each iteration makes
+    one 1-NN launch (K7's 1-NN mode) and no K7 window."""
     import warnings
 
     from shot_fpfh_tpu_torch.registration import icp
@@ -1113,6 +1159,7 @@ def test_icp_loop_reads_the_card_once_a_block(cuda, rng):
     sub, ref, rn, init, grid = _icp_case(rng, cuda)
     icp.icp_loop(sub, ref, rn, init, 0.3, 2, 0.0, grid=grid)     # warm-up
     torch.cuda.synchronize()
+    before = dict(_kernels.launch_counts)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -1122,6 +1169,9 @@ def test_icp_loop_reads_the_card_once_a_block(cuda, rng):
             torch.cuda.set_sync_debug_mode(0)
     syncs = [w for w in caught if "called a synchronizing" in str(w.message)]
     assert int(out.n_iters) == 20
+    # one 1-NN launch an iteration, and no K7 window
+    assert _kernels.launch_counts["nearest"] - before["nearest"] == 20
+    assert _kernels.launch_counts["radius_dist"] == before["radius_dist"]
     assert len(syncs) == -(-20 // icp.ICP_BLOCK), [str(w.message) for w in syncs]
 
 

@@ -7,8 +7,9 @@ A module-scoped fixture writes a ``make_pair`` of 1,500 points to ``.ply``
 files and launches two processes (``sys.executable -c WORKER``) that join
 through ``initialize_distributed("127.0.0.1:<free port>", 2, pid,
 device="cpu")`` (a ``tcp://`` store on rank 0, gloo, collectives under a
-120 s timeout).  Each runs ``run_multihost`` on the pair, then the helpers
-over the launch (``host_local_keypoint_shard`` and
+120 s timeout; the group ended at exit by ``shutdown_distributed``).  Each
+runs ``run_multihost`` on the pair, then the helpers over the launch
+(``host_local_keypoint_shard`` and
 ``global_keypoint_array`` on 15 and on 1 rows: uneven and empty blocks)
 and ``scaling_report`` for each stage with counts (1, 0).  Held: both
 processes' results equal within 1e-6, within 1e-3 of a single-process run
@@ -40,6 +41,7 @@ from shot_fpfh_tpu_torch.parallel import (  # noqa: E402
     make_mesh,
     scaling_report,
 )
+from shot_fpfh_tpu_torch.parallel.mesh import shutdown_distributed  # noqa: E402
 from shot_fpfh_tpu_torch.parallel.multihost import run_multihost  # noqa: E402
 from tests.test_pipeline import make_pair  # noqa: E402
 
@@ -218,6 +220,12 @@ def test_scaling_report_two_processes(launch, stage):
         report = res[f"scaling/{stage}"]
         assert set(report) == {"1", "2", "efficiency"}
         assert report["1"] > 0 and report["2"] > 0 and report["efficiency"] > 0
+
+
+def test_shutdown_distributed_without_a_group_does_nothing():
+    assert not torch.distributed.is_initialized()
+    shutdown_distributed()
+    assert not torch.distributed.is_initialized()
 
 
 def test_scaling_report_rejects_an_unknown_stage():

@@ -115,7 +115,21 @@ Phases, one line each; any failure exits non-zero with no result line:
    ``initialize_distributed`` (the ranks within 1e-6 of each other and
    1e-3 of one process's run, accepted against the ground truth) and one
    ``scaling_report`` of SHOT (two ranks on one card: not a scaling
-   number).
+   number);
+16. at scale: ``benchmarks/bench_1m.py``'s 10^6-point pair (its formulas
+   copied), written as ``.ply`` to a temporary directory: ``cli.main`` for
+   SHOT and for FPFH on the window route (radius 0.6, keypoint voxel
+   0.15), cold then measured, accepted within 1e-2 rad / 1e-2, launching
+   K3, K8, K1 (or K4 and K7), K2 and K7's 1-NN mode once an ICP iteration
+   and twice for the evaluation; ``bench.py``'s at-scale legs through the
+   library on the ref (k=30 normals, with the sampled k-th bound equal to
+   its one-piece form; the descriptor grid, beside the host hash that keys
+   JAX's grid cache; SHOT and FPFH of the voxel-0.9 keypoints; ICP of a
+   small motion, back within 1e-3; Lowe matching at 100k x 100k x 352),
+   each cold then measured; each leg's wall, stage timers, launches and
+   peak device memory; every kernel at these shapes against its twin
+   (phase 3's rules; K2 on 4096 sampled rows); the voxel sums with a voxel
+   of 10^5 and of 10^6 points bit-identical to the CPU's.
 Phases 4–9 and 12 run cold, then measured, each accepted within the same
 bounds; every window route launches K8, and every ICP K7's 1-NN mode.
 ``--bits-against LIB`` also holds K1's and K5's phase-3 outputs equal, bit
@@ -377,6 +391,17 @@ def phase_build():
 def parity_k3(dev, rng):
     import torch
 
+    return k3_check(torch.tensor(make_terrain(100_000, rng), device=dev), "phase 3")
+
+
+def k3_check(cloud, prefix: str, reps: int = 10) -> dict:
+    """K3 on every point of ``cloud`` at the k=30 normals' per-query radii
+    and at the grid's cell, against its twin (counts exact, covariances
+    within K3_COV_ATOL), its cell order and tile unions equal to
+    ``tile_plan``'s; the call, its cell order and the kernel timed
+    (``reps`` runs after a warm-up)."""
+    import torch
+
     from shot_fpfh_tpu_torch.models.normals import _knn_target_radii
     from shot_fpfh_tpu_torch.ops.grid_hash import (
         _zcolumn_runs,
@@ -394,20 +419,20 @@ def parity_k3(dev, rng):
         tile_plan,
     )
 
-    cloud = torch.tensor(make_terrain(100_000, rng), device=dev)
+    dev = cloud.device
     sample = cloud[::cloud.shape[0] // 512][:512]
     kth = kth_distance_bound(sample, cloud, 30)
     grid = build_grid(cloud, quantized_kth_radius(kth.cpu().numpy()))
     r_q = _knn_target_radii(grid, cloud, 30, sample, kth)
     out = {}
-    for label, radius in (("per-query", r_q), ("scalar", grid.cell_size)):
+    for mode, radius in (("per-query", r_q), ("scalar", grid.cell_size)):
         cov_k, bary_k, cnt_k = radius_pca(grid, cloud, radius)
         cov_p, bary_p, cnt_p = radius_pca_plain(grid, cloud, radius)
         torch.cuda.synchronize()
         err = float((cov_k - cov_p).abs().max())
-        check(bool((cnt_k == cnt_p).all()), f"K3 {label}: counts differ")
-        check(err <= K3_COV_ATOL, f"K3 {label}: covariance error {err}")
-        out[label] = err
+        check(bool((cnt_k == cnt_p).all()), f"K3 {mode}: counts differ")
+        check(err <= K3_COV_ATOL, f"K3 {mode}: covariance error {err}")
+        out[mode] = err
     # the kernel's own bookkeeping (the cell order, each tile's union of
     # runs) equals its plain twin's
     plan = tile_plan(grid, cloud)
@@ -418,12 +443,12 @@ def parity_k3(dev, rng):
     check(torch.equal(order, plan.order), "K3: the cell order differs from tile_plan's")
     check(torch.equal(unions[0], plan.lo) and torch.equal(unions[1], plan.hi),
           "K3: the kernel's tile unions differ from tile_plan's")
-    ms = cuda_ms(lambda: radius_pca(grid, cloud, r_q))
-    plain_ms = cuda_ms(lambda: radius_pca_plain(grid, cloud, r_q))
+    ms = cuda_ms(lambda: radius_pca(grid, cloud, r_q), reps)
+    plain_ms = cuda_ms(lambda: radius_pca_plain(grid, cloud, r_q), reps)
     # the call's parts: the cell order (keys kernel and sort) and the
     # kernel alone
-    order_ms = cuda_ms(lambda: cell_order(grid, cloud))
-    kernel_ms = cuda_ms(lambda: cell_moments(grid, cloud, r2, order))
+    order_ms = cuda_ms(lambda: cell_order(grid, cloud), reps)
+    kernel_ms = cuda_ms(lambda: cell_moments(grid, cloud, r2, order), reps)
     staged = (plan.hi - plan.lo).sum(1).float()
     # the timed call: every query reads its 9 runs (lanes) and sums its
     # in-radius points
@@ -433,7 +458,7 @@ def parity_k3(dev, rng):
     q = cloud.shape[0]
     b = bound(grid.packed_sorted.numel() * 4 + q * (12 + 4 + 40) + start.numel() * 16,
               lanes * OPS_DIST_TEST + float(cnt.sum()) * OPS_PCA_POINT)
-    print(f"phase 3 K3 radius_pca: 100000 queries, window cap {grid.window_cap}, "
+    print(f"{prefix} K3 radius_pca: {q} queries, window cap {grid.window_cap}, "
           f"{lanes / q:.0f} run rows a query; {plan.lo.shape[0]} blocks of {TILE} queries staging "
           f"{float(staged.mean()):.0f} rows each (most {int(staged.max())}), order and unions "
           f"equal to tile_plan's: counts exact, cov max err {out}; call {ms:.3f} ms (its cell "
@@ -898,7 +923,7 @@ def spfh_terrain(dev, rng):
     return grid
 
 
-def parity_k4(grid):
+def parity_k4(grid, radius: float = FPFH_RADIUS, prefix: str = "phase 3", reps: int = 10):
     import torch
 
     from shot_fpfh_tpu_torch.ops.grid_hash import window_distances
@@ -907,7 +932,7 @@ def parity_k4(grid):
     # the first chunk of models.fpfh._spfh_window_sorted
     qc, qn = (grid.packed_sorted[:8192, i:i + 3].contiguous() for i in (0, 3))
     vals, d, valid, _ = window_distances(grid, qc)
-    ok = valid & (d <= FPFH_RADIUS)
+    ok = valid & (d <= radius)
     dist_inf = torch.where(ok, d, torch.full_like(d, float("inf")))
     c, nf, w = vals.shape
     neighbors = float((ok & (d > 0)).sum())
@@ -923,10 +948,10 @@ def parity_k4(grid):
               f"K4 decorrelated={dec}: {flip} of elements differ, max {top} counts")
         check(float(want.sum()) > 0, "K4: empty histograms")
         stats[dec] = (flip, top)
-        times[dec] = (cuda_ms(lambda: spfh_histogram(vals, dist_inf, qc, qn, 5, dec)),
+        times[dec] = (cuda_ms(lambda: spfh_histogram(vals, dist_inf, qc, qn, 5, dec), reps),
                       kernel_ms(lambda: spfh_histogram(vals, dist_inf, qc, qn, 5, dec),
-                                K4_KERNEL),
-                      cuda_ms(lambda: spfh_histogram_plain(vals, dist_inf, qc, qn, 5, dec)))
+                                K4_KERNEL, reps),
+                      cuda_ms(lambda: spfh_histogram_plain(vals, dist_inf, qc, qn, 5, dec), reps))
         # the bytes this run's data needs (K1's rule): every lane's distance,
         # and the six value planes only at the finite lanes, which K4 reads
         bounds[dec] = bound((c * w + 6 * n_finite + c * 6 + c * got.shape[1]) * 4,
@@ -937,7 +962,7 @@ def parity_k4(grid):
     ms, alone, plain_ms = times[False]
     dec_ms, dec_alone, dec_plain = times[True]
     b, dec_b = bounds[False], bounds[True]
-    print(f"phase 3 K4 spfh_histogram: 8192 queries x window {w}, radius {FPFH_RADIUS} "
+    print(f"{prefix} K4 spfh_histogram: {c} queries x window {w}, radius {radius} "
           f"({n_finite / c:.0f} finite lanes a query): (fraction differing, max count diff) "
           f"joint {stats[False]}, decorrelated {stats[True]}; joint kernel {ms:.3f} ms "
           f"(alone {alone:.4f} ms) plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms "
@@ -1006,12 +1031,14 @@ def parity_k6(grid):
     return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=None, **b)
 
 
-def voxel_sums(dev, rng):
+def voxel_sums(dev, rng, cluster: int = VOXEL_CLUSTER, terrain: int = 100_000,
+               prefix: str = "phase 3", reps: int = 10) -> None:
     """The voxel sums of ``core/subsampling.py`` (no TPU kernel's port) on a
-    skewed cloud: a 100k-point terrain plus a cluster of VOXEL_CLUSTER points
-    in one keypoint voxel.  The card's sums must be bit-identical to the
-    CPU's ``index_add_``; timed beside the card's ``index_add_`` (atomic
-    order) and inside the whole ``grid_subsample``."""
+    skewed cloud: a ``terrain``-point terrain plus a cluster of ``cluster``
+    points in one keypoint voxel (with no terrain, the whole cloud is that
+    voxel).  The card's sums must be bit-identical to the CPU's
+    ``index_add_``; timed beside the card's ``index_add_`` (atomic order)
+    and inside the whole ``grid_subsample``."""
     import torch
 
     from shot_fpfh_tpu_torch.core.subsampling import (
@@ -1020,9 +1047,10 @@ def voxel_sums(dev, rng):
         grid_subsample,
     )
 
-    terrain = make_terrain(100_000, rng)
-    cluster = terrain[0] + rng.uniform(0.0, 1e-3, size=(VOXEL_CLUSTER, 3)).astype(np.float32)
-    cloud = torch.tensor(np.concatenate([terrain, cluster]), device=dev)
+    base = make_terrain(terrain, rng) if terrain else np.zeros((0, 3), np.float32)
+    corner = base[0] if terrain else np.zeros(3, np.float32)
+    dense = corner + rng.uniform(0.0, 1e-3, size=(cluster, 3)).astype(np.float32)
+    cloud = torch.tensor(np.concatenate([base, dense]), device=dev)
     order, seg, counts, _ = _voxel_segments(cloud, KEYPOINT_VOXEL)
     n_seg = int(seg[-1]) + 1
     lengths, pts = counts[:n_seg].to(torch.int64), cloud[order]
@@ -1030,15 +1058,18 @@ def voxel_sums(dev, rng):
     check(torch.equal(_segment_sums(pts, lengths).cpu(), want),
           "voxel sums on the card differ from the CPU's index_add_")
     longest = int(lengths.max())
-    check(longest >= VOXEL_CLUSTER, f"the dense voxel holds {longest} points")
-    ms = cuda_ms(lambda: _segment_sums(pts, lengths))
-    index_add_ms = cuda_ms(lambda: torch.zeros((n_seg, 3), device=dev).index_add_(0, seg, pts))
-    skewed_ms = cuda_ms(lambda: grid_subsample(cloud, KEYPOINT_VOXEL))
-    uniform_ms = cuda_ms(lambda: grid_subsample(cloud[:100_000], KEYPOINT_VOXEL))
-    print(f"phase 3 voxel sums: {cloud.shape[0]} points in {n_seg} voxels of "
+    check(longest >= cluster, f"the dense voxel holds {longest} points")
+    ms = cuda_ms(lambda: _segment_sums(pts, lengths), reps)
+    index_add_ms = cuda_ms(lambda: torch.zeros((n_seg, 3), device=dev).index_add_(0, seg, pts),
+                           reps)
+    skewed_ms = cuda_ms(lambda: grid_subsample(cloud, KEYPOINT_VOXEL), reps)
+    uniform = (f" (without the cluster "
+               f"{cuda_ms(lambda: grid_subsample(cloud[:terrain], KEYPOINT_VOXEL), reps):.3f} ms)"
+               if terrain else "")
+    print(f"{prefix} voxel sums: {cloud.shape[0]} points in {n_seg} voxels of "
           f"{KEYPOINT_VOXEL}, longest {longest}: bit-identical to the CPU; segment sums "
-          f"{ms:.3f} ms, index_add_ {index_add_ms:.3f} ms; grid_subsample {skewed_ms:.3f} ms "
-          f"(without the cluster {uniform_ms:.3f} ms)", flush=True)
+          f"{ms:.3f} ms, index_add_ {index_add_ms:.3f} ms; grid_subsample {skewed_ms:.3f} ms"
+          f"{uniform}", flush=True)
 
 
 def _runs_case(grid, queries):
@@ -1070,7 +1101,7 @@ def _max_abs_diff(got, want) -> float:
     return float(torch.where(got == want, 0.0, (got - want).abs()).max())
 
 
-def parity_k8(label: str, grid, queries) -> dict:
+def parity_k8(label: str, grid, queries, prefix: str = "phase 3", reps: int = 10) -> dict:
     """K8 against its twin on every output (``torch.equal``), with the rows
     plane and without it (the mode the window routes call); bound: the
     window written ((Q, W) slots of F + 1 floats, a bool and, with rows, an
@@ -1090,16 +1121,16 @@ def parity_k8(label: str, grid, queries) -> dict:
     for name, g, w in zip(("vals", "dist", "valid"), no_rows, want):
         check(torch.equal(g, w), f"K8 {label} without rows: {name} differs from the plain version")
     err = max(_max_abs_diff(got[0], want[0]), _max_abs_diff(got[1], want[1]))
-    rows_ms = cuda_ms(lambda: fetch_windows(*args))
-    ms = cuda_ms(lambda: fetch_windows(*args, with_rows=False))
-    alone = kernel_ms(lambda: fetch_windows(*args, with_rows=False), K8_KERNEL)
-    rows_alone = kernel_ms(lambda: fetch_windows(*args), K8_KERNEL)
-    plain_ms = cuda_ms(lambda: fetch_windows_plain(*args))
+    rows_ms = cuda_ms(lambda: fetch_windows(*args), reps)
+    ms = cuda_ms(lambda: fetch_windows(*args, with_rows=False), reps)
+    alone = kernel_ms(lambda: fetch_windows(*args, with_rows=False), K8_KERNEL, reps)
+    rows_alone = kernel_ms(lambda: fetch_windows(*args), K8_KERNEL, reps)
+    plain_ms = cuda_ms(lambda: fetch_windows_plain(*args), reps)
     q, f, w = got[0].shape
     read = rows * 4 * f + q * 12 + args[2].numel() * 16
     b_rows = bound(q * w * (4 * f + 4 + 1 + 8) + read, lanes * OPS_DIST_TEST)
     b = bound(q * w * (4 * f + 4 + 1) + read, lanes * OPS_DIST_TEST)
-    print(f"phase 3 K8 fetch_windows ({label}): {q} queries x window {w}, {f} features, "
+    print(f"{prefix} K8 fetch_windows ({label}): {q} queries x window {w}, {f} features, "
           f"halo {grid.halo}, {lanes / q:.0f} rows a query: vals, dist, valid and rows "
           f"bit-identical with and without the rows plane (max abs err {err}); with rows: "
           f"kernel {rows_ms:.3f} ms (alone {rows_alone:.4f} ms), bound "
@@ -1109,7 +1140,8 @@ def parity_k8(label: str, grid, queries) -> dict:
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
 
 
-def parity_k7(label: str, grid, queries, radius: float) -> dict:
+def parity_k7(label: str, grid, queries, radius: float, prefix: str = "phase 3",
+               reps: int = 10) -> dict:
     """K7 against its twin on both outputs (``torch.equal``); bound: the
     (Q, W) rows and distances written, the run rows' xyz read once, a
     distance per row."""
@@ -1123,20 +1155,90 @@ def parity_k7(label: str, grid, queries, radius: float) -> dict:
     for name, g, w in zip(("rows", "dist"), got, want):
         check(torch.equal(g, w), f"K7 {label}: {name} differs from the plain version")
     err = _max_abs_diff(got[1], want[1])
-    ms = cuda_ms(lambda: radius_dist(*args, radius))
-    alone = kernel_ms(lambda: radius_dist(*args, radius), K7_KERNEL)
-    plain_ms = cuda_ms(lambda: radius_dist_plain(*args, radius))
+    ms = cuda_ms(lambda: radius_dist(*args, radius), reps)
+    alone = kernel_ms(lambda: radius_dist(*args, radius), K7_KERNEL, reps)
+    plain_ms = cuda_ms(lambda: radius_dist_plain(*args, radius), reps)
     q, w = got[0].shape
     inside = float(torch.isfinite(got[1]).sum())
     b = bound(q * w * (4 + 8) + rows * 12 + q * 12 + args[2].numel() * 16,
               lanes * OPS_DIST_TEST)
-    print(f"phase 3 K7 radius_dist ({label}): {q} queries x window {w}, halo {grid.halo}, "
+    print(f"{prefix} K7 radius_dist ({label}): {q} queries x window {w}, halo {grid.halo}, "
           f"radius {radius}, {lanes / q:.0f} rows and {inside / q:.1f} within the radius a "
           f"query: rows and distances bit-identical (max abs err {err}); kernel {ms:.3f} ms "
           f"(alone {alone:.4f} ms), plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms "
           f"({b['bound_by']})",
           flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
+
+
+def k1_own_frames(grid, kp, radius: float, reps: int = 10) -> dict:
+    """K1 in its own-frames mode on ``kp``'s windows of ``grid`` (one
+    fetch, as a chunk of the window route) against its twin: frames within
+    K1_FRAME_ATOL, the histograms by the flip rule under the kernel's
+    frames; timed (``reps`` runs), its bound by ``parity_k1``'s rule."""
+    import torch
+
+    from shot_fpfh_tpu_torch.ops.grid_hash import window_distances
+    from shot_fpfh_tpu_torch.ops.shot_fused import (
+        shot_binning_histogram,
+        shot_binning_histogram_plain,
+    )
+
+    vals, d, valid, _ = window_distances(grid, kp, with_rows=False)
+    dist_inf = torch.where(valid & (d <= radius), d, torch.full_like(d, float("inf")))
+    hist, rfs = shot_binning_histogram(vals, dist_inf, kp, None, radius)
+    _, rfs_p = shot_binning_histogram_plain(vals, dist_inf, kp, None, radius)
+    hist_p = shot_binning_histogram_plain(vals, dist_inf, kp, rfs, radius)
+    torch.cuda.synchronize()
+    err = float((rfs - rfs_p).abs().max())
+    check(err <= K1_FRAME_ATOL, f"K1 own frames on {kp.shape[0]} keypoints: frames error {err}")
+    flip = flip_rule(hist, hist_p, f"K1 own frames on {kp.shape[0]} keypoints")
+    ms = cuda_ms(lambda: shot_binning_histogram(vals, dist_inf, kp, None, radius), reps)
+    alone = kernel_ms(lambda: shot_binning_histogram(vals, dist_inf, kp, None, radius),
+                      K1_KERNEL, reps)
+    plain_ms = cuda_ms(lambda: shot_binning_histogram_plain(vals, dist_inf, kp, None, radius),
+                       reps)
+    q, _, w = vals.shape
+    n_lanes = float(torch.isfinite(dist_inf).sum())     # parity_k1's rule
+    b = bound((6 * n_lanes + q * w + q * 3 + q * (352 + 9)) * 4, n_lanes * OPS_SHOT_NEIGHBOR)
+    text = (f"{q} keypoints frames max err {err:.2e}, (flip fraction, max diff) {flip}, "
+            f"kernel {ms:.3f} ms (alone {alone:.4f} ms), bound {b['bound_ms']:.4f} ms "
+            f"({b['bound_by']})")
+    return dict(max_abs_err=flip[1], ms=ms, plain_ms=plain_ms, library_ms=None, text=text, **b)
+
+
+def k5_own_frames(grid, kp, radius: float, reps: int = 10) -> dict:
+    """K5 in its own-frames mode on ``kp`` over ``grid``'s xy-row runs
+    against its twin, as :func:`k1_own_frames` holds K1; its bound by
+    ``parity_k5``'s rule (one radius)."""
+    import torch
+
+    from shot_fpfh_tpu_torch.ops.grid_hash import _xyrow_runs
+    from shot_fpfh_tpu_torch.ops.shot_dma import shot_descriptor_dma, shot_descriptor_dma_plain
+
+    raw = dict(normalize=False, min_neighborhood_size=-1)
+    hist, rfs = shot_descriptor_dma(grid, kp, radius, **raw)
+    _, rfs_p = shot_descriptor_dma_plain(grid, kp, radius, **raw)
+    hist_p, _ = shot_descriptor_dma_plain(grid, kp, radius, rfs=rfs, **raw)
+    torch.cuda.synchronize()
+    err = float((rfs - rfs_p).abs().max())
+    check(err <= K1_FRAME_ATOL, f"K5 own frames on {kp.shape[0]} keypoints: frames error {err}")
+    flip = flip_rule(hist, hist_p, f"K5 own frames on {kp.shape[0]} keypoints")
+    ms = cuda_ms(lambda: shot_descriptor_dma(grid, kp, radius, **raw), reps)
+    alone = kernel_ms(lambda: shot_descriptor_dma(grid, kp, radius, **raw), K5_KERNEL, reps)
+    plain_ms = cuda_ms(lambda: shot_descriptor_dma_plain(grid, kp, radius, **raw), reps)
+    # parity_k5's rule: every row of the runs tested, the frame plane's
+    # neighbors reduced and the descriptor plane's binned (one radius here)
+    start, end = _xyrow_runs(grid, kp)
+    n_in = float(_route_counts(grid, kp, radius)[0].sum())
+    q = kp.shape[0]
+    b = bound(grid.packed_sorted.numel() * 4 + q * 12 + start.numel() * 16 + q * (352 + 10) * 4,
+              float((end - start).sum()) * OPS_DIST_TEST + n_in * OPS_SHOT_FRAME
+              + (n_in - q) * OPS_SHOT_BIN)
+    text = (f"{q} keypoints frames max err {err:.2e}, (flip fraction, max diff) {flip}, "
+            f"kernel {ms:.3f} ms (alone {alone:.4f} ms), bound {b['bound_ms']:.4f} ms "
+            f"({b['bound_by']})")
+    return dict(max_abs_err=flip[1], ms=ms, plain_ms=plain_ms, library_ms=None, text=text, **b)
 
 
 def parity_fused_shapes(pair, dev) -> None:
@@ -1149,17 +1251,7 @@ def parity_fused_shapes(pair, dev) -> None:
 
     from shot_fpfh_tpu_torch.core.subsampling import grid_subsample
     from shot_fpfh_tpu_torch.models.normals import compute_normals
-    from shot_fpfh_tpu_torch.ops.grid_hash import (
-        _xyrow_runs,
-        build_grid,
-        query_chunk,
-        window_distances,
-    )
-    from shot_fpfh_tpu_torch.ops.shot_dma import shot_descriptor_dma, shot_descriptor_dma_plain
-    from shot_fpfh_tpu_torch.ops.shot_fused import (
-        shot_binning_histogram,
-        shot_binning_histogram_plain,
-    )
+    from shot_fpfh_tpu_torch.ops.grid_hash import build_grid, query_chunk
 
     scan = torch.tensor(pair.scan, device=dev)
     grid = build_grid(scan, FUSED_SHOT_CELL, extras=compute_normals(scan, scan, k=30,
@@ -1168,50 +1260,11 @@ def parity_fused_shapes(pair, dev) -> None:
     kp = scan[torch.as_tensor(grid_subsample(scan, KEYPOINT_VOXEL), device=dev)]
     chunk = kp[:min(4096, query_chunk(grid, 8))]
     parity_k8("the fused SHOT grid", grid, chunk)
-    radius = FUSED_SHOT_CELL
-    vals, d, valid, _ = window_distances(grid, chunk, with_rows=False)
-    dist_inf = torch.where(valid & (d <= radius), d, torch.full_like(d, float("inf")))
-    hist, rfs = shot_binning_histogram(vals, dist_inf, chunk, None, radius)
-    _, rfs_p = shot_binning_histogram_plain(vals, dist_inf, chunk, None, radius)
-    hist_p = shot_binning_histogram_plain(vals, dist_inf, chunk, rfs, radius)
-    torch.cuda.synchronize()
-    k1_err = float((rfs - rfs_p).abs().max())
-    check(k1_err <= K1_FRAME_ATOL, f"K1 on the fused grid: frames error {k1_err}")
-    k1_flip = flip_rule(hist, hist_p, "K1 on the fused grid")
-    k1_ms = cuda_ms(lambda: shot_binning_histogram(vals, dist_inf, chunk, None, radius))
-    k1_alone = kernel_ms(lambda: shot_binning_histogram(vals, dist_inf, chunk, None, radius),
-                         K1_KERNEL)
-    q, _, w = vals.shape
-    n_lanes = float(torch.isfinite(dist_inf).sum())     # parity_k1's rule
-    k1_b = bound((6 * n_lanes + q * w + q * 3 + q * (352 + 9)) * 4,
-                 n_lanes * OPS_SHOT_NEIGHBOR)
-    raw = dict(normalize=False, min_neighborhood_size=-1)
-    kp5 = kp[:4096]
-    hist5, rfs5 = shot_descriptor_dma(grid, kp5, radius, **raw)
-    _, rfs5_p = shot_descriptor_dma_plain(grid, kp5, radius, **raw)
-    hist5_p, _ = shot_descriptor_dma_plain(grid, kp5, radius, rfs=rfs5, **raw)
-    torch.cuda.synchronize()
-    k5_err = float((rfs5 - rfs5_p).abs().max())
-    check(k5_err <= K1_FRAME_ATOL, f"K5 on the fused grid: frames error {k5_err}")
-    k5_flip = flip_rule(hist5, hist5_p, "K5 on the fused grid")
-    k5_ms = cuda_ms(lambda: shot_descriptor_dma(grid, kp5, radius, **raw))
-    k5_alone = kernel_ms(lambda: shot_descriptor_dma(grid, kp5, radius, **raw), K5_KERNEL)
-    # parity_k5's rule: every row of the runs tested, the frame plane's
-    # neighbors reduced and the descriptor plane's binned (one radius here)
-    start, end = _xyrow_runs(grid, kp5)
-    n_in = float(_route_counts(grid, kp5, radius)[0].sum())
-    q5 = kp5.shape[0]
-    k5_b = bound(grid.packed_sorted.numel() * 4 + q5 * 12 + start.numel() * 16
-                 + q5 * (352 + 10) * 4,
-                 float((end - start).sum()) * OPS_DIST_TEST + n_in * OPS_SHOT_FRAME
-                 + (n_in - q5) * OPS_SHOT_BIN)
+    k1 = k1_own_frames(grid, chunk, FUSED_SHOT_CELL)
+    k5 = k5_own_frames(grid, kp[:4096], FUSED_SHOT_CELL)
     print(f"phase 3 K1 and K5 on the fused SHOT grid (cell {FUSED_SHOT_CELL}, halo 1, "
           f"window {grid.window_cap}, longest xy-row run {grid.xyrow_run_cap}): K1 "
-          f"{q} keypoints frames max err {k1_err:.2e}, (flip fraction, max diff) {k1_flip}, "
-          f"kernel {k1_ms:.3f} ms (alone {k1_alone:.4f} ms), bound {k1_b['bound_ms']:.4f} ms "
-          f"({k1_b['bound_by']}); K5 {q5} keypoints frames max err {k5_err:.2e}, (flip "
-          f"fraction, max diff) {k5_flip}, kernel {k5_ms:.3f} ms (alone {k5_alone:.4f} ms), "
-          f"bound {k5_b['bound_ms']:.4f} ms ({k5_b['bound_by']})", flush=True)
+          f"{k1['text']}; K5 {k5['text']}", flush=True)
     n_pad = -(-kp.shape[0] // 256) * 256
     parity_k2(dev, np.random.default_rng(2), n_pad, 352, modes=(False,))
 
@@ -1233,7 +1286,7 @@ def replaced_nearest(grid, queries):
     return torch.cat(dist_out), torch.cat(idx_out)
 
 
-def parity_nearest(label: str, grid, queries) -> dict:
+def parity_nearest(label: str, grid, queries, prefix: str = "phase 3", reps: int = 10) -> dict:
     """K7's 1-NN mode against its twin and against the route it replaced,
     both outputs ``torch.equal``, at each lanes-a-query variant; timed
     beside that route (its K7 launches alone too); bound: the table's xyz,
@@ -1256,19 +1309,20 @@ def parity_nearest(label: str, grid, queries) -> dict:
         other = nearest(grid, queries, lanes=lanes)
         check(torch.equal(other[0], want[0]) and torch.equal(other[1], want[1]),
               f"1-NN {label}: {lanes} lanes a query differs from the plain version")
-        alone[lanes] = kernel_ms(lambda: nearest(grid, queries, lanes=lanes), NN_KERNEL)
+        alone[lanes] = kernel_ms(lambda: nearest(grid, queries, lanes=lanes), NN_KERNEL, reps)
     err = _max_abs_diff(got[0], want[0])
-    ms = cuda_ms(lambda: nearest(grid, queries))
-    plain_ms = cuda_ms(lambda: nearest_plain(grid, queries))
-    old_ms = cuda_ms(lambda: replaced_nearest(grid, queries))
+    ms = cuda_ms(lambda: nearest(grid, queries), reps)
+    plain_ms = cuda_ms(lambda: nearest_plain(grid, queries), reps)
+    old_ms = cuda_ms(lambda: replaced_nearest(grid, queries), reps)
     q = queries.shape[0]
     old_launches = -(-q // query_chunk(grid, 4))
-    old_alone = kernel_ms(lambda: replaced_nearest(grid, queries), K7_KERNEL) * old_launches
+    old_alone = kernel_ms(lambda: replaced_nearest(grid, queries), K7_KERNEL,
+                          reps) * old_launches
     _, lanes_used, _ = _runs_case(grid, queries)
     n = grid.packed_sorted.shape[0]
     b = bound(n * 12 + grid.cell_starts.numel() * 8 + n * 8 + q * 12 + q * 12,
               lanes_used * OPS_DIST_TEST)
-    print(f"phase 3 K7 1-NN mode nearest ({label}): {q} queries, window cap "
+    print(f"{prefix} K7 1-NN mode nearest ({label}): {q} queries, window cap "
           f"{grid.window_cap}, halo {grid.halo}, {lanes_used / q:.0f} rows a query, "
           f"{int(torch.isinf(got[0]).sum())} empty: dist and idx equal to the plain version and "
           f"to the replaced route (max abs err {err}); kernel {ms:.3f} ms (alone "
@@ -1436,38 +1490,43 @@ class SmokePair:
     noise) on disk, and the CLI runs over it."""
 
     def __init__(self):
-        from shot_fpfh_tpu_torch.io.ply import write_ply
-
         shutil.rmtree(WORK, ignore_errors=True)
         WORK.mkdir(parents=True)
         rng = np.random.default_rng(72)
-        self.ref = ref = make_terrain(100_000, rng, scale=10, n_bumps=40)
-        self.rot = rotation_about([0.3, -0.2, 1.0], np.deg2rad(15.0))
-        self.trans = np.array([0.4, -0.25, 0.15])
-        self.scan = (ref @ self.rot.T + self.trans
-                     + rng.normal(scale=0.005, size=ref.shape)).astype(np.float32)
-        write_ply(str(WORK / "scan.ply"), [self.scan], ["x", "y", "z"])
-        write_ply(str(WORK / "ref.ply"), [ref], ["x", "y", "z"])
-        self.metrics = WORK / "metrics.json"
+        ref = make_terrain(100_000, rng, scale=10, n_bumps=40)
+        rot = rotation_about([0.3, -0.2, 1.0], np.deg2rad(15.0))
+        trans = np.array([0.4, -0.25, 0.15])
+        scan = (ref @ rot.T + trans + rng.normal(scale=0.005, size=ref.shape)).astype(np.float32)
+        self._write(WORK, ref, scan, rot, trans, KEYPOINT_VOXEL, 0.9)
+
+    def _write(self, work: Path, ref, scan, rot, trans, voxel: float, radius: float) -> None:
+        """Write the pair (scan = ref @ rot.T + trans, plus noise) to
+        ``work`` and set up the CLI's arguments over it."""
+        from shot_fpfh_tpu_torch.io.ply import write_ply
+
+        self.ref, self.scan, self.rot, self.trans = ref, scan, rot, trans
+        write_ply(str(work / "scan.ply"), [scan], ["x", "y", "z"])
+        write_ply(str(work / "ref.ply"), [ref], ["x", "y", "z"])
+        self.metrics, self.out = work / "metrics.json", work / "out"
         self.argv = [
-            "--scan_file_path", str(WORK / "scan.ply"), "--ref_file_path", str(WORK / "ref.ply"),
-            "--conf_file_path", "", "--output_dir", str(WORK / "out"),
+            "--scan_file_path", str(work / "scan.ply"), "--ref_file_path", str(work / "ref.ply"),
+            "--conf_file_path", "", "--output_dir", str(self.out),
             "--metrics_json", str(self.metrics), "--device", "cuda",
             # config/default.yaml leaves these null (unusable) or sized for
             # the bunny: keypoint voxel + density threshold, descriptor radius
-            "--neighborhood_size", str(KEYPOINT_VOXEL), "--min_n_neighbors", "5",
-            "--radius", "0.9"]
+            "--neighborhood_size", str(voxel), "--min_n_neighbors", "5",
+            "--radius", str(radius)]
 
-    def errors(self, out: Path = WORK / "out") -> tuple[float, float]:
+    def errors(self, out: Path | None = None) -> tuple[float, float]:
         """(rotation, translation) error of the post-ICP alignment written
-        to ``out`` against the ground truth (scan -> ref: the inverse
-        motion)."""
+        to ``out`` (default: the pair's output directory) against the
+        ground truth (scan -> ref: the inverse motion)."""
         import torch
 
         from shot_fpfh_tpu_torch.core.solvers import solve_point_to_point
         from shot_fpfh_tpu_torch.core.transform import rotation_angle
 
-        moved = moved_scan(out / "scan_on_ref_post_icp.ply")
+        moved = moved_scan((out or self.out) / "scan_on_ref_post_icp.ply")
         got = solve_point_to_point(torch.tensor(self.scan, dtype=torch.float64),
                                    torch.tensor(moved, dtype=torch.float64))
         rot_err = float(rotation_angle(got.rotation, torch.tensor(self.rot.T)))
@@ -1476,12 +1535,14 @@ class SmokePair:
 
     def run(self, label: str, extra: list[str], must: tuple[str, ...],
             must_not: tuple[str, ...] = (), cold: bool = True,
-            cold_extra: tuple[str, ...] = ()) -> dict:
+            cold_extra: tuple[str, ...] = (), must_accept: bool = True) -> dict:
         """One measured ``cli.main`` run (after a cold one, with
         ``cold_extra`` arguments too, when ``cold``) with the launch counts
-        set to 0 just before it and read just after; fails unless accepted
-        within the bounds and every kernel of ``must`` (and none of
-        ``must_not``) was launched."""
+        set to 0 just before it and read just after; fails unless the
+        alignment lies within the bounds of the ground truth, every kernel
+        of ``must`` (and none of ``must_not``) was launched and, when
+        ``must_accept``, the evaluation accepted it (its exit code and line
+        are recorded either way)."""
         import torch
 
         from shot_fpfh_tpu_torch import _kernels, cli
@@ -1492,19 +1553,22 @@ class SmokePair:
             # a first, cold run pays one-time library set-up (cuSOLVER
             # handles for RANSAC's SVDs and ICP's solves, allocator growth)
             t0 = time.perf_counter()
-            check(cli.main(argv + list(cold_extra)) == 0,
+            check(cli.main(argv + list(cold_extra)) == 0 or not must_accept,
                   f"{label} (cold run): registration rejected")
             torch.cuda.synchronize()
             cold_wall = time.perf_counter() - t0
         # the CLI's stage timer lines (utils.perf.checkpoint)
-        with _LogLines("shot_fpfh_tpu_torch.utils.perf") as stage_log:
+        with (_LogLines("shot_fpfh_tpu_torch.utils.perf") as stage_log,
+              _LogLines("shot_fpfh_tpu_torch.cli") as cli_log):
+            torch.cuda.reset_peak_memory_stats()
             _kernels.reset_launch_counts()
             t0 = time.perf_counter()
             rc = cli.main(argv)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = dict(_kernels.launch_counts)
-        check(rc == 0, f"{label}: registration rejected (exit code {rc})")
+            peak = torch.cuda.max_memory_allocated()
+        check(rc == 0 or not must_accept, f"{label}: registration rejected (exit code {rc})")
         for name in must:
             check(launches[name] > 0, f"{label} never launched kernel {name}")
         for name in must_not:
@@ -1513,18 +1577,27 @@ class SmokePair:
         check(rot_err < MAIN_ROT_TOL and t_err < MAIN_T_TOL,
               f"{label}: rotation error {rot_err}, translation error {t_err}")
         return dict(launches=launches, rot_err=rot_err, t_err=t_err, wall=wall,
-                    cold_wall=cold_wall,
+                    cold_wall=cold_wall, points=self.ref.shape[0], peak=peak, rc=rc,
+                    evaluation=next(ln for ln in cli_log.lines if ln.startswith("Overlap")),
                     stages=json.loads(self.metrics.read_text())["stages"],
                     timers=[ln for ln in stage_log.lines if ln.endswith(" seconds")])
 
 
+def _peak_memory(peak: int) -> str:
+    import torch
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    return f"peak device memory {peak / 2**30:.2f} GiB of {total / 2**30:.2f} GiB"
+
+
 def _describe(phase: str, r: dict) -> str:
     cold = "" if r["cold_wall"] is None else f" (cold run {r['cold_wall']:.3f} s)"
-    return (f"{phase}: 100000-point pair accepted, rotation error {r['rot_err']:.2e} rad, "
-            f"translation error {r['t_err']:.2e}, wall {r['wall']:.3f} s{cold}, launches "
-            f"{r['launches']}, stages "
+    verdict = "accepted" if r["rc"] == 0 else f"rejected by the evaluation (exit code {r['rc']})"
+    return (f"{phase}: {r['points']}-point pair {verdict}, rotation error {r['rot_err']:.2e} "
+            f"rad, translation error {r['t_err']:.2e}, wall {r['wall']:.3f} s{cold}, "
+            f"{_peak_memory(r['peak'])}, launches {r['launches']}, stages "
             + ", ".join(f"{s['stage']} {s['seconds']:.3f} s" for s in r["stages"])
-            + f"; CLI timers: {r['timers']}")
+            + f"; CLI timers: {r['timers']}; evaluation: {r['evaluation']}")
 
 
 def phase_shot_path(pair: SmokePair, profile_dir: Path | None = None) -> dict:
@@ -2547,6 +2620,418 @@ def phase_mesh_two_ranks(pair: SmokePair) -> dict:
     return launches
 
 
+# phase 16: the JAX package's own scale.  The pair is
+# benchmarks/bench_1m.py:52-64's, copied, not imported: a 10^6-point ref
+# (xy uniform in [-20, 20]², the three-octave sinusoid z, 0.005 noise: ~625
+# points per unit area, 2.5x the smoke pair's) and the scan it moves by
+# Euler xyz (0.2, -0.1, 0.4) and (0.8, -0.5, 0.3), scan = (ref - t) @ R,
+# plus 0.005 noise of its own (the threshold filter's floor needs it);
+# bench_1m.py's descriptor radius and keypoint voxel.  bench.py:409-501's
+# at-scale legs on that ref: the descriptor grid (cell radius/2, halo 2),
+# SHOT of the voxel-0.9 keypoints padded to a multiple of 1024 with the far
+# sentinel (min_neighborhood_size 30), k=30 normals, FPFH of those
+# keypoints, point-to-plane ICP of the small motion below (no noise: it
+# must come back within SCALE_ICP_TOL), and Lowe matching of two seeded
+# (100,000, 352) normal-random descriptor sets
+SCALE_N, SCALE_SEED, SCALE_NOISE_SEED, SCALE_LOWE_SEED = 1_000_000, 7, 8, 9
+SCALE_EULER, SCALE_T = (0.2, -0.1, 0.4), (0.8, -0.5, 0.3)
+SCALE_RADIUS, SCALE_VOXEL, SCALE_PAD, SCALE_MIN_NEIGHBORS = 0.6, 0.9, 1024, 30
+# the CLI legs' keypoint voxel: the evaluation accepts a registration when
+# half the moved scan keypoints lie within 0.1 of a ref keypoint
+# (config/default.yaml), which voxel representatives 0.9 apart, drawn on
+# each cloud's own grid, never do (5-8% on a correct alignment of the pair
+# cut to CPU size, where the JAX CLI rejects it too: tests/test_torch_scale.py),
+# so the CLI legs take the smoke pair's voxel: ~78k keypoints a cloud
+SCALE_CLI_VOXEL = KEYPOINT_VOXEL
+SCALE_ICP_EULER, SCALE_ICP_T = (0.02, -0.01, 0.04), (0.08, -0.05, 0.03)
+SCALE_ICP = dict(d_max=0.5, voxel_size=0.5, max_iter=30, rms_threshold=1e-6)
+SCALE_ICP_TOL = 1e-3
+# bench_1m.py's own staged run (BASELINE.json config #3) through cli.main:
+# grid-subsampled keypoints at SCALE_VOXEL, SHOT at SCALE_RADIUS (k_max 384,
+# at least 30 neighbors) over k=20 normals, RANSAC's inliers within
+# SCALE_VOXEL, ICP at SCALE_ICP (bench.py's ICP leg takes bench_1m.py's);
+# matching is the config's.  Held to the ground truth; the evaluation's
+# verdict and keypoint-inlier share are recorded, not required
+SCALE_BENCH_1M_ARGS = [
+    "--selection_algorithm", "subsampling", "--neighborhood_size", str(SCALE_VOXEL),
+    "--radius", str(SCALE_RADIUS), "--min_neighborhood_size", str(SCALE_MIN_NEIGHBORS),
+    "--k_max_descriptor", "384", "--normals_k", "20",
+    "--max_inliers_distance", str(SCALE_VOXEL),
+    *(a for k, v in SCALE_ICP.items() for a in (f"--{k}", str(v)))]
+# ICP's iteration cap in config/default.yaml (the other CLI legs)
+SCALE_CLI_MAX_ITER = 50
+SCALE_LOWE_ROWS, SCALE_DIM = 100_000, 352
+# K2 at 100k x 100k is held to its twin on SCALE_K2_SAMPLE rows against all
+# the refs (the whole twin's distance matrix would be 40 GB); K6 on the
+# first SCALE_K6_ROWS rows of the ref's grid; the voxel sums with one voxel
+# of 10^5 points in a 10^5-point terrain, then a 10^6-point cloud in one
+# voxel: (points in the voxel, terrain points around it)
+SCALE_K2_SAMPLE, SCALE_K6_ROWS = 4096, 100_000
+# the sampled k-th bound's chunked form is held to its one-piece form on the
+# ref's first points of each of these counts too (chunks of 335 and 134
+# rows; 67 at 10^6)
+SCALE_KTH_SIZES = (200_000, 500_000)
+SCALE_VOXEL_CASES = ((100_000, 100_000), (1_000_000, 0))
+# timed runs a kernel after its warm-up at these shapes (phase 3: 10)
+SCALE_REPS = 3
+
+
+def euler_xyz(angles) -> np.ndarray:
+    """Extrinsic x-y-z Euler angles as a float64 rotation matrix."""
+    import torch
+
+    from shot_fpfh_tpu_torch.core.transform import euler_xyz_to_matrix
+
+    return euler_xyz_to_matrix(torch.tensor(angles, dtype=torch.float64)).numpy()
+
+
+def scale_terrain(rng: np.random.Generator, n: int) -> np.ndarray:
+    """benchmarks/bench_1m.py:52-59's ref: xy uniform in [-20, 20]², a
+    three-octave sinusoid z, 0.005 Gaussian noise; float32 throughout."""
+    xy = rng.uniform(-20, 20, size=(n, 2)).astype(np.float32)
+    z = (0.8 * np.sin(0.9 * xy[:, 0]) * np.cos(0.7 * xy[:, 1])
+         + 0.4 * np.sin(2.1 * xy[:, 0] + 1.0) * np.cos(1.7 * xy[:, 1] + 0.5)
+         + 0.15 * np.sin(4.3 * xy[:, 0] + 2.0) * np.cos(3.9 * xy[:, 1] + 1.5))
+    ref = np.column_stack([xy, z]).astype(np.float32)
+    ref += rng.normal(scale=0.005, size=ref.shape).astype(np.float32)
+    return ref
+
+
+class ScalePair(SmokePair):
+    """Phase 16's pair on disk in ``work``: the SCALE_N-point ref of
+    :func:`scale_terrain` and its scan, with the CLI's arguments at
+    bench_1m.py's radius and SCALE_CLI_VOXEL."""
+
+    def __init__(self, work: Path):
+        ref = scale_terrain(np.random.default_rng(SCALE_SEED), SCALE_N)
+        r, t = euler_xyz(SCALE_EULER), np.asarray(SCALE_T)
+        noise = np.random.default_rng(SCALE_NOISE_SEED).normal(scale=0.005, size=ref.shape)
+        scan = ((ref - t) @ r + noise).astype(np.float32)
+        # scan = ref @ rot.T + trans: rot = R^T, trans = -t R
+        self._write(work, ref, scan, r.T, -(t @ r), SCALE_CLI_VOXEL, SCALE_RADIUS)
+
+
+def _leg(fn):
+    """``fn()`` cold once, then measured once with the launch counts set to
+    0 just before it and read just after: ``(result, record)`` with the
+    host wall (CUDA synchronised), the launches and the peak device
+    memory of the measured run."""
+    import torch
+
+    from shot_fpfh_tpu_torch import _kernels
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in _kernels.launch_counts.items() if v}
+    return out, dict(wall=wall, launches=launches, peak=torch.cuda.max_memory_allocated())
+
+
+def _leg_line(label: str, rec: dict, extra: str = "") -> None:
+    print(f"phase 16 {label}: wall {rec['wall']:.4f} s, {_peak_memory(rec['peak'])}, launches "
+          f"{rec['launches']}{extra}", flush=True)
+
+
+def _icp_nn_launches(label: str, r: dict, max_iter: int, keypoint_grid: bool) -> None:
+    """A CLI run's 1-NN launches: one an ICP iteration issued (the stage
+    timer's count, rounded up to the loop's block of ICP_BLOCK and capped
+    at ``max_iter``) and one for the evaluation's overlap (the 10^6-point
+    ref), plus one for its keypoint inliers when the ref keypoints are at
+    least AUTO_GRID_MIN_POINTS (``keypoint_grid``: ~78k at voxel 0.15,
+    ~2k at 0.9, which take the brute route)."""
+    from shot_fpfh_tpu_torch.registration.icp import ICP_BLOCK
+
+    iters = next(s["iterations"] for s in r["stages"] if s["stage"].startswith("icp"))
+    issued = min(max_iter, -(-iters // ICP_BLOCK) * ICP_BLOCK)
+    check(r["launches"][NN] == issued + 1 + keypoint_grid,
+          f"{label}: {r['launches'][NN]} 1-NN launches for {iters} ICP iterations")
+
+
+def k6_rows(grid, rows: int, radius: float, reps: int) -> dict:
+    """K6 in both modes on the first ``rows`` rows of ``grid`` as queries
+    (non-unit stride, as ``models.fpfh`` passes them), equal to its twin
+    (``torch.equal``); bound by ``parity_k6``'s rule."""
+    import torch
+
+    from shot_fpfh_tpu_torch.ops.grid_hash import _xyrow_runs
+    from shot_fpfh_tpu_torch.ops.shot_dma import spfh_block_dma, spfh_block_dma_plain
+
+    qc, qn = grid.packed_sorted[:rows, :3], grid.packed_sorted[:rows, 3:6]
+    start, end = _xyrow_runs(grid, qc)
+    lanes = float((end - start).sum())
+    neighbors = float(_route_counts(grid, qc, radius)[0].sum()) - rows
+    res = {}
+    for dec in (False, True):
+        got = spfh_block_dma(grid, qc, qn, radius, 5, dec)
+        want = spfh_block_dma_plain(grid, qc, qn, radius, 5, dec)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want),
+              f"K6 at scale decorrelated={dec}: {int((got != want).sum())} elements differ")
+        check(float(want.sum()) > 0, "K6 at scale: empty histograms")
+        res[dec] = dict(
+            max_abs_err=float((got - want).abs().max()), library_ms=None,
+            ms=cuda_ms(lambda: spfh_block_dma(grid, qc, qn, radius, 5, dec), reps),
+            plain_ms=cuda_ms(lambda: spfh_block_dma_plain(grid, qc, qn, radius, 5, dec), reps),
+            **bound(grid.packed_sorted.numel() * 4 + grid.cell_starts.numel() * 8
+                    + rows * got.shape[1] * 4,
+                    lanes * OPS_DIST_TEST + neighbors * OPS_SPFH_NEIGHBOR))
+    print(f"phase 16 K6 spfh_runs: {rows} queries of the {grid.packed_sorted.shape[0]}-point "
+          f"grid x {start.shape[1]} xy-row runs (longest {grid.xyrow_run_cap}, "
+          f"{lanes / rows:.0f} rows and {neighbors / rows:.0f} neighbors a query): equal to the "
+          f"twin in both modes; " + "; ".join(
+              f"{'decorrelated' if dec else 'joint'} kernel {r['ms']:.3f} ms plain "
+              f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+              for dec, r in res.items()), flush=True)
+    return res[False]
+
+
+def k2_sampled(a, b, rng, reps: int) -> dict:
+    """K2 on all of ``a`` against all of ``b`` in bf16 and f32, held to its
+    twin on SCALE_K2_SAMPLE sampled rows against every ref (phase 3's
+    rules: index agreement, d1's relative error, no invalid ref picked);
+    timed, the twin on the sampled rows alone.  No library time: one
+    cuBLAS product would write the whole distance matrix."""
+    import torch
+
+    from shot_fpfh_tpu_torch.ops.match import top2_match, top2_match_plain
+
+    n, m, dim = a.shape[0], b.shape[0], a.shape[1]
+    valid = torch.ones(m, dtype=torch.bool, device=a.device)
+    valid[::97] = False
+    rows = torch.as_tensor(np.sort(rng.choice(n, SCALE_K2_SAMPLE, replace=False)),
+                           device=a.device)
+    res = {}
+    for bf16 in (True, False):
+        i_k, d1_k, _ = top2_match(a, b, valid, bf16)
+        i_p, d1_p, _ = top2_match_plain(a[rows], b, valid, bf16)
+        torch.cuda.synchronize()
+        agree = int((i_k[rows] == i_p).sum()) / SCALE_K2_SAMPLE
+        rel = float(((d1_k[rows] - d1_p).abs() / d1_p.abs()).max())
+        check(agree >= K2_MIN_AGREE[bf16], f"K2 at scale bf16={bf16}: index agreement {agree}")
+        check(rel <= K2_D1_RTOL[bf16], f"K2 at scale bf16={bf16}: d1 relative error {rel}")
+        check(not bool(valid.logical_not()[i_k].any()), "K2 at scale picked an invalid ref")
+        res[bf16] = dict(agree=agree, rel=rel, max_abs_err=float((d1_k[rows] - d1_p).abs().max()),
+                         ms=cuda_ms(lambda: top2_match(a, b, valid, bf16), reps),
+                         plain_ms=cuda_ms(lambda: top2_match_plain(a[rows], b, valid, bf16),
+                                          reps),
+                         library_ms=None, **_k2_bound(n, m, dim, bf16))
+    print(f"phase 16 K2 top2_match: {n}x{m}x{dim}, {SCALE_K2_SAMPLE} sampled rows held to the "
+          f"twin: " + "; ".join(
+              f"{'bf16' if k else 'f32'} agree {v['agree']:.4f} d1 rel err {v['rel']:.2e} "
+              f"kernel {v['ms']:.3f} ms, twin on the sampled rows {v['plain_ms']:.3f} ms, "
+              f"bound {v['bound_ms']:.4f} ms ({v['bound_by']})" for k, v in res.items()),
+          flush=True)
+    return res[True]
+
+
+def kth_bound_at_scale(ref) -> str:
+    """The k=30 normals' sampled bound on ``ref`` (``kth_distance_bound``,
+    in sample chunks) equal to the one-piece form it replaced, with each
+    form's peak device memory above what was allocated before it, and
+    equal too on the first SCALE_KTH_SIZES points of ``ref``; and the
+    queries the streaming pass left under k neighbors (the miss net's
+    exact re-solves)."""
+    import torch
+
+    from shot_fpfh_tpu_torch._fp import sqrt
+    from shot_fpfh_tpu_torch.models.normals import _streaming_grid, _streaming_pass
+    from shot_fpfh_tpu_torch.ops.grid_hash import kth_distance_bound
+    from shot_fpfh_tpu_torch.ops.neighbors import _chunk, _sq_dists
+
+    def peak(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() - base
+
+    def one_piece(sample, points):
+        return sqrt(torch.clamp(torch.topk(
+            torch.clamp(_sq_dists(sample, points), min=0.0), 30, dim=1, largest=False,
+            sorted=True).values[:, -1], min=0.0))
+
+    for n in SCALE_KTH_SIZES:
+        _, sample, kth = _streaming_grid(ref[:n], 30)
+        check(torch.equal(kth, one_piece(sample, ref[:n])),
+              f"kth_distance_bound on {n} points: the chunked form differs from the one-piece "
+              "form")
+    grid, sample, kth = _streaming_grid(ref, 30)
+    whole, whole_peak = peak(lambda: one_piece(sample, ref))
+    chunked, chunked_peak = peak(lambda: kth_distance_bound(sample, ref, 30))
+    check(torch.equal(chunked, whole) and torch.equal(chunked, kth),
+          "at-scale kth_distance_bound: the chunked form differs from the one-piece form")
+    _, cnt = _streaming_pass(grid, sample, kth, ref, 30, None)
+    return (f"sampled k-th neighbor bound in chunks of {_chunk(ref.shape[0])} of "
+            f"{sample.shape[0]} sample rows: equal to the one-piece form, its temporaries "
+            f"{chunked_peak / 2**30:.3f} GiB (one piece {whole_peak / 2**30:.3f} GiB); equal "
+            "too on the first " + ", ".join(
+                f"{n} points (chunks of {_chunk(n)})" for n in SCALE_KTH_SIZES) + "; grid "
+            f"cell {grid.cell_size:.4g}, the miss net re-solves {int((cnt < 30).sum())} of "
+            f"{ref.shape[0]} queries")
+
+
+def phase_at_scale(dev) -> dict:
+    """Phase 16: the port at the JAX package's own scale, on the 10^6-point
+    pair.  Legs 1-2: ``cli.main`` for SHOT and FPFH (window route), cold
+    then measured, accepted within MAIN_ROT_TOL / MAIN_T_TOL.  Leg 3:
+    bench.py's at-scale legs through the library, each cold then measured
+    (the grid build beside the host blake2b hash of the same bytes, the
+    content cache's key).  Leg 4: every kernel at these shapes against its
+    plain twin, phase 3's rules.  Then the voxel sums with a voxel of each
+    SCALE_VOXEL_CASES.  Returns each leg's launches by path."""
+    import hashlib
+    import tempfile
+
+    import torch
+
+    from shot_fpfh_tpu_torch.core.subsampling import grid_subsample
+    from shot_fpfh_tpu_torch.core.transform import RigidTransform, rotation_angle
+    from shot_fpfh_tpu_torch.models import (
+        compute_fpfh_descriptor,
+        compute_normals,
+        compute_shot_descriptor,
+    )
+    from shot_fpfh_tpu_torch.models.fpfh import _sorted_rows
+    from shot_fpfh_tpu_torch.ops.grid_hash import build_grid
+    from shot_fpfh_tpu_torch.registration.icp import icp_point_to_plane, nn_grid
+    from shot_fpfh_tpu_torch.registration.matching import lowe_matching
+
+    torch.cuda.empty_cache()
+    paths, reps = {}, SCALE_REPS
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_scale_") as tmp:
+        t0 = time.perf_counter()
+        pair = ScalePair(Path(tmp))
+        print(f"phase 16 at scale: two {SCALE_N}-point clouds made and written in "
+              f"{time.perf_counter() - t0:.2f} s (radius {SCALE_RADIUS}, the CLI's keypoint "
+              f"voxel {SCALE_CLI_VOXEL}, the library's {SCALE_VOXEL})", flush=True)
+        shot = pair.run("at-scale SHOT", [], SHOT_PATH, (K7,))
+        _icp_nn_launches("at-scale SHOT", shot, SCALE_CLI_MAX_ITER, True)
+        print(_describe("phase 16 leg 1 SHOT (cli.main)", shot), flush=True)
+        staged = pair.run("at-scale SHOT at bench_1m.py's settings", SCALE_BENCH_1M_ARGS,
+                          SHOT_PATH, (K7,), must_accept=False)
+        _icp_nn_launches("at-scale SHOT at bench_1m.py's settings", staged,
+                         SCALE_ICP["max_iter"], False)
+        print(_describe("phase 16 leg 1 SHOT at bench_1m.py's settings (cli.main)", staged),
+              flush=True)
+        fpfh = pair.run("at-scale FPFH", ["--descriptor_choice", "fpfh"], FPFH_WINDOW_PATH,
+                        ("spfh_runs",))
+        _icp_nn_launches("at-scale FPFH", fpfh, SCALE_CLI_MAX_ITER, True)
+        # every point's SPFH of both clouds in K8 + K4 chunks, one pair a chunk
+        spfh = fpfh["launches"]["spfh_histogram"]
+        check(fpfh["launches"][WINDOW] == spfh,
+              f"at-scale FPFH: {fpfh['launches'][WINDOW]} K8 launches for {spfh} K4 launches")
+        print(_describe("phase 16 leg 2 FPFH, window route (cli.main)", fpfh), flush=True)
+        paths["at scale SHOT"], paths["at scale FPFH"] = shot["launches"], fpfh["launches"]
+        paths["at scale bench_1m.py"] = staged["launches"]
+        ref_np = pair.ref
+    del pair
+
+    ref = torch.tensor(ref_np, device=dev)
+    normals, rec = _leg(lambda: compute_normals(ref, ref, k=30))
+    check(bool(torch.isfinite(normals).all()), "at-scale normals: not finite")
+    _leg_line("leg 3 normals k=30 (compute_normals)", rec, "; " + kth_bound_at_scale(ref))
+    paths["at scale normals"] = rec["launches"]
+    nrm_np = normals.cpu().numpy()
+
+    def content_key():
+        """The key of JAX's grid cache (ops/grid_hash.py:325-334): blake2b
+        of the host bytes of the points and the extras."""
+        digest = hashlib.blake2b(ref_np.tobytes(), digest_size=16)
+        digest.update(nrm_np.tobytes())
+        return digest.digest()
+
+    _, hash_rec = _leg(content_key)
+    # bench.py:451-456's call: host arrays, no device (the card's)
+    host_grid, host_rec = _leg(lambda: build_grid(ref_np, SCALE_RADIUS / 2, extras=nrm_np,
+                                                  halo=2))
+    check(host_grid.device.type == "cuda", "build_grid of host arrays ran off the card")
+    grid, rec = _leg(lambda: build_grid(ref, SCALE_RADIUS / 2, extras=normals, halo=2))
+    pays = host_rec["wall"] > hash_rec["wall"]
+    _leg_line("leg 3 grid build (build_grid, cell 0.3, halo 2, normals)", rec,
+              f"; from the host arrays {host_rec['wall'] * 1e3:.3f} ms, the host blake2b of "
+              f"the same bytes (the JAX grid cache's key) {hash_rec['wall'] * 1e3:.3f} ms: a "
+              f"cache hit would {'save' if pays else 'cost'} "
+              f"{abs(host_rec['wall'] - hash_rec['wall']) * 1e3:.3f} ms a build; window cap "
+              f"{grid.window_cap}, xy-row {grid.use_xyrow} (longest run {grid.xyrow_run_cap})")
+    kp_idx = grid_subsample(ref, SCALE_VOXEL)
+    pad = -(-len(kp_idx) // SCALE_PAD) * SCALE_PAD - len(kp_idx)
+    kp = torch.cat([ref[torch.as_tensor(kp_idx, device=dev)],
+                    torch.full((pad, 3), 1.0e6, device=dev)])
+    kp_idx_pad = np.concatenate([kp_idx, np.zeros(pad, kp_idx.dtype)])
+    (desc, _), rec = _leg(lambda: compute_shot_descriptor(
+        kp, ref, normals, SCALE_RADIUS, min_neighborhood_size=SCALE_MIN_NEIGHBORS))
+    live = float((desc[:len(kp_idx)].abs().sum(1) > 0).float().mean())
+    check(bool(torch.isfinite(desc).all()) and live > 0.99,
+          f"at-scale SHOT: {live} of the keypoints have a descriptor")
+    _leg_line(f"leg 3 SHOT of {len(kp_idx)} keypoints padded to {kp.shape[0]} "
+              "(compute_shot_descriptor)", rec,
+              f"; {len(kp_idx) / rec['wall']:.0f} descriptors/s, {live:.4f} non-empty")
+    paths["at scale SHOT library"] = rec["launches"]
+    fp, rec = _leg(lambda: compute_fpfh_descriptor(kp_idx_pad, ref, normals, SCALE_RADIUS))
+    check(fp.shape == (kp.shape[0], 125) and bool(torch.isfinite(fp).all()),
+          f"at-scale FPFH: shape {tuple(fp.shape)} or not finite")
+    _leg_line("leg 3 FPFH (compute_fpfh_descriptor)", rec)
+    paths["at scale FPFH library"] = rec["launches"]
+    r_s, t_s = euler_xyz(SCALE_ICP_EULER), np.asarray(SCALE_ICP_T)
+    scan_s = torch.tensor(((ref_np - t_s) @ r_s).astype(np.float32), device=dev)
+    ident = RigidTransform(torch.eye(3, device=dev), torch.zeros(3, device=dev))
+    res, rec = _leg(lambda: icp_point_to_plane(scan_s, ref, normals, ident, **SCALE_ICP))
+    rot_err = float(rotation_angle(res.transform.rotation.double().cpu(), torch.tensor(r_s)))
+    t_err = float(np.linalg.norm(res.transform.translation.double().cpu().numpy() - t_s))
+    check(rot_err < SCALE_ICP_TOL and t_err < SCALE_ICP_TOL,
+          f"at-scale ICP: rotation error {rot_err}, translation error {t_err}")
+    _leg_line("leg 3 ICP point-to-plane (icp_point_to_plane)", rec,
+              f"; {res.n_iters} iterations, rms {res.rms:.2e}, rotation error {rot_err:.2e} "
+              f"rad, translation error {t_err:.2e}")
+    paths["at scale ICP"] = rec["launches"]
+    lrng = np.random.default_rng(SCALE_LOWE_SEED)
+    a, b = (torch.tensor(lrng.normal(size=(SCALE_LOWE_ROWS, SCALE_DIM)).astype(np.float32),
+                         device=dev) for _ in range(2))
+    (m_scan, _), rec = _leg(lambda: lowe_matching(a, b, verbose=False))
+    _leg_line(f"leg 3 Lowe matching {SCALE_LOWE_ROWS}x{SCALE_LOWE_ROWS}x{SCALE_DIM} "
+              "(lowe_matching)", rec, f"; {len(m_scan)} matches kept")
+    paths["at scale Lowe"] = rec["launches"]
+
+    prefix = "phase 16"
+    kernels = {"radius_pca": k3_check(ref, prefix, reps)}
+    chunk = grid.packed_sorted[:8192, :3]
+    kernels["fetch_windows"] = parity_k8("one FPFH chunk of the ref", grid, chunk, prefix, reps)
+    kernels["spfh_histogram"] = parity_k4(grid, SCALE_RADIUS, prefix, reps)
+    check(grid.use_xyrow and grid.xyrow_run_cap > 0, "the at-scale grid is not an xy-row grid")
+    k1 = kernels["shot_binning_histogram"] = k1_own_frames(grid, kp, SCALE_RADIUS, reps)
+    k5 = kernels["shot_runs"] = k5_own_frames(grid, kp, SCALE_RADIUS, reps)
+    print(f"{prefix} K1 and K5 on leg 3's keypoints (cell {grid.cell_size}, halo 2, window "
+          f"{grid.window_cap}, longest xy-row run {grid.xyrow_run_cap}): K1 {k1['text']}; K5 "
+          f"{k5['text']}", flush=True)
+    kernels["spfh_runs"] = k6_rows(grid, SCALE_K6_ROWS, SCALE_RADIUS, reps)
+    kp_rows = _sorted_rows(grid, torch.as_tensor(kp_idx_pad, device=dev))
+    kernels["radius_dist"] = parity_k7("the FPFH aggregation's keypoints", grid,
+                                       grid.packed_sorted[kp_rows, :3], SCALE_RADIUS, prefix,
+                                       reps)
+    sub = scan_s[torch.as_tensor(grid_subsample(scan_s, SCALE_ICP["voxel_size"]), device=dev)]
+    moved = sub @ torch.tensor(r_s.T, dtype=torch.float32, device=dev) + torch.tensor(
+        t_s, dtype=torch.float32, device=dev)
+    kernels["nearest"] = parity_nearest("leg 3's ICP", nn_grid(ref, SCALE_ICP["d_max"]), moved,
+                                        prefix, reps)
+    kernels["top2_match"] = k2_sampled(a, b, np.random.default_rng(SCALE_LOWE_SEED + 1), reps)
+    for name, r in kernels.items():
+        print(f"{prefix} kernel {name}: ms {r['ms']:.4f}, plain {r['plain_ms']:.4f}, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), launches at scale "
+              + str({p: c.get(name, 0) for p, c in paths.items()}), flush=True)
+    del a, b, grid, ref, normals, scan_s
+    torch.cuda.empty_cache()
+    vrng = np.random.default_rng(SCALE_SEED + 2)
+    for cluster, terrain in SCALE_VOXEL_CASES:
+        voxel_sums(dev, vrng, cluster, terrain, prefix, reps)
+    return paths
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -2615,6 +3100,8 @@ def main(argv=None) -> int:
     paths["mesh 1-rank"] = phase_mesh_one_rank(pair)
     paths.update(phase_fused_mesh_one_rank(fused_inputs))
     paths.update(phase_mesh_two_ranks(pair))
+    del pair, fused_inputs
+    paths.update(phase_at_scale(dev))
     # kernel -> (source, TPU kernel it replaces, parity and timings, the
     # path whose launches the line reports)
     results = {

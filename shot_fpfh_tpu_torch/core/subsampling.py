@@ -5,6 +5,8 @@ the same indices: voxelize at ``voxel_size`` from the cloud's minimum corner,
 stable-sort by cell (x, y, z), and keep in each voxel the point closest to
 the voxel barycenter, ties going to the earlier point in cell order (a
 second stable sort on (cell, distance), ``core/subsampling.py:88-106``).
+Each function runs on ``device``: by default the points tensor's device,
+``cuda`` for host arrays (``_device.resolve``).
 """
 
 from __future__ import annotations
@@ -12,13 +14,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .._device import resolve
 from .._fp import div, sqnorm3, sqrt
 
 
 def _as_points(points, device=None) -> torch.Tensor:
     from ..ops.neighbors import as_f32
 
-    return as_f32(points, device)
+    return as_f32(points, resolve(device, points))
 
 
 def _stable_argsort(key: torch.Tensor, order: torch.Tensor) -> torch.Tensor:

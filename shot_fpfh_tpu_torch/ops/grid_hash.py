@@ -22,9 +22,11 @@ The window functions run the kernels of ``ops.radius_runs`` over the runs:
 and :func:`grid_nearest_neighbor` K7's 1-NN mode (the minimum taken in the
 kernel); on CPU tensors their plain twins.
 
-Not ported: the content-keyed grid LRU and the G=8/16 grouped
-feature-planar gather (index-bound gather workarounds of the TPU); the
-compacted ``(Q, W)`` window over the runs gives the same window contract.
+Not ported: the content-keyed grid LRU (on an H100 a 10^6-point grid
+builds from host arrays in less time than hashing them takes:
+``chip_smoke.py`` phase 16) and the G=8/16 grouped feature-planar gather
+(an index-bound gather workaround of the TPU); the compacted ``(Q, W)``
+window over the runs gives the same window contract.
 """
 
 from __future__ import annotations
@@ -36,8 +38,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .._device import resolve
 from .._fp import div, sqnorm3, sqrt
-from .neighbors import Neighborhoods, _sq_dists, as_f32, knn, radius_search
+from .neighbors import Neighborhoods, _chunk, _sq_dists, as_f32, knn, radius_search
 from .radius_runs import fetch_windows, nearest, radius_dist, window_slots
 
 logger = logging.getLogger(__name__)
@@ -154,13 +157,14 @@ def _xyrow_mode(cell_starts: torch.Tensor, dims, halo: int) -> tuple[bool, int]:
 
 def build_grid(points, cell_size: float, extras=None, halo: int = 1,
                device=None) -> HashGrid:
-    """Bucket ``points`` into cells of edge ``cell_size`` on the device.
+    """Bucket ``points`` into cells of edge ``cell_size`` on ``device``
+    (default: the points tensor's device, ``cuda`` for host arrays).
 
     ``extras``: optional ``(N, F)`` per-point values (e.g. normals) carried
     in cell order beside the points.  The dense cell-start table is built
     when the cell count is at most ``max(8N, 2^24)``; sparser grids find
     their runs by binary search over the sorted ids instead."""
-    pts = as_f32(points, device)
+    pts = as_f32(points, resolve(device, points))
     n = pts.shape[0]
     origin = pts.min(dim=0).values
     cell = torch.floor(div(pts - origin, cell_size)).to(torch.int64)
@@ -376,9 +380,15 @@ def grid_nearest_neighbor(grid: HashGrid, queries):
 
 def kth_distance_bound(sample, points, k: int) -> torch.Tensor:
     """Per-sample distance of the k-th nearest point (exact ``topk``; the
-    reference uses ``approx_max_k``, which only ever biases it up)."""
-    d2 = torch.clamp(_sq_dists(sample, points), min=0.0)
-    kth = torch.topk(d2, k, dim=1, largest=False, sorted=True).values[:, -1]
+    reference uses ``approx_max_k``, which only ever biases it up), in
+    sample chunks of the brute search's tile (``neighbors._chunk``), so a
+    chunk's ``(rows, N)`` temporaries stay under 2^26 elements: 67 of a
+    512-point sample's rows at 10^6 points, all of them up to ~131k."""
+    step = _chunk(points.shape[0])
+    kth = torch.cat([
+        torch.topk(torch.clamp(_sq_dists(sample[s:s + step], points), min=0.0), k, dim=1,
+                   largest=False, sorted=True).values[:, -1]
+        for s in range(0, sample.shape[0], step)])
     return sqrt(torch.clamp(kth, min=0.0))
 
 

@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .._device import resolve
 from ..core.solvers import solve_point_to_point
 from ..core.transform import RigidTransform
 from ..ops.neighbors import as_f32
@@ -48,10 +49,11 @@ def ransac_on_matches(scan_matched, ref_matched, generator: torch.Generator | No
                       distance_threshold: float = 1.0):
     """Best rigid transform over random draws of matched keypoint pairs.
 
-    ``scan_matched``/``ref_matched``: ``(M, 3)`` matched coordinates.
-    Returns ``(inlier_ratio, transform)`` — best inlier count / M and the
-    quaternion-renormalized transform."""
-    scan = as_f32(scan_matched)
+    ``scan_matched``/``ref_matched``: ``(M, 3)`` matched coordinates; the
+    call runs on the scan tensor's device, on ``cuda`` for host arrays.
+    Returns ``(inlier_ratio, transform)`` — best inlier count / M
+    and the quaternion-renormalized transform."""
+    scan = as_f32(scan_matched, resolve(None, scan_matched))
     ref = as_f32(ref_matched, scan.device)
     m = scan.shape[0]
     if draws is None:

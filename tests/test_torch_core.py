@@ -115,12 +115,13 @@ def test_grid_subsample_exact(n, voxel, seed):
 
     pts = make_cloud(n, np.random.default_rng(seed), scale=2.0).astype(np.float32)
     np.testing.assert_array_equal(j_sub.grid_subsample(pts, voxel),
-                                  t_sub.grid_subsample(pts, voxel))
+                                  t_sub.grid_subsample(pts, voxel, device="cpu"))
     for j_out, t_out in zip(j_sub.grid_subsample_masked(pts, voxel),
-                            t_sub.grid_subsample_masked(pts, voxel)):
+                            t_sub.grid_subsample_masked(pts, voxel, device="cpu")):
         np.testing.assert_array_equal(np.asarray(j_out), t_out.numpy())
     ji, jm, jc = (np.asarray(x) for x in j_sub.voxel_counts_for_representatives(pts, voxel))
-    ti, tm, tc = (x.numpy() for x in t_sub.voxel_counts_for_representatives(pts, voxel))
+    ti, tm, tc = (x.numpy() for x in t_sub.voxel_counts_for_representatives(pts, voxel,
+                                                                              device="cpu"))
     np.testing.assert_array_equal(ji, ti)
     np.testing.assert_array_equal(jm, tm)
     np.testing.assert_array_equal(jc, tc)

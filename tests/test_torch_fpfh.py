@@ -303,6 +303,7 @@ def test_cli_fpfh_matches_reference_cli(tmp_path):
 
 
 def _entry_points():
+    from shot_fpfh_tpu_torch.core.subsampling import grid_subsample
     from shot_fpfh_tpu_torch.core.transform import RigidTransform
     from shot_fpfh_tpu_torch.keypoints import (
         select_keypoints_subsampling,
@@ -315,9 +316,11 @@ def _entry_points():
         compute_shot_descriptor,
         compute_spfh,
     )
+    from shot_fpfh_tpu_torch.ops.grid_hash import build_grid
     from shot_fpfh_tpu_torch.pipeline import RegistrationPipeline
     from shot_fpfh_tpu_torch.registration.icp import icp_point_to_plane, icp_point_to_point
     from shot_fpfh_tpu_torch.registration.matching import basic_matching, lowe_matching
+    from shot_fpfh_tpu_torch.registration.ransac import ransac_on_matches
 
     eye = RigidTransform(torch.eye(3), torch.zeros(3))
     return {
@@ -337,6 +340,10 @@ def _entry_points():
                 "subsampling", neighborhood_size=0.2),
         "compute_fpfh_descriptor": lambda a: compute_fpfh_descriptor([0, 1], a, a, 0.5),
         "compute_spfh": lambda a: compute_spfh(a, a, 0.5, 5),
+        # bench.py's and bench_1m.py's own calls
+        "build_grid": lambda a: build_grid(a, 0.3),
+        "grid_subsample": lambda a: grid_subsample(a, 0.2),
+        "ransac_on_matches": lambda a: ransac_on_matches(a, a, n_draws=8),
     }
 
 

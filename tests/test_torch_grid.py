@@ -40,7 +40,7 @@ def cloud(rng):
 @pytest.mark.parametrize("halo,cell,radius", [(1, 0.8, 0.8), (2, 0.4, 0.8), (1, 1.0, 0.6)])
 def test_window_holds_exact_radius_neighborhood(cloud, halo, cell, radius):
     q = np.concatenate([cloud[:150], np.full((2, 3), FAR, np.float32)])
-    grid = t_grid.build_grid(cloud, cell, halo=halo)
+    grid = t_grid.build_grid(cloud, cell, halo=halo, device="cpu")
     vals, d, valid, rows = t_grid.window_distances(grid, torch.tensor(q))
     assert vals.shape == (len(q), 3, grid.window_cap)
     inside = (valid & (d <= radius)).numpy()
@@ -55,7 +55,7 @@ def test_window_without_cell_table(cloud):
     """Sparse grids (too many cells for a start table) find the same runs
     by binary search."""
     sparse = np.concatenate([cloud, [[5e3, 5e3, 5e3]]]).astype(np.float32)
-    grid = t_grid.build_grid(sparse, 0.5)
+    grid = t_grid.build_grid(sparse, 0.5, device="cpu")
     assert not grid.has_table
     _, d, valid, rows = t_grid.window_distances(grid, torch.tensor(cloud[:50]))
     inside = (valid & (d <= 0.5)).numpy()
@@ -73,7 +73,7 @@ def test_radius_pca_plain_matches_reference(cloud, rng, per_query):
     # the query block: its first 8 queries in blocks of 2 suffice
     p_cov, _, p_cnt = radius_pca_pallas(
         jg, jnp.asarray(q[:8]), jnp.asarray(radius if not per_query else radius[:8]), qb=2)
-    tg = t_grid.build_grid(cloud, 0.8)
+    tg = t_grid.build_grid(cloud, 0.8, device="cpu")
     before = dict(_kernels.launch_counts)
     t_cov, t_bary, t_cnt = radius_pca(tg, torch.tensor(q), torch.as_tensor(radius))
     assert _kernels.launch_counts == before        # CPU tensors: plain twin
@@ -103,7 +103,7 @@ def test_knn_normals_match_reference(n, scale):
 
 def test_grid_nearest_neighbor_and_knn_auto(cloud, rng):
     q = (cloud[:300] + 0.05 * rng.normal(size=(300, 3))).astype(np.float32)
-    jg, tg = j_grid.build_grid(cloud, 0.5), t_grid.build_grid(cloud, 0.5)
+    jg, tg = j_grid.build_grid(cloud, 0.5), t_grid.build_grid(cloud, 0.5, device="cpu")
     jd, ji = (np.asarray(x) for x in j_grid.grid_nearest_neighbor(jg, jnp.asarray(q)))
     td, ti = (x.numpy() for x in t_grid.grid_nearest_neighbor(tg, torch.tensor(q)))
     np.testing.assert_allclose(td, jd, atol=1e-6)
@@ -130,7 +130,7 @@ def test_k3_tile_plan_covers_every_run(cloud, rng, order):
     q = np.concatenate([pts[: 700], np.full((3, 3), FAR, np.float32)])
     if order == "random":
         q = q[rng.permutation(len(q))]
-    grid = t_grid.build_grid(pts, 0.8)
+    grid = t_grid.build_grid(pts, 0.8, device="cpu")
     assert grid.has_table == (order != "no table")
     if order == "cell":
         q = grid.packed_sorted[:700, :3].numpy()

@@ -68,7 +68,7 @@ def _queries(cloud, case):
 @pytest.mark.parametrize("case", CASES)
 @pytest.mark.parametrize("halo,cell", HALOS)
 def test_nearest_plain_equals_replaced_route(cloud, halo, cell, case):
-    grid = t_grid.build_grid(cloud, cell, halo=halo)
+    grid = t_grid.build_grid(cloud, cell, halo=halo, device="cpu")
     assert grid.has_table
     q = torch.tensor(_queries(cloud, case))
     before = dict(_kernels.launch_counts)
@@ -92,7 +92,7 @@ def test_nearest_plain_matches_jax(cloud, halo, cell, case):
     q = _queries(cloud, case)
     jd, ji = (np.asarray(x) for x in j_grid.grid_nearest_neighbor(
         j_grid.build_grid(cloud, cell, halo=halo), jnp.asarray(q)))
-    td, ti = (x.numpy() for x in nearest(t_grid.build_grid(cloud, cell, halo=halo),
+    td, ti = (x.numpy() for x in nearest(t_grid.build_grid(cloud, cell, halo=halo, device="cpu"),
                                          torch.tensor(q)))
     np.testing.assert_array_equal(np.isfinite(td), np.isfinite(jd))
     finite = np.isfinite(jd)
@@ -107,7 +107,7 @@ def test_grid_without_table_keeps_the_window_route(cloud):
     """Too many cells for a start table: the runs by binary search, K7's
     window and the row minimum, as before."""
     sparse = np.concatenate([cloud, [[5e3, 5e3, 5e3]]]).astype(np.float32)
-    grid = t_grid.build_grid(sparse, 0.5)
+    grid = t_grid.build_grid(sparse, 0.5, device="cpu")
     assert not grid.has_table
     q = torch.tensor(_queries(cloud, "near"))
     got, want = t_grid.grid_nearest_neighbor(grid, q), replaced_nearest(grid, q)

@@ -185,7 +185,7 @@ if rank == 0:   # the port's single-device functions on the same inputs
         i, d = matching.multiscale_top1(x["ms_scan"], x["ms_ref"], device="cpu",
                                         filter_nonreciprocal=bool(recip))
         ref[f"ms{recip}_idx"], ref[f"ms{recip}_dist"] = npy(i), npy(d)
-    ratio, tf = ransac.ransac_on_matches(x["ransac_scan"], x["ransac_ref"],
+    ratio, tf = ransac.ransac_on_matches(c(x["ransac_scan"]), c(x["ransac_ref"]),
                                          draws=x["ransac_draws"], distance_threshold=RANSAC_THR)
     ref["ransac"] = np.concatenate([[float(ratio)], npy(tf.rotation).ravel(),
                                     npy(tf.translation)])

@@ -52,7 +52,8 @@ def test_ransac_with_reference_draws(rng):
         lambda k: jax.random.choice(k, m, shape=(draw_size,), replace=False))(keys))
     j_ratio, j_tf = j_ransac(jnp.asarray(scan), jnp.asarray(ref), key, n_draws=n_draws,
                              draw_size=draw_size, distance_threshold=0.1)
-    t_ratio, t_tf = ransac_on_matches(scan, ref, draws=draws, distance_threshold=0.1)
+    t_ratio, t_tf = ransac_on_matches(torch.tensor(scan), torch.tensor(ref), draws=draws,
+                                      distance_threshold=0.1)
     assert round(float(t_ratio) * m) == round(float(j_ratio) * m)
     np.testing.assert_allclose(t_tf.rotation.numpy(), np.asarray(j_tf.rotation), atol=1e-4)
     np.testing.assert_allclose(t_tf.translation.numpy(), np.asarray(j_tf.translation), atol=1e-4)

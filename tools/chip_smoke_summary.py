@@ -6,7 +6,8 @@
 For each log (the standard output of one ``python3 chip_smoke.py`` run):
 the warm wall and the ICP stage timer of every staged path run (phases 4–9
 and 11) and the ``fused`` stage of phase 12, then their medians over those
-runs; the card's name and power limit the run printed.  Used to set a
+runs; the walls of phase 16's CLI legs on the 10^6-point pair apart; the
+card's name and power limit the run printed.  Used to set a
 tree's walls beside another's from one chip call that ran both in turns.
 """
 
@@ -16,7 +17,7 @@ import re
 import statistics
 import sys
 
-_RUN = re.compile(r"^(phase (?:4|5|6|7|8|9|11|12) [^:]*):.*?wall ([0-9.]+) s.*?stages (.*?)"
+_RUN = re.compile(r"^(phase (?:4|5|6|7|8|9|11|12|16) [^:]*):.*?wall ([0-9.]+) s.*?stages (.*?)"
                   r"(?:; CLI timers|; staged on|$)")
 _STAGE = re.compile(r"(icp\[[^\]]*\]|fused) ([0-9.]+) s")
 
@@ -40,7 +41,7 @@ def main(paths: list[str]) -> int:
         print(f"== {path} ({s['card']})")
         for label, wall, icp in s["runs"]:
             print(f"  {label}: wall {wall:.3f} s, ICP (or fused) {icp:.3f} s")
-        staged = [r for r in s["runs"] if not r[0].startswith("phase 12")]
+        staged = [r for r in s["runs"] if not r[0].startswith(("phase 12", "phase 16"))]
         if staged:
             print(f"  staged paths ({len(staged)} runs): median wall "
                   f"{statistics.median(r[1] for r in staged):.4f} s, median ICP "

@@ -40,7 +40,13 @@ Phases, one line each; any failure exits non-zero with no result line:
    and every ref point on the iterative grid), both outputs equal to its
    twin and to the route it replaced (K7 in chunks, the row minimum, the
    gathers), timed beside that route and at each lanes-a-query variant;
-   the CUDA kernels one ICP iteration launches (``torch.profiler``);
+   the CUDA kernels one ICP iteration launches (``torch.profiler``); K7's
+   aggregation mode (``fpfh_aggregate``: the smoke scan's density keypoints
+   on its halo-2 grid of cell 0.45 over the SPFH of every point, D = 125
+   and 15) against its twin by ``aggregate_rule`` with the keypoints in
+   sorted-row and in the caller's order, timed beside the twin, the chunked
+   route it replaced and one cuSPARSE product; both clouds' kernel-fed FPFH
+   matched by K2 against the twin-fed (AGG_MATCH_AGREE);
 4. SHOT path: the port's ``cli.main`` on a ~100k-point terrain pair (scan =
    known rigid motion of ref + noise) with ``config/default.yaml``, run
    cold once and then measured; the registration must be accepted, within
@@ -50,9 +56,11 @@ Phases, one line each; any failure exits non-zero with no result line:
    adds a third run under ``torch.profiler`` (op table, chrome trace,
    device-busy share);
 5. FPFH path: the same pair with ``--descriptor_choice fpfh``, cold and
-   measured on the window route (launches K2, K3 and K4), then once on the
-   run route (``set_dma_kernel(True)``: launches K6 and no K4); each run
-   accepted within the same bounds;
+   measured on the window route (launches K2, K3, K4 and the aggregation
+   kernel once a cloud, no K7 window), then once on the run route
+   (``set_dma_kernel(True)``: launches K6 and no K4), then the window route
+   with the aggregation's twin in the kernel's place (the same rotation
+   error within 1e-5 rad); each run accepted within the same bounds;
 6. bi-scale SHOT (``--phi 3``: frames at 0.9, bins at 2.7) on the window
    route (K1, K2, K3) and on the run route (K5, K2, K3, no K1);
 7. multiscale SHOT (``--n_scales 2``: radii 0.9 and 2.7, 704 columns) on the
@@ -70,7 +78,8 @@ Phases, one line each; any failure exits non-zero with no result line:
    ``--selection_algorithm random``, one measured run each;
 12. the single-program path (``--fused`` with ``--selection_algorithm
    subsampling --neighborhood_size 0.15``): single-scale SHOT on the window
-   route (K8 + K1) and on the run route (K5), and FPFH (K8 + K4, K7), each
+   route (K8 + K1) and on the run route (K5), and FPFH (K8 + K4, the
+   aggregation kernel once a cloud), each
    cold, then measured, accepted within the same bounds, with one K2 (f32)
    launch, K3 (normals) and K7's 1-NN mode (ICP); beside each, the staged
    path on the same keypoints, and the host syncs of one
@@ -100,7 +109,8 @@ Phases, one line each; any failure exits non-zero with no result line:
    then two processes sharing the one card over gloo run ``cli.main
    --n_devices 2`` (SHOT, then FPFH), each accepted, its moved scan within
    1e-3 of one device's, rank 0 alone writing, each rank launching K1 (or
-   K4/K6 and K7), K2, K3 and K7's 1-NN mode;
+   K4/K6 and the aggregation kernel, once a cloud, no K7), K2, K3 and K7's
+   1-NN mode;
 15. the fused program and the multi-process entry point over a mesh: a second
    1-rank NCCL group runs ``fused_registration_mesh`` on the inputs phase
    12's runs gave ``fused_registration`` (SHOT on the window and run
@@ -110,7 +120,8 @@ Phases, one line each; any failure exits non-zero with no result line:
    then phase 14's two processes also run ``cli.main --fused --n_devices
    2`` (SHOT, FPFH; accepted, the moved scan within 1e-3 of one device's
    ``--fused``, rank 0 alone writing, each rank launching K8 with K1 or
-   K4 and K7, K2, K3 and K7's 1-NN mode) and, their group destroyed,
+   K4 and the aggregation kernel, K2, K3 and K7's 1-NN mode) and, their
+   group destroyed,
    ``run_multihost`` on the pair's ``.ply`` files through
    ``initialize_distributed`` (the ranks within 1e-6 of each other and
    1e-3 of one process's run, accepted against the ground truth) and one
@@ -120,7 +131,8 @@ Phases, one line each; any failure exits non-zero with no result line:
    copied), written as ``.ply`` to a temporary directory: ``cli.main`` for
    SHOT and for FPFH on the window route (radius 0.6, keypoint voxel
    0.15), cold then measured, accepted within 1e-2 rad / 1e-2, launching
-   K3, K8, K1 (or K4 and K7), K2 and K7's 1-NN mode once an ICP iteration
+   K3, K8, K1 (or K4 and the aggregation kernel once a cloud, no K7), K2
+   and K7's 1-NN mode once an ICP iteration
    and twice for the evaluation; ``bench.py``'s at-scale legs through the
    library on the ref (k=30 normals, with the sampled k-th bound equal to
    its one-piece form; the descriptor grid, beside the host hash that keys
@@ -128,7 +140,8 @@ Phases, one line each; any failure exits non-zero with no result line:
    small motion, back within 1e-3; Lowe matching at 100k x 100k x 352),
    each cold then measured; each leg's wall, stage timers, launches and
    peak device memory; every kernel at these shapes against its twin
-   (phase 3's rules; K2 on 4096 sampled rows); the voxel sums with a voxel
+   (phase 3's rules; K2 on 4096 sampled rows; the aggregation on the CLI
+   legs' ~78k ref keypoints); the voxel sums with a voxel
    of 10^5 and of 10^6 points bit-identical to the CPU's.
 Phases 4–9 and 12 run cold, then measured, each accepted within the same
 bounds; every window route launches K8, and every ICP K7's 1-NN mode.
@@ -234,15 +247,27 @@ BASIC_ANGLE_COLS, FEATURE_ANGLE_COLS = (0,), (8, 9, 10, 11)
 K1_KERNEL, K4_KERNEL, K5_KERNEL = "shot_hist_kernel", "spfh_hist_kernel", "shot_runs_kernel"
 K6_KERNEL = "spfh_runs_kernel"
 K7_KERNEL, K8_KERNEL = "radius_dist_kernel", "fetch_windows_kernel"
-NN_KERNEL = "nearest_kernel"
+NN_KERNEL, AGG_KERNEL = "nearest_kernel", "fpfh_aggregate_kernel"
+# K7's FPFH aggregation mode against its twin, whose einsum sums in no
+# defined order: every row within AGG_ROW_RTOL of its largest entry (at
+# least 1), the counts and every row with no neighbor (the keypoint's own
+# SPFH row) exact
+AGG_ROW_RTOL = 1e-5
+# FPFH's downstream check on the smoke pair: K2's matches of the
+# kernel-fed descriptors equal the twin-fed ones on at least this share of
+# rows
+AGG_MATCH_AGREE = 0.99
 
 # each path and the kernels its measured run must launch (and must not):
 # every window route fetches through K8, every ICP's grid 1-NN runs K7's
-# 1-NN mode; FPFH's aggregation and the iterative keypoints run K7's window
-WINDOW, K7, NN = "fetch_windows", "radius_dist", "nearest"
+# 1-NN mode; FPFH's aggregation runs K7's aggregation mode (one launch a
+# cloud) and no K7 window; the iterative keypoints run K7's window
+WINDOW, K7, NN, AGG = "fetch_windows", "radius_dist", "nearest", "fpfh_aggregate"
 SHOT_PATH = ("shot_binning_histogram", "top2_match", "radius_pca", WINDOW, NN)
-FPFH_WINDOW_PATH = ("top2_match", "radius_pca", "spfh_histogram", WINDOW, K7, NN)
-FPFH_RUN_PATH = ("top2_match", "radius_pca", "spfh_runs", K7, NN)
+FPFH_WINDOW_PATH = ("top2_match", "radius_pca", "spfh_histogram", WINDOW, AGG, NN)
+FPFH_RUN_PATH = ("top2_match", "radius_pca", "spfh_runs", AGG, NN)
+# the FPFH paths' aggregation launches: one a cloud
+FPFH_AGG_LAUNCHES = 2
 SHOT_RUN_PATH = ("shot_runs", "top2_match", "radius_pca", NN)
 MULTISCALE_PATH = ("shot_binning_histogram", "top2_match", WINDOW, NN)
 ITERATIVE_PATH = (K7, NN, WINDOW, "shot_binning_histogram", "top2_match", "radius_pca")
@@ -1335,6 +1360,174 @@ def parity_nearest(label: str, grid, queries, prefix: str = "phase 3", reps: int
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
 
 
+def aggregate_rule(got, want, counts, counts_p, spfh, kp, label: str) -> tuple[float, float]:
+    """K7's aggregation mode held to its twin: the counts equal, every row
+    the twin leaves at the keypoint's own SPFH row (no neighbor) equal,
+    every row within AGG_ROW_RTOL of max(1, its largest twin entry); returns
+    (max abs err, largest relative err)."""
+    import torch
+
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"aggregation {label}: {tuple(got.shape)} {got.dtype}, twin {tuple(want.shape)}")
+    check(torch.equal(counts, counts_p),
+          f"aggregation {label}: {int((counts != counts_p).sum())} counts differ from the twin's")
+    alone = (want == spfh[kp]).all(1)
+    check(torch.equal(got[alone], want[alone]),
+          f"aggregation {label}: a row with no neighbor differs from its own SPFH row")
+    if not got.shape[0]:
+        return 0.0, 0.0
+    diff = (got - want).abs().amax(1)
+    rel = float((diff / torch.clamp(want.abs().amax(1), min=1.0)).max())
+    check(rel <= AGG_ROW_RTOL, f"aggregation {label}: a row off by {rel} of its largest entry")
+    return float(diff.max()), rel
+
+
+def _aggregate_work(grid, kp_rows, radius, dim: int):
+    """What the aggregation of ``kp_rows`` must do on these inputs, from the
+    twin's windows: bytes (the table's xyz of the union of the windows'
+    rows and the SPFH rows of the union of the in-radius rows, each read
+    once; the keypoints' rows, their runs' two cell-start reads, the
+    output), operations (OPS_DIST_TEST a window slot, 2·D an in-radius
+    neighbor with d > 0), the slots and neighbors; and the library's
+    operand: the (Q, N) sparse matrix of weights 1/(d·count) and 1 at each
+    keypoint's own row, so that one sparse product computes the function."""
+    import torch
+
+    from shot_fpfh_tpu_torch.ops.grid_hash import _zcolumn_runs, query_chunk
+    from shot_fpfh_tpu_torch.ops.radius_runs import radius_dist_plain, window_slots
+
+    table = grid.packed_sorted
+    n, q, w = table.shape[0], kp_rows.shape[0], grid.window_cap
+    in_window = torch.zeros(n, dtype=torch.bool, device=table.device)
+    in_radius = torch.zeros_like(in_window)
+    slots = neighbors = 0
+    idx, vals = [], []
+    step = query_chunk(grid, 4)
+    for s in range(0, q, step):
+        kp_c = kp_rows[s:s + step]
+        qc = table[kp_c, :3]
+        start, end = _zcolumn_runs(grid, qc)
+        rows, valid = window_slots(start, end, w, n)
+        _, d = radius_dist_plain(table, qc, start, end, w, radius)
+        ok = torch.isfinite(d)
+        m = ok & (d > 0)
+        in_window[rows[valid]] = True
+        in_radius[rows[ok]] = True
+        slots += int(valid.sum())
+        neighbors += int(m.sum())
+        count = torch.clamp(ok.sum(1), min=1).to(torch.float32)
+        qi, slot = torch.nonzero(m, as_tuple=True)
+        idx.append(torch.stack([qi + s, rows[qi, slot]]))
+        vals.append(1.0 / d[qi, slot] / count[qi])
+        own = torch.arange(s, s + kp_c.shape[0], device=table.device)
+        idx.append(torch.stack([own, kp_c]))
+        vals.append(torch.ones(kp_c.shape[0], device=table.device))
+    n_bytes = (int(in_window.sum()) * 12 + int(in_radius.sum()) * dim * 4 + q * dim * 4
+               + q * 8 + q * (2 * grid.halo + 1) ** 2 * 16)
+    weights = torch.sparse_coo_tensor(torch.cat(idx, 1), torch.cat(vals), (q, n),
+                                      check_invariants=False).coalesce()
+    return (n_bytes, slots * OPS_DIST_TEST + 2 * dim * neighbors, slots, neighbors,
+            weights.to_sparse_csr())
+
+
+def parity_aggregate(label: str, grid, spfh, kp_rows, radius: float, prefix: str = "phase 3",
+                     reps: int = 10) -> dict:
+    """K7's aggregation mode against its twin (``aggregate_rule``) with
+    the keypoints launched in sorted-row order and in the caller's order;
+    timed with the wrapper (the main path's order) and alone in both
+    orders, beside the twin, the chunked route it replaced (K7 + gather +
+    einsum; its K7 launches alone too) and one library call (a cuSPARSE
+    product with the weights as a sparse matrix); bound by
+    ``_aggregate_work``."""
+    import torch
+
+    from shot_fpfh_tpu_torch.ops import radius_runs as rr
+
+    want, counts_p = rr.fpfh_aggregate_plain(grid, spfh, kp_rows, radius, return_counts=True)
+    errs, alone = {}, {}
+    for sort in (True, False):
+        got, counts = rr._aggregate_launch(grid, spfh, kp_rows, radius, True, sort)
+        torch.cuda.synchronize()
+        errs[sort] = aggregate_rule(got, want, counts, counts_p, spfh, kp_rows,
+                                    f"{label}, {'sorted' if sort else 'caller'} order")
+        alone[sort] = kernel_ms(lambda: rr._aggregate_launch(grid, spfh, kp_rows, radius, False,
+                                                             sort), AGG_KERNEL, reps)
+    ms = cuda_ms(lambda: rr.fpfh_aggregate(grid, spfh, kp_rows, radius), reps)
+    plain_ms = cuda_ms(lambda: rr.fpfh_aggregate_plain(grid, spfh, kp_rows, radius), reps)
+    old_ms = cuda_ms(lambda: rr.fpfh_aggregate_chunked(grid, spfh, kp_rows, radius), reps)
+    q, dim = kp_rows.shape[0], spfh.shape[1]
+    old_launches = -(-q // max(1, rr._AGG_ELEMS // (grid.window_cap * dim)))
+    old_alone = kernel_ms(lambda: rr.fpfh_aggregate_chunked(grid, spfh, kp_rows, radius),
+                          K7_KERNEL, reps) * old_launches
+    n_bytes, n_ops, slots, neighbors, weights = _aggregate_work(grid, kp_rows, radius, dim)
+    lib_ms = cuda_ms(lambda: torch.sparse.mm(weights, spfh), reps)
+    lib_err = _max_abs_diff(torch.sparse.mm(weights, spfh), want)
+    del weights
+    b = bound(n_bytes, n_ops)
+    print(f"{prefix} K7 aggregation mode fpfh_aggregate ({label}): {q} keypoints, D {dim}, "
+          f"window cap {grid.window_cap}, halo {grid.halo}, radius {radius}, "
+          f"{slots / max(q, 1):.0f} window rows and {neighbors / max(q, 1):.1f} neighbors a "
+          f"keypoint, {int((counts_p == 0).sum())} empty windows: counts and no-neighbor rows "
+          f"equal to the twin, rows within {AGG_ROW_RTOL} (max abs err, largest relative err: "
+          f"sorted order {errs[True][0]:.3e}, {errs[True][1]:.3e}; caller's order "
+          f"{errs[False][0]:.3e}, {errs[False][1]:.3e}); kernel {ms:.3f} ms (alone "
+          f"{alone[True]:.4f} ms in the wrapper's sorted order; the caller's order "
+          f"{alone[False]:.4f}), plain {plain_ms:.3f} ms, replaced route {old_ms:.3f} ms "
+          f"({old_launches} K7 launches, alone {old_alone:.4f} ms in all), library "
+          f"(torch.sparse.mm, cuSPARSE) {lib_ms:.3f} ms (max abs err {lib_err:.2e}), bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']}: {n_bytes / 1e6:.1f} MB, "
+          f"{n_ops / 1e9:.3f} GFLOP)", flush=True)
+    return dict(max_abs_err=max(e[0] for e in errs.values()), rel_err=max(
+        e[1] for e in errs.values()), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        replaced_ms=old_ms, **b)
+
+
+def parity_pair_aggregate(pair, dev) -> dict:
+    """K7's aggregation mode at the smoke pair's FPFH shape: each cloud's
+    density keypoints (voxel KEYPOINT_VOXEL, 5 neighbors) on its halo-2
+    grid of cell FPFH_RADIUS/2 carrying k=30 normals, over the SPFH of
+    every point (K8 + K4): the scan at D = 125 and 15 against the twin
+    (``parity_aggregate``), then both clouds' D = 125 descriptors, kernel-
+    and twin-fed, matched by K2 (bf16): the nearest refs agree on at least
+    AGG_MATCH_AGREE of the rows.  Returns the scan's D = 125 record."""
+    import torch
+
+    from shot_fpfh_tpu_torch.keypoints import select_keypoints_with_density_threshold
+    from shot_fpfh_tpu_torch.models.fpfh import _sorted_rows, _spfh_window_sorted
+    from shot_fpfh_tpu_torch.models.normals import compute_normals
+    from shot_fpfh_tpu_torch.ops.grid_hash import build_grid
+    from shot_fpfh_tpu_torch.ops.match import top2_match
+    from shot_fpfh_tpu_torch.ops.radius_runs import fpfh_aggregate, fpfh_aggregate_plain
+
+    desc = {}
+    for side, cloud in (("scan", pair.scan), ("ref", pair.ref)):
+        pts = torch.tensor(cloud, device=dev)
+        grid = build_grid(pts, FPFH_RADIUS / 2, extras=compute_normals(pts, pts, k=30,
+                                                                        device=dev), halo=2)
+        kp = torch.as_tensor(select_keypoints_with_density_threshold(pts, KEYPOINT_VOXEL, 5,
+                                                                     device=dev), device=dev)
+        kp_rows = _sorted_rows(grid, kp)
+        spfh = _spfh_window_sorted(grid, FPFH_RADIUS, 5, False)
+        desc[side] = (fpfh_aggregate(grid, spfh, kp_rows, FPFH_RADIUS),
+                      fpfh_aggregate_plain(grid, spfh, kp_rows, FPFH_RADIUS))
+        if side == "scan":
+            res = parity_aggregate("the smoke scan's keypoints", grid, spfh, kp_rows,
+                                   FPFH_RADIUS)
+            parity_aggregate("the smoke scan's keypoints, decorrelated", grid,
+                             _spfh_window_sorted(grid, FPFH_RADIUS, 5, True), kp_rows,
+                             FPFH_RADIUS)
+    valid = torch.ones(desc["ref"][0].shape[0], dtype=torch.bool, device=dev)
+    got = top2_match(desc["scan"][0], desc["ref"][0], valid, True)[0]
+    want = top2_match(desc["scan"][1], desc["ref"][1], valid, True)[0]
+    agree = float((got == want).float().mean())
+    check(agree >= AGG_MATCH_AGREE, f"aggregation: K2's matches of kernel-fed FPFH agree with "
+          f"the twin-fed ones on {agree} of the rows")
+    print(f"phase 3 K2 (bf16) on the smoke pair's FPFH descriptors ({got.shape[0]} x "
+          f"{valid.shape[0]} x 125): the kernel-fed matches equal the twin-fed ones on {agree:.4f} "
+          "of the rows", flush=True)
+    return res
+
+
 def _kernel_label(name: str) -> str:
     """A profiler kernel name without its return type, namespace prefix and
     template arguments."""
@@ -1623,19 +1816,48 @@ def phase_shot_path(pair: SmokePair, profile_dir: Path | None = None) -> dict:
     return r
 
 
+def agg_launches(label: str, launches: dict, expected: int = FPFH_AGG_LAUNCHES) -> None:
+    """An FPFH run's aggregation: ``expected`` kernel launches (one a
+    cloud), no K7 window."""
+    check(launches[AGG] == expected and launches[K7] == 0,
+          f"{label}: {launches[AGG]} aggregation launches (not {expected}), {launches[K7]} K7")
+
+
 def phase_fpfh_path(pair: SmokePair) -> tuple[dict, dict]:
     from shot_fpfh_tpu_torch.ops.shot_dma import set_dma_kernel
 
     fpfh = ["--descriptor_choice", "fpfh", "--radius", str(FPFH_RADIUS)]
-    window = pair.run("FPFH window route", fpfh, FPFH_WINDOW_PATH, ("spfh_runs",))
+    window = pair.run("FPFH window route", fpfh, FPFH_WINDOW_PATH, ("spfh_runs", K7))
+    agg_launches("FPFH window route", window["launches"])
     print(_describe("phase 5 FPFH window route", window), flush=True)
     set_dma_kernel(True)
     try:
-        runs = pair.run("FPFH run route", fpfh, FPFH_RUN_PATH, ("spfh_histogram",),
+        runs = pair.run("FPFH run route", fpfh, FPFH_RUN_PATH, ("spfh_histogram", K7),
                         cold=False)
     finally:
         set_dma_kernel(False)
+    agg_launches("FPFH run route", runs["launches"])
     print(_describe("phase 5 FPFH run route", runs), flush=True)
+    # the same run with the aggregation's twin on the card in the kernel's
+    # place: accepted at the same errors
+    from shot_fpfh_tpu_torch.models import fpfh as m_fpfh
+    from shot_fpfh_tpu_torch.ops.radius_runs import fpfh_aggregate_plain
+
+    kernel_fed = m_fpfh._fpfh_window_aggregate
+    m_fpfh._fpfh_window_aggregate = fpfh_aggregate_plain
+    try:
+        twin = pair.run("FPFH window route, twin-fed aggregation", fpfh,
+                        ("top2_match", "spfh_histogram"), (AGG, K7), cold=False)
+    finally:
+        m_fpfh._fpfh_window_aggregate = kernel_fed
+    gap = abs(twin["rot_err"] - window["rot_err"])
+    check(gap <= 1e-5, f"FPFH window route: rotation error {window['rot_err']} with the kernel, "
+          f"{twin['rot_err']} with the twin")
+    print(f"phase 5 FPFH window route, twin-fed aggregation (the twin on the card in the "
+          f"kernel's place): accepted, rotation error {twin['rot_err']:.2e} rad ({gap:.1e} from the kernel-fed "
+          f"run), translation error {twin['t_err']:.2e}, wall {twin['wall']:.3f} s, stages "
+          + ", ".join(f"{st['stage']} {st['seconds']:.3f} s" for st in twin["stages"]),
+          flush=True)
     return window["launches"], runs["launches"]
 
 
@@ -1908,7 +2130,7 @@ def phase_fused_paths(pair: SmokePair) -> tuple[dict, dict]:
     fpfh = ["--descriptor_choice", "fpfh", "--radius", str(FPFH_RADIUS)]
     cases = (("SHOT, window route", [], False, SHOT_PATH, ("shot_runs",)),
              ("SHOT, run route", [], True, SHOT_RUN_PATH, ("shot_binning_histogram",)),
-             ("FPFH", fpfh, False, FPFH_WINDOW_PATH, ("spfh_runs",)))
+             ("FPFH", fpfh, False, FPFH_WINDOW_PATH, ("spfh_runs", K7)))
     launches, inputs = {}, {}
     for label, extra, run_route, must, must_not in cases:
         set_dma_kernel(run_route)
@@ -1921,6 +2143,9 @@ def phase_fused_paths(pair: SmokePair) -> tuple[dict, dict]:
             set_dma_kernel(False)
         check(r["launches"]["top2_match"] == 1,
               f"fused {label}: K2 launched {r['launches']['top2_match']} times, not once")
+        if AGG in must:
+            agg_launches(f"fused {label}", r["launches"])
+            agg_launches(f"staged {label}", staged["launches"])
         check([st["stage"] for st in r["stages"]] == ["fused"],
               f"fused {label}: stages {[st['stage'] for st in r['stages']]}")
         print(_describe(f"phase 12 fused {label}", r)
@@ -2320,9 +2545,12 @@ def phase_mesh_one_rank(pair: SmokePair) -> dict:
     for route in ("window", "runs"):
         set_dma_kernel(route == "runs")
         try:
+            before = dict(total)
             stage(f"FPFH {route} route",
                   lambda: sharded.sharded_fpfh(kp_idx, ref, ref_n, FPFH_RADIUS, mesh),
                   lambda: compute_fpfh_descriptor(kp_idx, ref, ref_n, FPFH_RADIUS, device=dev))
+            agg_launches(f"phase 14 1-rank FPFH {route} route",
+                         {k: total.get(k, 0) - before.get(k, 0) for k in (AGG, K7)}, 1)
         finally:
             set_dma_kernel(False)
 
@@ -2376,7 +2604,7 @@ def phase_mesh_one_rank(pair: SmokePair) -> dict:
     check(rot_err < MAIN_ROT_TOL and t_err < MAIN_T_TOL,
           f"phase 14 1-rank ICP: rotation error {rot_err}, translation error {t_err}")
     for name in ("shot_binning_histogram", "shot_runs", "top2_match", "radius_pca",
-                 "spfh_histogram", "spfh_runs", K7, NN, "fetch_windows"):
+                 "spfh_histogram", "spfh_runs", AGG, NN, "fetch_windows"):
         check(total.get(name, 0) > 0, f"phase 14: the 1-rank stages never launched {name}")
     dist.destroy_process_group()
     print(f"phase 14 mesh, 1-rank NCCL group ({mesh.device}, first collective "
@@ -2447,6 +2675,8 @@ def phase_fused_mesh_one_rank(cases: dict) -> dict:
         for name in must:
             if name != "radius_pca":    # K3 runs in the CLI's normals, outside the program
                 check(mesh_launches.get(name, 0) > 0, f"phase 15 {label}: never launched {name}")
+        if AGG in must:
+            agg_launches(f"phase 15 {label}", {k: mesh_launches.get(k, 0) for k in (AGG, K7)})
         launches[f"fused mesh 1-rank {label}"] = mesh_launches
         lines.append(f"{label}: {ms:.3f} ms (one device {one_ms:.3f}), {int(got.n_matches)} "
                      f"matches, launches {mesh_launches}, host syncs by leg "
@@ -2539,9 +2769,9 @@ def phase_mesh_two_ranks(pair: SmokePair) -> dict:
     check(all(r["backend"] == "gloo" for r in ranks),
           f"phase 14 two ranks: backends {[r['backend'] for r in ranks]}")
     shot_needs = ("shot_binning_histogram", "fetch_windows", "top2_match", "radius_pca", NN)
-    needs = {"shot": shot_needs, "fpfh": ("top2_match", "radius_pca", K7, NN),
+    needs = {"shot": shot_needs, "fpfh": ("top2_match", "radius_pca", AGG, NN),
              "fused_shot": shot_needs,
-             "fused_fpfh": ("fetch_windows", "top2_match", "radius_pca", K7, NN)}
+             "fused_fpfh": ("fetch_windows", "top2_match", "radius_pca", AGG, NN)}
     parts, launches = {14: [], 15: []}, {}
     for label in ("shot", "fpfh", "fused_shot", "fused_fpfh"):
         phase = 15 if label.startswith("fused") else 14
@@ -2554,6 +2784,7 @@ def phase_mesh_two_ranks(pair: SmokePair) -> dict:
             if label.endswith("fpfh"):
                 check(run["launches"]["spfh_histogram"] + run["launches"]["spfh_runs"] > 0,
                       f"phase {phase} two ranks, {label}: rank {r} launched neither K4 nor K6")
+                agg_launches(f"phase {phase} two ranks, {label}, rank {r}", run["launches"])
         out = WORK / f"mesh2_{label}_rank0"
         check(not (WORK / f"mesh2_{label}_rank1").exists(),
               f"phase {phase} two ranks, {label}: rank 1 wrote outputs")
@@ -2897,7 +3128,8 @@ def phase_at_scale(dev) -> dict:
         compute_normals,
         compute_shot_descriptor,
     )
-    from shot_fpfh_tpu_torch.models.fpfh import _sorted_rows
+    from shot_fpfh_tpu_torch.keypoints import select_keypoints_with_density_threshold
+    from shot_fpfh_tpu_torch.models.fpfh import _sorted_rows, _spfh_window_sorted
     from shot_fpfh_tpu_torch.ops.grid_hash import build_grid
     from shot_fpfh_tpu_torch.registration.icp import icp_point_to_plane, nn_grid
     from shot_fpfh_tpu_torch.registration.matching import lowe_matching
@@ -2920,7 +3152,8 @@ def phase_at_scale(dev) -> dict:
         print(_describe("phase 16 leg 1 SHOT at bench_1m.py's settings (cli.main)", staged),
               flush=True)
         fpfh = pair.run("at-scale FPFH", ["--descriptor_choice", "fpfh"], FPFH_WINDOW_PATH,
-                        ("spfh_runs",))
+                        ("spfh_runs", K7))
+        agg_launches("at-scale FPFH", fpfh["launches"])
         _icp_nn_launches("at-scale FPFH", fpfh, SCALE_CLI_MAX_ITER, True)
         # every point's SPFH of both clouds in K8 + K4 chunks, one pair a chunk
         spfh = fpfh["launches"]["spfh_histogram"]
@@ -2976,6 +3209,7 @@ def phase_at_scale(dev) -> dict:
     fp, rec = _leg(lambda: compute_fpfh_descriptor(kp_idx_pad, ref, normals, SCALE_RADIUS))
     check(fp.shape == (kp.shape[0], 125) and bool(torch.isfinite(fp).all()),
           f"at-scale FPFH: shape {tuple(fp.shape)} or not finite")
+    agg_launches("at-scale library FPFH", {k: rec["launches"].get(k, 0) for k in (AGG, K7)}, 1)
     _leg_line("leg 3 FPFH (compute_fpfh_descriptor)", rec)
     paths["at scale FPFH library"] = rec["launches"]
     r_s, t_s = euler_xyz(SCALE_ICP_EULER), np.asarray(SCALE_ICP_T)
@@ -3011,9 +3245,17 @@ def phase_at_scale(dev) -> dict:
           f"{k5['text']}", flush=True)
     kernels["spfh_runs"] = k6_rows(grid, SCALE_K6_ROWS, SCALE_RADIUS, reps)
     kp_rows = _sorted_rows(grid, torch.as_tensor(kp_idx_pad, device=dev))
-    kernels["radius_dist"] = parity_k7("the FPFH aggregation's keypoints", grid,
+    kernels["radius_dist"] = parity_k7("leg 3's FPFH keypoints", grid,
                                        grid.packed_sorted[kp_rows, :3], SCALE_RADIUS, prefix,
                                        reps)
+    # the aggregation at the CLI legs' shape: the ref's density keypoints at
+    # SCALE_CLI_VOXEL (~78k), over the SPFH of every point of the grid
+    cli_kp = torch.as_tensor(select_keypoints_with_density_threshold(
+        ref, SCALE_CLI_VOXEL, 5, device=dev), device=dev)
+    kernels[AGG] = parity_aggregate(
+        f"the CLI's keypoints of the ref, voxel {SCALE_CLI_VOXEL}", grid,
+        _spfh_window_sorted(grid, SCALE_RADIUS, 5, False), _sorted_rows(grid, cli_kp),
+        SCALE_RADIUS, prefix, reps)
     sub = scan_s[torch.as_tensor(grid_subsample(scan_s, SCALE_ICP["voxel_size"]), device=dev)]
     moved = sub @ torch.tensor(r_s.T, dtype=torch.float32, device=dev) + torch.tensor(
         t_s, dtype=torch.float32, device=dev)
@@ -3083,6 +3325,7 @@ def main(argv=None) -> int:
     voxel_sums(dev, rng)
     pair = SmokePair()
     k7, k8_features, nn = parity_pair_paths(pair, dev)
+    agg = parity_pair_aggregate(pair, dev)
     parity_fused_shapes(pair, dev)
     k8["max_abs_err"] = max(r["max_abs_err"] for r in (k8, k8_features, *k8_more))
     shot = phase_shot_path(pair, args.profile)
@@ -3121,6 +3364,8 @@ def main(argv=None) -> int:
                         "shot_fpfh_tpu/ops/pallas_radius.py:497", k7, "iterative"),
         "nearest": ("shot_fpfh_tpu_torch/csrc/nearest.cu",
                     "shot_fpfh_tpu/ops/pallas_radius.py:497", nn, "SHOT"),
+        AGG: ("shot_fpfh_tpu_torch/csrc/fpfh_aggregate.cu",
+              "shot_fpfh_tpu/ops/pallas_radius.py:497", agg, "FPFH window"),
         "fetch_windows": ("shot_fpfh_tpu_torch/csrc/radius_runs.cu",
                           "shot_fpfh_tpu/ops/pallas_radius.py:467", k8, "iterative"),
     }

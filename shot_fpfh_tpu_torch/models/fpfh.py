@@ -19,9 +19,10 @@ Routes, switched at ``ops.grid_hash.AUTO_GRID_MIN_POINTS`` cloud points
 - large clouds: a halo-2 grid whose window holds every uncapped radius
   neighborhood; SPFH of every point in grid order through K4
   (``ops.spfh_fused``) or, with the run route on and an xy-row grid, K6
-  (``ops.shot_dma``); the aggregation gathers the neighbors' SPFH rows over
-  the same windows (plain PyTorch: a gather and a 1/d weighted sum, as the
-  reference leaves it to XLA).
+  (``ops.shot_dma``); the aggregation sums the neighbors' 1/d weighted SPFH
+  rows over the same windows in K7's aggregation mode
+  (``ops.radius_runs.fpfh_aggregate``: one launch a cloud; the reference
+  leaves the gather and the sum to XLA).
 
 Both routes run their passes over blocks of rows (``parallel.mesh``'s
 ``local_rows``/``gather_rows``), so ``parallel.sharded_fpfh`` and the fused
@@ -42,9 +43,9 @@ from ..ops.grid_hash import (
     grid_radius_search,
     radius_search_with_values_auto,
     window_distances,
-    window_radius_dist,
 )
 from ..ops.neighbors import Neighborhoods, as_f32, radius_search
+from ..ops.radius_runs import fpfh_aggregate
 from ..ops.shot_dma import dma_kernel_enabled, spfh_block_dma
 from ..ops.spfh_fused import spfh_from_angles, spfh_histogram
 from ..parallel.mesh import gather_rows, local_rows
@@ -52,8 +53,6 @@ from ..parallel.mesh import gather_rows, local_rows
 # queries per streamed SPFH chunk of compute_spfh's grid route: bounds the
 # (chunk, k_max) Darboux intermediates
 _SPFH_CHUNK = 1 << 14
-# gathered neighbor-SPFH elements per aggregation chunk, (C, W, D)
-_AGG_ELEMS = 1 << 26
 # keypoints per aggregation chunk of the brute route
 _KP_CHUNK = 256
 # far sentinel of padded queries: an empty neighborhood, not the origin's
@@ -137,21 +136,9 @@ def _spfh_window_sorted(grid: HashGrid, radius, n_bins: int, decorrelated: bool,
 
 
 def _fpfh_window_aggregate(grid: HashGrid, spfh_sorted, kp_sorted_idx, radius):
-    """FPFH(p) = SPFH(p) + (Σ_{j, d>0} SPFH(j)/d_j) / |N(p)| with the
-    neighbors' SPFH rows gathered over each keypoint's grid window."""
-    step = max(1, _AGG_ELEMS // (grid.window_cap * spfh_sorted.shape[1]))
-    out = []
-    for s in range(0, kp_sorted_idx.shape[0], step):
-        kp_c = kp_sorted_idx[s:s + step]
-        # the in-radius distances alone (K7): no value is read here
-        rows, d = window_radius_dist(grid, grid.packed_sorted[kp_c, :3], radius)
-        ok = torch.isfinite(d)
-        m = ok & (d > 0)
-        wt = torch.where(m, 1.0 / torch.where(m, d, 1.0), 0.0)
-        acc = torch.einsum("cwd,cw->cd", spfh_sorted[rows], wt)
-        count = torch.clamp(ok.sum(-1), min=1).to(torch.float32)
-        out.append(spfh_sorted[kp_c] + acc / count[:, None])
-    return torch.cat(out) if out else spfh_sorted.new_zeros((0, spfh_sorted.shape[1]))
+    """FPFH(p) = SPFH(p) + (Σ_{j, d>0} SPFH(j)/d_j) / |N(p)| over each
+    keypoint's grid window: K7's aggregation mode (``ops.radius_runs``)."""
+    return fpfh_aggregate(grid, spfh_sorted, kp_sorted_idx, radius)
 
 
 def _sorted_rows(grid: HashGrid, idx: torch.Tensor) -> torch.Tensor:
@@ -215,7 +202,8 @@ def _fpfh_rows(cloud, nrm, kp_rows, radius, n_bins: int, decorrelated: bool, k_m
     (pad queries at the far sentinel: empty neighborhoods) — on a grid in
     its sorted order through K6 (run route) or K8 + K4, else the capped
     brute search — and one ``all_gather`` of the ``(N, D)`` table; pass 2
-    aggregates over the keypoints' neighborhoods found again (grid: K7).
+    aggregates over the keypoints' neighborhoods found again (grid: K7's
+    aggregation mode).
     The staged FPFH (:func:`_fpfh`) and the fused program's FPFH leg
     (``registration.fused``) both run this."""
     n = cloud.shape[0]

@@ -438,8 +438,8 @@ def radius_search_with_values_auto(queries, points, extras, radius, k_max: int,
     """Radius search returning ``(Neighborhoods, values (Q, k_max, 3+F))``
     with the neighbors' ``[points | extras]`` rows: brute force below
     ``AUTO_GRID_MIN_POINTS`` points, a ``halo`` grid (cell radius/halo)
-    above it.  Runs where ``points`` is."""
-    points = as_f32(points)
+    above it.  Runs where the ``points`` tensor is (host arrays: ``cuda``)."""
+    points = as_f32(points, resolve(None, points))
     queries = as_f32(queries, points.device)
     extras = as_f32(extras, points.device)
     if points.shape[0] < AUTO_GRID_MIN_POINTS:
@@ -453,8 +453,9 @@ def radius_search_with_values_auto(queries, points, extras, radius, k_max: int,
 def knn_auto(queries, points, k: int, sample_size: int = 512) -> Neighborhoods:
     """k-NN that scales to large clouds: a sampled bound on the k-th
     neighbor distance sets a grid search radius; queries whose k-th neighbor
-    fell outside it get an exact brute-force pass."""
-    points = as_f32(points)
+    fell outside it get an exact brute-force pass.  Runs where the
+    ``points`` tensor is (host arrays: ``cuda``)."""
+    points = as_f32(points, resolve(None, points))
     queries = as_f32(queries, points.device)
     n = points.shape[0]
     if n < AUTO_GRID_MIN_POINTS:

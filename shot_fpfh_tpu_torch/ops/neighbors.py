@@ -5,6 +5,10 @@ slots plus a validity mask; distances come from the matmul expansion
 ``‖q−p‖² = ‖q‖² + ‖p‖² − 2 q·p`` (full float32: TF32 is off), chunked over
 queries so one distance tile stays under ``2^26`` elements.  The grid-hash
 engine (``grid_hash.py``) takes over for large clouds.
+
+Every search runs where its ``points`` tensor is; host arrays go to
+``cuda`` (``_device.resolve``), so a caller wanting the CPU passes CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .._device import resolve
 from .._fp import sqnorm3, sqrt
 
 _MAX_TILE_ELEMS = 1 << 26
@@ -88,7 +93,7 @@ def _padded(queries, points, idx, d2, k: int, k_eff: int) -> Neighborhoods:
 def knn(queries, points, k: int) -> Neighborhoods:
     """Exact k nearest neighbors (the tail is masked if the cloud has fewer
     than ``k`` points)."""
-    points = as_f32(points)
+    points = as_f32(points, resolve(None, points))
     queries = as_f32(queries, points.device)
     k_eff = min(k, points.shape[0])
     idx, d2 = _topk_smallest(queries, points, k_eff)
@@ -105,7 +110,7 @@ def approx_knn(queries, points, k: int) -> Neighborhoods:
 def radius_search(queries, points, radius, k_max: int) -> Neighborhoods:
     """All neighbors within ``radius``, capped at the ``k_max`` nearest; the
     radius is rechecked on the exact distances."""
-    points = as_f32(points)
+    points = as_f32(points, resolve(None, points))
     queries = as_f32(queries, points.device)
     k_eff = min(k_max, points.shape[0])
     r2 = torch.as_tensor(radius, dtype=torch.float32) ** 2
@@ -120,7 +125,7 @@ def radius_search(queries, points, radius, k_max: int) -> Neighborhoods:
 
 def radius_count(queries, points, radius) -> torch.Tensor:
     """Number of points within ``radius`` of each query."""
-    points = as_f32(points)
+    points = as_f32(points, resolve(None, points))
     queries = as_f32(queries, points.device)
     r2 = float(radius) ** 2
     step = _chunk(points.shape[0])
@@ -131,7 +136,7 @@ def radius_count(queries, points, radius) -> torch.Tensor:
 
 def nearest_neighbor(queries, points):
     """1-NN: ``(dist, idx)`` of shape ``(Q,)``, exact distances."""
-    points = as_f32(points)
+    points = as_f32(points, resolve(None, points))
     queries = as_f32(queries, points.device)
     step = _chunk(points.shape[0])
     idx = torch.cat([

@@ -111,9 +111,9 @@ def sharded_fpfh(keypoint_indices, cloud_points, normals, radius: float, mesh: M
     ``AUTO_GRID_MIN_POINTS`` points over a replicated halo-2 grid in its
     sorted order, through K6 (run route) or K8 + K4; below it the capped
     brute search.  One ``all_gather`` of the ``(N, D)`` SPFH table.  Pass
-    2: the rank's block of keypoints, their neighborhoods found again (grid:
-    K7) and the neighbors' SPFH rows aggregated; one ``all_gather`` of the
-    rows."""
+    2: the rank's block of keypoints, their neighborhoods found again and
+    the neighbors' SPFH rows aggregated (grid: K7's aggregation mode); one
+    ``all_gather`` of the rows."""
     from ..models import fpfh as m_fpfh
 
     dev = mesh.device

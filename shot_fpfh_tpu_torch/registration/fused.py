@@ -23,8 +23,9 @@ The same fixed-shape conventions as the JAX program:
 
 Descriptor routes, as in the JAX program: SHOT on a grid takes the window
 route (K8 + K1) or, with the run route on and an xy-row grid, K5; FPFH on a
-grid takes K8 + K4 or K6 for SPFH and K7 for the aggregation; without grids
-the brute routes run.  Matching is K2 in float32; ICP's grid 1-NN is K7.
+grid takes K8 + K4 or K6 for SPFH and K7's aggregation mode for the
+aggregation; without grids the brute routes run.  Matching is K2 in
+float32; ICP's grid 1-NN is K7's 1-NN mode.
 
 Randomness: the Gumbel noise is drawn from a ``torch.Generator`` on the
 call's device seeded with ``seed``; it cannot reproduce ``jax.random``, so
@@ -125,8 +126,8 @@ def _shot(kp, valid, sup, nrm, radius, k_max, min_nb, grid=None, rf_radius=None,
 def _fpfh(kp_idx, valid, sup, nrm, radius, k_max, n_bins, decorrelated, grid=None, mesh=None):
     """FPFH of the keypoints ``kp_idx`` (the rank's block): grid-sorted
     indices when ``grid`` (cell ``radius/2``, halo 2, carrying normals) is
-    given — SPFH of every point through K8 + K4 or K6, aggregation over
-    K7's windows — original cloud indices otherwise (brute search capped at
+    given — SPFH of every point through K8 + K4 or K6, aggregation in K7's
+    aggregation mode — original cloud indices otherwise (brute search capped at
     ``k_max``); over a mesh each rank's SPFH pass takes its block of the
     cloud's rows (``models.fpfh._fpfh_rows``).  Padding rows are zeroed
     like empty SHOT rows."""

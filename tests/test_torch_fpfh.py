@@ -316,7 +316,12 @@ def _entry_points():
         compute_shot_descriptor,
         compute_spfh,
     )
-    from shot_fpfh_tpu_torch.ops.grid_hash import build_grid
+    from shot_fpfh_tpu_torch.ops import neighbors
+    from shot_fpfh_tpu_torch.ops.grid_hash import (
+        build_grid,
+        knn_auto,
+        radius_search_with_values_auto,
+    )
     from shot_fpfh_tpu_torch.pipeline import RegistrationPipeline
     from shot_fpfh_tpu_torch.registration.icp import icp_point_to_plane, icp_point_to_point
     from shot_fpfh_tpu_torch.registration.matching import basic_matching, lowe_matching
@@ -344,6 +349,15 @@ def _entry_points():
         "build_grid": lambda a: build_grid(a, 0.3),
         "grid_subsample": lambda a: grid_subsample(a, 0.2),
         "ransac_on_matches": lambda a: ransac_on_matches(a, a, n_draws=8),
+        # the brute searches and the auto searches (host arrays: the card)
+        "knn": lambda a: neighbors.knn(a, a, 4),
+        "approx_knn": lambda a: neighbors.approx_knn(a, a, 4),
+        "radius_search": lambda a: neighbors.radius_search(a, a, 0.5, 8),
+        "radius_count": lambda a: neighbors.radius_count(a, a, 0.5),
+        "nearest_neighbor": lambda a: neighbors.nearest_neighbor(a, a),
+        "knn_auto": lambda a: knn_auto(a, a, 4),
+        "radius_search_with_values_auto":
+            lambda a: radius_search_with_values_auto(a, a, a, 0.5, 8),
     }
 
 

@@ -18,15 +18,18 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
-from chip_smoke import make_terrain, rotation_about  # noqa: E402
+from chip_smoke import aggregate_rule, make_terrain, rotation_about  # noqa: E402
 from shot_fpfh_tpu_torch import _kernels  # noqa: E402
 from shot_fpfh_tpu_torch.ops import shot_dma  # noqa: E402
 from shot_fpfh_tpu_torch.ops.grid_hash import build_grid, window_distances  # noqa: E402
 from shot_fpfh_tpu_torch.ops.match import top2_match, top2_match_plain  # noqa: E402
 from shot_fpfh_tpu_torch.ops.radius_pca import radius_pca, radius_pca_plain  # noqa: E402
 from shot_fpfh_tpu_torch.ops.radius_runs import (  # noqa: E402
+    _aggregate_launch,
     fetch_windows,
     fetch_windows_plain,
+    fpfh_aggregate,
+    fpfh_aggregate_plain,
     nearest,
     nearest_plain,
     radius_dist,
@@ -851,6 +854,8 @@ def test_fpfh_cli_on_card(cuda, tmp_path, monkeypatch, run_route):
     assert counts["top2_match"] > 0 and counts["radius_pca"] > 0
     assert (counts["spfh_runs"] > 0) == run_route
     assert (counts["spfh_histogram"] > 0) == (not run_route)
+    # the aggregation: one kernel launch a cloud, no K7 window
+    assert counts["fpfh_aggregate"] == 2 and counts["radius_dist"] == 0
 
 
 @pytest.mark.parametrize("choice,run_route", [("shot_bi_scale", False), ("shot_bi_scale", True),
@@ -984,6 +989,82 @@ def test_k7_nearest_kernel(cuda, rng, halo, case):
         assert torch.equal(want[1][n:], torch.arange(1000, device=cuda))
     if case in ("off grid", "nan"):
         assert not torch.isfinite(want[0][-3:]).any()
+
+
+def _aggregate_case(rng, cuda, halo, dim):
+    """FPFH's aggregation inputs on a 30k-point surface with a dense
+    cluster (2,000 points within 0.05: windows and in-radius lists past the
+    kernel's 512-entry list), its first 200 points repeated (d = 0
+    neighbors) and one point alone, on the grid of cell 0.3 / halo carrying
+    normals; one table row moved to the far sentinel after the build (its
+    window off the grid).  SPFH-like rows (non-negative, summing to 1);
+    keypoints: every fifth row, the cluster, the repeats, the lone and the
+    far row, shuffled."""
+    import dataclasses
+
+    pts = _surface(rng, 30_000, cuda)
+    cluster = torch.tensor(rng.normal(scale=0.02, size=(2000, 3)).astype(np.float32),
+                           device=cuda)
+    pts = torch.cat([pts, cluster, pts[:200], torch.tensor([[4.5, 0.0, 0.0]], device=cuda)])
+    nrm = torch.nn.functional.normalize(torch.randn_like(pts), dim=1)
+    grid = build_grid(pts, 0.3 / halo, extras=nrm, halo=halo)
+    assert grid.has_table and grid.window_cap > 512
+    n = pts.shape[0]
+    inv = torch.empty_like(grid.orig_idx)
+    inv[grid.orig_idx] = torch.arange(n, device=cuda)
+    far = int(inv[100])
+    table = grid.packed_sorted.clone()
+    table[far, :3] = 1.0e6
+    grid = dataclasses.replace(grid, packed_sorted=table)
+    h = torch.rand((n, dim), device=cuda,
+                   generator=torch.Generator(device=cuda).manual_seed(dim)) ** 4
+    spfh = (h / h.sum(1, keepdim=True)).contiguous()
+    kp = torch.cat([torch.arange(0, n, 5, device=cuda), inv[30_000:32_000], inv[32_000:],
+                    torch.tensor([far], device=cuda)])
+    kp = kp[torch.randperm(kp.shape[0], generator=torch.Generator().manual_seed(3)).to(cuda)]
+    return grid, spfh, kp.contiguous(), 0.3
+
+
+@pytest.mark.parametrize("dim", [15, 125, 343])
+@pytest.mark.parametrize("halo", [1, 2])
+def test_k7_fpfh_aggregate_kernel(cuda, rng, halo, dim):
+    """K7's aggregation mode against its twin by ``chip_smoke``'s rule
+    (counts and rows with no neighbor exact, each row within 1e-5 of its
+    largest entry) with the keypoints launched in the caller's order and
+    in sorted-row order: one launch a call; the lone point and the
+    duplicates' counts as the twin's, the far row its own SPFH row."""
+    grid, spfh, kp, radius = _aggregate_case(rng, cuda, halo, dim)
+    want, counts_p = fpfh_aggregate_plain(grid, spfh, kp, radius, return_counts=True)
+    assert int(counts_p.max()) > 512 and int((counts_p == 0).sum()) == 1
+    for sort in (False, True):
+        got, counts = _counted("fpfh_aggregate",
+                               lambda: _aggregate_launch(grid, spfh, kp, radius, True, sort))
+        aggregate_rule(got, want, counts, counts_p, spfh, kp, f"halo {halo} D {dim}")
+    got = _counted("fpfh_aggregate", lambda: fpfh_aggregate(grid, spfh, kp, radius))
+    aggregate_rule(got, want, counts_p, counts_p, spfh, kp, "the wrapper")
+    before = _kernels.launch_counts["fpfh_aggregate"]
+    empty = fpfh_aggregate(grid, spfh, kp[:0], radius)
+    assert empty.shape == (0, dim) and _kernels.launch_counts["fpfh_aggregate"] == before
+
+
+def test_k7_fpfh_aggregate_without_cell_table(cuda, rng):
+    """A grid without a cell-start table keeps the chunked route (K7, the
+    gather, the einsum): no aggregation launch, K7 launched, the twin's
+    result within the rule."""
+    pts = _surface(rng, 30_000, cuda)
+    pts = torch.cat([pts, torch.full((1, 3), 5e3, device=cuda)])
+    grid = build_grid(pts, 0.15, halo=2)
+    assert not grid.has_table
+    spfh = torch.rand((pts.shape[0], 125), device=cuda,
+                      generator=torch.Generator(device=cuda).manual_seed(0))
+    kp = torch.arange(0, pts.shape[0], 9, device=cuda)
+    before = dict(_kernels.launch_counts)
+    got, counts = fpfh_aggregate(grid, spfh, kp, 0.3, return_counts=True)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts["fpfh_aggregate"] == before["fpfh_aggregate"]
+    assert _kernels.launch_counts["radius_dist"] > before["radius_dist"]
+    want, counts_p = fpfh_aggregate_plain(grid, spfh, kp, 0.3, return_counts=True)
+    aggregate_rule(got, want, counts, counts_p, spfh, kp, "no cell table")
 
 
 def test_window_functions_launch_k7_and_k8(cuda, rng):

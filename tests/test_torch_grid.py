@@ -109,7 +109,7 @@ def test_grid_nearest_neighbor_and_knn_auto(cloud, rng):
     np.testing.assert_allclose(td, jd, atol=1e-6)
     np.testing.assert_array_equal(ti[np.isfinite(jd)], ji[np.isfinite(jd)])
     big = make_terrain(21_000, rng, scale=5.0, n_bumps=10)
-    nbr = t_grid.knn_auto(big[:500], big, 12)
+    nbr = t_grid.knn_auto(torch.tensor(big[:500]), torch.tensor(big), 12)
     d = np.linalg.norm(big[:500, None] - big[None], axis=-1)
     np.testing.assert_allclose(np.sort(nbr.dist.numpy(), 1), np.sort(d, 1)[:, :12], atol=1e-5)
 

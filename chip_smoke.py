@@ -142,7 +142,19 @@ Phases, one line each; any failure exits non-zero with no result line:
    peak device memory; every kernel at these shapes against its twin
    (phase 3's rules; K2 on 4096 sampled rows; the aggregation on the CLI
    legs' ~78k ref keypoints); the voxel sums with a voxel
-   of 10^5 and of 10^6 points bit-identical to the CPU's.
+   of 10^5 and of 10^6 points bit-identical to the CPU's;
+17. the surface the port gained last: ``radius_search_auto`` on a random
+   5k of the smoke ref (brute) and on all of it (the grid through K7), for
+   4096 queries, its in-radius sets equal to the CPU's (and, on the grid,
+   to the brute search's on the card) but for the neighbors a brute
+   search's float32 rounding may put on either side of the radius
+   (counted; none on the grid against the CPU); ``compute_shot_descriptor(local_rf_neighborhoods=)``
+   for 4096 keypoints of the ref at radius 0.9, the frames' neighborhoods
+   from ``radius_search`` on the card: K7 and K1 in its given-frames mode
+   launched, the frames within 5e-4 of the CPU's (up to the signs of an
+   axis whose sign vote is near tied: counted and bounded) and the
+   histograms, the CPU given the card's frames, by the flip rule;
+   ``RigidTransform.identity((4,))`` on ``cuda``.
 Phases 4–9 and 12 run cold, then measured, each accepted within the same
 bounds; every window route launches K8, and every ICP K7's 1-NN mode.
 ``--bits-against LIB`` also holds K1's and K5's phase-3 outputs equal, bit
@@ -300,6 +312,28 @@ MS_TIE_GAP, MS_NEAR_TIE_FRAC, MS_DIST_ATOL = 1e-4, 1e-2, 1e-4
 SAMPLED_ICP_ITERS, SAMPLED_ICP_LIMIT = 20, 100
 SAMPLED_ICP_PTS_ATOL, SAMPLED_ICP_RMS_ATOL = 1e-4, 1e-5
 SOLVER_ATOL = 1e-5
+
+# phase 17: radius_search_auto on both sides of AUTO_GRID_MIN_POINTS (a
+# random 5k of the smoke ref at radius 0.9, ~28 neighbors; the whole 100k
+# ref at 0.3, ~70) for SURFACE_QUERIES queries, capped at SURFACE_K_MAX,
+# above every row's count so the sets are whole.  The brute search's first
+# cut takes d² = |q|² + |p|² − 2q·p in float32, off by up to a few units of
+# roundoff of |q|² + |p|² (~1e-5 on this terrain, against r² = 0.09), so a
+# neighbor whose exact d² lies within SURFACE_EDGE_ULPS such units of r²
+# may fall on either side of the radius there: such edge neighbors are
+# counted and left out where a brute search is compared.  SHOT with given
+# frame neighborhoods (radius_search on the card, SURFACE_RF_K nearest) for
+# SURFACE_KEYPOINTS keypoints of the ref at the SHOT radius
+SURFACE_CASES = ((5_000, 0.9), (100_000, 0.3))
+SURFACE_QUERIES, SURFACE_K_MAX, SURFACE_EDGE_ULPS = 4096, 256, 16
+SURFACE_KEYPOINTS, SURFACE_RF_K = 4096, 512
+# SHOT's frames on two devices: a keypoint whose x or z sign vote (on the
+# CPU) is within VOTE_TIE_MARGIN of a tie flips that axis, and y with it,
+# when one projection of ~0 takes the other sign on the other device (a
+# vote of 256 to 256 becomes 257 to 255); such a keypoint's frame is held
+# up to those signs, and the keypoints whose axis flipped are bounded at
+# VOTE_FLIP_FRAC of all
+VOTE_TIE_MARGIN, VOTE_FLIP_FRAC = 2, 1e-2
 
 
 def make_terrain(n: int, rng: np.random.Generator, scale: float = 10.0,
@@ -809,11 +843,11 @@ def _route_counts(grid, queries, radius):
     import torch
 
     from shot_fpfh_tpu_torch._fp import sqnorm3
-    from shot_fpfh_tpu_torch.ops.grid_hash import query_chunk, window_rows
+    from shot_fpfh_tpu_torch.ops.grid_hash import window_chunk, window_rows
 
     r = torch.tensor(radius, dtype=torch.float32, device=queries.device)
     runs, window = [], []
-    step = query_chunk(grid, 4)
+    step = window_chunk(grid, 4)
     for s in range(0, queries.shape[0], step):
         qc = queries[s:s + step]
         rows, valid = window_rows(grid, qc)
@@ -1276,14 +1310,14 @@ def parity_fused_shapes(pair, dev) -> None:
 
     from shot_fpfh_tpu_torch.core.subsampling import grid_subsample
     from shot_fpfh_tpu_torch.models.normals import compute_normals
-    from shot_fpfh_tpu_torch.ops.grid_hash import build_grid, query_chunk
+    from shot_fpfh_tpu_torch.ops.grid_hash import build_grid, window_chunk
 
     scan = torch.tensor(pair.scan, device=dev)
     grid = build_grid(scan, FUSED_SHOT_CELL, extras=compute_normals(scan, scan, k=30,
                                                                      device=dev))
     check(grid.use_xyrow and grid.xyrow_run_cap > 0, "the fused SHOT grid is not an xy-row grid")
     kp = scan[torch.as_tensor(grid_subsample(scan, KEYPOINT_VOXEL), device=dev)]
-    chunk = kp[:min(4096, query_chunk(grid, 8))]
+    chunk = kp[:min(4096, window_chunk(grid, 8))]
     parity_k8("the fused SHOT grid", grid, chunk)
     k1 = k1_own_frames(grid, chunk, FUSED_SHOT_CELL)
     k5 = k5_own_frames(grid, kp[:4096], FUSED_SHOT_CELL)
@@ -1296,13 +1330,13 @@ def parity_fused_shapes(pair, dev) -> None:
 
 def replaced_nearest(grid, queries):
     """The grid 1-NN as the port ran it before K7's 1-NN mode: K7 at radius
-    +inf in ``query_chunk`` chunks, the row minimum, two gathers."""
+    +inf in ``window_chunk`` chunks, the row minimum, two gathers."""
     import torch
 
-    from shot_fpfh_tpu_torch.ops.grid_hash import query_chunk, window_radius_dist
+    from shot_fpfh_tpu_torch.ops.grid_hash import window_chunk, window_radius_dist
 
     dist_out, idx_out = [], []
-    step = query_chunk(grid, 4)
+    step = window_chunk(grid, 4)
     for s in range(0, queries.shape[0], step):
         rows, masked = window_radius_dist(grid, queries[s:s + step], float("inf"))
         best, pos = masked.min(dim=1)
@@ -1320,7 +1354,7 @@ def parity_nearest(label: str, grid, queries, prefix: str = "phase 3", reps: int
     windows."""
     import torch
 
-    from shot_fpfh_tpu_torch.ops.grid_hash import query_chunk
+    from shot_fpfh_tpu_torch.ops.grid_hash import window_chunk
     from shot_fpfh_tpu_torch.ops.radius_runs import nearest, nearest_lanes, nearest_plain
 
     got, want = nearest(grid, queries), nearest_plain(grid, queries)
@@ -1340,7 +1374,7 @@ def parity_nearest(label: str, grid, queries, prefix: str = "phase 3", reps: int
     plain_ms = cuda_ms(lambda: nearest_plain(grid, queries), reps)
     old_ms = cuda_ms(lambda: replaced_nearest(grid, queries), reps)
     q = queries.shape[0]
-    old_launches = -(-q // query_chunk(grid, 4))
+    old_launches = -(-q // window_chunk(grid, 4))
     old_alone = kernel_ms(lambda: replaced_nearest(grid, queries), K7_KERNEL,
                           reps) * old_launches
     _, lanes_used, _ = _runs_case(grid, queries)
@@ -1393,7 +1427,7 @@ def _aggregate_work(grid, kp_rows, radius, dim: int):
     keypoint's own row, so that one sparse product computes the function."""
     import torch
 
-    from shot_fpfh_tpu_torch.ops.grid_hash import _zcolumn_runs, query_chunk
+    from shot_fpfh_tpu_torch.ops.grid_hash import _zcolumn_runs, window_chunk
     from shot_fpfh_tpu_torch.ops.radius_runs import radius_dist_plain, window_slots
 
     table = grid.packed_sorted
@@ -1402,7 +1436,7 @@ def _aggregate_work(grid, kp_rows, radius, dim: int):
     in_radius = torch.zeros_like(in_window)
     slots = neighbors = 0
     idx, vals = [], []
-    step = query_chunk(grid, 4)
+    step = window_chunk(grid, 4)
     for s in range(0, q, step):
         kp_c = kp_rows[s:s + step]
         qc = table[kp_c, :3]
@@ -3214,7 +3248,7 @@ def phase_at_scale(dev) -> dict:
     paths["at scale FPFH library"] = rec["launches"]
     r_s, t_s = euler_xyz(SCALE_ICP_EULER), np.asarray(SCALE_ICP_T)
     scan_s = torch.tensor(((ref_np - t_s) @ r_s).astype(np.float32), device=dev)
-    ident = RigidTransform(torch.eye(3, device=dev), torch.zeros(3, device=dev))
+    ident = RigidTransform.identity(device=dev)
     res, rec = _leg(lambda: icp_point_to_plane(scan_s, ref, normals, ident, **SCALE_ICP))
     rot_err = float(rotation_angle(res.transform.rotation.double().cpu(), torch.tensor(r_s)))
     t_err = float(np.linalg.norm(res.transform.translation.double().cpu().numpy() - t_s))
@@ -3272,6 +3306,185 @@ def phase_at_scale(dev) -> dict:
     for cluster, terrain in SCALE_VOXEL_CASES:
         voxel_sums(dev, vrng, cluster, terrain, prefix, reps)
     return paths
+
+
+def _radius_sets(nbr, points: np.ndarray, queries: np.ndarray, radius: float):
+    """``(each row's in-radius indices, sorted, -1 elsewhere; the same with
+    the edge neighbors left out; their number)``: see SURFACE_EDGE_ULPS."""
+    idx, mask = nbr.idx.cpu().numpy(), nbr.mask.cpu().numpy()
+    p, q = points[idx].astype(np.float64), queries[:, None].astype(np.float64)
+    d2 = ((p - q) ** 2).sum(-1)
+    unit = SURFACE_EDGE_ULPS * 2.0 ** -24 * ((p ** 2).sum(-1) + (q ** 2).sum(-1))
+    edge = mask & (np.abs(d2 - radius * radius) <= unit)
+    return (np.sort(np.where(mask, idx, -1), axis=1),
+            np.sort(np.where(mask & ~edge, idx, -1), axis=1), int(edge.sum()))
+
+
+def _parted(a: np.ndarray, b: np.ndarray) -> int:
+    """Entries in one row set of ``a`` or ``b`` but not the other."""
+    return sum(len(np.setxor1d(x[x >= 0], y[y >= 0])) for x, y in zip(a, b))
+
+
+def radius_auto_check(points: np.ndarray, queries: np.ndarray, radius: float, dev,
+                      label: str) -> dict:
+    """``ops.grid_hash.radius_search_auto`` on the card against the same
+    call on CPU tensors: on the grid (from AUTO_GRID_MIN_POINTS points) the
+    masks and in-radius sets equal (K7 and its twin agree bit for bit), on
+    the brute side the sets equal but for edge neighbors; on the grid also
+    against the brute ``radius_search`` on the card, the sets equal but for
+    edge neighbors.  Returns the card call's launches, wall and counts."""
+    import torch
+
+    from shot_fpfh_tpu_torch import _kernels
+    from shot_fpfh_tpu_torch.ops import grid_hash
+    from shot_fpfh_tpu_torch.ops.neighbors import radius_search
+
+    pts, q = torch.tensor(points, device=dev), torch.tensor(queries, device=dev)
+    grid_hash.radius_search_auto(q, pts, radius, SURFACE_K_MAX)     # cold
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    card = grid_hash.radius_search_auto(q, pts, radius, SURFACE_K_MAX)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in _kernels.launch_counts.items() if v}
+    on_grid = len(points) >= grid_hash.AUTO_GRID_MIN_POINTS
+    check((launches.get(K7, 0) >= 1) == on_grid,
+          f"{label}: radius_dist launches {launches.get(K7, 0)} on the "
+          f"{'grid' if on_grid else 'brute'} side")
+    top = int(card.count.max())
+    check(top < SURFACE_K_MAX, f"{label}: a row of {top} neighbors reached the cap")
+    sets, inner, edges = _radius_sets(card, points, queries, radius)
+    cpu = grid_hash.radius_search_auto(torch.tensor(queries), torch.tensor(points), radius,
+                                       SURFACE_K_MAX)
+    cpu_sets, cpu_inner, _ = _radius_sets(cpu, points, queries, radius)
+    masks_equal = torch.equal(card.mask.cpu(), cpu.mask)
+    check(np.array_equal(inner, cpu_inner), f"{label}: in-radius sets differ from the CPU's")
+    if on_grid:
+        check(masks_equal and np.array_equal(sets, cpu_sets),
+              f"{label}: the grid's masks or sets differ from the CPU's")
+    out = dict(launches=launches, wall=wall, on_grid=on_grid, top=top, edges=edges,
+               mean=float(card.count.float().mean()), masks_equal=masks_equal,
+               parted_cpu=_parted(sets, cpu_sets))
+    if on_grid:
+        brute_sets, brute_inner, _ = _radius_sets(radius_search(q, pts, radius, SURFACE_K_MAX),
+                                                  points, queries, radius)
+        check(np.array_equal(inner, brute_inner),
+              f"{label}: the grid's in-radius sets differ from the brute search's")
+        out["parted_brute"] = _parted(sets, brute_sets)
+    return out
+
+
+def near_tied_votes(kp, ref, nbr, frames):
+    """``(Q,)`` True where the x or the z axis of ``frames`` won its sign
+    vote over the neighborhoods ``nbr`` by at most VOTE_TIE_MARGIN."""
+    import torch
+
+    centered = torch.where(nbr.mask[..., None], ref[nbr.idx] - kp[:, None, :], 0.0)
+    tied = torch.zeros(kp.shape[0], dtype=torch.bool)
+    for j in (0, 2):
+        proj = torch.einsum("qki,qi->qk", centered, frames[:, :, j])
+        neg, nonneg = ((proj < 0) & nbr.mask).sum(-1), ((proj >= 0) & nbr.mask).sum(-1)
+        tied |= (neg - nonneg).abs() <= VOTE_TIE_MARGIN
+    return tied
+
+
+def given_frames_check(ref, normals, kp, radius: float, label: str) -> dict:
+    """``compute_shot_descriptor(local_rf_neighborhoods=)`` on the card
+    (the frames' neighborhoods from ``radius_search`` on the card): a cold
+    call, then one with the launch counts set to 0 just before it and read
+    just after; against the same call on CPU tensors, the frames within
+    K1_FRAME_ATOL, and the histograms, the CPU given the card's frames
+    (which win over the neighborhoods), by the flip rule.  Returns the
+    launches, the wall and the errors."""
+    import torch
+
+    from shot_fpfh_tpu_torch import _kernels
+    from shot_fpfh_tpu_torch.models.shot import compute_shot_descriptor
+    from shot_fpfh_tpu_torch.ops.neighbors import Neighborhoods, radius_search
+
+    rf_nbr = radius_search(kp, ref, radius, SURFACE_RF_K)
+    compute_shot_descriptor(kp, ref, normals, radius, local_rf_neighborhoods=rf_nbr)   # cold
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    desc, rfs = compute_shot_descriptor(kp, ref, normals, radius, local_rf_neighborhoods=rf_nbr)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in _kernels.launch_counts.items() if v}
+    for name in ("shot_binning_histogram", K7):
+        check(launches.get(name, 0) >= 1, f"{label} never launched kernel {name}")
+    check(desc.shape == (kp.shape[0], 352) and bool(torch.isfinite(desc).all()),
+          f"{label}: descriptors {tuple(desc.shape)} or not finite")
+    on_cpu = [t.cpu() for t in (kp, ref, normals)]
+    rf_cpu = Neighborhoods(*(t.cpu() for t in (rf_nbr.idx, rf_nbr.dist, rf_nbr.mask)))
+    _, rfs_c = compute_shot_descriptor(*on_cpu, radius, local_rf_neighborhoods=rf_cpu)
+    tied = near_tied_votes(on_cpu[0], on_cpu[1], rf_cpu, rfs_c)
+    err = (rfs.cpu() - rfs_c).abs().amax(dim=(1, 2))
+    unsigned = (rfs.cpu().abs() - rfs_c.abs()).abs().amax(dim=(1, 2))
+    frame_err = float(err[~tied].max())
+    tied_err = float(unsigned[tied].max()) if bool(tied.any()) else 0.0
+    flipped = int((err > K1_FRAME_ATOL).sum())
+    check(frame_err <= K1_FRAME_ATOL and tied_err <= K1_FRAME_ATOL
+          and flipped <= VOTE_FLIP_FRAC * kp.shape[0],
+          f"{label}: frames off the CPU's by {frame_err} ({int(tied.sum())} keypoints with a "
+          f"near-tied sign vote, off by {tied_err} up to the signs; {flipped} flipped)")
+    desc_c, kept = compute_shot_descriptor(*on_cpu, radius, local_rfs=rfs.cpu(),
+                                           local_rf_neighborhoods=rf_cpu)
+    check(torch.equal(kept, rfs.cpu()), f"{label}: given frames did not win on the CPU")
+    flip, top = flip_rule(desc.cpu(), desc_c, label)
+    live = float((desc.abs().sum(1) > 0).float().mean())
+    return dict(launches=launches, wall=wall, frame_err=frame_err, flip=flip, top=top,
+                live=live, tied=int(tied.sum()), tied_err=tied_err, flipped=flipped)
+
+
+def phase_surface(pair: SmokePair, dev) -> dict:
+    """Phase 17: the surface the port gained last, on the card against the
+    CPU: ``radius_search_auto`` on both sides of AUTO_GRID_MIN_POINTS,
+    ``compute_shot_descriptor(local_rf_neighborhoods=)`` on the smoke ref
+    (the halo-2 grid through K7, K1 in its given-frames mode) and
+    ``RigidTransform.identity`` on ``cuda``.  Returns the SHOT call's
+    launches by path."""
+    import torch
+
+    from shot_fpfh_tpu_torch.core.transform import RigidTransform
+    from shot_fpfh_tpu_torch.models.normals import compute_normals
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(17)
+    for n, radius in SURFACE_CASES:
+        points = pair.ref if n == len(pair.ref) else pair.ref[rng.choice(len(pair.ref), n,
+                                                                         replace=False)]
+        queries = points[rng.choice(n, SURFACE_QUERIES, replace=False)]
+        r = radius_auto_check(points, queries, radius, dev, f"phase 17 radius_search_auto {n}")
+        print(f"phase 17 radius_search_auto: {n} points ({'grid' if r['on_grid'] else 'brute'}"
+              f"), {SURFACE_QUERIES} queries, radius {radius}, k_max {SURFACE_K_MAX}: "
+              f"{r['mean']:.1f} neighbors a query (max {r['top']}), {r['edges']} edge "
+              f"neighbors; against the CPU masks equal {r['masks_equal']}, entries parted "
+              f"{r['parted_cpu']}" + (f"; against the brute search on the card entries parted "
+                                      f"{r['parted_brute']}" if r["on_grid"] else "")
+              + f" (all edge neighbors); wall {r['wall']:.4f} s, launches {r['launches']}",
+              flush=True)
+    ref = torch.tensor(pair.ref, device=dev)
+    normals = compute_normals(ref, ref, k=30, device=dev)
+    kp = ref[torch.tensor(rng.choice(len(pair.ref), SURFACE_KEYPOINTS, replace=False),
+                          device=dev)]
+    r = given_frames_check(ref, normals, kp, FPFH_RADIUS, "phase 17 given frame neighborhoods")
+    ident = RigidTransform.identity(batch_shape=(4,))
+    check(ident.rotation.device.type == "cuda" and ident.rotation.shape == (4, 3, 3)
+          and torch.equal(ident.rotation.cpu(), torch.eye(3).expand(4, 3, 3))
+          and torch.equal(ident.translation.cpu(), torch.zeros(4, 3)),
+          "RigidTransform.identity((4,)) is not the identity on cuda")
+    print(f"phase 17 compute_shot_descriptor(local_rf_neighborhoods=): {SURFACE_KEYPOINTS} "
+          f"keypoints of the {len(pair.ref)}-point ref, radius {FPFH_RADIUS}, frames from "
+          f"radius_search's {SURFACE_RF_K} nearest on the card: frames within "
+          f"{r['frame_err']:.2e} of the CPU's on the keypoints without a near-tied sign "
+          f"vote, {r['tied']} with one ({r['flipped']} with an axis flipped; within "
+          f"{r['tied_err']:.2e} up to the signs), histograms under the card's frames flip "
+          f"fraction {r['flip']:.2e}, max diff {r['top']:.2e}, {r['live']:.4f} non-empty; "
+          f"wall {r['wall']:.4f} s, launches {r['launches']}; RigidTransform.identity((4,)) "
+          f"on cuda; phase wall {time.perf_counter() - t0:.3f} s", flush=True)
+    return {"given frame neighborhoods": r["launches"]}
 
 
 def main(argv=None) -> int:
@@ -3343,8 +3556,10 @@ def main(argv=None) -> int:
     paths["mesh 1-rank"] = phase_mesh_one_rank(pair)
     paths.update(phase_fused_mesh_one_rank(fused_inputs))
     paths.update(phase_mesh_two_ranks(pair))
-    del pair, fused_inputs
+    del fused_inputs
     paths.update(phase_at_scale(dev))
+    paths.update(phase_surface(pair, dev))
+    del pair
     # kernel -> (source, TPU kernel it replaces, parity and timings, the
     # path whose launches the line reports)
     results = {

@@ -14,6 +14,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from .._device import resolve
+
 
 def quaternion_to_matrix(q: torch.Tensor) -> torch.Tensor:
     """Quaternion(s) ``[..., 4]`` (x, y, z, w) → rotation matrices ``[..., 3, 3]``
@@ -80,6 +82,15 @@ class RigidTransform:
     translation: torch.Tensor
 
     @staticmethod
+    def identity(dtype=torch.float32, batch_shape: tuple = (),
+                 device=None) -> "RigidTransform":
+        """The identity, broadcast to ``batch_shape`` (on ``cuda`` unless
+        ``device`` says otherwise)."""
+        dev, batch = resolve(device), tuple(batch_shape)
+        rot = torch.eye(3, dtype=dtype, device=dev).expand(batch + (3, 3)).contiguous()
+        return RigidTransform(rot, torch.zeros(batch + (3,), dtype=dtype, device=dev))
+
+    @staticmethod
     def from_numpy(rotation, translation, device=None,
                    dtype=torch.float32) -> "RigidTransform":
         """From host arrays (e.g. a JAX transform's ``np.asarray`` fields)."""
@@ -108,6 +119,9 @@ class RigidTransform:
         """Correct SE(3) inverse ``(Rᵀ, -Rᵀ t)``."""
         rot_t = self.rotation.transpose(-1, -2)
         return RigidTransform(rot_t, -torch.einsum("...ij,...j->...i", rot_t, self.translation))
+
+    def inv(self) -> "RigidTransform":
+        return self.inverse()
 
     def normalize_rotation(self) -> "RigidTransform":
         """Project the rotation back onto SO(3) via quaternion normalization."""

@@ -34,8 +34,8 @@ from ..ops.grid_hash import (
     build_grid,
     kth_distance_bound,
     knn_auto,
-    query_chunk,
     quantized_kth_radius,
+    window_chunk,
     window_distances,
 )
 from ..ops.neighbors import Neighborhoods, as_f32, knn, radius_search
@@ -222,7 +222,7 @@ def _pca_moments_window(grid, q, radius):
     chunks; accumulated query-centered so float32 stays accurate far from
     the origin, then re-centered on the barycenter."""
     parts = []
-    step = query_chunk(grid, 8)
+    step = window_chunk(grid, 8)
     for s in range(0, q.shape[0], step):
         qc = q[s:s + step]
         vals, d, win_ok, _ = window_distances(grid, qc, with_rows=False)

@@ -15,6 +15,12 @@ like the reference:
   run route on (``SHOT_FPFH_DMA``) and an xy-row grid, K5
   (``ops.shot_dma``) straight over the grid's runs.
 
+Given the frames' neighborhoods (``compute_shot_descriptor(
+local_rf_neighborhoods=)``), the bins come from the ``k_max``-capped radius
+neighborhoods at any support size (the brute search, or from
+``AUTO_GRID_MIN_POINTS`` points the halo-2 grid search through K7), binned
+by K1 in its given-frames mode over them.
+
 Bi-scale SHOT takes its frames from the ``local_rf_radius`` neighborhood
 and its bins from the ``shot_radius`` one; multiscale SHOT concatenates
 per-scale descriptors, each on its own subsampled support, optionally
@@ -41,8 +47,13 @@ from .._device import resolve
 from .._fp import sqnorm3, sqrt
 from ..core.subsampling import grid_subsample
 from ..ops import grid_hash
-from ..ops.grid_hash import build_grid, query_chunk, window_distances
-from ..ops.neighbors import as_f32, radius_search
+from ..ops.grid_hash import (
+    build_grid,
+    radius_search_with_values_auto,
+    window_chunk,
+    window_distances,
+)
+from ..ops.neighbors import Neighborhoods, as_f32, radius_search
 from ..ops.shot_dma import dma_kernel_enabled, shot_descriptor_dma
 from ..ops.shot_fused import local_frames as _local_rfs_ff
 from ..ops.shot_fused import binning_violations as _binning_violations  # noqa: F401
@@ -170,7 +181,7 @@ def _shot_window_chunked(grid, kp, local_rfs, radius, normalize,
         _debug_read(counter)
         return out
     descs, frames = [], []
-    step = min(4096, query_chunk(grid, 8))
+    step = min(4096, window_chunk(grid, 8))
     inf = float("inf")
     for s in range(0, kp.shape[0], step):
         qc = kp[s:s + step]
@@ -221,17 +232,43 @@ def _shot_routed(kp, sup, nrm, radius, *, k_max: int, normalize: bool,
     return desc, local_rfs
 
 
+def _shot_given_neighborhoods(kp, sup, nrm, radius, rf_nbr: Neighborhoods, *, k_max: int,
+                              normalize: bool, min_neighborhood_size: int, local_rfs=None):
+    """SHOT with the frames' neighborhoods given (JAX ``models/shot.py:
+    536-545``): the ``k_max``-capped radius neighborhoods of the support at
+    any size (brute, or from ``AUTO_GRID_MIN_POINTS`` points the halo-2
+    grid through K7), the frames over ``rf_nbr`` (rows of the support as
+    passed) unless ``local_rfs`` is given, then K1 in given-frames mode
+    over the neighborhoods as its window."""
+    nbr, vals = radius_search_with_values_auto(kp, sup, nrm, radius, k_max)
+    if local_rfs is None:
+        idx = torch.as_tensor(rf_nbr.idx, device=sup.device).long()
+        mask = torch.as_tensor(rf_nbr.mask, device=sup.device).bool()
+        local_rfs = local_reference_frames(kp, sup[idx], mask, radius)
+    return shot_from_window_ff(kp, vals.transpose(1, 2), nbr.dist, radius,
+                               normalize=normalize,
+                               min_neighborhood_size=min_neighborhood_size,
+                               local_rfs=as_f32(local_rfs, sup.device))
+
+
 def compute_shot_descriptor(keypoints, support_points, support_normals, radius, *,
                             k_max: int = 512, normalize: bool = True,
                             min_neighborhood_size: int = 100, local_rfs=None,
+                            local_rf_neighborhoods: Neighborhoods | None = None,
                             device=None):
     """Single-scale SHOT of ``keypoints`` on a support cloud; returns
-    ``((Q, 352) descriptors, (Q, 3, 3) frames)``."""
+    ``((Q, 352) descriptors, (Q, 3, 3) frames)``.  Given frames
+    (``local_rfs``) win over given frame neighborhoods
+    (``local_rf_neighborhoods``, which take the ``k_max``-capped route at
+    any support size)."""
     sup = as_f32(support_points, resolve(device, support_points))
     nrm = as_f32(support_normals, sup.device)
     kp = as_f32(keypoints, sup.device)
-    return _shot_routed(kp, sup, nrm, radius, k_max=k_max, normalize=normalize,
-                        min_neighborhood_size=min_neighborhood_size, local_rfs=local_rfs)
+    opts = dict(k_max=k_max, normalize=normalize, min_neighborhood_size=min_neighborhood_size,
+                local_rfs=local_rfs)
+    if local_rf_neighborhoods is not None:
+        return _shot_given_neighborhoods(kp, sup, nrm, radius, local_rf_neighborhoods, **opts)
+    return _shot_routed(kp, sup, nrm, radius, **opts)
 
 
 class ShotComputer:
@@ -242,12 +279,13 @@ class ShotComputer:
     (``parallel.sharded.sharded_shot_descriptors``) on the rank's device."""
 
     def __init__(self, normalize: bool = True, share_local_rfs: bool = True,
-                 min_neighborhood_size: int = 100, k_max: int = 512,
+                 min_neighborhood_size: int = 100, k_max: int = 512, verbose: bool = True,
                  pad_queries_to: int = 1024, mesh=None, device=None):
         self.normalize = normalize
         self.share_local_rfs = share_local_rfs
         self.min_neighborhood_size = min_neighborhood_size
         self.k_max = k_max
+        self.verbose = verbose   # the reference's flag: stored, read by nothing
         self.pad_queries_to = pad_queries_to
         self.mesh = mesh
         self.device = mesh.device if device is None and mesh is not None else device

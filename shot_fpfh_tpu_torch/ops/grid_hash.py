@@ -26,7 +26,10 @@ Not ported: the content-keyed grid LRU (on an H100 a 10^6-point grid
 builds from host arrays in less time than hashing them takes:
 ``chip_smoke.py`` phase 16) and the G=8/16 grouped feature-planar gather
 (an index-bound gather workaround of the TPU); the compacted ``(Q, W)``
-window over the runs gives the same window contract.
+window over the runs gives the same window contract.  Nor is the
+``query_chunk`` of :func:`grid_nearest_neighbor` and
+:func:`grid_radius_pca`: on a grid with a cell table each is one kernel
+launch, with no query loop to bound.
 """
 
 from __future__ import annotations
@@ -288,7 +291,7 @@ def window_radius_dist(grid: HashGrid, queries: torch.Tensor, radius):
     return radius_dist(grid.packed_sorted, queries, start, end, grid.window_cap, radius)
 
 
-def query_chunk(grid: HashGrid, features: int = 8) -> int:
+def window_chunk(grid: HashGrid, features: int = 8) -> int:
     """Queries per window chunk, bounded by ``_CHUNK_ELEMS`` window values."""
     return max(1, _CHUNK_ELEMS // (grid.window_cap * features))
 
@@ -310,7 +313,7 @@ def window_moments(grid: HashGrid, queries: torch.Tensor, r2: torch.Tensor):
     ``d = p − q``: ``[count, Σdx, Σdy, Σdz, Σdx², Σdy², Σdz², Σdxdy, Σdxdz,
     Σdydz]`` — the plain form of the streaming covariance reduction."""
     out = []
-    step = query_chunk(grid, 4)
+    step = window_chunk(grid, 4)
     for s in range(0, queries.shape[0], step):
         qc = queries[s:s + step]
         rows, valid = window_rows(grid, qc)
@@ -363,12 +366,12 @@ def grid_nearest_neighbor(grid: HashGrid, queries):
     with a cell-start table takes K7's 1-NN mode (``radius_runs.nearest``),
     one launch for every query; a grid without one (too many cells) finds
     its runs by binary search here and keeps the window route: K7 at radius
-    +inf and the row minimum, in chunks of ``query_chunk`` queries."""
+    +inf and the row minimum, in chunks of ``window_chunk`` queries."""
     queries = as_f32(queries, grid.device)
     if grid.has_table:
         return nearest(grid, queries)
     dist_out, idx_out = [], []
-    step = query_chunk(grid, 4)
+    step = window_chunk(grid, 4)
     for s in range(0, queries.shape[0], step):
         rows, masked = window_radius_dist(grid, queries[s:s + step], float("inf"))
         best, pos = masked.min(dim=1)
@@ -400,17 +403,22 @@ def quantized_kth_radius(kth) -> float:
 
 
 def grid_radius_search(grid: HashGrid, queries, radius, k_max: int,
-                       with_values: bool = False):
+                       query_chunk: int | None = None, with_values: bool = False):
     """The ``k_max`` nearest neighbors within ``radius`` through the grid
     window (same contract as ``neighbors.radius_search``).  With
     ``with_values`` returns ``(Neighborhoods, values (Q, k_max, 3+F))``:
-    the neighbors' ``[points | extras]`` rows, zeros where masked."""
+    the neighbors' ``[points | extras]`` rows, zeros where masked.  The
+    queries go through K7 in chunks of :func:`window_chunk` rows, or of
+    ``query_chunk`` when it is smaller; each query's row is the same under
+    any chunking."""
     check_radius_contract(grid, radius)
     queries = as_f32(queries, grid.device)
     k_eff = min(k_max, grid.window_cap)
     idx_out, dist_out, val_out = [], [], []
     inf = float("inf")
-    step = query_chunk(grid, 4)
+    step = window_chunk(grid, 4)
+    if query_chunk is not None:
+        step = max(1, min(step, int(query_chunk)))
     for s in range(0, queries.shape[0], step):
         rows, masked = window_radius_dist(grid, queries[s:s + step], radius)
         dist, pos = torch.topk(masked, k_eff, dim=1, largest=False, sorted=True)
@@ -431,6 +439,18 @@ def grid_radius_search(grid: HashGrid, queries, radius, k_max: int,
     mask = torch.isfinite(dist)
     nbr = Neighborhoods(torch.where(mask, idx, torch.zeros_like(idx)), dist, mask)
     return (nbr, vals) if with_values else nbr
+
+
+def radius_search_auto(queries, points, radius, k_max: int) -> Neighborhoods:
+    """Radius search by cloud size, one exact contract: brute force below
+    ``AUTO_GRID_MIN_POINTS`` points, else a halo-1 grid of cell ``radius``
+    and :func:`grid_radius_search`.  Runs where the ``points`` tensor is
+    (host arrays: ``cuda``)."""
+    points = as_f32(points, resolve(None, points))
+    queries = as_f32(queries, points.device)
+    if points.shape[0] < AUTO_GRID_MIN_POINTS:
+        return radius_search(queries, points, radius, k_max)
+    return grid_radius_search(build_grid(points, float(radius)), queries, radius, k_max)
 
 
 def radius_search_with_values_auto(queries, points, extras, radius, k_max: int,

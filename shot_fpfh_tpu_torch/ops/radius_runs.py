@@ -168,12 +168,12 @@ def nearest_plain(grid, queries):
     """PyTorch twin of the 1-NN kernel: ``(dist (Q,), idx (Q,))``, each
     query's z-column window (K7's twin at radius +inf), its first minimal
     slot (+inf and slot 0 where no distance is finite) and that slot's row
-    in ``grid.orig_idx``; in chunks of ``query_chunk(grid, 4)`` queries,
+    in ``grid.orig_idx``; in chunks of ``window_chunk(grid, 4)`` queries,
     which bound the window's temporaries."""
-    from .grid_hash import _zcolumn_runs, query_chunk   # grid_hash imports this module
+    from .grid_hash import _zcolumn_runs, window_chunk   # grid_hash imports this module
 
     dist_out, idx_out = [], []
-    step = query_chunk(grid, 4)
+    step = window_chunk(grid, 4)
     for s in range(0, queries.shape[0], step):
         qc = queries[s:s + step]
         start, end = _zcolumn_runs(grid, qc)

@@ -190,9 +190,12 @@ def row_block(n: int, mesh: Mesh) -> tuple[int, int]:
     return mesh.rank * per, (mesh.rank + 1) * per
 
 
-def shard_rows(x, mesh: Mesh) -> torch.Tensor:
+def shard_rows(x, mesh: Mesh, axis: str = POINTS_AXIS) -> torch.Tensor:
     """The rank's block of the rows of ``x`` padded with zeros to a multiple
-    of the mesh size, on the rank's device."""
+    of the mesh size, on the rank's device.  ``axis`` must name the mesh's
+    one axis (JAX's ``NamedSharding`` raises for an unknown axis name)."""
+    if axis != mesh.axis:
+        raise ValueError(f"mesh has no axis {axis!r}; its axis is {mesh.axis!r}")
     return local_rows(replicate(x, mesh), mesh)
 
 

@@ -190,15 +190,17 @@ def sharded_multiscale_match(scan_ms, ref_ms, mesh: Mesh, *,
 # ----------------------------------------------------------------- RANSAC ---
 def sharded_ransac(scan_matched, ref_matched, generator: torch.Generator | None,
                    mesh: Mesh, *, draws=None, n_draws: int = 10000, draw_size: int = 4,
-                   distance_threshold: float = 1.0):
+                   distance_threshold: float = 1.0, draw_chunk: int | None = None):
     """``registration.ransac.ransac_on_matches`` with the inlier counting
     sharded over the matches (JAX ``sharded.py:725-800``): the draws are the
     same on every rank (``sample_draws`` from the CPU ``generator``, or
     ``draws``), each chunk's transforms are solved on every rank alike, and
     each transform's inliers among the rank's matches are summed with
     ``all_reduce`` (whole numbers, exact).  The first draw with the most
-    inliers wins (strictly more to replace an earlier chunk's).  Returns
-    ``(inlier ratio, transform)``."""
+    inliers wins (strictly more to replace an earlier chunk's), so the
+    result does not depend on ``draw_chunk``, the draws solved at a time
+    (default: the one-device search's).  Returns ``(inlier ratio,
+    transform)``."""
     from ..registration.ransac import _search, sample_draws
 
     dev = mesh.device
@@ -210,7 +212,7 @@ def sharded_ransac(scan_matched, ref_matched, generator: torch.Generator | None,
         draws = torch.as_tensor(np.array(draws))   # a copy: host arrays may be read-only
     draws = draws.long()
     agree("the RANSAC draws", mesh, m, *draws.shape, int(draws.sum()))
-    return _search(scan, ref, draws.to(dev), distance_threshold, mesh)
+    return _search(scan, ref, draws.to(dev), distance_threshold, mesh, draw_chunk)
 
 
 # -------------------------------------------------------------------- ICP ---

@@ -188,12 +188,14 @@ class RegistrationPipeline:
         subsample_support: bool = True, normalize: bool = True,
         share_local_rfs: bool = True, min_neighborhood_size: int = 100,
         force_recompute: bool = False,
+        **_compat,
     ) -> None:
         """Stage dispatcher (reference pipeline.py:271-349; both spellings of
         multiscale are accepted): bi-scale SHOT takes its frames at
         ``radius`` and its bins at ``radius·phi``; multiscale SHOT runs
         ``n_scales`` scales at ``radius·phi^s``, each on a support
-        subsampled at its radius / ``rho``."""
+        subsampled at its radius / ``rho``.  The reference's other arguments
+        (``n_procs``, the verbosity flags) are accepted and dropped."""
         if descriptor_choice == "shot_multi_scale":
             descriptor_choice = "shot_multiscale"
         if descriptor_choice not in ("shot_single_scale", "shot_bi_scale", "shot_multiscale",

@@ -29,6 +29,7 @@ import torch
 from .._device import resolve
 from .._fp import sqrt
 from ..ops.match import top2_match
+from ..ops.match import top2_merge, top2_rows  # noqa: F401  (JAX defines them here)
 from ..ops.neighbors import _sq_dists, as_f32
 from ..parallel.mesh import all_gather_rows
 

@@ -63,12 +63,14 @@ def ransac_on_matches(scan_matched, ref_matched, generator: torch.Generator | No
     return _search(scan, ref, draws.to(scan.device).long(), distance_threshold)
 
 
-def _search(scan, ref, draws, distance_threshold: float, mesh=None):
-    """The chunked search over ``draws`` (on the matches' device): each
-    chunk's transforms solved, their inliers counted, the best kept.  With
-    a ``mesh`` every rank solves the same transforms and counts them over
-    its block of the matches, and the counts are summed over the ranks
-    (whole numbers, exact)."""
+def _search(scan, ref, draws, distance_threshold: float, mesh=None,
+            draw_chunk: int | None = None):
+    """The search over ``draws`` (on the matches' device) in chunks of
+    ``draw_chunk`` (default ``_DRAW_CHUNK``): each chunk's transforms
+    solved, their inliers counted, the best kept (the first draw with the
+    most inliers under any chunking).  With a ``mesh`` every rank solves
+    the same transforms and counts them over its block of the matches, and
+    the counts are summed over the ranks (whole numbers, exact)."""
     m = scan.shape[0]
     # a pad row's ref is at infinity: never an inlier
     scan_rows, ref_rows = local_rows(scan, mesh), local_rows(ref, mesh, fill=float("inf"))
@@ -76,8 +78,9 @@ def _search(scan, ref, draws, distance_threshold: float, mesh=None):
     best_count = torch.tensor(-1, device=scan.device)
     best_rot = torch.eye(3, device=scan.device)
     best_t = torch.zeros(3, device=scan.device)
-    for s in range(0, draws.shape[0], _DRAW_CHUNK):
-        idx = draws[s:s + _DRAW_CHUNK]
+    step = _DRAW_CHUNK if draw_chunk is None else int(draw_chunk)
+    for s in range(0, draws.shape[0], step):
+        idx = draws[s:s + step]
         tf = solve_point_to_point(scan[idx], ref[idx])
         moved = torch.einsum("cij,mj->cmi", tf.rotation, scan_rows) + tf.translation[:, None, :]
         inlier = ((moved - ref_rows[None]) ** 2).sum(-1) <= thr2.to(scan.device)

@@ -320,6 +320,7 @@ def _entry_points():
     from shot_fpfh_tpu_torch.ops.grid_hash import (
         build_grid,
         knn_auto,
+        radius_search_auto,
         radius_search_with_values_auto,
     )
     from shot_fpfh_tpu_torch.pipeline import RegistrationPipeline
@@ -358,6 +359,12 @@ def _entry_points():
         "knn_auto": lambda a: knn_auto(a, a, 4),
         "radius_search_with_values_auto":
             lambda a: radius_search_with_values_auto(a, a, a, 0.5, 8),
+        # the last names of the JAX surface and the given frame neighborhoods
+        "RigidTransform.identity": lambda a: RigidTransform.identity(),
+        "radius_search_auto": lambda a: radius_search_auto(a, a, 0.5, 8),
+        "compute_shot_descriptor(local_rf_neighborhoods)":
+            lambda a: compute_shot_descriptor(a[:4], a, a, 0.5, local_rf_neighborhoods=(
+                neighbors.radius_search(torch.as_tensor(a[:4]), torch.as_tensor(a), 0.5, 8))),
     }
 
 

@@ -1094,6 +1094,27 @@ def test_iterative_keypoints_on_card_equal_cpu(cuda, rng):
         assert len(card) > 0
 
 
+def test_surface_paths_on_card_equal_cpu(cuda, rng):
+    """chip_smoke.py phase 17's two paths on a 30k-point terrain:
+    ``radius_search_auto`` on both sides of the 20k-point switch (sets
+    equal to the CPU's, and on the grid to the brute search's), and
+    ``compute_shot_descriptor(local_rf_neighborhoods=)`` for 1024 keypoints
+    (K7 and K1 launched; frames within 5e-4 of the CPU's but for near-tied
+    sign votes, histograms by the flip rule under the card's frames)."""
+    from chip_smoke import given_frames_check, radius_auto_check
+    from shot_fpfh_tpu_torch.models.normals import compute_normals
+
+    ref = make_terrain(30_000, rng, scale=5.5)
+    for n, radius in ((3_000, 0.9), (30_000, 0.3)):
+        queries = ref[:n][rng.choice(n, 1024, replace=False)]
+        radius_auto_check(ref[:n], queries, radius, cuda, f"radius_search_auto {n}")
+    pts = torch.tensor(ref, device=cuda)
+    normals = compute_normals(pts, pts, k=30, device=cuda)
+    kp = pts[torch.tensor(rng.choice(len(ref), 1024, replace=False), device=cuda)]
+    r = given_frames_check(pts, normals, kp, 0.9, "given frame neighborhoods")
+    assert r["launches"]["shot_binning_histogram"] >= 1 and r["launches"]["radius_dist"] >= 1
+
+
 def test_pca_features_on_card_match_cpu(cuda, rng):
     """Radius normals, sphericity, moments and the 21 feature columns on the
     grid routes (K3, K8) against the CPU: within 1e-6, the angle columns

@@ -32,6 +32,7 @@ import torch
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 sys.path.insert(0, str(Path(__file__).resolve().parent))
+from test_torch_api_walk import EXCLUDED  # noqa: E402
 from test_torch_shot import assert_flip_rule  # noqa: E402
 from test_torch_slice import _assert_close, _recovered, _rotation_about  # noqa: E402
 
@@ -552,18 +553,6 @@ def test_profiler_trace_holds_the_annotation(tmp_path):
     assert path.parent == tmp_path
     events = json.loads(path.read_text())["traceEvents"]
     assert any(e.get("name") == "library_test_span" for e in events)
-
-
-# JAX public names the port leaves out, with the reason (ROADMAP.md, "Do not
-# port")
-EXCLUDED = {
-    "ops": {"set_window_group": "the grouped feature-planar gather is a TPU workaround",
-            "window_group_default": "the grouped feature-planar gather is a TPU workaround",
-            "fused_kernels_enabled": "picks Pallas or XLA on a TPU; on the card the kernel "
-                                     "is the path and its plain twin the tests' reference",
-            "set_fused_kernels": "picks Pallas or XLA on a TPU; on the card the kernel "
-                                 "is the path and its plain twin the tests' reference"},
-}
 
 
 @pytest.mark.parametrize("module", ["", ".core", ".ops", ".models", ".io", ".registration",

@@ -1,0 +1,8 @@
+"""Mean milliseconds of the pipeline's ``icp`` stage a pair (its
+``StageMetrics`` record, which synchronises the card at both ends)."""
+
+from . import stage_ms
+
+
+def read(run):
+    return stage_ms(run, "icp")

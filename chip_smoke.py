@@ -2180,8 +2180,9 @@ def phase_fused_paths(pair: SmokePair) -> tuple[dict, dict]:
         if AGG in must:
             agg_launches(f"fused {label}", r["launches"])
             agg_launches(f"staged {label}", staged["launches"])
-        check([st["stage"] for st in r["stages"]] == ["fused"],
-              f"fused {label}: stages {[st['stage'] for st in r['stages']]}")
+        stages = [st["stage"] for st in r["stages"]]
+        check(stages == ["normals[knn]", "normals[knn]", "fused"],
+              f"fused {label}: stages {stages}")
         print(_describe(f"phase 12 fused {label}", r)
               + f"; staged on the same keypoints: wall {staged['wall']:.3f} s, stages "
               + ", ".join(f"{st['stage']} {st['seconds']:.3f} s" for st in staged["stages"])

@@ -54,7 +54,7 @@ from .parallel import make_mesh
 from .parallel.mesh import launch_size
 from .pipeline import RegistrationPipeline
 from .utils.debug_nans import NanCheck
-from .utils.perf import checkpoint
+from .utils.perf import StageMetrics, checkpoint
 
 logger = logging.getLogger(__name__)
 
@@ -176,7 +176,7 @@ def _file_id(path: str):
         return [path, -1, -1]
 
 
-def _run_staged(args, pipeline, config, exact_transform, timer):
+def _run_staged(args, pipeline, config, exact_transform):
     """Keypoints, descriptors, matching, RANSAC and ICP as separate stages;
     returns the RANSAC and ICP transforms and the ICP RMS."""
     compute_cfg, kp_cfg, desc_cfg = (config["compute"], config["keypoint_selection"],
@@ -199,7 +199,6 @@ def _run_staged(args, pipeline, config, exact_transform, timer):
     pipeline.select_keypoints(kp_cfg.selection_algorithm,
                               neighborhood_size=kp_cfg.neighborhood_size,
                               min_n_neighbors=kp_cfg.min_n_neighbors)
-    timer("Keypoint selection")
 
     logger.info(desc_cfg.help_message())
     pipeline.compute_descriptors(
@@ -208,7 +207,6 @@ def _run_staged(args, pipeline, config, exact_transform, timer):
         n_scales=desc_cfg.n_scales, subsample_support=desc_cfg.subsample_support,
         normalize=desc_cfg.normalize, share_local_rfs=desc_cfg.share_local_rfs,
         min_neighborhood_size=desc_cfg.min_neighborhood_size)
-    timer("Descriptors")
     if compute_cfg.state_cache and not state_resumed and _writes(pipeline.mesh):
         pipeline.save_state(compute_cfg.state_cache, config_key=state_key)
         logger.info("Saved intermediate state to %s", compute_cfg.state_cache)
@@ -217,7 +215,6 @@ def _run_staged(args, pipeline, config, exact_transform, timer):
     pipeline.find_descriptors_matches(match_cfg.matching_algorithm,
                                       reject_threshold=match_cfg.reject_threshold,
                                       threshold_multiplier=match_cfg.threshold_multiplier)
-    timer("Matching")
     if exact_transform is not None:
         pipeline.analyze_matches(match_cfg.matching_algorithm, exact_transform)
 
@@ -228,7 +225,6 @@ def _run_staged(args, pipeline, config, exact_transform, timer):
         exact_transformation=exact_transform)
     logger.info("RANSAC inlier ratio: %.3f", inlier_ratio)
     logger.info("RANSAC transform:\n%r", transform_ransac)
-    timer("RANSAC")
 
     logger.info(icp_cfg.help_message())
     transform_icp, rms, converged = pipeline.run_icp(
@@ -237,7 +233,6 @@ def _run_staged(args, pipeline, config, exact_transform, timer):
         rms_threshold=icp_cfg.rms_threshold)
     logger.info("ICP RMS: %.4f (converged: %s)", rms, converged)
     logger.info("ICP transform:\n%r", transform_icp)
-    timer("ICP")
     return transform_ransac, transform_icp, rms
 
 
@@ -283,9 +278,9 @@ def _build_mesh(compute_cfg, device: str):
     return mesh
 
 
-def _normals(query_points, cloud_points, *, device, mesh, **kwargs):
+def _normals(query_points, cloud_points, *, device, mesh, metrics, **kwargs):
     return compute_normals(query_points, cloud_points, mesh=mesh, device=device,
-                           **kwargs).cpu().numpy()
+                           metrics=metrics, **kwargs).cpu().numpy()
 
 
 def _register(args, config) -> int:
@@ -295,8 +290,9 @@ def _register(args, config) -> int:
     mesh = _build_mesh(compute_cfg, args.device)
     device = mesh.device if mesh is not None else torch.device(args.device)
     timer = checkpoint()
+    metrics = StageMetrics()
 
-    normals_callback = functools.partial(_normals, device=device, mesh=mesh)
+    normals_callback = functools.partial(_normals, device=device, mesh=mesh, metrics=metrics)
     scan, scan_normals = get_data(args.scan_file_path, k=compute_cfg.normals_k,
                                   normals_computation_callback=normals_callback)
     ref, ref_normals = get_data(args.ref_file_path, k=compute_cfg.normals_k,
@@ -314,7 +310,7 @@ def _register(args, config) -> int:
     pipeline = RegistrationPipeline(
         scan=scan, scan_normals=scan_normals, ref=ref, ref_normals=ref_normals,
         k_max_descriptor=compute_cfg.k_max_descriptor, k_max_fpfh=compute_cfg.k_max_fpfh,
-        device=device, mesh=mesh)
+        metrics=metrics, device=device, mesh=mesh)
     kp_cfg, desc_cfg = config["keypoint_selection"], config["descriptor"]
     match_cfg, ransac_cfg, icp_cfg = config["matching"], config["ransac"], config["icp"]
 
@@ -350,7 +346,7 @@ def _register(args, config) -> int:
         timer("Fused registration")
     else:
         transform_ransac, transform_icp, rms = _run_staged(args, pipeline, config,
-                                                           exact_transform, timer)
+                                                           exact_transform)
 
     eval_cfg = config["registration_evaluation"]
     overlap, kp_inliers = pipeline.compute_metrics_post_icp(

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.perf import blocking
 from .transform import RigidTransform, euler_xyz_to_matrix
 
 
@@ -20,7 +21,8 @@ def _kabsch(cov: torch.Tensor, scan_bary: torch.Tensor,
             ref_bary: torch.Tensor) -> RigidTransform:
     """The rotation of the ``[..., 3, 3]`` cross-covariance by SVD, with
     the reflection fix, and the translation between the barycenters."""
-    u, _, vt = torch.linalg.svd(cov)
+    with blocking("kabsch.svd", waits=2):
+        u, _, vt = torch.linalg.svd(cov)
     v = vt.transpose(-1, -2)
     ut = u.transpose(-1, -2)
     rot = v @ ut

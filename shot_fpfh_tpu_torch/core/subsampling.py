@@ -16,6 +16,7 @@ import torch
 
 from .._device import resolve
 from .._fp import div, sqnorm3, sqrt
+from ..utils.perf import blocking
 
 
 def _as_points(points, device=None) -> torch.Tensor:
@@ -58,7 +59,8 @@ def _voxel_segments(points: torch.Tensor, voxel_size):
     new_seg[1:] = (sorted_cell[1:] != sorted_cell[:-1]).any(dim=1)
     seg = torch.cumsum(new_seg.to(torch.int64), 0) - 1
     sorted_pts = points[order]
-    starts = torch.nonzero(new_seg)[:, 0]
+    with blocking("voxel.segments"):
+        starts = torch.nonzero(new_seg)[:, 0]
     lengths = torch.diff(starts, append=starts.new_full((1,), n))
     counts = torch.zeros(n, dtype=torch.float32, device=points.device)
     counts[:starts.shape[0]] = lengths.to(torch.float32)
@@ -78,7 +80,8 @@ def _representatives(seg: torch.Tensor, d: torch.Tensor):
     seg2 = seg[pos]
     first = torch.ones_like(seg2, dtype=torch.bool)
     first[1:] = seg2[1:] != seg2[:-1]
-    return pos[first]
+    with blocking("voxel.representatives"):
+        return pos[first]
 
 
 def grid_subsample_masked(points, voxel_size, device=None):
@@ -98,7 +101,9 @@ def grid_subsample(points, voxel_size, device=None) -> np.ndarray:
     ``grid_subsampling``)."""
     pts = _as_points(points, device)
     order, seg, _, d = _voxel_segments(pts, voxel_size)
-    return torch.sort(order[_representatives(seg, d)]).values.cpu().numpy()
+    chosen = torch.sort(order[_representatives(seg, d)]).values
+    with blocking("voxel.indices"):
+        return chosen.cpu().numpy()
 
 
 def voxel_counts_for_representatives(points, voxel_size, device=None):

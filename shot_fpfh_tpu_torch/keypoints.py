@@ -27,8 +27,35 @@ from ._fp import sqnorm3
 from .core.subsampling import _as_points, grid_subsample, voxel_counts_for_representatives
 from .ops import grid_hash
 from .ops.neighbors import radius_count
+from .utils.perf import blocking
 
 logger = logging.getLogger(__name__)
+
+
+def _all_visited(visited: torch.Tensor) -> bool:
+    with blocking("keypoints.visited"):
+        return bool(visited.all())
+
+
+def _host_indices(mask: torch.Tensor) -> np.ndarray:
+    """Host indices of the True entries of a device mask."""
+    with blocking("keypoints.nonzero"):
+        idx = torch.nonzero(mask)[:, 0]
+    with blocking("keypoints.indices"):
+        return idx.cpu().numpy()
+
+
+def _kept(idx: torch.Tensor, keep: torch.Tensor) -> np.ndarray:
+    """The entries of ``idx`` that ``keep`` flags, on the host."""
+    with blocking("keypoints.kept"):
+        kept = idx[keep]
+    with blocking("keypoints.indices"):
+        return kept.cpu().numpy()
+
+
+def _densest(nbr) -> int:
+    with blocking("keypoints.densest"):
+        return int(nbr.count.max())
 
 
 def _iterative_masked(points: torch.Tensor, radius) -> torch.Tensor:
@@ -37,7 +64,7 @@ def _iterative_masked(points: torch.Tensor, radius) -> torch.Tensor:
     r2 = torch.tensor(radius, dtype=torch.float32, device=points.device) ** 2
     visited = torch.zeros(n, dtype=torch.bool, device=points.device)
     selected = torch.zeros_like(visited)
-    while not bool(visited.all()):
+    while not _all_visited(visited):
         i = torch.argmax((~visited).to(torch.uint8))     # the first unvisited point
         selected[i] = True
         diff = points - points[i]
@@ -57,7 +84,7 @@ def _iterative_rounds(idx: torch.Tensor, mask: torch.Tensor) -> tuple[torch.Tens
     visited = torch.zeros(n, dtype=torch.bool, device=idx.device)
     selected = torch.zeros_like(visited)
     rounds = 0
-    while rounds < n and not bool(visited.all()):
+    while rounds < n and not _all_visited(visited):
         nbr_unvis = torch.where(mask & ~visited[idx], idx, n)
         new_sel = ~visited & (nbr_unvis.min(dim=1).values >= own)
         covered = (mask & new_sel[idx]).any(dim=1)
@@ -75,23 +102,25 @@ def select_keypoints_iteratively(points, radius, k_max: int = 128, device=None) 
     warning says when even that is not enough."""
     pts = _as_points(points, resolve(device, points))
     if pts.shape[0] < grid_hash.AUTO_GRID_MIN_POINTS:
-        return torch.nonzero(_iterative_masked(pts, radius))[:, 0].cpu().numpy()
+        return _host_indices(_iterative_masked(pts, radius))
     grid = grid_hash.build_grid(pts, float(radius) / 2, halo=2)
     k_cap = k_max
     nbr = grid_hash.grid_radius_search(grid, pts, radius, k_cap)
-    while int(nbr.count.max()) >= k_cap and k_cap < 8 * k_max:
+    while _densest(nbr) >= k_cap and k_cap < 8 * k_max:
         k_cap *= 2
         nbr = grid_hash.grid_radius_search(grid, pts, radius, k_cap)
-    if int(nbr.count.max()) >= k_cap:
+    if _densest(nbr) >= k_cap:
         logger.warning(
             "select_keypoints_iteratively: radius balls exceed the %d-neighbor "
             "cap even after auto-raising from %d; the greedy cover may be "
             "slightly denser than the reference's exact semantics "
             "(raise k_max or shrink the radius)", k_cap, k_max)
     selected, rounds = _iterative_rounds(nbr.idx, nbr.mask)
+    with blocking("keypoints.count"):
+        n_selected = int(selected.sum())
     logger.info("select_keypoints_iteratively: %d keypoints of %d points in %d rounds "
-                "(neighbor cap %d)", int(selected.sum()), pts.shape[0], rounds, k_cap)
-    return torch.nonzero(selected)[:, 0].cpu().numpy()
+                "(neighbor cap %d)", n_selected, pts.shape[0], rounds, k_cap)
+    return _host_indices(selected)
 
 
 def select_keypoints_subsampling(points, voxel_size, device=None) -> np.ndarray:
@@ -137,8 +166,11 @@ def select_keypoints_with_density_threshold(
     keypoint_selection.py:65-122); returns host indices."""
     pts = _as_points(points, resolve(device, points))
     idx, mask, counts = voxel_counts_for_representatives(pts, voxel_size)
-    idx, counts = idx[mask], counts[mask]
+    with blocking("keypoints.representatives"):
+        idx = idx[mask]
+    with blocking("keypoints.representatives"):
+        counts = counts[mask]
     if density_threshold_radius is None or density_threshold_radius == voxel_size:
-        return idx[counts > density_threshold_value].cpu().numpy()
+        return _kept(idx, counts > density_threshold_value)
     ball = radius_count(pts[idx], pts, density_threshold_radius)
-    return idx[ball > density_threshold_value].cpu().numpy()
+    return _kept(idx, ball > density_threshold_value)

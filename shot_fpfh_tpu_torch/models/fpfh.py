@@ -49,6 +49,7 @@ from ..ops.radius_runs import fpfh_aggregate
 from ..ops.shot_dma import dma_kernel_enabled, spfh_block_dma
 from ..ops.spfh_fused import spfh_from_angles, spfh_histogram
 from ..parallel.mesh import gather_rows, local_rows
+from ..utils.perf import span, uploading
 
 # queries per streamed SPFH chunk of compute_spfh's grid route: bounds the
 # (chunk, k_max) Darboux intermediates
@@ -122,10 +123,12 @@ def _spfh_window_rows(grid: HashGrid, qc, qn, radius, n_bins: int, decorrelated:
     their grid windows (K4), in query chunks, ``(C, D)``."""
     # contiguous once, so each chunk goes to the kernels without a copy
     qc, qn = qc.contiguous(), qn.contiguous()
-    return torch.cat([
-        _spfh_window_block(grid, qc[s:s + chunk], qn[s:s + chunk], radius, n_bins,
-                           decorrelated)
-        for s in range(0, qc.shape[0], chunk)])
+    parts = []
+    for s in range(0, qc.shape[0], chunk):
+        with span("spfh.chunk"):
+            parts.append(_spfh_window_block(grid, qc[s:s + chunk], qn[s:s + chunk], radius,
+                                            n_bins, decorrelated))
+    return torch.cat(parts)
 
 
 def _spfh_window_sorted(grid: HashGrid, radius, n_bins: int, decorrelated: bool,
@@ -138,7 +141,8 @@ def _spfh_window_sorted(grid: HashGrid, radius, n_bins: int, decorrelated: bool,
 def _fpfh_window_aggregate(grid: HashGrid, spfh_sorted, kp_sorted_idx, radius):
     """FPFH(p) = SPFH(p) + (Σ_{j, d>0} SPFH(j)/d_j) / |N(p)| over each
     keypoint's grid window: K7's aggregation mode (``ops.radius_runs``)."""
-    return fpfh_aggregate(grid, spfh_sorted, kp_sorted_idx, radius)
+    with span("fpfh.aggregate"):
+        return fpfh_aggregate(grid, spfh_sorted, kp_sorted_idx, radius)
 
 
 def _sorted_rows(grid: HashGrid, idx: torch.Tensor) -> torch.Tensor:
@@ -175,7 +179,9 @@ def compute_fpfh_descriptor(keypoint_indices, cloud_points, normals, radius,
                             n_bins=n_bins, k_max=k_max, decorrelated=decorrelated)
     cloud = as_f32(cloud_points, resolve(device, cloud_points))
     nrm = as_f32(normals, cloud.device)
-    kp = torch.as_tensor(keypoint_indices).to(device=cloud.device, dtype=torch.int64)
+    kp = torch.as_tensor(keypoint_indices)
+    with uploading(kp, cloud.device):
+        kp = kp.to(device=cloud.device, dtype=torch.int64)
     return _fpfh(cloud, nrm, kp.reshape(-1), radius, n_bins, decorrelated, k_max)
 
 
@@ -186,7 +192,8 @@ def _fpfh(cloud, nrm, kp, radius, n_bins: int, decorrelated: bool, k_max: int, m
     gathered after."""
     grid = None
     if cloud.shape[0] >= grid_hash.AUTO_GRID_MIN_POINTS:
-        grid = build_grid(cloud, float(radius) / 2, extras=nrm, halo=2)
+        with span("spfh.grid"):
+            grid = build_grid(cloud, float(radius) / 2, extras=nrm, halo=2)
         kp = _sorted_rows(grid, kp)
     out = _fpfh_rows(cloud, nrm, local_rows(kp, mesh), radius, n_bins, decorrelated, k_max,
                      mesh, grid)

@@ -41,6 +41,7 @@ from ..ops.grid_hash import (
 from ..ops.neighbors import Neighborhoods, as_f32, knn, radius_search
 from ..ops.radius_pca import radius_pca
 from ..parallel.mesh import gather_rows, local_rows
+from ..utils.perf import StageMetrics, blocking, span
 
 logger = logging.getLogger(__name__)
 
@@ -102,7 +103,9 @@ def _streaming_grid(c, k, sample_size: int = 512):
     stride = max(1, n // sample_size)
     sample = c[::stride][:sample_size]
     kth = kth_distance_bound(sample, c, k)
-    return build_grid(c, quantized_kth_radius(kth.cpu().numpy())), sample, kth
+    with blocking("normals.kth"):
+        kth_host = kth.cpu().numpy()
+    return build_grid(c, quantized_kth_radius(kth_host)), sample, kth
 
 
 def _streaming_pass(grid, sample, kth, q, k, pre):
@@ -117,7 +120,8 @@ def _knn_net(q, c, k, pre, normals, cnt):
     """The miss net: queries whose radius held fewer than ``k`` neighbors
     re-solved from their exact k-NN (in ``normals``, which it returns)."""
     n = c.shape[0]
-    miss = torch.nonzero(cnt < min(k, n))[:, 0]
+    with blocking("normals.misses"):
+        miss = torch.nonzero(cnt < min(k, n))[:, 0]
     if miss.numel():
         if miss.numel() > min(_NET_BUCKET, n):
             logger.warning(
@@ -151,7 +155,8 @@ def _radius_cov(q, c, radius, k_max: int):
 
 def compute_normals(query_points, cloud_points, *, k: int | None = None,
                     radius: float | None = None, pre_computed_normals=None,
-                    k_max: int = 64, mesh=None, device=None) -> torch.Tensor:
+                    k_max: int = 64, mesh=None, device=None,
+                    metrics: StageMetrics | None = None) -> torch.Tensor:
     """PCA normals of ``query_points`` from ``cloud_points`` neighborhoods
     (the ``k`` nearest, or every point within ``radius``: capped at the
     ``k_max`` nearest below ``AUTO_GRID_MIN_POINTS`` cloud points),
@@ -159,7 +164,9 @@ def compute_normals(query_points, cloud_points, *, k: int | None = None,
     ``(Q, 3)`` float32 tensor on ``device`` (default: the cloud tensor's
     device, ``cuda`` for host arrays).  With a ``mesh`` of more than one
     rank the queries shard over it (``parallel.sharded.sharded_normals``)
-    and the result is on the rank's device."""
+    and the result is on the rank's device.  On one device the call is a
+    ``StageMetrics`` stage, ``normals[knn]`` or ``normals[radius]``
+    (synchronized at both ends), recorded into ``metrics`` when given."""
     if k is None and radius is None:
         raise ValueError("Provide k or radius.")
     if mesh is not None and mesh.devices.size > 1:
@@ -167,10 +174,14 @@ def compute_normals(query_points, cloud_points, *, k: int | None = None,
 
         return sharded_normals(query_points, cloud_points, mesh, k=k, radius=radius,
                                pre_computed_normals=pre_computed_normals, k_max=k_max)
+    metrics = StageMetrics() if metrics is None else metrics
+    metrics.start("normals[knn]" if k is not None else "normals[radius]")
     q, c = _clouds(query_points, cloud_points, device)
     pre = (None if pre_computed_normals is None
            else as_f32(pre_computed_normals, c.device))
-    return _normals(q, c, k, radius, pre, k_max)
+    normals = _normals(q, c, k, radius, pre, k_max)
+    metrics.stop(queries=q.shape[0])
+    return normals
 
 
 def _normals(q_all, c, k, radius, pre_all, k_max: int, mesh=None, sample_size: int = 512):
@@ -191,10 +202,13 @@ def _normals(q_all, c, k, radius, pre_all, k_max: int, mesh=None, sample_size: i
         return gather_rows(_flip_to(v[..., :, 0], pre), n_q, mesh)
     if c.shape[0] < AUTO_GRID_MIN_POINTS:
         return gather_rows(_normals_knn(q, c, k, pre), n_q, mesh)
-    grid, sample, kth = _streaming_grid(c, k, sample_size)
-    normals, cnt = _streaming_pass(grid, sample, kth, q, k, pre)
-    return _knn_net(q_all, c, k, pre_all, gather_rows(normals, n_q, mesh),
-                    gather_rows(cnt, n_q, mesh))
+    with span("normals.grid"):
+        grid, sample, kth = _streaming_grid(c, k, sample_size)
+    with span("normals.pass"):
+        normals, cnt = _streaming_pass(grid, sample, kth, q, k, pre)
+    with span("normals.net"):
+        return _knn_net(q_all, c, k, pre_all, gather_rows(normals, n_q, mesh),
+                        gather_rows(cnt, n_q, mesh))
 
 
 def compute_sphericity(query_points, cloud_points, radius, k_max: int = 64,

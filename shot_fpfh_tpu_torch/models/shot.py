@@ -58,6 +58,7 @@ from ..ops.shot_dma import dma_kernel_enabled, shot_descriptor_dma
 from ..ops.shot_fused import local_frames as _local_rfs_ff
 from ..ops.shot_fused import binning_violations as _binning_violations  # noqa: F401
 from ..ops.shot_fused import shot_binning_histogram, shot_finalize, soft_histogram
+from ..utils.perf import blocking, span, uploading
 
 logger = logging.getLogger(__name__)
 
@@ -184,19 +185,21 @@ def _shot_window_chunked(grid, kp, local_rfs, radius, normalize,
     step = min(4096, window_chunk(grid, 8))
     inf = float("inf")
     for s in range(0, kp.shape[0], step):
-        qc = kp[s:s + step]
-        vals, d, valid, _ = window_distances(grid, qc, with_rows=False)
-        rf_dist_inf = None
-        if local_rfs is None and rf_radius is not None:
-            rf_dist_inf = torch.where(valid & (d <= rf_radius), d, torch.full_like(d, inf))
-        dist_inf = torch.where(valid & (d <= radius), d, torch.full_like(d, inf))
-        desc, rfs = shot_from_window_ff(
-            qc, vals, dist_inf, radius, normalize=normalize,
-            min_neighborhood_size=min_neighborhood_size,
-            local_rfs=None if local_rfs is None else local_rfs[s:s + step],
-            rf_dist_inf=rf_dist_inf, rf_radius=rf_radius if rf_dist_inf is not None else None)
-        descs.append(desc)
-        frames.append(rfs)
+        with span("shot.chunk"):
+            qc = kp[s:s + step]
+            vals, d, valid, _ = window_distances(grid, qc, with_rows=False)
+            rf_dist_inf = None
+            if local_rfs is None and rf_radius is not None:
+                rf_dist_inf = torch.where(valid & (d <= rf_radius), d, torch.full_like(d, inf))
+            dist_inf = torch.where(valid & (d <= radius), d, torch.full_like(d, inf))
+            desc, rfs = shot_from_window_ff(
+                qc, vals, dist_inf, radius, normalize=normalize,
+                min_neighborhood_size=min_neighborhood_size,
+                local_rfs=None if local_rfs is None else local_rfs[s:s + step],
+                rf_dist_inf=rf_dist_inf,
+                rf_radius=rf_radius if rf_dist_inf is not None else None)
+            descs.append(desc)
+            frames.append(rfs)
     return torch.cat(descs), torch.cat(frames)
 
 
@@ -215,7 +218,8 @@ def _shot_routed(kp, sup, nrm, radius, *, k_max: int, normalize: bool,
         use_grid = sup.shape[0] >= grid_hash.AUTO_GRID_MIN_POINTS
     if use_grid:
         max_r = float(radius) if rf_radius is None else float(max(radius, rf_radius))
-        grid = build_grid(sup, max_r / 2, extras=nrm, halo=2)
+        with span("shot.grid"):
+            grid = build_grid(sup, max_r / 2, extras=nrm, halo=2)
         return _shot_window_chunked(grid, kp, local_rfs, radius, normalize,
                                     min_neighborhood_size, rf_radius=rf_radius)
     if rf_radius is not None:
@@ -294,22 +298,28 @@ class ShotComputer:
         return self.mesh is not None and self.mesh.devices.size > 1
 
     def _support(self, point_cloud, normals, voxel_size):
-        pts = as_f32(point_cloud, resolve(self.device, point_cloud))
-        nrm = as_f32(normals, pts.device)
-        if voxel_size is None:
-            return pts, nrm
-        sel = torch.as_tensor(grid_subsample(pts, voxel_size), device=pts.device)
-        return pts[sel], nrm[sel]
+        with span("shot.support"):
+            pts = as_f32(point_cloud, resolve(self.device, point_cloud))
+            nrm = as_f32(normals, pts.device)
+            if voxel_size is None:
+                return pts, nrm
+            sel = grid_subsample(pts, voxel_size)
+            with uploading(sel, pts.device):
+                sel = torch.as_tensor(sel, device=pts.device)
+            return pts[sel], nrm[sel]
 
     def _pad(self, keypoints):
-        kp = np.asarray(keypoints.cpu() if isinstance(keypoints, torch.Tensor)
-                        else keypoints, np.float32)
-        m = max(self.pad_queries_to, 1)
-        padded = ((len(kp) + m - 1) // m) * m
-        if padded == len(kp):
-            return kp, len(kp)
-        far = np.full((padded - len(kp), 3), _FAR, np.float32)
-        return np.concatenate([kp, far]), len(kp)
+        with span("shot.pad"):
+            if isinstance(keypoints, torch.Tensor) and keypoints.is_cuda:
+                with blocking("shot.keypoints"):
+                    keypoints = keypoints.cpu()
+            kp = np.asarray(keypoints, np.float32)
+            m = max(self.pad_queries_to, 1)
+            padded = ((len(kp) + m - 1) // m) * m
+            if padded == len(kp):
+                return kp, len(kp)
+            far = np.full((padded - len(kp), 3), _FAR, np.float32)
+            return np.concatenate([kp, far]), len(kp)
 
     def _shot(self, kp, sup, nrm, radius, local_rfs=None, rf_radius=None):
         """``(descriptors, frames)`` of the keypoints: on one device, or

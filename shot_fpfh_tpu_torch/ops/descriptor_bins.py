@@ -21,6 +21,7 @@ from typing import NamedTuple
 import torch
 
 from .._fp import atan2
+from ..utils.perf import uploading
 
 N_COS = 11   # cosine (normal-angle) bins
 N_AZ = 8     # azimuth octants
@@ -113,7 +114,8 @@ def shot_soft_bins(lx, ly, lz, rho, theta, phi, cosine, radius) -> ShotBins:
     """Quadrilinear soft binning of neighbors in local-frame coordinates
     (weights unmasked: validity stays with the caller).  ``radius`` is taken
     as a float32 scalar, like the reference's traced radius."""
-    r = torch.as_tensor(radius, dtype=torch.float32, device=lx.device)
+    with uploading(radius, lx.device):
+        r = torch.as_tensor(radius, dtype=torch.float32, device=lx.device)
     cos_pos = (cosine + 1.0) * (N_COS / 2.0) - 0.5
     cos_bin = torch.round(cos_pos).to(torch.int32)   # round-half-even
     az_bin = azimuth_bin(lx, ly)

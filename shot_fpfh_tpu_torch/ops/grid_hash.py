@@ -43,6 +43,7 @@ import torch.nn.functional as F
 
 from .._device import resolve
 from .._fp import div, sqnorm3, sqrt
+from ..utils.perf import blocking
 from .neighbors import Neighborhoods, _chunk, _sq_dists, as_f32, knn, radius_search
 from .radius_runs import fetch_windows, nearest, radius_dist, window_slots
 
@@ -99,8 +100,10 @@ def _box_max(counts: torch.Tensor, halo: int) -> tuple[int, int]:
         acc = sum(p.narrow(ax, s, box.shape[ax]) for s in range(w))
         box = acc
         if ax == 2:
-            col = int(box.max())
-    return int(box.max()), col
+            with blocking("grid.col_cap"):
+                col = int(box.max())
+    with blocking("grid.window_cap"):
+        return int(box.max()), col
 
 
 def _round_up(v: int, m: int) -> int:
@@ -122,7 +125,8 @@ def _group_cap(cell_starts: torch.Tensor, dims, halo: int, group: int = 8) -> in
     p = F.pad(g, (0, 0, halo, halo, halo, halo))
     w = 2 * halo + 1
     acc = sum(p[dx:dx + d0, dy:dy + d1, :] for dx in range(w) for dy in range(w))
-    return int(acc.max())
+    with blocking("grid.group_cap"):
+        return int(acc.max())
 
 
 def _xyrow_caps(cell_starts: torch.Tensor, dims, halo: int, group: int = 8):
@@ -142,7 +146,10 @@ def _xyrow_caps(cell_starts: torch.Tensor, dims, halo: int, group: int = 8):
     g_p = F.pad(torch.where(ln > 0, (start % group + ln + group - 1) // group, 0),
                 (0, 0, halo, halo))
     g_acc = sum(g_p[dx:dx + d0] for dx in range(2 * halo + 1))
-    return int(g_acc.max()), int(ln.max())
+    with blocking("grid.xyrow_groups"):
+        groups = int(g_acc.max())
+    with blocking("grid.xyrow_run"):
+        return groups, int(ln.max())
 
 
 def _xyrow_mode(cell_starts: torch.Tensor, dims, halo: int) -> tuple[bool, int]:
@@ -172,11 +179,14 @@ def build_grid(points, cell_size: float, extras=None, halo: int = 1,
     origin = pts.min(dim=0).values
     cell = torch.floor(div(pts - origin, cell_size)).to(torch.int64)
     dims_t = cell.max(dim=0).values + 1
-    dims = tuple(int(v) for v in dims_t.tolist())
+    with blocking("grid.dims"):
+        dims = tuple(int(v) for v in dims_t.tolist())
     linear = (cell[:, 0] * dims[1] + cell[:, 1]) * dims[2] + cell[:, 2]
     ids_sorted, orig_idx = torch.sort(linear, stable=True)
-    _, occ = torch.unique_consecutive(ids_sorted, return_counts=True)
-    cell_cap = int(occ.max())
+    with blocking("grid.cells"):
+        _, occ = torch.unique_consecutive(ids_sorted, return_counts=True)
+    with blocking("grid.cell_cap"):
+        cell_cap = int(occ.max())
     n_cells = dims[0] * dims[1] * dims[2]
     if 0 < n_cells <= max(8 * n, 1 << 24):
         cell_starts = torch.searchsorted(
@@ -299,7 +309,8 @@ def window_chunk(grid: HashGrid, features: int = 8) -> int:
 def check_radius_contract(grid: HashGrid, radius) -> None:
     """Raise if ``radius`` exceeds what the window covers (``halo·cell``)."""
     if isinstance(radius, torch.Tensor):
-        radius = float(radius.max()) if radius.numel() else 0.0
+        with blocking("grid.radius"):
+            radius = float(radius.max()) if radius.numel() else 0.0
     if grid.halo * grid.cell_size < float(radius) * (1.0 - 1e-6):
         raise ValueError(
             f"grid with cell_size={grid.cell_size} and halo={grid.halo} covers "
@@ -482,10 +493,14 @@ def knn_auto(queries, points, k: int, sample_size: int = 512) -> Neighborhoods:
         return knn(queries, points, k)
     stride = max(1, n // sample_size)
     sample = points[::stride][:sample_size]
-    radius = quantized_kth_radius(kth_distance_bound(sample, points, k).cpu().numpy())
+    kth = kth_distance_bound(sample, points, k)
+    with blocking("knn.kth"):
+        kth = kth.cpu().numpy()
+    radius = quantized_kth_radius(kth)
     grid = build_grid(points, radius)
     nbr = grid_radius_search(grid, queries, radius, k)
-    missing = torch.nonzero(nbr.count < min(k, n))[:, 0]
+    with blocking("knn.misses"):
+        missing = torch.nonzero(nbr.count < min(k, n))[:, 0]
     if missing.numel():
         frac = missing.numel() / queries.shape[0]
         if frac > 0.05:

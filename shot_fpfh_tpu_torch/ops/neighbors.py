@@ -20,6 +20,7 @@ import torch
 
 from .._device import resolve
 from .._fp import sqnorm3, sqrt
+from ..utils.perf import span, uploading
 
 _MAX_TILE_ELEMS = 1 << 26
 
@@ -41,11 +42,14 @@ class Neighborhoods:
 def as_f32(x, device=None) -> torch.Tensor:
     """Tensor view of ``x`` as float32 on ``device`` (default: where it is)."""
     if isinstance(x, torch.Tensor):
-        return x.to(device=device or x.device, dtype=torch.float32)
-    arr = np.asarray(x, np.float32)
-    if not arr.flags.writeable:  # e.g. a view of a JAX array
-        arr = arr.copy()
-    return torch.as_tensor(arr, device=device)
+        with uploading(x, device):
+            return x.to(device=device or x.device, dtype=torch.float32)
+    with span("host.f32"):
+        arr = np.asarray(x, np.float32)
+        if not arr.flags.writeable:  # e.g. a view of a JAX array
+            arr = arr.copy()
+    with uploading(arr, device):
+        return torch.as_tensor(arr, device=device)
 
 
 def _sq_dists(queries: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
@@ -114,7 +118,9 @@ def radius_search(queries, points, radius, k_max: int) -> Neighborhoods:
     queries = as_f32(queries, points.device)
     k_eff = min(k_max, points.shape[0])
     r2 = torch.as_tensor(radius, dtype=torch.float32) ** 2
-    idx, d2 = _topk_smallest(queries, points, k_eff, r2=r2.to(points.device))
+    with uploading(r2, points.device):
+        r2 = r2.to(points.device)
+    idx, d2 = _topk_smallest(queries, points, k_eff, r2=r2)
     nbr = _padded(queries, points, idx, d2, k_max, k_eff)
     mask = nbr.mask & (nbr.dist <= radius)
     return Neighborhoods(

@@ -45,7 +45,7 @@ from .registration.matching import (
     threshold_filter,
 )
 from .registration.ransac import ransac_on_matches
-from .utils.perf import StageMetrics
+from .utils.perf import StageMetrics, blocking, uploading
 
 logger = logging.getLogger(__name__)
 
@@ -292,7 +292,8 @@ class RegistrationPipeline:
             ratio, transform = ransac_on_matches(
                 scan_m, ref_m, generator=generator, draws=draws, n_draws=n_draws,
                 draw_size=draw_size, distance_threshold=max_inliers_distance)
-        ratio = float(ratio)
+        with blocking("ransac.ratio"):
+            ratio = float(ratio)
         self.metrics.stop(draws=n_draws)
         if exact_transformation is not None:
             exact = exact_transformation.to(transform.rotation.device)
@@ -404,13 +405,16 @@ class RegistrationPipeline:
                     build_grid(targets, float(distance_threshold)), queries)
             else:
                 dist, _ = nearest_neighbor(queries, targets)
-            return float((dist <= distance_threshold).to(torch.float32).mean())
+            with blocking("evaluation.share"):
+                return float((dist <= distance_threshold).to(torch.float32).mean())
 
         ref = as_f32(self.ref, self.device)
         moved = transformation_icp.to(ref.device).apply(as_f32(self.scan, ref.device))
         overlap = frac_within(moved, ref)
-        scan_kp = torch.as_tensor(self.scan_keypoints, device=ref.device)
-        ref_kp = torch.as_tensor(self.ref_keypoints, device=ref.device)
+        with uploading(self.scan_keypoints, ref.device):
+            scan_kp = torch.as_tensor(self.scan_keypoints, device=ref.device)
+        with uploading(self.ref_keypoints, ref.device):
+            ref_kp = torch.as_tensor(self.ref_keypoints, device=ref.device)
         return overlap, frac_within(moved[scan_kp], ref[ref_kp])
 
     # ---------------------------------------------------- checkpoint/resume --

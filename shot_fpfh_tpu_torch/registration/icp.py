@@ -37,6 +37,7 @@ from ..core.subsampling import grid_subsample
 from ..core.transform import RigidTransform
 from ..ops.grid_hash import AUTO_GRID_MIN_POINTS, build_grid, grid_nearest_neighbor
 from ..ops.neighbors import as_f32, nearest_neighbor
+from ..utils.perf import blocking, span, uploading
 
 # iterations enqueued between two host reads of ``done``: a converged loop
 # runs at most ICP_BLOCK - 1 no-op iterations, and a 50-iteration loop
@@ -124,11 +125,14 @@ def icp_loop(scan_sub, ref, ref_normals, init: RigidTransform, d_max: float, max
     issued = 0
     while issued < max_iter:
         block = min(ICP_BLOCK, max_iter - issued)
-        for _ in range(block):
-            state = _step(state, scan_sub, ref, ref_normals, d_max, rms_threshold, grid,
-                          weights, reduce)
-        issued += block
-        if bool(state[4]):
+        with span("icp.block"):
+            for _ in range(block):
+                state = _step(state, scan_sub, ref, ref_normals, d_max, rms_threshold, grid,
+                              weights, reduce)
+            issued += block
+            with blocking("icp.done"):
+                done = bool(state[4])
+        if done:
             break
     i, rot, t, rms, done = state
     return IcpResult(RigidTransform(rot, t), rms, done, i)
@@ -144,12 +148,21 @@ def _icp(scan, ref, ref_normals, init: RigidTransform, d_max, voxel_size,
          max_iter, rms_threshold, device) -> IcpHostResult:
     ref_t = as_f32(ref, resolve(device, ref))
     scan_t = as_f32(scan, ref_t.device)
-    sub = torch.as_tensor(grid_subsample(scan_t, voxel_size), device=ref_t.device)
+    with span("icp.subsample"):
+        sub = grid_subsample(scan_t, voxel_size)
+        with uploading(sub, ref_t.device):
+            sub = torch.as_tensor(sub, device=ref_t.device)
     normals = None if ref_normals is None else as_f32(ref_normals, ref_t.device)
-    out = icp_loop(scan_t[sub], ref_t, normals, init, d_max, max_iter, rms_threshold,
-                   nn_grid(ref_t, d_max))
-    return IcpHostResult(out.transform, float(out.rms), bool(out.has_converged),
-                         int(out.n_iters))
+    with span("icp.grid"):
+        grid = nn_grid(ref_t, d_max)
+    out = icp_loop(scan_t[sub], ref_t, normals, init, d_max, max_iter, rms_threshold, grid)
+    with blocking("icp.result"):
+        rms = float(out.rms)
+    with blocking("icp.result"):
+        converged = bool(out.has_converged)
+    with blocking("icp.result"):
+        n_iters = int(out.n_iters)
+    return IcpHostResult(out.transform, rms, converged, n_iters)
 
 
 def icp_point_to_point(scan, ref, transformation_init: RigidTransform, d_max: float,

@@ -32,6 +32,7 @@ from ..ops.match import top2_match
 from ..ops.match import top2_merge, top2_rows  # noqa: F401  (JAX defines them here)
 from ..ops.neighbors import _sq_dists, as_f32
 from ..parallel.mesh import all_gather_rows
+from ..utils.perf import blocking, span
 
 logger = logging.getLogger(__name__)
 
@@ -155,9 +156,12 @@ def multiscale_top1(scan_ms, ref_ms, *, filter_nonreciprocal: bool = False, devi
 def _split_nonzero(desc, device=None):
     """``(host indices of the nonzero rows, those rows as a float32 tensor
     on the device)``; only the row mask crosses to the host."""
-    d = as_f32(desc, device)
-    nz = torch.nonzero((d != 0).any(dim=1))[:, 0]
-    return nz.cpu().numpy(), d[nz]
+    with span("match.rows"):
+        d = as_f32(desc, device)
+        with blocking("match.nonzero"):
+            nz = torch.nonzero((d != 0).any(dim=1))[:, 0]
+        with blocking("match.indices"):
+            return nz.cpu().numpy(), d[nz]
 
 
 def _use_mesh(mesh) -> bool:
@@ -179,14 +183,21 @@ def _top2(a, b, mesh):
     return top2_descriptor(a, b, torch.ones(b.shape[0], dtype=torch.bool, device=b.device))
 
 
+def _host(x: torch.Tensor, site: str = "match.read") -> np.ndarray:
+    """``x`` read back to the host."""
+    with blocking(site):
+        return x.cpu().numpy()
+
+
 def basic_matching(scan_descriptors, ref_descriptors, device=None, mesh=None):
     """Each non-empty scan descriptor matched to its nearest non-empty ref
     descriptor; returns host ``(scan_indices, ref_indices)``.  With a
     ``mesh`` of more than one rank the ref tiles ride the ring."""
     scan_nz, a = _split_nonzero(scan_descriptors, _device(device, scan_descriptors, mesh))
     ref_nz, b = _split_nonzero(ref_descriptors, a.device)
-    idx = _top2(a, b, mesh)[0]
-    return scan_nz, ref_nz[idx.cpu().numpy()]
+    with span("match.top2"):
+        idx = _host(_top2(a, b, mesh)[0])
+    return scan_nz, ref_nz[idx]
 
 
 def lowe_matching(scan_descriptors, ref_descriptors, threshold: float = 0.8,
@@ -195,13 +206,15 @@ def lowe_matching(scan_descriptors, ref_descriptors, threshold: float = 0.8,
     (``d2 == 0`` counts as ratio 1)."""
     scan_nz, a = _split_nonzero(scan_descriptors, _device(device, scan_descriptors, mesh))
     ref_nz, b = _split_nonzero(ref_descriptors, a.device)
-    idx, d1, d2 = _top2(a, b, mesh)
-    ratio = torch.where(d2 > 0, d1 / torch.where(d2 > 0, d2, torch.ones_like(d2)),
-                        torch.ones_like(d1))
-    mask = (ratio <= threshold).cpu().numpy()
+    with span("match.top2"):
+        idx, d1, d2 = _top2(a, b, mesh)
+        ratio = torch.where(d2 > 0, d1 / torch.where(d2 > 0, d2, torch.ones_like(d2)),
+                            torch.ones_like(d1))
+        mask = _host(ratio <= threshold)
+        idx = _host(idx)
     if verbose:
         logger.info("Kept %d matches out of %d descriptors.", mask.sum(), len(scan_nz))
-    return scan_nz[mask], ref_nz[idx.cpu().numpy()[mask]]
+    return scan_nz[mask], ref_nz[idx[mask]]
 
 
 # ------------------------------------------------------------------ filters --
@@ -249,13 +262,15 @@ def match_descriptors(scan_descriptors, ref_descriptors,
                                  kwargs)
     scan_nz, a = _split_nonzero(scan_descriptors, _device(device, scan_descriptors, mesh))
     ref_nz, b = _split_nonzero(ref_descriptors, a.device)
-    idx_t, dist_t, _ = _top2(a, b, mesh)
-    idx, dist = idx_t.cpu().numpy(), dist_t.cpu().numpy()
+    with span("match.top2"):
+        idx_t, dist_t, _ = _top2(a, b, mesh)
+        idx, dist = _host(idx_t), _host(dist_t)
     keep = (filter_callback(dist, **kwargs) if filter_callback is not None
             else np.ones(len(dist), bool))
     if filter_nonreciprocal:
-        back = _top2(b, a, mesh)[0]
-        reciprocal = back.cpu().numpy()[idx] == np.arange(len(idx))
+        with span("match.top2"):
+            back = _host(_top2(b, a, mesh)[0])
+        reciprocal = back[idx] == np.arange(len(idx))
         if (keep & reciprocal).sum() >= n_min_matches:
             keep = keep & reciprocal
         elif verbose:
@@ -280,7 +295,7 @@ def _match_multiscale(scan_ms, ref_ms, filter_callback, filter_nonreciprocal, ve
         idx_t, dist_t = multiscale_top1(scan_ms, ref_ms,
                                         filter_nonreciprocal=filter_nonreciprocal,
                                         device=resolve(device, scan_ms))
-    indices, distances = idx_t.cpu().numpy(), dist_t.cpu().numpy()
+    indices, distances = _host(idx_t), _host(dist_t)
     keep = (filter_callback(distances, **kwargs) if filter_callback is not None
             else np.ones(len(distances), bool)) & (distances < MS_MAX_VAL)
     if keep.sum() < n_min_matches and filter_nonreciprocal:

@@ -21,6 +21,7 @@ from ..core.solvers import solve_point_to_point
 from ..core.transform import RigidTransform
 from ..ops.neighbors import as_f32
 from ..parallel.mesh import all_reduce_sums, local_rows
+from ..utils.perf import blocking, span, uploading
 
 _DRAW_CHUNK = 512
 
@@ -40,7 +41,8 @@ def sample_draws(m: int, n_draws: int, draw_size: int,
         dup = (s[:, 1:] == s[:, :-1]).any(dim=1)
         n_dup = int(dup.sum())
         if n_dup == 0:
-            return draws.to(device)
+            with uploading(draws, device):
+                return draws.to(device)
         draws[dup] = torch.randint(m, (n_dup, draw_size), generator=generator)
 
 
@@ -56,11 +58,14 @@ def ransac_on_matches(scan_matched, ref_matched, generator: torch.Generator | No
     scan = as_f32(scan_matched, resolve(None, scan_matched))
     ref = as_f32(ref_matched, scan.device)
     m = scan.shape[0]
-    if draws is None:
-        draws = sample_draws(m, n_draws, draw_size, generator, scan.device)
-    elif not isinstance(draws, torch.Tensor):
-        draws = torch.as_tensor(np.array(draws))   # a copy: host arrays may be read-only
-    return _search(scan, ref, draws.to(scan.device).long(), distance_threshold)
+    with span("ransac.draws"):
+        if draws is None:
+            draws = sample_draws(m, n_draws, draw_size, generator, scan.device)
+        elif not isinstance(draws, torch.Tensor):
+            draws = torch.as_tensor(np.array(draws))   # a copy: host arrays may be read-only
+        with uploading(draws, scan.device):
+            draws = draws.to(scan.device).long()
+    return _search(scan, ref, draws, distance_threshold)
 
 
 def _search(scan, ref, draws, distance_threshold: float, mesh=None,
@@ -75,20 +80,29 @@ def _search(scan, ref, draws, distance_threshold: float, mesh=None,
     # a pad row's ref is at infinity: never an inlier
     scan_rows, ref_rows = local_rows(scan, mesh), local_rows(ref, mesh, fill=float("inf"))
     thr2 = torch.tensor(distance_threshold, dtype=torch.float32) ** 2
-    best_count = torch.tensor(-1, device=scan.device)
+    with uploading(-1, scan.device):
+        best_count = torch.tensor(-1, device=scan.device)
     best_rot = torch.eye(3, device=scan.device)
     best_t = torch.zeros(3, device=scan.device)
     step = _DRAW_CHUNK if draw_chunk is None else int(draw_chunk)
-    for s in range(0, draws.shape[0], step):
-        idx = draws[s:s + step]
-        tf = solve_point_to_point(scan[idx], ref[idx])
-        moved = torch.einsum("cij,mj->cmi", tf.rotation, scan_rows) + tf.translation[:, None, :]
-        inlier = ((moved - ref_rows[None]) ** 2).sum(-1) <= thr2.to(scan.device)
-        counts, = all_reduce_sums((inlier.sum(-1),), mesh)
-        i = torch.argmax(counts)
-        better = counts[i] > best_count
-        best_count = torch.where(better, counts[i], best_count)
-        best_rot = torch.where(better, tf.rotation[i], best_rot)
-        best_t = torch.where(better, tf.translation[i], best_t)
+    with span("ransac.search"):
+        for s in range(0, draws.shape[0], step):
+            idx = draws[s:s + step]
+            tf = solve_point_to_point(scan[idx], ref[idx])
+            moved = (torch.einsum("cij,mj->cmi", tf.rotation, scan_rows)
+                     + tf.translation[:, None, :])
+            with uploading(thr2, scan.device):
+                inlier = ((moved - ref_rows[None]) ** 2).sum(-1) <= thr2.to(scan.device)
+            counts, = all_reduce_sums((inlier.sum(-1),), mesh)
+            # a 0-d index tensor is read back to the host, once a use
+            i = torch.argmax(counts)
+            with blocking("ransac.best"):
+                better = counts[i] > best_count
+            with blocking("ransac.best"):
+                best_count = torch.where(better, counts[i], best_count)
+            with blocking("ransac.best"):
+                best_rot = torch.where(better, tf.rotation[i], best_rot)
+            with blocking("ransac.best"):
+                best_t = torch.where(better, tf.translation[i], best_t)
     best = RigidTransform(best_rot, best_t).normalize_rotation()
     return best_count.to(torch.float32) / m, best

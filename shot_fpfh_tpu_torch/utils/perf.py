@@ -9,14 +9,25 @@ records as the reference (``stage``, ``seconds``, counters and their
 ``start_profiler_trace``/``stop_profiler_trace`` record a
 ``torch.profiler`` trace of everything between them into a chrome trace
 file.
+
+Inside a stage, :func:`span` marks a step of the host's work and
+:func:`blocking` a statement that waits for the card (a read of a device
+value to the host, a host-to-device copy from pageable memory, an
+operation whose output size the host must learn).  Both are ranges of the
+profiler's trace while a profiler records, and nothing but two clock reads
+otherwise; the stage that is open counts them into its record (``spans``:
+``{name: {count, host_s}}``; ``host_syncs`` and ``host_sync_s`` for the
+blocking ones, its own two synchronizes included as site ``stage``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
 import time
+from contextvars import ContextVar
 from functools import wraps
 from time import perf_counter
 from typing import Any, Callable
@@ -147,33 +158,130 @@ def stop_profiler_trace() -> str:
     return path
 
 
+class _StageCounts:
+    """What the spans and blocking reads of one open stage add up to."""
+
+    __slots__ = ("host_syncs", "host_sync_s", "spans")
+
+    def __init__(self) -> None:
+        self.host_syncs = 0
+        self.host_sync_s = 0.0
+        self.spans: dict[str, dict[str, float]] = {}
+
+    def add(self, name: str, seconds: float) -> None:
+        entry = self.spans.get(name)
+        if entry is None:
+            self.spans[name] = {"count": 1, "host_s": seconds}
+        else:
+            entry["count"] += 1
+            entry["host_s"] += seconds
+
+
+# the counts of the StageMetrics stage open in this context, if one is
+_OPEN_STAGE: ContextVar[_StageCounts | None] = ContextVar("open_stage", default=None)
+
+
+class _Span:
+    """The context manager :func:`span` and :func:`blocking` return."""
+
+    __slots__ = ("name", "waits", "_range", "_t0")
+
+    def __init__(self, name: str, waits: int = 0) -> None:
+        self.name = name
+        self.waits = waits
+        self._range = None
+
+    def __enter__(self) -> "_Span":
+        if torch.autograd._profiler_enabled():
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+        self._t0 = perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        seconds = perf_counter() - self._t0
+        if self._range is not None:
+            self._range.__exit__(*exc)
+            self._range = None
+        counts = _OPEN_STAGE.get()
+        if counts is not None:
+            counts.add(self.name, seconds)
+            if self.waits:
+                counts.host_syncs += self.waits
+                counts.host_sync_s += seconds
+
+
+def span(name: str) -> _Span:
+    """Context manager marking the interval ``name``: a
+    ``torch.profiler.record_function`` range while a profiler records (on
+    the device trace's clock), no dispatcher call otherwise.  It never
+    synchronizes.  The open ``StageMetrics`` stage counts it and its host
+    seconds under ``spans``."""
+    return _Span(name)
+
+
+def blocking(site: str, waits: int = 1) -> _Span:
+    """:func:`span` ``sync[site]`` around one statement that waits for the
+    card ``waits`` times (``torch.linalg.svd`` reads its status back twice);
+    the open stage also adds ``waits`` to ``host_syncs`` and the host
+    seconds to ``host_sync_s``."""
+    return _Span(f"sync[{site}]", waits)
+
+
+_NOTHING = contextlib.nullcontext()
+
+
+def uploading(x, device) -> _Span | contextlib.nullcontext:
+    """``blocking("upload")`` when moving ``x`` to ``device`` copies it from
+    the host to a CUDA device: PyTorch waits for the device's queue before
+    such a copy from pageable memory.  A no-op context otherwise (``device``
+    None, not CUDA, or ``x`` a tensor already on a card)."""
+    if (device is None or torch.device(device).type != "cuda"
+            or (isinstance(x, torch.Tensor) and x.is_cuda)):
+        return _NOTHING
+    return blocking("upload")
+
+
 class StageMetrics:
-    """Per-stage wall-clock + throughput counters, dumpable as JSON."""
+    """Per-stage wall-clock + throughput counters, dumpable as JSON.  A
+    stage's record also holds what its spans and blocking reads add up to
+    (``host_syncs``, ``host_sync_s``, ``spans``; no rates of them)."""
 
     def __init__(self) -> None:
         self.stages: list[dict[str, Any]] = []
         self._start: float | None = None
         self._name: str | None = None
         self._annotation = None
+        self._counts: _StageCounts | None = None
+        self._outer: _StageCounts | None = None
 
     def start(self, name: str) -> None:
-        sync()
+        self._counts = _StageCounts()
+        self._outer = _OPEN_STAGE.get()
+        _OPEN_STAGE.set(self._counts)
+        with blocking("stage"):
+            sync()
         self._name = name
         self._annotation = trace_annotation(name)
         self._annotation.__enter__()
         self._start = perf_counter()
 
     def stop(self, **counters: float) -> dict[str, Any]:
-        sync()
+        with blocking("stage"):
+            sync()
         elapsed = perf_counter() - self._start
         if self._annotation is not None:
             self._annotation.__exit__(None, None, None)
             self._annotation = None
+        _OPEN_STAGE.set(self._outer)
         record: dict[str, Any] = {"stage": self._name, "seconds": elapsed}
         for key, value in counters.items():
             record[key] = value
             if value:
                 record[f"{key}_per_sec"] = value / elapsed if elapsed > 0 else float("inf")
+        counts = self._counts
+        record.update(host_syncs=counts.host_syncs, host_sync_s=counts.host_sync_s,
+                      spans=counts.spans)
         self.stages.append(record)
         logger.info("%s", json.dumps(record))
         return record

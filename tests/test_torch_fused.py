@@ -424,14 +424,16 @@ def _cli(ply_pair, *extra):
 
 
 def test_cli_fused(ply_pair, caplog):
-    """``--fused`` runs one ``fused`` stage, accepted, with no staging
-    warning; the aligned outputs are written."""
+    """``--fused`` runs one ``fused`` stage after the two clouds' normals
+    stages, accepted, with no staging warning; the aligned outputs are
+    written."""
     with caplog.at_level(logging.INFO):
         assert _cli(ply_pair, "--fused") == 0
     assert not any("staging instead" in r.message for r in caplog.records)
     stages = json.loads((ply_pair / "metrics.json").read_text())["stages"]
     fused = [s for s in stages if s["stage"] == "fused"]
-    assert len(fused) == 1 and len(stages) == 1 and fused[0]["matches"] > 20
+    assert len(fused) == 1 and fused[0]["matches"] > 20
+    assert [s["stage"] for s in stages] == ["normals[knn]", "normals[knn]", "fused"]
     assert (ply_pair / "out" / "scan_on_ref_post_icp.ply").exists()
 
 

@@ -88,8 +88,9 @@ def test_cli_slice_matches_reference_cli(tmp_path):
     _assert_close(got_t, gt)
     _assert_close(got_j, gt)
     stages = [s["stage"] for s in json.loads((tmp_path / "m.json").read_text())["stages"]]
-    assert stages == ["keypoints[subsampling_with_density]", "descriptors[shot_single_scale]",
-                      "matching[simple]", "ransac", "icp[point_to_plane]"]
+    assert stages == ["normals[knn]", "normals[knn]", "keypoints[subsampling_with_density]",
+                      "descriptors[shot_single_scale]", "matching[simple]", "ransac",
+                      "icp[point_to_plane]"]
 
 
 @pytest.mark.skipif(not (PAIR.exists() and MEASURED.exists()),

@@ -27,8 +27,10 @@ Phases, one line each; any failure exits non-zero with no result line:
    K4 SPFH window histogram (one 8192-point chunk of a 100k-point terrain,
    radius 0.9, k=30 normals, joint and decorrelated),
    K6 SPFH over xy-row runs (all 100k points of that terrain, joint and
-   decorrelated, equal to its twin; then held to the K4 window route on the
-   rows whose radius rules agree), the voxel
+   decorrelated, equal to its twin; then held to the window route on the
+   rows whose radius rules agree), FPFH's SPFH pass kernel (``spfh_grid``:
+   every point of that terrain, equal to the K8 + K4 route it replaced and
+   held to its twin by K4's rule, timed beside both), the voxel
    sums of ``grid_subsample`` on a skewed cloud (20,000 points in one
    voxel), bit-identical to the CPU's, and K8 window fetch (K1's keypoints
    on its own and on the bi-scale grid; the FPFH chunk; phase 10's queries
@@ -56,9 +58,10 @@ Phases, one line each; any failure exits non-zero with no result line:
    adds a third run under ``torch.profiler`` (op table, chrome trace,
    device-busy share);
 5. FPFH path: the same pair with ``--descriptor_choice fpfh``, cold and
-   measured on the window route (launches K2, K3, K4 and the aggregation
-   kernel once a cloud, no K7 window), then once on the run route
-   (``set_dma_kernel(True)``: launches K6 and no K4), then the window route
+   measured on the window route (launches K2, K3, the SPFH pass kernel and
+   the aggregation kernel once a cloud each, no K8, K4 or K7 window), then
+   once on the run route (``set_dma_kernel(True)``: launches K6 and not the
+   pass kernel), then the window route
    with the aggregation's twin in the kernel's place (the same rotation
    error within 1e-5 rad); each run accepted within the same bounds;
 6. bi-scale SHOT (``--phi 3``: frames at 0.9, bins at 2.7) on the window
@@ -78,8 +81,8 @@ Phases, one line each; any failure exits non-zero with no result line:
    ``--selection_algorithm random``, one measured run each;
 12. the single-program path (``--fused`` with ``--selection_algorithm
    subsampling --neighborhood_size 0.15``): single-scale SHOT on the window
-   route (K8 + K1) and on the run route (K5), and FPFH (K8 + K4, the
-   aggregation kernel once a cloud), each
+   route (K8 + K1) and on the run route (K5), and FPFH (the SPFH pass and
+   the aggregation kernel once a cloud each), each
    cold, then measured, accepted within the same bounds, with one K2 (f32)
    launch, K3 (normals) and K7's 1-NN mode (ICP); beside each, the staged
    path on the same keypoints, and the host syncs of one
@@ -109,7 +112,8 @@ Phases, one line each; any failure exits non-zero with no result line:
    then two processes sharing the one card over gloo run ``cli.main
    --n_devices 2`` (SHOT, then FPFH), each accepted, its moved scan within
    1e-3 of one device's, rank 0 alone writing, each rank launching K1 (or
-   K4/K6 and the aggregation kernel, once a cloud, no K7), K2, K3 and K7's
+   the SPFH pass kernel or K6, and the aggregation kernel, once a cloud, no
+   K7), K2, K3 and K7's
    1-NN mode;
 15. the fused program and the multi-process entry point over a mesh: a second
    1-rank NCCL group runs ``fused_registration_mesh`` on the inputs phase
@@ -119,8 +123,9 @@ Phases, one line each; any failure exits non-zero with no result line:
    its CUDA-event ms beside the one device's and its host syncs by leg;
    then phase 14's two processes also run ``cli.main --fused --n_devices
    2`` (SHOT, FPFH; accepted, the moved scan within 1e-3 of one device's
-   ``--fused``, rank 0 alone writing, each rank launching K8 with K1 or
-   K4 and the aggregation kernel, K2, K3 and K7's 1-NN mode) and, their
+   ``--fused``, rank 0 alone writing, each rank launching K8 with K1, or
+   the SPFH pass and the aggregation kernel, K2, K3 and K7's 1-NN mode)
+   and, their
    group destroyed,
    ``run_multihost`` on the pair's ``.ply`` files through
    ``initialize_distributed`` (the ranks within 1e-6 of each other and
@@ -131,7 +136,8 @@ Phases, one line each; any failure exits non-zero with no result line:
    copied), written as ``.ply`` to a temporary directory: ``cli.main`` for
    SHOT and for FPFH on the window route (radius 0.6, keypoint voxel
    0.15), cold then measured, accepted within 1e-2 rad / 1e-2, launching
-   K3, K8, K1 (or K4 and the aggregation kernel once a cloud, no K7), K2
+   K3, K8, K1 (or the SPFH pass and the aggregation kernel once a cloud
+   each, no K8, K4 or K7), K2
    and K7's 1-NN mode once an ICP iteration
    and twice for the evaluation; ``bench.py``'s at-scale legs through the
    library on the ref (k=30 normals, with the sampled k-th bound equal to
@@ -141,7 +147,8 @@ Phases, one line each; any failure exits non-zero with no result line:
    each cold then measured; each leg's wall, stage timers, launches and
    peak device memory; every kernel at these shapes against its twin
    (phase 3's rules; K2 on 4096 sampled rows; the aggregation on the CLI
-   legs' ~78k ref keypoints); the voxel sums with a voxel
+   legs' ~78k ref keypoints; the SPFH pass also at the FPFH cell's radius
+   3.0, cell 1.5); the voxel sums with a voxel
    of 10^5 and of 10^6 points bit-identical to the CPU's;
 17. the surface the port gained last: ``radius_search_auto`` on a random
    5k of the smoke ref (brute) and on all of it (the grid through K7), for
@@ -156,7 +163,8 @@ Phases, one line each; any failure exits non-zero with no result line:
    histograms, the CPU given the card's frames, by the flip rule;
    ``RigidTransform.identity((4,))`` on ``cuda``.
 Phases 4–9 and 12 run cold, then measured, each accepted within the same
-bounds; every window route launches K8, and every ICP K7's 1-NN mode.
+bounds; every SHOT window route launches K8, FPFH's window route the SPFH
+pass kernel once a cloud, and every ICP K7's 1-NN mode.
 ``--bits-against LIB`` also holds K1's and K5's phase-3 outputs equal, bit
 for bit, to those of another build's library and times each alone under
 both builds in turns.
@@ -258,6 +266,11 @@ BASIC_ANGLE_COLS, FEATURE_ANGLE_COLS = (0,), (8, 9, 10, 11)
 # K8 as csrc/ names them (their device time alone is read from the profiler)
 K1_KERNEL, K4_KERNEL, K5_KERNEL = "shot_hist_kernel", "spfh_hist_kernel", "shot_runs_kernel"
 K6_KERNEL = "spfh_runs_kernel"
+# FPFH's SPFH pass on the window route (csrc/spfh_grid.cu): its C entry
+# point (the launch counter) and its kernel; its twin's query chunk on the
+# card (its (chunk, F + 2, W) windows stay under ~1 GB at W ~36k)
+SPFH_PASS, SPFH_PASS_KERNEL = "spfh_grid", "spfh_grid_kernel"
+SPFH_PLAIN_CHUNK = 1024
 K7_KERNEL, K8_KERNEL = "radius_dist_kernel", "fetch_windows_kernel"
 NN_KERNEL, AGG_KERNEL = "nearest_kernel", "fpfh_aggregate_kernel"
 # K7's FPFH aggregation mode against its twin, whose einsum sums in no
@@ -271,12 +284,15 @@ AGG_ROW_RTOL = 1e-5
 AGG_MATCH_AGREE = 0.99
 
 # each path and the kernels its measured run must launch (and must not):
-# every window route fetches through K8, every ICP's grid 1-NN runs K7's
-# 1-NN mode; FPFH's aggregation runs K7's aggregation mode (one launch a
-# cloud) and no K7 window; the iterative keypoints run K7's window
+# SHOT's window route fetches through K8, every ICP's grid 1-NN runs K7's
+# 1-NN mode; FPFH's SPFH pass runs its kernel once a cloud on the window
+# route (no K8, no K4) and K6 on the run route; its aggregation runs K7's
+# aggregation mode (one launch a cloud) and no K7 window; the iterative
+# keypoints run K7's window
 WINDOW, K7, NN, AGG = "fetch_windows", "radius_dist", "nearest", "fpfh_aggregate"
 SHOT_PATH = ("shot_binning_histogram", "top2_match", "radius_pca", WINDOW, NN)
-FPFH_WINDOW_PATH = ("top2_match", "radius_pca", "spfh_histogram", WINDOW, AGG, NN)
+FPFH_WINDOW_PATH = ("top2_match", "radius_pca", SPFH_PASS, AGG, NN)
+FPFH_WINDOW_NOT = ("spfh_runs", "spfh_histogram", WINDOW, K7)
 FPFH_RUN_PATH = ("top2_match", "radius_pca", "spfh_runs", AGG, NN)
 # the FPFH paths' aggregation launches: one a cloud
 FPFH_AGG_LAUNCHES = 2
@@ -290,7 +306,8 @@ SHOT_NN_LAUNCHES = 51
 
 # phase 12: the fused program's keypoints (the CLI's fused set-up) and the
 # kernels each of its runs must launch: its SHOT grid (cell = radius, halo
-# 1) takes K8 + K1 or K5, its FPFH grid K8 + K4 and K7; K2 once, in f32;
+# 1) takes K8 + K1 or K5, its FPFH grid the SPFH pass kernel and K7's
+# aggregation mode; K2 once, in f32;
 # K3 in the CLI's normals; K7's 1-NN mode in ICP
 FUSED_FLAGS = ["--selection_algorithm", "subsampling", "--neighborhood_size",
                str(KEYPOINT_VOXEL)]
@@ -1033,11 +1050,82 @@ def parity_k4(grid, radius: float = FPFH_RADIUS, prefix: str = "phase 3", reps: 
                 library_ms=None, **b)
 
 
+def parity_spfh_pass(grid, radius: float, label: str, prefix: str = "phase 3", reps: int = 10,
+                     plain_rows: int | None = None, chunk_reps: int | None = None) -> dict:
+    """FPFH's SPFH pass kernel (``spfh_grid``) over every row of ``grid``
+    in both modes: equal to the chunked route it replaced (K8 + K4,
+    ``spfh_window_chunked``; ``torch.equal``) and, on the first
+    ``plain_rows`` rows (every row: None), held to its plain twin (K8's and
+    K4's twins on the card) by K4's rule; the call, the kernel alone, the
+    chunked route (``chunk_reps`` timed calls) and the twin timed.  The
+    bound counts a distance test for every window slot and the binning of
+    every neighbor in radius (operations), the table, the cell starts and
+    the output once (bytes)."""
+    import torch
+
+    from shot_fpfh_tpu_torch.ops.grid_hash import _zcolumn_runs
+    from shot_fpfh_tpu_torch.ops.radius_runs import fpfh_aggregate
+    from shot_fpfh_tpu_torch.ops.spfh_fused import (
+        spfh_grid,
+        spfh_grid_plain,
+        spfh_window_chunked,
+    )
+
+    table = grid.packed_sorted
+    n, dev = table.shape[0], table.device
+    qc, qn = table[:, :3], table[:, 3:6]
+    m = n if plain_rows is None else min(plain_rows, n)
+    chunk_reps = reps if chunk_reps is None else chunk_reps
+    start, end = _zcolumn_runs(grid, qc)
+    slots = float(torch.clamp((end - start).sum(1), max=grid.window_cap).sum())
+    del start, end
+    # the slots in radius by the same rule: the aggregation kernel's counts
+    _, counts = fpfh_aggregate(grid, torch.zeros((n, 1), device=dev),
+                               torch.arange(n, device=dev), radius, return_counts=True)
+    neighbors = float(counts.sum()) - n
+    res = {}
+    for dec in (False, True):
+        got = spfh_grid(grid, qc, qn, radius, 5, dec)
+        want = spfh_window_chunked(grid, qc, qn, radius, 5, dec)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want),
+              f"SPFH pass on {label}, decorrelated={dec}: {int((got != want).sum())} elements "
+              f"differ from K8 + K4, max {float((got - want).abs().max())}")
+        check(float(got.sum()) > 0, f"SPFH pass on {label}: empty histograms")
+        del want
+        plain = spfh_grid_plain(grid, qc[:m], qn[:m], radius, 5, dec, chunk=SPFH_PLAIN_CHUNK)
+        diff = (got[:m] - plain).abs()
+        flip = float((diff > 0).float().mean())
+        check(flip <= K4_FLIP_FRAC, f"SPFH pass on {label}, decorrelated={dec}: {flip} of the "
+              f"twin's elements differ")
+        res[dec] = dict(
+            max_abs_err=float(diff.max()), flip=flip, library_ms=None,
+            ms=cuda_ms(lambda: spfh_grid(grid, qc, qn, radius, 5, dec), reps),
+            alone=kernel_ms(lambda: spfh_grid(grid, qc, qn, radius, 5, dec), SPFH_PASS_KERNEL,
+                            reps),
+            chunked_ms=cuda_ms(lambda: spfh_window_chunked(grid, qc, qn, radius, 5, dec),
+                               chunk_reps),
+            plain_ms=cuda_ms(lambda: spfh_grid_plain(grid, qc[:m], qn[:m], radius, 5, dec,
+                                                     chunk=SPFH_PLAIN_CHUNK), chunk_reps),
+            **bound(table.numel() * 4 + grid.cell_starts.numel() * 8 + n * got.shape[1] * 4,
+                    slots * OPS_DIST_TEST + neighbors * OPS_SPFH_NEIGHBOR))
+        del got, plain, diff
+    print(f"{prefix} SPFH pass spfh_grid on {label}: {n} queries, radius {radius}, window cap "
+          f"{grid.window_cap} ({slots / n:.0f} slots and {neighbors / n:.0f} neighbors a "
+          f"query): equal to K8 + K4 in both modes; " + "; ".join(
+              f"{'decorrelated' if dec else 'joint'} call {r['ms']:.3f} ms (alone "
+              f"{r['alone']:.4f} ms), K8 + K4 route {r['chunked_ms']:.3f} ms, twin "
+              f"{r['plain_ms']:.3f} ms on {m} rows ({r['flip']:.1e} of its elements differ, "
+              f"max {r['max_abs_err']:.2e}), bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+              for dec, r in res.items()), flush=True)
+    return res[False]
+
+
 def parity_k6(grid):
     """K6 in both modes equal to its twin (``torch.equal``: whole counts
-    over the same angles), then the joint mode against the K4 window route
-    on the rows whose two radius rules agree; call, kernel alone and twin
-    timed in both modes."""
+    over the same angles), then the joint mode against the window route
+    (the SPFH pass kernel) on the rows whose two radius rules agree; call,
+    kernel alone and twin timed in both modes."""
     import torch
 
     from shot_fpfh_tpu_torch.models.fpfh import _spfh_window_sorted
@@ -1075,13 +1163,13 @@ def parity_k6(grid):
     same = cnt_runs == cnt_window
     parted = n - int(same.sum())
     check(parted <= SPFH_ELEM_FRAC * n,
-          f"K6 vs the K4 route: the radius rules part on {parted} of {n} rows")
-    route_err = route_rule(hists[False][same], window[same], "K6 vs the K4 route")
+          f"K6 vs the window route: the radius rules part on {parted} of {n} rows")
+    route_err = route_rule(hists[False][same], window[same], "K6 vs the window route")
     (ms, alone, plain_ms), (dec_ms, dec_alone, dec_plain) = times[False], times[True]
     b, dec_b = bounds[False], bounds[True]
     print(f"phase 3 K6 spfh_runs: {n} queries x {start.shape[1]} xy-row runs (longest "
           f"{grid.xyrow_run_cap}, {lanes / n:.0f} rows and {neighbors / n:.0f} neighbors a "
-          f"query): equal to the twin in both modes; K4 route held on the {n - parted} rows "
+          f"query): equal to the twin in both modes; window route held on the {n - parted} rows "
           f"whose radius rules agree ({parted} part, max diff {route_err:.2e}); joint kernel "
           f"{ms:.3f} ms (alone {alone:.4f} ms) plain {plain_ms:.3f} ms, bound "
           f"{b['bound_ms']:.4f} ms ({b['bound_by']}); decorrelated kernel {dec_ms:.3f} ms "
@@ -1857,16 +1945,26 @@ def agg_launches(label: str, launches: dict, expected: int = FPFH_AGG_LAUNCHES) 
           f"{label}: {launches[AGG]} aggregation launches (not {expected}), {launches[K7]} K7")
 
 
+def spfh_pass_launches(label: str, launches: dict, expected: int = FPFH_AGG_LAUNCHES) -> None:
+    """FPFH's SPFH pass on the window route: one kernel launch a cloud, no
+    K8 window and no K4."""
+    check(launches[SPFH_PASS] == expected and launches[WINDOW] == 0
+          and launches["spfh_histogram"] == 0,
+          f"{label}: {launches[SPFH_PASS]} SPFH pass launches (not {expected}), "
+          f"{launches[WINDOW]} K8, {launches['spfh_histogram']} K4")
+
+
 def phase_fpfh_path(pair: SmokePair) -> tuple[dict, dict]:
     from shot_fpfh_tpu_torch.ops.shot_dma import set_dma_kernel
 
     fpfh = ["--descriptor_choice", "fpfh", "--radius", str(FPFH_RADIUS)]
-    window = pair.run("FPFH window route", fpfh, FPFH_WINDOW_PATH, ("spfh_runs", K7))
+    window = pair.run("FPFH window route", fpfh, FPFH_WINDOW_PATH, FPFH_WINDOW_NOT)
     agg_launches("FPFH window route", window["launches"])
+    spfh_pass_launches("FPFH window route", window["launches"])
     print(_describe("phase 5 FPFH window route", window), flush=True)
     set_dma_kernel(True)
     try:
-        runs = pair.run("FPFH run route", fpfh, FPFH_RUN_PATH, ("spfh_histogram", K7),
+        runs = pair.run("FPFH run route", fpfh, FPFH_RUN_PATH, ("spfh_histogram", SPFH_PASS, K7),
                         cold=False)
     finally:
         set_dma_kernel(False)
@@ -1881,7 +1979,7 @@ def phase_fpfh_path(pair: SmokePair) -> tuple[dict, dict]:
     m_fpfh._fpfh_window_aggregate = fpfh_aggregate_plain
     try:
         twin = pair.run("FPFH window route, twin-fed aggregation", fpfh,
-                        ("top2_match", "spfh_histogram"), (AGG, K7), cold=False)
+                        ("top2_match", SPFH_PASS), (AGG, K7), cold=False)
     finally:
         m_fpfh._fpfh_window_aggregate = kernel_fed
     gap = abs(twin["rot_err"] - window["rot_err"])
@@ -2164,7 +2262,7 @@ def phase_fused_paths(pair: SmokePair) -> tuple[dict, dict]:
     fpfh = ["--descriptor_choice", "fpfh", "--radius", str(FPFH_RADIUS)]
     cases = (("SHOT, window route", [], False, SHOT_PATH, ("shot_runs",)),
              ("SHOT, run route", [], True, SHOT_RUN_PATH, ("shot_binning_histogram",)),
-             ("FPFH", fpfh, False, FPFH_WINDOW_PATH, ("spfh_runs", K7)))
+             ("FPFH", fpfh, False, FPFH_WINDOW_PATH, FPFH_WINDOW_NOT))
     launches, inputs = {}, {}
     for label, extra, run_route, must, must_not in cases:
         set_dma_kernel(run_route)
@@ -2639,7 +2737,7 @@ def phase_mesh_one_rank(pair: SmokePair) -> dict:
     check(rot_err < MAIN_ROT_TOL and t_err < MAIN_T_TOL,
           f"phase 14 1-rank ICP: rotation error {rot_err}, translation error {t_err}")
     for name in ("shot_binning_histogram", "shot_runs", "top2_match", "radius_pca",
-                 "spfh_histogram", "spfh_runs", AGG, NN, "fetch_windows"):
+                 SPFH_PASS, "spfh_runs", AGG, NN, "fetch_windows"):
         check(total.get(name, 0) > 0, f"phase 14: the 1-rank stages never launched {name}")
     dist.destroy_process_group()
     print(f"phase 14 mesh, 1-rank NCCL group ({mesh.device}, first collective "
@@ -2741,7 +2839,8 @@ def phase_mesh_two_ranks(pair: SmokePair) -> dict:
     Each CLI run accepted within the main path's bounds, its moved scan
     within MESH_MOVED_ATOL of one device's (``--fused`` against one
     device's ``--fused``), only rank 0 writing, and each rank launching K8
-    with K1 (FPFH: K4 or K6 and K7), K2, K3 and K7's 1-NN mode;
+    with K1 (FPFH: the SPFH pass kernel or K6, and the aggregation kernel),
+    K2, K3 and K7's 1-NN mode;
     ``run_multihost`` the same on both ranks (MULTIHOST_RANKS_ATOL), within
     MESH_MOVED_ATOL of one process's run and accepted against the ground
     truth.  Returns rank 0's
@@ -2806,7 +2905,7 @@ def phase_mesh_two_ranks(pair: SmokePair) -> dict:
     shot_needs = ("shot_binning_histogram", "fetch_windows", "top2_match", "radius_pca", NN)
     needs = {"shot": shot_needs, "fpfh": ("top2_match", "radius_pca", AGG, NN),
              "fused_shot": shot_needs,
-             "fused_fpfh": ("fetch_windows", "top2_match", "radius_pca", AGG, NN)}
+             "fused_fpfh": (SPFH_PASS, "top2_match", "radius_pca", AGG, NN)}
     parts, launches = {14: [], 15: []}, {}
     for label in ("shot", "fpfh", "fused_shot", "fused_fpfh"):
         phase = 15 if label.startswith("fused") else 14
@@ -2817,8 +2916,9 @@ def phase_mesh_two_ranks(pair: SmokePair) -> dict:
                 check(run["launches"][name] > 0, f"phase {phase} two ranks, {label}: rank {r} "
                       f"never launched {name}")
             if label.endswith("fpfh"):
-                check(run["launches"]["spfh_histogram"] + run["launches"]["spfh_runs"] > 0,
-                      f"phase {phase} two ranks, {label}: rank {r} launched neither K4 nor K6")
+                check(run["launches"][SPFH_PASS] + run["launches"]["spfh_runs"] > 0,
+                      f"phase {phase} two ranks, {label}: rank {r} launched neither the SPFH "
+                      "pass kernel nor K6")
                 agg_launches(f"phase {phase} two ranks, {label}, rank {r}", run["launches"])
         out = WORK / f"mesh2_{label}_rank0"
         check(not (WORK / f"mesh2_{label}_rank1").exists(),
@@ -2933,6 +3033,10 @@ SCALE_LOWE_ROWS, SCALE_DIM = 100_000, 352
 # of 10^5 points in a 10^5-point terrain, then a 10^6-point cloud in one
 # voxel: (points in the voxel, terrain points around it)
 SCALE_K2_SAMPLE, SCALE_K6_ROWS = 4096, 100_000
+# the SPFH pass at the benchmark's FPFH radius (config/default.yaml's 3.0),
+# and its twin on the card timed on the first rows of the cloud only (its
+# windows at radius 3.0 are ~36k slots a query)
+SCALE_CELL_RADIUS, SCALE_SPFH_PLAIN_ROWS = 3.0, 4096
 # the sampled k-th bound's chunked form is held to its one-piece form on the
 # ref's first points of each of these counts too (chunks of 335 and 134
 # rows; 67 at 10^6)
@@ -3187,13 +3291,10 @@ def phase_at_scale(dev) -> dict:
         print(_describe("phase 16 leg 1 SHOT at bench_1m.py's settings (cli.main)", staged),
               flush=True)
         fpfh = pair.run("at-scale FPFH", ["--descriptor_choice", "fpfh"], FPFH_WINDOW_PATH,
-                        ("spfh_runs", K7))
+                        FPFH_WINDOW_NOT)
         agg_launches("at-scale FPFH", fpfh["launches"])
+        spfh_pass_launches("at-scale FPFH", fpfh["launches"])
         _icp_nn_launches("at-scale FPFH", fpfh, SCALE_CLI_MAX_ITER, True)
-        # every point's SPFH of both clouds in K8 + K4 chunks, one pair a chunk
-        spfh = fpfh["launches"]["spfh_histogram"]
-        check(fpfh["launches"][WINDOW] == spfh,
-              f"at-scale FPFH: {fpfh['launches'][WINDOW]} K8 launches for {spfh} K4 launches")
         print(_describe("phase 16 leg 2 FPFH, window route (cli.main)", fpfh), flush=True)
         paths["at scale SHOT"], paths["at scale FPFH"] = shot["launches"], fpfh["launches"]
         paths["at scale bench_1m.py"] = staged["launches"]
@@ -3245,6 +3346,8 @@ def phase_at_scale(dev) -> dict:
     check(fp.shape == (kp.shape[0], 125) and bool(torch.isfinite(fp).all()),
           f"at-scale FPFH: shape {tuple(fp.shape)} or not finite")
     agg_launches("at-scale library FPFH", {k: rec["launches"].get(k, 0) for k in (AGG, K7)}, 1)
+    spfh_pass_launches("at-scale library FPFH", {k: rec["launches"].get(k, 0) for k in (
+        SPFH_PASS, WINDOW, "spfh_histogram")}, 1)
     _leg_line("leg 3 FPFH (compute_fpfh_descriptor)", rec)
     paths["at scale FPFH library"] = rec["launches"]
     r_s, t_s = euler_xyz(SCALE_ICP_EULER), np.asarray(SCALE_ICP_T)
@@ -3272,6 +3375,13 @@ def phase_at_scale(dev) -> dict:
     chunk = grid.packed_sorted[:8192, :3]
     kernels["fetch_windows"] = parity_k8("one FPFH chunk of the ref", grid, chunk, prefix, reps)
     kernels["spfh_histogram"] = parity_k4(grid, SCALE_RADIUS, prefix, reps)
+    kernels[SPFH_PASS] = parity_spfh_pass(grid, SCALE_RADIUS, "the ref's grid", prefix, reps,
+                                          plain_rows=SCALE_SPFH_PLAIN_ROWS)
+    # the benchmark's FPFH pass: radius 3.0, cell 1.5 (~17k neighbors a point)
+    cell_grid = build_grid(ref, SCALE_CELL_RADIUS / 2, extras=normals, halo=2)
+    parity_spfh_pass(cell_grid, SCALE_CELL_RADIUS, "the ref at the FPFH cell's radius", prefix,
+                     1, plain_rows=SCALE_SPFH_PLAIN_ROWS, chunk_reps=1)
+    del cell_grid
     check(grid.use_xyrow and grid.xyrow_run_cap > 0, "the at-scale grid is not an xy-row grid")
     k1 = kernels["shot_binning_histogram"] = k1_own_frames(grid, kp, SCALE_RADIUS, reps)
     k5 = kernels["shot_runs"] = k5_own_frames(grid, kp, SCALE_RADIUS, reps)
@@ -3534,6 +3644,7 @@ def main(argv=None) -> int:
     k3 = parity_k3(dev, rng)
     grid = spfh_terrain(dev, rng)
     k4, k6 = parity_k4(grid), parity_k6(grid)
+    spfh_pass = parity_spfh_pass(grid, FPFH_RADIUS, "the smoke terrain")
     k8_more.append(parity_k8("the FPFH chunk", grid, grid.packed_sorted[:8192, :3]))
     del grid
     voxel_sums(dev, rng)
@@ -3572,6 +3683,9 @@ def main(argv=None) -> int:
                        "shot_fpfh_tpu/ops/pallas_radius.py:247", k3, "SHOT"),
         "spfh_histogram": ("shot_fpfh_tpu_torch/csrc/spfh_fused.cu",
                            "shot_fpfh_tpu/ops/pallas_fpfh_fused.py:172", k4, "FPFH window"),
+        SPFH_PASS: ("shot_fpfh_tpu_torch/csrc/spfh_grid.cu",
+                    "shot_fpfh_tpu/ops/pallas_radius.py:467 + pallas_fpfh_fused.py:172",
+                    spfh_pass, "FPFH window"),
         "shot_runs": ("shot_fpfh_tpu_torch/csrc/shot_runs.cu",
                       "shot_fpfh_tpu/ops/pallas_shot_dma.py:164", k5, "bi-scale runs"),
         "spfh_runs": ("shot_fpfh_tpu_torch/csrc/spfh_runs.cu",

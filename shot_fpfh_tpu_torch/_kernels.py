@@ -62,6 +62,8 @@ _SIGNATURES = {
     "radius_pca": _GRID + [_P, _P, _P, _I, _P, _P, _P, _P],
     "spfh_histogram": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "spfh_runs": [_P, _I, _P, _P, _F, _L, _L, _L, _I, _P, _P, _I, _I, _F, _I, _I, _P, _P],
+    "spfh_grid": [_P, _I, _P, _P, _P, _F, _L, _L, _L, _I, _I, _P, _P, _I, _I, _F, _I, _I, _P,
+                  _P],
     "shot_runs": [_P, _I, _P, _P, _F, _L, _L, _L, _I, _I, _P, _I, _P, _F, _F, _P, _P, _P, _P,
                   _P],
     "fetch_windows": [_P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],

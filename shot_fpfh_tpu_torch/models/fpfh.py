@@ -17,8 +17,10 @@ Routes, switched at ``ops.grid_hash.AUTO_GRID_MIN_POINTS`` cloud points
   in PyTorch, aggregation over the keypoints' neighborhoods searched the
   same way;
 - large clouds: a halo-2 grid whose window holds every uncapped radius
-  neighborhood; SPFH of every point in grid order through K4
-  (``ops.spfh_fused``) or, with the run route on and an xy-row grid, K6
+  neighborhood; SPFH of every point in grid order in one kernel launch
+  (``ops.spfh_fused.spfh_grid``: the runs, radius test, count and bins
+  inside it; a grid without a cell-start table takes K8 + K4 in query
+  chunks) or, with the run route on and an xy-row grid, K6
   (``ops.shot_dma``); the aggregation sums the neighbors' 1/d weighted SPFH
   rows over the same windows in K7's aggregation mode
   (``ops.radius_runs.fpfh_aggregate``: one launch a cloud; the reference
@@ -42,12 +44,11 @@ from ..ops.grid_hash import (
     build_grid,
     grid_radius_search,
     radius_search_with_values_auto,
-    window_distances,
 )
 from ..ops.neighbors import Neighborhoods, as_f32, radius_search
 from ..ops.radius_runs import fpfh_aggregate
 from ..ops.shot_dma import dma_kernel_enabled, spfh_block_dma
-from ..ops.spfh_fused import spfh_from_angles, spfh_histogram
+from ..ops.spfh_fused import spfh_from_angles, spfh_grid
 from ..parallel.mesh import gather_rows, local_rows
 from ..utils.perf import span, uploading
 
@@ -107,35 +108,11 @@ def compute_spfh(cloud_points, normals, radius, n_bins: int, k_max: int = 128,
     return torch.cat(spfh_parts), nbr
 
 
-def _spfh_window_block(grid: HashGrid, qc, qn, radius, n_bins: int, decorrelated: bool):
-    """Count-normalized SPFH of one query block over its grid windows,
-    binned by K4 (its plain twin on CPU tensors)."""
-    vals, d, win_ok, _ = window_distances(grid, qc, with_rows=False)
-    ok = win_ok & (d <= radius)
-    count = torch.clamp(ok.sum(-1), min=1).to(torch.float32)
-    dist_inf = torch.where(ok, d, torch.full_like(d, float("inf")))
-    return spfh_histogram(vals, dist_inf, qc, qn, n_bins, decorrelated) / count[:, None]
-
-
-def _spfh_window_rows(grid: HashGrid, qc, qn, radius, n_bins: int, decorrelated: bool,
-                      chunk: int = 8192):
-    """Count-normalized SPFH of the queries ``qc`` (normals ``qn``) over
-    their grid windows (K4), in query chunks, ``(C, D)``."""
-    # contiguous once, so each chunk goes to the kernels without a copy
-    qc, qn = qc.contiguous(), qn.contiguous()
-    parts = []
-    for s in range(0, qc.shape[0], chunk):
-        with span("spfh.chunk"):
-            parts.append(_spfh_window_block(grid, qc[s:s + chunk], qn[s:s + chunk], radius,
-                                            n_bins, decorrelated))
-    return torch.cat(parts)
-
-
-def _spfh_window_sorted(grid: HashGrid, radius, n_bins: int, decorrelated: bool,
-                        chunk: int = 8192):
-    """SPFH of every cloud point in grid-sorted order, ``(N, D)``."""
-    return _spfh_window_rows(grid, grid.packed_sorted[:, :3], grid.packed_sorted[:, 3:6],
-                             radius, n_bins, decorrelated, chunk)
+def _spfh_window_sorted(grid: HashGrid, radius, n_bins: int, decorrelated: bool):
+    """SPFH of every cloud point in grid-sorted order, ``(N, D)``
+    (``ops.spfh_fused.spfh_grid`` over the table's own rows)."""
+    table = grid.packed_sorted
+    return spfh_grid(grid, table[:, :3], table[:, 3:6], radius, n_bins, decorrelated)
 
 
 def _fpfh_window_aggregate(grid: HashGrid, spfh_sorted, kp_sorted_idx, radius):
@@ -207,18 +184,20 @@ def _fpfh_rows(cloud, nrm, kp_rows, radius, n_bins: int, decorrelated: bool, k_m
     (cell ``radius/2``, halo 2, carrying normals) is given, else cloud
     indices.  Pass 1 is the SPFH of the rank's block of the cloud's points
     (pad queries at the far sentinel: empty neighborhoods) — on a grid in
-    its sorted order through K6 (run route) or K8 + K4, else the capped
-    brute search — and one ``all_gather`` of the ``(N, D)`` table; pass 2
+    its sorted order through K6 (run route) or the SPFH pass kernel
+    (``spfh_grid``), else the capped brute search — and one
+    ``all_gather`` of the ``(N, D)`` table; pass 2
     aggregates over the keypoints' neighborhoods found again (grid: K7's
     aggregation mode).
     The staged FPFH (:func:`_fpfh`) and the fused program's FPFH leg
     (``registration.fused``) both run this."""
     n = cloud.shape[0]
     if grid is not None:
-        spfh_rows = spfh_block_dma if _use_dma_spfh(grid) else _spfh_window_rows
+        spfh_rows = spfh_block_dma if _use_dma_spfh(grid) else spfh_grid
         table = grid.packed_sorted       # pass 1 in the grid's sorted order
-        spfh = spfh_rows(grid, local_rows(table[:, :3], mesh, fill=_FAR),
-                         local_rows(table[:, 3:6], mesh), radius, n_bins, decorrelated)
+        with span("spfh.pass"):
+            spfh = spfh_rows(grid, local_rows(table[:, :3], mesh, fill=_FAR),
+                             local_rows(table[:, 3:6], mesh), radius, n_bins, decorrelated)
         return _fpfh_window_aggregate(grid, gather_rows(spfh, n, mesh), kp_rows, radius)
     q = local_rows(cloud, mesh, fill=_FAR)
     nbr, vals = radius_search_with_values_auto(q, cloud, nrm, radius, k_max)

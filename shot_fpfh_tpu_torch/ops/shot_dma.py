@@ -6,7 +6,7 @@ Counterpart of ``shot_fpfh_tpu/ops/pallas_shot_dma.py``: on an xy-row grid
 them with no ``(Q, W)`` window gather.  A row is a neighbor when its squared
 distance (the reference's contracted ``fma`` chain, ``_fp.sqnorm3``) is
 ≤ r·r.  This radius rule differs from the window routes' ``sqrt(...) ≤ r``
-(``models.shot._shot_window_chunked``, ``models.fpfh._spfh_window_block``):
+(``models.shot._shot_window_chunked``, ``ops.spfh_fused.spfh_grid``):
 each route keeps its reference's rule.
 
 - K5, :func:`shot_descriptor_dma` (``shot_descriptor_dma``): SHOT frames,

@@ -37,7 +37,7 @@ from shot_fpfh_tpu_torch.models import fpfh as t_fpfh  # noqa: E402
 from shot_fpfh_tpu_torch.ops import descriptor_bins as t_bins  # noqa: E402
 from shot_fpfh_tpu_torch.ops import grid_hash as t_grid  # noqa: E402
 from shot_fpfh_tpu_torch.ops import histogram as t_hist  # noqa: E402
-from shot_fpfh_tpu_torch.ops import shot_dma  # noqa: E402
+from shot_fpfh_tpu_torch.ops import shot_dma, spfh_fused  # noqa: E402
 from shot_fpfh_tpu_torch.ops.spfh_fused import spfh_histogram  # noqa: E402
 
 # The suite runs several pytest workers side by side on the CPU: one torch
@@ -233,22 +233,25 @@ def test_compute_fpfh_descriptor_brute_route(rng):
 @pytest.mark.parametrize("route,decorrelated", [("window", False), ("window", True),
                                                 ("runs", False)])
 def test_compute_fpfh_descriptor_grid_route(rng, monkeypatch, route, decorrelated):
-    """Above the (lowered) auto-grid threshold: the window route (K4's
-    twin) and the run route (K6's twin) against JAX's window route."""
+    """Above the (lowered) auto-grid threshold: the window route (the SPFH
+    pass's twin, once a cloud) and the run route (K6's twin) against JAX's
+    window route."""
     pts, nrm = surface(1500, rng, scale=2.5)
     for mod in (j_grid, t_grid):
         monkeypatch.setattr(mod, "AUTO_GRID_MIN_POINTS", 1000)
     monkeypatch.setitem(shot_dma._DMA, "enabled", route == "runs")
-    calls = []
+    calls, passes = [], []
     monkeypatch.setattr(t_fpfh, "spfh_block_dma",
                         lambda *a: calls.append(1) or shot_dma.spfh_block_dma(*a))
+    monkeypatch.setattr(t_fpfh, "spfh_grid",
+                        lambda *a: passes.append(1) or spfh_fused.spfh_grid(*a))
     kp = np.arange(0, 1500, 11)
     got = t_fpfh.compute_fpfh_descriptor(kp, pts, nrm, 0.5, 5, decorrelated=decorrelated,
                                          device="cpu")
     want = j_fpfh.compute_fpfh_descriptor(kp.astype(np.int32), pts, nrm, 0.5, 5,
                                           decorrelated=decorrelated)
     assert got.shape == (len(kp), 15 if decorrelated else 125)
-    assert len(calls) == (route == "runs")
+    assert len(calls) == (route == "runs") and len(passes) == (route == "window")
     assert_route_rule(got.numpy(), want)
 
 

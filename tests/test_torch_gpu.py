@@ -18,7 +18,7 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
-from chip_smoke import aggregate_rule, make_terrain, rotation_about  # noqa: E402
+from chip_smoke import aggregate_rule, make_terrain, rotation_about, scale_terrain  # noqa: E402
 from shot_fpfh_tpu_torch import _kernels  # noqa: E402
 from shot_fpfh_tpu_torch.ops import shot_dma  # noqa: E402
 from shot_fpfh_tpu_torch.ops.grid_hash import build_grid, window_distances  # noqa: E402
@@ -39,7 +39,12 @@ from shot_fpfh_tpu_torch.ops.shot_fused import (  # noqa: E402
     shot_binning_histogram,
     shot_binning_histogram_plain,
 )
-from shot_fpfh_tpu_torch.ops.spfh_fused import spfh_histogram, spfh_histogram_plain  # noqa: E402
+from shot_fpfh_tpu_torch.ops.spfh_fused import (  # noqa: E402
+    spfh_grid,
+    spfh_histogram,
+    spfh_histogram_plain,
+    spfh_window_chunked,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -829,11 +834,148 @@ def test_k6_spfh_runs_kernel_bin_counts(cuda, rng, n_bins):
         assert float(want.sum()) > 0
 
 
+# FPFH's SPFH pass as the benchmark's FPFH cell runs it: radius 3.0 on
+# bench_1m.py's terrain (625 points a square metre), cell 1.5, halo 2
+SPFH_PASS_RADIUS, FAR = 3.0, 1.0e6
+
+
+def _spfh_pass_terrain(cuda, extent=6.33):
+    """The FPFH cell's terrain (``chip_smoke.scale_terrain``) cut to its
+    central square at the cell's density (~10^5 points at 6.33), its k=30
+    normals and the SPFH pass's grid."""
+    from shot_fpfh_tpu_torch.models.normals import compute_normals
+
+    pts = scale_terrain(np.random.default_rng(21), 1_000_000)
+    pts = torch.tensor(pts[(np.abs(pts[:, 0]) <= extent) & (np.abs(pts[:, 1]) <= extent)],
+                       device=cuda)
+    return build_grid(pts, SPFH_PASS_RADIUS / 2, extras=compute_normals(pts, pts, k=30),
+                      halo=2)
+
+
+def _spfh_pass_launch(grid, qc, qn, radius, n_bins, decorrelated):
+    """The SPFH pass kernel's rows of ``qc``: one launch, and no K8 or K4."""
+    before = dict(_kernels.launch_counts)
+    got = spfh_grid(grid, qc, qn, radius, n_bins, decorrelated)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts["spfh_grid"] == before["spfh_grid"] + 1
+    for name in ("fetch_windows", "spfh_histogram"):
+        assert _kernels.launch_counts[name] == before[name]
+    return got
+
+
+@pytest.mark.parametrize("decorrelated", [False, True])
+def test_spfh_pass_kernel_equals_chunked_route(cuda, decorrelated):
+    """The SPFH pass kernel over every point of ~10^5 of the FPFH cell's
+    terrain at radius 3.0 (~17k neighbors a point; the table's own rows as
+    queries) equals the chunked route it replaced (K8 + K4) bit for bit;
+    a block padded at the far sentinel with zero normals, as the sharded
+    pass pads it, gets zero pad rows; an empty block launches nothing."""
+    grid = _spfh_pass_terrain(cuda)
+    table = grid.packed_sorted
+    assert grid.has_table and table.shape[0] >= 100_000
+    qc, qn = table[:, :3], table[:, 3:6]
+    got = _spfh_pass_launch(grid, qc, qn, SPFH_PASS_RADIUS, 5, decorrelated)
+    want = spfh_window_chunked(grid, qc, qn, SPFH_PASS_RADIUS, 5, decorrelated)
+    assert torch.equal(got, want)
+    assert float(got.sum()) > 0
+    pad_qc = torch.cat([qc[:5000], torch.full((3, 3), FAR, device=cuda)])
+    pad_qn = torch.cat([qn[:5000], torch.zeros((3, 3), device=cuda)])
+    padded = _spfh_pass_launch(grid, pad_qc, pad_qn, SPFH_PASS_RADIUS, 5, decorrelated)
+    assert torch.equal(padded[:-3], want[:5000]) and not padded[-3:].any()
+    before = _kernels.launch_counts["spfh_grid"]
+    empty = spfh_grid(grid, pad_qc[:0], pad_qn[:0], SPFH_PASS_RADIUS, 5, decorrelated)
+    assert empty.shape == (0, want.shape[1]) and _kernels.launch_counts["spfh_grid"] == before
+
+
+@pytest.mark.parametrize("halo", [1, 2, 3])
+@pytest.mark.parametrize("decorrelated", [False, True])
+def test_spfh_pass_kernel_edge_cases(cuda, rng, halo, decorrelated):
+    """Equal to the chunked route at halo 1, 2 and 3 (49 runs: more than a
+    warp's lanes) on 67 queries: 40 cloud points in random order, 24
+    consecutive sorted rows, the point of least x (empty runs), a point off
+    the grid at the far sentinel and one 5 above the surface (runs full of
+    rows, none in radius); then with the window cap cut below the longest
+    window, where both routes walk only the first slots."""
+    import dataclasses
+
+    radius = 0.5
+    pts = _surface(rng, 30_000, cuda)
+    nrm = torch.nn.functional.normalize(torch.randn_like(pts), dim=1)
+    grid = build_grid(pts, radius / halo, extras=nrm, halo=halo)
+    assert grid.has_table and grid.halo == halo
+    table = grid.packed_sorted
+    edge = int(torch.argmin(pts[:, 0]))
+    idx = torch.tensor(rng.choice(pts.shape[0], 40, replace=False), device=cuda)
+    far = torch.tensor([[FAR, FAR, FAR], [0.0, 0.0, 5.0]], device=cuda)
+    qc = torch.cat([pts[idx], table[5000:5024, :3], pts[edge:edge + 1], far])
+    qn = torch.cat([nrm[idx], table[5000:5024, 3:6], nrm[edge:edge + 1],
+                    torch.tensor([[0.0, 0.0, 1.0]] * 2, device=cuda)])
+    got = _spfh_pass_launch(grid, qc, qn, radius, 5, decorrelated)
+    assert torch.equal(got, spfh_window_chunked(grid, qc, qn, radius, 5, decorrelated))
+    assert not got[-2:].any() and bool(got[:-2].any(1).all())
+    cut = dataclasses.replace(grid, window_cap=grid.window_cap // 3)
+    got = _spfh_pass_launch(cut, qc, qn, radius, 5, decorrelated)
+    assert torch.equal(got, spfh_window_chunked(cut, qc, qn, radius, 5, decorrelated))
+
+
+@pytest.mark.parametrize("decorrelated", [False, True])
+def test_spfh_pass_kernel_bin_edges(cuda, rng, decorrelated):
+    """Neighbors whose phi and theta lie on bin edges (K6's edge cloud):
+    the rows equal the chunked route's bit for bit."""
+    pts, nrm, sites = _k6_edge_cloud(rng)
+    grid = build_grid(torch.tensor(pts, device=cuda), 0.25, extras=torch.tensor(nrm, device=cuda),
+                      halo=2)
+    qc = torch.tensor(sites, device=cuda)
+    qn = torch.tensor([[0.0, 0.0, 1.0]] * len(sites), device=cuda)
+    got = _spfh_pass_launch(grid, qc, qn, 0.5, 5, decorrelated)
+    assert torch.equal(got, spfh_window_chunked(grid, qc, qn, 0.5, 5, decorrelated))
+    assert float(got.sum()) > 0
+
+
+@pytest.mark.parametrize("n_bins", [1, 11])
+def test_spfh_pass_kernel_bin_counts(cuda, rng, n_bins):
+    """One bin, and 11^3 joint bins, whose per-warp histograms need more
+    than 48 KB of shared memory a block: equal to the chunked route in both
+    modes, on transposed (non-unit-stride) query arrays."""
+    grid = _spfh_grid(rng, cuda, 0.5)
+    qc = grid.packed_sorted[:1000, :3].t().contiguous().t()
+    qn = grid.packed_sorted[:1000, 3:6].t().contiguous().t()
+    assert qc.stride(1) != 1
+    for dec in (False, True):
+        got = _spfh_pass_launch(grid, qc, qn, 0.5, n_bins, dec)
+        assert torch.equal(got, spfh_window_chunked(grid, qc, qn, 0.5, n_bins, dec))
+        assert float(got.sum()) > 0
+
+
+def test_spfh_pass_without_cell_table(cuda, rng):
+    """A grid without a cell-start table (one far point: too many cells)
+    takes the chunked route (K8 and K4 launched, the pass kernel not); its
+    rows of the cloud equal the kernel's on the grid with a table, whose
+    sorted order is the same."""
+    pts = _surface(rng, 30_000, cuda)
+    nrm = torch.nn.functional.normalize(torch.randn_like(pts), dim=1)
+    with_table = build_grid(pts, 0.25, extras=nrm, halo=2)
+    grid = build_grid(torch.cat([pts, torch.full((1, 3), 5e3, device=cuda)]), 0.25,
+                      extras=torch.cat([nrm, nrm[:1]]), halo=2)
+    assert with_table.has_table and not grid.has_table
+    table = grid.packed_sorted
+    assert torch.equal(table[:-1], with_table.packed_sorted)
+    before = dict(_kernels.launch_counts)
+    got = spfh_grid(grid, table[:, :3], table[:, 3:6], 0.5, 5, False)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts["spfh_grid"] == before["spfh_grid"]
+    for name in ("fetch_windows", "spfh_histogram"):
+        assert _kernels.launch_counts[name] > before[name]
+    want = _spfh_pass_launch(with_table, table[:-1, :3], table[:-1, 3:6], 0.5, 5, False)
+    assert torch.equal(got[:-1], want) and bool(want.any(1).all())
+
+
 @pytest.mark.parametrize("run_route", [False, True])
 def test_fpfh_cli_on_card(cuda, tmp_path, monkeypatch, run_route):
     """A 30k-point terrain pair (the smoke terrain's density) registered
-    with FPFH through the CLI on the card: the window route launches K4,
-    the run route K6 and no K4."""
+    with FPFH through the CLI on the card: the window route launches the
+    SPFH pass kernel once a cloud and neither K8 nor K4, the run route K6
+    and not the pass kernel."""
     from shot_fpfh_tpu_torch import cli
     from shot_fpfh_tpu_torch.io.ply import write_ply
 
@@ -853,7 +995,8 @@ def test_fpfh_cli_on_card(cuda, tmp_path, monkeypatch, run_route):
     counts = _kernels.launch_counts
     assert counts["top2_match"] > 0 and counts["radius_pca"] > 0
     assert (counts["spfh_runs"] > 0) == run_route
-    assert (counts["spfh_histogram"] > 0) == (not run_route)
+    assert counts["spfh_grid"] == (0 if run_route else 2)
+    assert counts["spfh_histogram"] == 0 and counts["fetch_windows"] == 0
     # the aggregation: one kernel launch a cloud, no K7 window
     assert counts["fpfh_aggregate"] == 2 and counts["radius_dist"] == 0
 

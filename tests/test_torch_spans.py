@@ -32,7 +32,7 @@ CHILDREN = {
                                             "sync[keypoints.indices]"),
     "descriptors[shot_single_scale]": ("shot.support", "shot.pad", "shot.grid",
                                        "shot.chunk", "sync[voxel.indices]"),
-    "descriptors[fpfh]": ("spfh.grid", "spfh.chunk", "fpfh.aggregate"),
+    "descriptors[fpfh]": ("spfh.grid", "spfh.pass", "fpfh.aggregate"),
     "matching[simple]": ("match.rows", "match.top2", "sync[match.nonzero]",
                          "sync[match.read]"),
     "ransac": ("ransac.draws", "ransac.search", "sync[kabsch.svd]", "sync[ransac.best]",

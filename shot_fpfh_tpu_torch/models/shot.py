@@ -58,7 +58,7 @@ from ..ops.shot_dma import dma_kernel_enabled, shot_descriptor_dma
 from ..ops.shot_fused import local_frames as _local_rfs_ff
 from ..ops.shot_fused import binning_violations as _binning_violations  # noqa: F401
 from ..ops.shot_fused import shot_binning_histogram, shot_finalize, soft_histogram
-from ..utils.perf import blocking, span, uploading
+from ..utils.perf import add_counts, blocking, span, uploading
 
 logger = logging.getLogger(__name__)
 
@@ -172,7 +172,10 @@ def _shot_window_chunked(grid, kp, local_rfs, radius, normalize,
     """Grid SHOT: K5 over the xy-row runs when :func:`_use_dma_kernel`
     holds, else K1 over gathered windows in keypoint chunks.  Either way the
     exact uncapped radius neighborhood contributes (no top-k, no ``k_max``);
-    bi-scale frames come from the ``rf_radius`` neighbors of the same grid."""
+    bi-scale frames come from the ``rf_radius`` neighbors of the same grid.
+    A chunk's K8 fetch and radius planes are the span ``shot.window``, its
+    K1 call ``shot.bins``; the open stage counts the ``chunks`` and the
+    ``window_slots`` fetched (queries × ``grid.window_cap``)."""
     if _use_dma_kernel(grid):
         counter = _debug_counter(kp.device)
         out = shot_descriptor_dma(grid, kp, radius, rfs=local_rfs, rf_radius=rf_radius,
@@ -187,19 +190,23 @@ def _shot_window_chunked(grid, kp, local_rfs, radius, normalize,
     for s in range(0, kp.shape[0], step):
         with span("shot.chunk"):
             qc = kp[s:s + step]
-            vals, d, valid, _ = window_distances(grid, qc, with_rows=False)
-            rf_dist_inf = None
-            if local_rfs is None and rf_radius is not None:
-                rf_dist_inf = torch.where(valid & (d <= rf_radius), d, torch.full_like(d, inf))
-            dist_inf = torch.where(valid & (d <= radius), d, torch.full_like(d, inf))
-            desc, rfs = shot_from_window_ff(
-                qc, vals, dist_inf, radius, normalize=normalize,
-                min_neighborhood_size=min_neighborhood_size,
-                local_rfs=None if local_rfs is None else local_rfs[s:s + step],
-                rf_dist_inf=rf_dist_inf,
-                rf_radius=rf_radius if rf_dist_inf is not None else None)
+            with span("shot.window"):
+                vals, d, valid, _ = window_distances(grid, qc, with_rows=False)
+                rf_dist_inf = None
+                if local_rfs is None and rf_radius is not None:
+                    rf_dist_inf = torch.where(valid & (d <= rf_radius), d,
+                                              torch.full_like(d, inf))
+                dist_inf = torch.where(valid & (d <= radius), d, torch.full_like(d, inf))
+            with span("shot.bins"):
+                desc, rfs = shot_from_window_ff(
+                    qc, vals, dist_inf, radius, normalize=normalize,
+                    min_neighborhood_size=min_neighborhood_size,
+                    local_rfs=None if local_rfs is None else local_rfs[s:s + step],
+                    rf_dist_inf=rf_dist_inf,
+                    rf_radius=rf_radius if rf_dist_inf is not None else None)
             descs.append(desc)
             frames.append(rfs)
+    add_counts(chunks=-(-kp.shape[0] // step), window_slots=kp.shape[0] * grid.window_cap)
     return torch.cat(descs), torch.cat(frames)
 
 

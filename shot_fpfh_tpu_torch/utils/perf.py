@@ -18,6 +18,8 @@ profiler's trace while a profiler records, and nothing but two clock reads
 otherwise; the stage that is open counts them into its record (``spans``:
 ``{name: {count, host_s}}``; ``host_syncs`` and ``host_sync_s`` for the
 blocking ones, its own two synchronizes included as site ``stage``).
+:func:`add_counts` adds numbers the host already holds to the open stage's
+counters.
 """
 
 from __future__ import annotations
@@ -161,12 +163,13 @@ def stop_profiler_trace() -> str:
 class _StageCounts:
     """What the spans and blocking reads of one open stage add up to."""
 
-    __slots__ = ("host_syncs", "host_sync_s", "spans")
+    __slots__ = ("host_syncs", "host_sync_s", "spans", "counters")
 
     def __init__(self) -> None:
         self.host_syncs = 0
         self.host_sync_s = 0.0
         self.spans: dict[str, dict[str, float]] = {}
+        self.counters: dict[str, int] = {}
 
     def add(self, name: str, seconds: float) -> None:
         entry = self.spans.get(name)
@@ -228,6 +231,16 @@ def blocking(site: str, waits: int = 1) -> _Span:
     return _Span(f"sync[{site}]", waits)
 
 
+def add_counts(**counters: int) -> None:
+    """Add host-known numbers (never a device value: reading one would
+    wait for the card) to the open ``StageMetrics`` stage, which records
+    their sums as counters; nothing while no stage is open."""
+    counts = _OPEN_STAGE.get()
+    if counts is not None:
+        for key, value in counters.items():
+            counts.counters[key] = counts.counters.get(key, 0) + value
+
+
 _NOTHING = contextlib.nullcontext()
 
 
@@ -245,7 +258,8 @@ def uploading(x, device) -> _Span | contextlib.nullcontext:
 class StageMetrics:
     """Per-stage wall-clock + throughput counters, dumpable as JSON.  A
     stage's record also holds what its spans and blocking reads add up to
-    (``host_syncs``, ``host_sync_s``, ``spans``; no rates of them)."""
+    (``host_syncs``, ``host_sync_s``, ``spans``; no rates of them), and
+    the counters :func:`add_counts` added while it was open."""
 
     def __init__(self) -> None:
         self.stages: list[dict[str, Any]] = []
@@ -274,12 +288,12 @@ class StageMetrics:
             self._annotation.__exit__(None, None, None)
             self._annotation = None
         _OPEN_STAGE.set(self._outer)
+        counts = self._counts
         record: dict[str, Any] = {"stage": self._name, "seconds": elapsed}
-        for key, value in counters.items():
+        for key, value in {**counts.counters, **counters}.items():
             record[key] = value
             if value:
                 record[f"{key}_per_sec"] = value / elapsed if elapsed > 0 else float("inf")
-        counts = self._counts
         record.update(host_syncs=counts.host_syncs, host_sync_s=counts.host_sync_s,
                       spans=counts.spans)
         self.stages.append(record)

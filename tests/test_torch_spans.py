@@ -24,6 +24,10 @@ torch.set_num_threads(1)
 
 N_DRAWS = 1000
 MAX_ITER = 20
+# the bi-scale descriptor stage's blocking reads on the 4,000-point pair:
+# its two synchronizes and, a cloud, three of the voxel subsample and eight
+# of the grid; the chunk loop and its counters add none
+BI_SCALE_HOST_SYNCS = 2 + 2 * (3 + 8)
 # each stage's child ranges (``sync[...]`` ones: a site of a blocking read)
 CHILDREN = {
     "normals[knn]": ("normals.grid", "normals.pass", "normals.net", "sync[normals.kth]",
@@ -222,3 +226,54 @@ def test_cli_metrics_json_holds_the_normals_stage(tmp_path, caplog):
     assert any(t.startswith("Data loading + normals") for t in timers)
     assert not any(t.startswith(("Keypoint selection", "Descriptors", "Matching", "RANSAC",
                                  "ICP")) for t in timers), timers
+
+
+def test_bi_scale_chunks_open_window_and_bins_and_count_their_slots(tmp_path, monkeypatch):
+    """Bi-scale SHOT through the CLI on the grid window route, under a
+    profiler, in chunks of 256 keypoints: each ``shot.chunk`` holds one
+    ``shot.window`` (K8 and the two radius planes) and one ``shot.bins``
+    (K1), and the descriptor stage's record, as ``--metrics_json`` writes
+    it, counts the chunks and the window slots the loop fetched (the padded
+    keypoints × each cloud's window cap); the loop adds no blocking read."""
+    from shot_fpfh_tpu_torch.cli import main
+    from shot_fpfh_tpu_torch.io.ply import write_ply
+    from shot_fpfh_tpu_torch.models import shot as t_shot
+
+    scan, ref = _terrain(4000)
+    write_ply(str(tmp_path / "scan.ply"), [scan.astype(np.float32)], ["x", "y", "z"])
+    write_ply(str(tmp_path / "ref.ply"), [ref.astype(np.float32)], ["x", "y", "z"])
+    for mod in (grid_hash, t_normals, t_icp, t_pipeline):
+        monkeypatch.setattr(mod, "AUTO_GRID_MIN_POINTS", 2000)
+    monkeypatch.setattr(t_shot, "window_chunk", lambda grid, features: 256)
+    calls = []
+    chunked = t_shot._shot_window_chunked
+    monkeypatch.setattr(t_shot, "_shot_window_chunked",
+                        lambda grid, kp, *a, **k: calls.append((kp.shape[0], grid.window_cap))
+                        or chunked(grid, kp, *a, **k))
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        main(["--device", "cpu", "--scan_file_path", str(tmp_path / "scan.ply"),
+              "--ref_file_path", str(tmp_path / "ref.ply"), "--conf_file_path", "",
+              "--neighborhood_size", "0.15", "--min_n_neighbors", "2",
+              "--descriptor_choice", "shot_bi_scale", "--radius", "0.3", "--phi", "3",
+              "--rho", "10", "--min_neighborhood_size", "10", "--n_draws", "500",
+              "--max_iter", "8", "--disable_ply_writing",
+              "--metrics_json", str(tmp_path / "m.json")])
+    ranges: dict[str, list] = {}
+    for e in prof.events():
+        ranges.setdefault(e.name, []).append((e.time_range.start, e.time_range.end))
+    chunks = ranges["shot.chunk"]
+    assert len(calls) == 2 and all(cap > 0 for _, cap in calls)
+    n_chunks = sum(-(-n // 256) for n, _ in calls)
+    assert n_chunks > 2 and len(chunks) == n_chunks
+    for name in ("shot.window", "shot.bins"):
+        assert len(ranges[name]) == n_chunks
+        assert all(sum(clo <= lo and hi <= chi for clo, chi in chunks) == 1
+                   for lo, hi in ranges[name]), name
+    stage = next(s for s in json.loads((tmp_path / "m.json").read_text())["stages"]
+                 if s["stage"] == "descriptors[shot_bi_scale]")
+    assert stage["chunks"] == n_chunks
+    assert stage["window_slots"] == sum(n * cap for n, cap in calls)
+    assert stage["spans"]["shot.window"]["count"] == stage["spans"]["shot.bins"]["count"] \
+        == n_chunks
+    syncs = {k: v["count"] for k, v in stage["spans"].items() if k.startswith("sync[")}
+    assert stage["host_syncs"] == sum(syncs.values()) == BI_SCALE_HOST_SYNCS, syncs

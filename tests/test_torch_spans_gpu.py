@@ -27,7 +27,7 @@ from shot_fpfh_tpu_torch.utils import perf  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
-WORKLOADS = ("shot1m.dense", "fpfh1m.dense")
+WORKLOADS = ("shot1m.dense", "fpfh1m.dense", "shot1m.biscale", "shot1m.sparse")
 # a tenth of a cell's points at its density: every route the cell takes
 SMOKE = {"points": 100_000, "extent": 6.3}
 SEED = 2147483990
@@ -117,5 +117,5 @@ def test_a_traced_run_reads_the_span_metrics(cuda, workload):
     line = json.loads(proc.stdout.strip().splitlines()[-1])
     assert line["correct"] is True, line["checks"]
     for name in ("normals_stage_ms", "host_syncs_per_pair", "sync_idle_ms",
-                 "match_roofline_pct"):
+                 "match_roofline_pct", "descriptors_idle_ms", "descriptor_launches_per_pair"):
         assert isinstance(line["metrics"][name]["value"], float), name

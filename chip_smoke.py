@@ -16,6 +16,10 @@ Phases, one line each; any failure exits non-zero with no result line:
    K5 SHOT over xy-row runs (the same keypoints and grids, all three modes;
    then held to the K1 window route on the keypoints whose neighbor counts
    agree under the two routes' radius rules),
+   SG, SHOT's grid kernel (``shot_grid``: the same keypoints and grids, all
+   three modes, equal to the K8 + K1 route it replaced and held to its twin
+   by phase 17's frame rule and the flip rule, timed beside both; phase 16
+   holds it so at the SHOT cells' 10^6-point shapes),
    K2 top-2 matching (4096 x 4096 x 352, f32 and bf16; 4096 x 4096 x 704,
    the two-scale width, and 8192 x 8192 x 125, the FPFH width, bf16; the
    main path's 6531 x 6634 x 352, bf16; whole-number descriptors with
@@ -53,8 +57,8 @@ Phases, one line each; any failure exits non-zero with no result line:
    known rigid motion of ref + noise) with ``config/default.yaml``, run
    cold once and then measured; the registration must be accepted, within
    1e-2 rad / 1e-2 of the ground truth, and the measured run must have
-   launched K1, K2 and K3, and K7's 1-NN mode once an ICP iteration and
-   once for the evaluation (51), K7's window never.  ``--profile DIR``
+   launched SG, K2 and K3, and K7's 1-NN mode once an ICP iteration and
+   once for the evaluation (51), K7's window, K8 and K1 never.  ``--profile DIR``
    adds a third run under ``torch.profiler`` (op table, chrome trace,
    device-busy share);
 5. FPFH path: the same pair with ``--descriptor_choice fpfh``, cold and
@@ -65,14 +69,14 @@ Phases, one line each; any failure exits non-zero with no result line:
    with the aggregation's twin in the kernel's place (the same rotation
    error within 1e-5 rad); each run accepted within the same bounds;
 6. bi-scale SHOT (``--phi 3``: frames at 0.9, bins at 2.7) on the window
-   route (K1, K2, K3) and on the run route (K5, K2, K3, no K1);
+   route (SG, K2, K3) and on the run route (K5, K2, K3, no SG);
 7. multiscale SHOT (``--n_scales 2``: radii 0.9 and 2.7, 704 columns) on the
-   window route (K1, and K2 at D = 704); scale 2's support, subsampled at
+   window route (SG, and K2 at D = 704); scale 2's support, subsampled at
    2.7/10, is under 20k points and takes the brute route;
-8. single-scale SHOT on the run route (K5, no K1);
+8. single-scale SHOT on the run route (K5, no SG);
 9. iterative keypoints (``--selection_algorithm iterative
    --neighborhood_size 0.3``: greedy coverage over the K7 radius search),
-   single-scale SHOT; the measured run launches K7, K8, K1, K2 and K3, and
+   single-scale SHOT; the measured run launches K7, SG, K2 and K3, and
    both clouds' keypoints equal the port's keypoints for them on the CPU;
 10. PCA features of 20,000 points of the 100k ref at radius 0.3 (radius
    normals, sphericity, the basic and the 21-column features: K3 and K8),
@@ -81,7 +85,7 @@ Phases, one line each; any failure exits non-zero with no result line:
    ``--selection_algorithm random``, one measured run each;
 12. the single-program path (``--fused`` with ``--selection_algorithm
    subsampling --neighborhood_size 0.15``): single-scale SHOT on the window
-   route (K8 + K1) and on the run route (K5), and FPFH (the SPFH pass and
+   route (SG) and on the run route (K5), and FPFH (the SPFH pass and
    the aggregation kernel once a cloud each), each
    cold, then measured, accepted within the same bounds, with one K2 (f32)
    launch, K3 (normals) and K7's 1-NN mode (ICP); beside each, the staged
@@ -93,7 +97,7 @@ Phases, one line each; any failure exits non-zero with no result line:
 13. the library's single-device remainder: ``multiscale_top1`` on phase
    7's two-scale descriptors, card against CPU in both reciprocal modes,
    timed beside its bound, and one ``match_descriptors`` on the stacks;
-   ``--debug_shot`` (K1 counts the checks in the kernel; 0 violations) and
+   ``--debug_shot`` (SG counts the checks in the kernel; 0 violations) and
    ``--debug_nans`` (every op and kernel launch checked) through
    ``cli.main``; the sampled ICP and the stats solvers against the CPU;
    ``trace_annotation`` in a profiler trace.  Phase 3 also holds K1's and
@@ -136,8 +140,8 @@ Phases, one line each; any failure exits non-zero with no result line:
    copied), written as ``.ply`` to a temporary directory: ``cli.main`` for
    SHOT and for FPFH on the window route (radius 0.6, keypoint voxel
    0.15), cold then measured, accepted within 1e-2 rad / 1e-2, launching
-   K3, K8, K1 (or the SPFH pass and the aggregation kernel once a cloud
-   each, no K8, K4 or K7), K2
+   K3, SG once a cloud and no K8 or K1 (or the SPFH pass and the
+   aggregation kernel once a cloud each, no K8, K4 or K7), K2
    and K7's 1-NN mode once an ICP iteration
    and twice for the evaluation; ``bench.py``'s at-scale legs through the
    library on the ref (k=30 normals, with the sampled k-th bound equal to
@@ -148,7 +152,8 @@ Phases, one line each; any failure exits non-zero with no result line:
    peak device memory; every kernel at these shapes against its twin
    (phase 3's rules; K2 on 4096 sampled rows; the aggregation on the CLI
    legs' ~78k ref keypoints; the SPFH pass also at the FPFH cell's radius
-   3.0, cell 1.5); the voxel sums with a voxel
+   3.0, cell 1.5; SG on those keypoints over the ref's 0.3 support, the
+   SHOT cells' shapes, at 3.0 and bi-scale at 9.0 / 3.0); the voxel sums with a voxel
    of 10^5 and of 10^6 points bit-identical to the CPU's;
 17. the surface the port gained last: ``radius_search_auto`` on a random
    5k of the smoke ref (brute) and on all of it (the grid through K7), for
@@ -163,8 +168,9 @@ Phases, one line each; any failure exits non-zero with no result line:
    histograms, the CPU given the card's frames, by the flip rule;
    ``RigidTransform.identity((4,))`` on ``cuda``.
 Phases 4–9 and 12 run cold, then measured, each accepted within the same
-bounds; every SHOT window route launches K8, FPFH's window route the SPFH
-pass kernel once a cloud, and every ICP K7's 1-NN mode.
+bounds; every SHOT window route launches SG once a cloud (no K8, no K1),
+FPFH's window route the SPFH pass kernel once a cloud, and every ICP K7's
+1-NN mode.
 ``--bits-against LIB`` also holds K1's and K5's phase-3 outputs equal, bit
 for bit, to those of another build's library and times each alone under
 both builds in turns.
@@ -272,6 +278,18 @@ K6_KERNEL = "spfh_runs_kernel"
 SPFH_PASS, SPFH_PASS_KERNEL = "spfh_grid", "spfh_grid_kernel"
 SPFH_PLAIN_CHUNK = 1024
 K7_KERNEL, K8_KERNEL = "radius_dist_kernel", "fetch_windows_kernel"
+# SHOT's grid kernel on the window route (csrc/shot_grid.cu): its C entry
+# point (the launch counter) and its kernel; its twin's keypoint chunk on
+# the card (K8's and K1's twins: (chunk, F, W) windows of ~10k slots)
+SG, SG_KERNEL = "shot_grid", "shot_grid_kernel"
+SG_PLAIN_CHUNK = 1024
+# SG at the SHOT cells' shapes (regbench's shot-1m and shot-biscale-1m), in
+# phase 16: the 10^6-point ref's support at voxel 0.3, the CLI's density
+# keypoints of the ref (voxel 0.15, more than 5 points), padded to 1024;
+# single scale at radius 3.0 (cell 1.5), bi-scale frames at 3.0 and bins at
+# 9.0 (cell 4.5); the twin on the first SG_SCALE_PLAIN_ROWS keypoints
+SG_SCALE_SUPPORT, SG_SCALE_KP_MIN = 0.3, 5
+SG_SCALE_RADIUS, SG_SCALE_BI_RADIUS, SG_SCALE_PLAIN_ROWS = 3.0, 9.0, 4096
 NN_KERNEL, AGG_KERNEL = "nearest_kernel", "fpfh_aggregate_kernel"
 # K7's FPFH aggregation mode against its twin, whose einsum sums in no
 # defined order: every row within AGG_ROW_RTOL of its largest entry (at
@@ -284,21 +302,23 @@ AGG_ROW_RTOL = 1e-5
 AGG_MATCH_AGREE = 0.99
 
 # each path and the kernels its measured run must launch (and must not):
-# SHOT's window route fetches through K8, every ICP's grid 1-NN runs K7's
-# 1-NN mode; FPFH's SPFH pass runs its kernel once a cloud on the window
+# SHOT's window route runs SG once a cloud (no K8, no K1), every ICP's grid
+# 1-NN runs K7's 1-NN mode; FPFH's SPFH pass runs its kernel once a cloud on the window
 # route (no K8, no K4) and K6 on the run route; its aggregation runs K7's
 # aggregation mode (one launch a cloud) and no K7 window; the iterative
 # keypoints run K7's window
 WINDOW, K7, NN, AGG = "fetch_windows", "radius_dist", "nearest", "fpfh_aggregate"
-SHOT_PATH = ("shot_binning_histogram", "top2_match", "radius_pca", WINDOW, NN)
+SHOT_PATH = (SG, "top2_match", "radius_pca", NN)
+# SHOT's window route on a grid with a cell table: SG alone, no K8 + K1
+SHOT_WINDOW_NOT = ("shot_binning_histogram", WINDOW)
 FPFH_WINDOW_PATH = ("top2_match", "radius_pca", SPFH_PASS, AGG, NN)
 FPFH_WINDOW_NOT = ("spfh_runs", "spfh_histogram", WINDOW, K7)
 FPFH_RUN_PATH = ("top2_match", "radius_pca", "spfh_runs", AGG, NN)
 # the FPFH paths' aggregation launches: one a cloud
 FPFH_AGG_LAUNCHES = 2
 SHOT_RUN_PATH = ("shot_runs", "top2_match", "radius_pca", NN)
-MULTISCALE_PATH = ("shot_binning_histogram", "top2_match", WINDOW, NN)
-ITERATIVE_PATH = (K7, NN, WINDOW, "shot_binning_histogram", "top2_match", "radius_pca")
+MULTISCALE_PATH = (SG, "top2_match", NN)
+ITERATIVE_PATH = (K7, NN, SG, "top2_match", "radius_pca")
 # the SHOT path's 1-NN launches: one an ICP iteration (50: the threshold
 # 1e-3 lies under the pair's RMS floor) and one for the evaluation's
 # overlap (its keypoint inlier ratio takes the brute route)
@@ -306,7 +326,7 @@ SHOT_NN_LAUNCHES = 51
 
 # phase 12: the fused program's keypoints (the CLI's fused set-up) and the
 # kernels each of its runs must launch: its SHOT grid (cell = radius, halo
-# 1) takes K8 + K1 or K5, its FPFH grid the SPFH pass kernel and K7's
+# 1) takes SG or K5, its FPFH grid the SPFH pass kernel and K7's
 # aggregation mode; K2 once, in f32;
 # K3 in the CLI's normals; K7's 1-NN mode in ICP
 FUSED_FLAGS = ["--selection_algorithm", "subsampling", "--neighborhood_size",
@@ -851,6 +871,191 @@ def parity_k1(terrain: ShotTerrain, other=None):
             "bi-scale": lambda: shot_binning_histogram(*args, **rf)}, K1_KERNEL)
     return dict(max_abs_err=max(st[1] for st in stats.values()), ms=ms, plain_ms=plain_ms,
                 library_ms=None, **b)
+
+
+def parity_shot_grid(grid, kp, radius: float, rf_radius: float | None = None,
+                     label: str = "", prefix: str = "phase 3", reps: int = 10,
+                     plain_rows: int | None = None) -> dict:
+    """SHOT's grid kernel (SG, ``shot_grid``) on ``kp`` over ``grid`` in
+    K1's modes: own frames and those frames given at ``radius``, or, with
+    ``rf_radius``, bi-scale (frames at ``rf_radius``, bins at ``radius``).
+    Each call launches SG once and neither K8 nor K1, and its rows, frames
+    and counts equal the K8 + K1 route it replaced (``shot_window_chunked``;
+    ``torch.equal``); on the first ``plain_rows`` keypoints (every one:
+    None) it is held to its twin on the card (``shot_grid_plain``: K8's and
+    K1's twins, which sum in another order): the counts equal, the frames
+    by phase 17's rule (:func:`frame_rule`, the near-tied sign votes over
+    the twin's frame plane), the histograms by the flip rule under SG's
+    frames; the K8 + K1 route's frames are measured against the twin by the
+    same rule.  The call, the kernel alone, the replaced route and the twin
+    are timed.  The bound
+    counts a distance test for every window slot of each walk (one with own
+    or given frames, two in bi-scale mode) and K5's terms for every
+    frame-plane and binned neighbour (operations); the table, its 16-byte
+    copy, the cell starts, the keypoints and the outputs once (bytes)."""
+    import torch
+
+    from shot_fpfh_tpu_torch import _kernels
+    from shot_fpfh_tpu_torch.ops.grid_hash import _zcolumn_runs
+    from shot_fpfh_tpu_torch.ops.shot_fused import (
+        shot_grid,
+        shot_grid_plain,
+        shot_window_chunked,
+    )
+
+    q, n = kp.shape[0], grid.packed_sorted.shape[0]
+    m = q if plain_rows is None else min(plain_rows, q)
+    start, end = _zcolumn_runs(grid, kp)
+    slots = float(torch.clamp((end - start).sum(1), max=grid.window_cap).sum())
+    del start, end
+    if rf_radius is None:
+        given = shot_grid(grid, kp, radius)[1]
+        modes = {"own frames": (None, None), "given frames": (given, None)}
+    else:
+        modes = {"bi-scale": (None, rf_radius)}
+    n_bytes = (n * (grid.packed_sorted.shape[1] * 4 + 16) + grid.cell_starts.numel() * 8
+               + q * (3 + 352 + 9 + 1) * 4)
+    res = {}
+    for mode, (rfs, rfr) in modes.items():
+        def call(rfs=rfs, rfr=rfr):
+            return shot_grid(grid, kp, radius, rfs=rfs, rf_radius=rfr)
+
+        before = dict(_kernels.launch_counts)
+        got = call()
+        torch.cuda.synchronize()
+        ran = {k: _kernels.launch_counts[k] - before[k] for k in (SG, WINDOW,
+                                                                   "shot_binning_histogram")}
+        check(ran == {SG: 1, WINDOW: 0, "shot_binning_histogram": 0},
+              f"SG on {label}, {mode}: launches {ran}")
+        want = shot_window_chunked(grid, kp, radius, rfs=rfs, rf_radius=rfr)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("rows", "frames", "counts"), got, want):
+            check(torch.equal(g, w), f"SG on {label}, {mode}: {int((g != w).sum())} of its "
+                  f"{name} differ from K8 + K1's")
+        route_frames = want[1][:m]
+        del want
+        hist, frames, count = got
+        check(float(hist.sum()) > 0, f"SG on {label}, {mode}: empty histograms")
+        sub = None if rfs is None else rfs[:m]
+        plain = shot_grid_plain(grid, kp[:m], radius, rfs=sub, rf_radius=rfr,
+                                chunk=SG_PLAIN_CHUNK)
+        check(torch.equal(count[:m], plain[2]), f"SG on {label}, {mode}: other counts than "
+              "the twin's")
+        tied = window_tied_votes(grid, kp[:m], radius if rfr is None else rfr, plain[1])
+        rule = frame_rule(frames[:m], plain[1], tied)
+        route_rule = frame_rule(route_frames, plain[1], tied)
+        del route_frames
+        check(rule["ok"], f"SG on {label}, {mode}: frames off the twin's by "
+              f"{rule['frame_err']} ({rule['tied']} keypoints with a near-tied sign vote, off by "
+              f"{rule['tied_err']} up to the signs; {rule['flipped']} flipped, largest "
+              f"{rule['max_err']})")
+        same = shot_grid_plain(grid, kp[:m], radius, rfs=frames[:m], chunk=SG_PLAIN_CHUNK)[0]
+        flip = flip_rule(hist[:m], same, f"SG on {label}, {mode}")
+        n_bin = float(count.sum())
+        n_frame = (float(shot_grid(grid, kp, rfr)[2].sum()) if rfr is not None
+                   else 0.0 if rfs is not None else n_bin)
+        walks = 2 if rfr is not None else 1
+        res[mode] = dict(
+            max_abs_err=flip[1], frame_err=rule["frame_err"], rule=rule, route_rule=route_rule,
+            flip=flip[0], library_ms=None,
+            ms=cuda_ms(call, reps), alone=kernel_ms(call, SG_KERNEL, reps),
+            chunked_ms=cuda_ms(lambda rfs=rfs, rfr=rfr: shot_window_chunked(
+                grid, kp, radius, rfs=rfs, rf_radius=rfr), reps),
+            plain_ms=cuda_ms(lambda sub=sub, rfr=rfr: shot_grid_plain(
+                grid, kp[:m], radius, rfs=sub, rf_radius=rfr, chunk=SG_PLAIN_CHUNK), reps),
+            neighbors=n_bin / q,
+            **bound(n_bytes, slots * walks * OPS_DIST_TEST + n_frame * OPS_SHOT_FRAME
+                    + n_bin * OPS_SHOT_BIN))
+        del got, plain, same
+    print(f"{prefix} SG shot_grid on {label}: {q} keypoints, window cap {grid.window_cap} "
+          f"({slots / q:.0f} slots a keypoint), " + (f"bins at {radius}, frames at {rf_radius}"
+                                                    if rf_radius is not None
+                                                    else f"radius {radius}")
+          + ": equal to K8 + K1 in every mode; " + "; ".join(
+              f"{mode} ({r['neighbors']:.0f} neighbours a keypoint) call {r['ms']:.3f} ms "
+              f"(alone {r['alone']:.4f} ms), K8 + K1 route {r['chunked_ms']:.3f} ms, twin "
+              f"{r['plain_ms']:.3f} ms on {m} keypoints (frames: {_describe_rule(r['rule'])}; "
+              f"the K8 + K1 route's: {_describe_rule(r['route_rule'])}; "
+              f"flip fraction {r['flip']:.1e}, max diff {r['max_abs_err']:.2e}), bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})"
+              for mode, r in res.items()), flush=True)
+    return res
+
+
+def window_tied_votes(grid, kp, frame_radius: float, frames):
+    """``(Q,)`` True where the x or the z axis of ``frames`` won its sign
+    vote over the keypoint's frame plane (its window's slots with ``d <=
+    frame_radius``, as K1 and SG count them) by at most VOTE_TIE_MARGIN."""
+    import torch
+
+    from shot_fpfh_tpu_torch.ops.grid_hash import _zcolumn_runs
+    from shot_fpfh_tpu_torch.ops.radius_runs import fetch_windows_plain
+
+    tied = []
+    for s in range(0, kp.shape[0], SG_PLAIN_CHUNK):
+        qc, fc = kp[s:s + SG_PLAIN_CHUNK], frames[s:s + SG_PLAIN_CHUNK]
+        start, end = _zcolumn_runs(grid, qc)
+        vals, d, valid, _ = fetch_windows_plain(grid.packed_sorted, qc, start, end,
+                                                grid.window_cap)
+        plane = valid & (d <= frame_radius)
+        centered = vals[:, :3, :] - qc[:, :, None]
+        t = torch.zeros(qc.shape[0], dtype=torch.bool, device=kp.device)
+        for j in (0, 2):
+            proj = torch.einsum("qiw,qi->qw", centered, fc[:, :, j])
+            neg, nonneg = ((proj < 0) & plane).sum(-1), ((proj >= 0) & plane).sum(-1)
+            t |= (neg - nonneg).abs() <= VOTE_TIE_MARGIN
+        tied.append(t)
+        del vals, d, valid, plane, centered
+    return torch.cat(tied)
+
+
+def frame_rule(got, want, tied) -> dict:
+    """Phase 17's rule for two frame sets summed in different orders: the
+    keypoints without a near-tied sign vote (``tied``, on ``want``'s side)
+    within K1_FRAME_ATOL, those with one within it up to the signs, and at
+    most VOTE_FLIP_FRAC of all off by more than it."""
+    err = (got - want).abs().amax(dim=(1, 2))
+    unsigned = (got.abs() - want.abs()).abs().amax(dim=(1, 2))
+    frame_err = float(err[~tied].max()) if bool((~tied).any()) else 0.0
+    tied_err = float(unsigned[tied].max()) if bool(tied.any()) else 0.0
+    flipped = int((err > K1_FRAME_ATOL).sum())
+    return dict(ok=(frame_err <= K1_FRAME_ATOL and tied_err <= K1_FRAME_ATOL
+                    and flipped <= VOTE_FLIP_FRAC * got.shape[0]),
+                frame_err=frame_err, tied_err=tied_err, tied=int(tied.sum()), flipped=flipped,
+                turned=flipped / max(got.shape[0], 1), max_err=float(err.max()))
+
+
+def _describe_rule(r: dict) -> str:
+    return (f"within {r['frame_err']:.1e} where no sign vote is near-tied, {r['tied']} near-tied within "
+            f"{r['tied_err']:.1e} up to the signs, {r['flipped']} flipped ({r['turned']:.1e}, "
+            f"largest {r['max_err']:.2e})")
+
+
+def sg_at_scale(ref, normals, kp_idx, prefix: str, reps: int) -> dict:
+    """SG at the SHOT cells' shapes (:func:`parity_shot_grid`): the ref's
+    support at SG_SCALE_SUPPORT, the keypoints ``kp_idx`` padded to
+    SCALE_PAD with the far sentinel; single scale at SG_SCALE_RADIUS, then
+    bi-scale (bins at SG_SCALE_BI_RADIUS, frames at SG_SCALE_RADIUS).
+    Returns the single-scale own-frames result."""
+    import torch
+
+    from shot_fpfh_tpu_torch.core.subsampling import grid_subsample
+    from shot_fpfh_tpu_torch.ops.grid_hash import build_grid
+
+    dev = ref.device
+    pad = -(-len(kp_idx) // SCALE_PAD) * SCALE_PAD
+    kp = torch.cat([ref[kp_idx], torch.full((pad - len(kp_idx), 3), 1.0e6, device=dev)])
+    sel = torch.as_tensor(grid_subsample(ref, SG_SCALE_SUPPORT), device=dev)
+    sup, nrm = ref[sel], normals[sel]
+    out = {}
+    for radius, rf_radius in ((SG_SCALE_RADIUS, None), (SG_SCALE_BI_RADIUS, SG_SCALE_RADIUS)):
+        grid = build_grid(sup, radius / 2, extras=nrm, halo=2)
+        out[rf_radius] = parity_shot_grid(grid, kp, radius, rf_radius, label=(
+            f"the SHOT cells' shapes ({ref.shape[0]}-point ref, {sup.shape[0]}-point support, "
+            f"{len(kp_idx)} keypoints padded to {pad})"), prefix=prefix, reps=reps,
+            plain_rows=SG_SCALE_PLAIN_ROWS)
+        del grid
+    return out[None]["own frames"]
 
 
 def _route_counts(grid, queries, radius):
@@ -1920,7 +2125,7 @@ def phase_shot_path(pair: SmokePair, profile_dir: Path | None = None) -> dict:
     returns the measured run's record."""
     from shot_fpfh_tpu_torch import cli
 
-    r = pair.run("SHOT path", [], SHOT_PATH, (K7,))
+    r = pair.run("SHOT path", [], SHOT_PATH, (K7, *SHOT_WINDOW_NOT))
     check(r["launches"][NN] == SHOT_NN_LAUNCHES,
           f"SHOT path: {r['launches'][NN]} 1-NN launches, not {SHOT_NN_LAUNCHES} (one an ICP "
           "iteration, one for the evaluation)")
@@ -2004,15 +2209,16 @@ def phase_multiscale_paths(pair: SmokePair) -> dict:
     ms = ["--descriptor_choice", "shot_multiscale", "--phi", str(PHI),
           "--n_scales", str(N_SCALES)]
     launches = {}
-    r = pair.run("bi-scale window route", bi, SHOT_PATH, ("shot_runs",))
+    r = pair.run("bi-scale window route", bi, SHOT_PATH, ("shot_runs", *SHOT_WINDOW_NOT))
     print(_describe("phase 6 bi-scale SHOT, window route", r), flush=True)
     launches["bi-scale window"] = r["launches"]
     set_dma_kernel(True)
     try:
-        r = pair.run("bi-scale run route", bi, SHOT_RUN_PATH, ("shot_binning_histogram",))
+        r = pair.run("bi-scale run route", bi, SHOT_RUN_PATH, ("shot_binning_histogram", SG))
         print(_describe("phase 6 bi-scale SHOT, run route", r), flush=True)
         launches["bi-scale runs"] = r["launches"]
-        r = pair.run("single-scale run route", [], SHOT_RUN_PATH, ("shot_binning_histogram",))
+        r = pair.run("single-scale run route", [], SHOT_RUN_PATH,
+                     ("shot_binning_histogram", SG))
         print(_describe("phase 8 single-scale SHOT, run route", r), flush=True)
         launches["single-scale runs"] = r["launches"]
     finally:
@@ -2020,7 +2226,7 @@ def phase_multiscale_paths(pair: SmokePair) -> dict:
 
     # the cold run saves its state: the descriptors K2 matched are 704 wide
     state = WORK / "multiscale_state.npz"
-    r = pair.run("multiscale window route", ms, MULTISCALE_PATH, ("shot_runs",),
+    r = pair.run("multiscale window route", ms, MULTISCALE_PATH, ("shot_runs", *SHOT_WINDOW_NOT),
                  cold_extra=("--state_cache", str(state)))
     widths = {k: np.load(state)[k].shape[1] for k in ("scan_descriptors", "ref_descriptors")}
     check(set(widths.values()) == {352 * N_SCALES}, f"multiscale descriptor widths {widths}")
@@ -2260,8 +2466,8 @@ def phase_fused_paths(pair: SmokePair) -> tuple[dict, dict]:
     from shot_fpfh_tpu_torch.ops.shot_dma import set_dma_kernel
 
     fpfh = ["--descriptor_choice", "fpfh", "--radius", str(FPFH_RADIUS)]
-    cases = (("SHOT, window route", [], False, SHOT_PATH, ("shot_runs",)),
-             ("SHOT, run route", [], True, SHOT_RUN_PATH, ("shot_binning_histogram",)),
+    cases = (("SHOT, window route", [], False, SHOT_PATH, ("shot_runs", *SHOT_WINDOW_NOT)),
+             ("SHOT, run route", [], True, SHOT_RUN_PATH, ("shot_binning_histogram", SG)),
              ("FPFH", fpfh, False, FPFH_WINDOW_PATH, FPFH_WINDOW_NOT))
     launches, inputs = {}, {}
     for label, extra, run_route, must, must_not in cases:
@@ -2403,14 +2609,14 @@ def phase_debug_paths(pair: SmokePair, shot: dict) -> dict:
     summary = [ln for ln in log.lines if ln.startswith("SHOT debug checks:")]
     check(summary == ["SHOT debug checks: 0 violations"],
           f"--debug_shot: the checks reported {summary}")
-    k1 = dbg["launches"]["shot_binning_histogram"]
-    check(reads[0] >= k1, f"--debug_shot: {reads[0]} counters read for {k1} K1 launches")
+    sg = dbg["launches"][SG]
+    check(reads[0] >= sg, f"--debug_shot: {reads[0]} counters read for {sg} SG launches")
     for name in SHOT_PATH:
         check(checked_kernels.get(name, 0) == nans["launches"][name],
               f"--debug_nans: {checked_kernels.get(name, 0)} of {nans['launches'][name]} "
               f"launches of {name} checked")
     print(_describe("phase 13 --debug_shot", dbg)
-          + f"; {reads[0]} SHOT accumulations' counters read ({k1} in K1), 0 violations; "
+          + f"; {reads[0]} SHOT accumulations' counters read ({sg} in SG), 0 violations; "
           f"phase 4's wall {shot['wall']:.3f} s", flush=True)
     print(_describe("phase 13 --debug_nans", nans)
           + f"; kernel launches checked {checked_kernels}, no NaN; phase 4's wall "
@@ -2736,8 +2942,7 @@ def phase_mesh_one_rank(pair: SmokePair) -> dict:
                                  - (-pair.rot.T @ pair.trans)))
     check(rot_err < MAIN_ROT_TOL and t_err < MAIN_T_TOL,
           f"phase 14 1-rank ICP: rotation error {rot_err}, translation error {t_err}")
-    for name in ("shot_binning_histogram", "shot_runs", "top2_match", "radius_pca",
-                 SPFH_PASS, "spfh_runs", AGG, NN, "fetch_windows"):
+    for name in (SG, "shot_runs", "top2_match", "radius_pca", SPFH_PASS, "spfh_runs", AGG, NN):
         check(total.get(name, 0) > 0, f"phase 14: the 1-rank stages never launched {name}")
     dist.destroy_process_group()
     print(f"phase 14 mesh, 1-rank NCCL group ({mesh.device}, first collective "
@@ -2838,8 +3043,8 @@ def phase_mesh_two_ranks(pair: SmokePair) -> dict:
     through ``initialize_distributed`` and one ``scaling_report`` of SHOT.
     Each CLI run accepted within the main path's bounds, its moved scan
     within MESH_MOVED_ATOL of one device's (``--fused`` against one
-    device's ``--fused``), only rank 0 writing, and each rank launching K8
-    with K1 (FPFH: the SPFH pass kernel or K6, and the aggregation kernel),
+    device's ``--fused``), only rank 0 writing, and each rank launching SG
+    (FPFH: the SPFH pass kernel or K6, and the aggregation kernel),
     K2, K3 and K7's 1-NN mode;
     ``run_multihost`` the same on both ranks (MULTIHOST_RANKS_ATOL), within
     MESH_MOVED_ATOL of one process's run and accepted against the ground
@@ -2902,7 +3107,7 @@ def phase_mesh_two_ranks(pair: SmokePair) -> dict:
     ranks = [json.loads((WORK / f"mesh2_rank{r}.json").read_text()) for r in range(MESH_RANKS)]
     check(all(r["backend"] == "gloo" for r in ranks),
           f"phase 14 two ranks: backends {[r['backend'] for r in ranks]}")
-    shot_needs = ("shot_binning_histogram", "fetch_windows", "top2_match", "radius_pca", NN)
+    shot_needs = (SG, "top2_match", "radius_pca", NN)
     needs = {"shot": shot_needs, "fpfh": ("top2_match", "radius_pca", AGG, NN),
              "fused_shot": shot_needs,
              "fused_fpfh": (SPFH_PASS, "top2_match", "radius_pca", AGG, NN)}
@@ -3281,7 +3486,7 @@ def phase_at_scale(dev) -> dict:
         print(f"phase 16 at scale: two {SCALE_N}-point clouds made and written in "
               f"{time.perf_counter() - t0:.2f} s (radius {SCALE_RADIUS}, the CLI's keypoint "
               f"voxel {SCALE_CLI_VOXEL}, the library's {SCALE_VOXEL})", flush=True)
-        shot = pair.run("at-scale SHOT", [], SHOT_PATH, (K7,))
+        shot = pair.run("at-scale SHOT", [], SHOT_PATH, (K7, *SHOT_WINDOW_NOT))
         _icp_nn_launches("at-scale SHOT", shot, SCALE_CLI_MAX_ITER, True)
         print(_describe("phase 16 leg 1 SHOT (cli.main)", shot), flush=True)
         staged = pair.run("at-scale SHOT at bench_1m.py's settings", SCALE_BENCH_1M_ARGS,
@@ -3382,6 +3587,11 @@ def phase_at_scale(dev) -> dict:
     parity_spfh_pass(cell_grid, SCALE_CELL_RADIUS, "the ref at the FPFH cell's radius", prefix,
                      1, plain_rows=SCALE_SPFH_PLAIN_ROWS, chunk_reps=1)
     del cell_grid
+    # the CLI legs' keypoints: the ref's density keypoints at SCALE_CLI_VOXEL
+    # (~78k), as the SHOT cells select them
+    cli_kp = torch.as_tensor(select_keypoints_with_density_threshold(
+        ref, SCALE_CLI_VOXEL, SG_SCALE_KP_MIN, device=dev), device=dev)
+    kernels[SG] = sg_at_scale(ref, normals, cli_kp, prefix, reps)
     check(grid.use_xyrow and grid.xyrow_run_cap > 0, "the at-scale grid is not an xy-row grid")
     k1 = kernels["shot_binning_histogram"] = k1_own_frames(grid, kp, SCALE_RADIUS, reps)
     k5 = kernels["shot_runs"] = k5_own_frames(grid, kp, SCALE_RADIUS, reps)
@@ -3393,10 +3603,8 @@ def phase_at_scale(dev) -> dict:
     kernels["radius_dist"] = parity_k7("leg 3's FPFH keypoints", grid,
                                        grid.packed_sorted[kp_rows, :3], SCALE_RADIUS, prefix,
                                        reps)
-    # the aggregation at the CLI legs' shape: the ref's density keypoints at
-    # SCALE_CLI_VOXEL (~78k), over the SPFH of every point of the grid
-    cli_kp = torch.as_tensor(select_keypoints_with_density_threshold(
-        ref, SCALE_CLI_VOXEL, 5, device=dev), device=dev)
+    # the aggregation at the CLI legs' keypoints, over the SPFH of every
+    # point of the grid
     kernels[AGG] = parity_aggregate(
         f"the CLI's keypoints of the ref, voxel {SCALE_CLI_VOXEL}", grid,
         _spfh_window_sorted(grid, SCALE_RADIUS, 5, False), _sorted_rows(grid, cli_kp),
@@ -3629,6 +3837,10 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(0)
     terrain = ShotTerrain(dev, rng)
     k1, k5 = parity_k1(terrain, other), parity_k5(terrain, other)
+    sg = parity_shot_grid(terrain.grid, terrain.kp, terrain.radius,
+                          label="K1's keypoints and grid")["own frames"]
+    parity_shot_grid(terrain.bi_grid, terrain.kp, terrain.bi_radius, terrain.rf_radius,
+                     label="the bi-scale grid")
     k8 = parity_k8("K1's keypoints and grid", terrain.grid, terrain.kp)
     k8_more = [parity_k8("the bi-scale grid", terrain.bi_grid, terrain.kp)]
     del terrain
@@ -3677,6 +3889,8 @@ def main(argv=None) -> int:
     results = {
         "shot_binning_histogram": ("shot_fpfh_tpu_torch/csrc/shot_fused.cu",
                                    "shot_fpfh_tpu/ops/pallas_shot_fused.py:408", k1, "SHOT"),
+        SG: ("shot_fpfh_tpu_torch/csrc/shot_grid.cu",
+             "shot_fpfh_tpu/ops/pallas_radius.py:467 + pallas_shot_fused.py:408", sg, "SHOT"),
         "top2_match": ("shot_fpfh_tpu_torch/csrc/match.cu",
                        "shot_fpfh_tpu/ops/pallas_match.py:139", k2, "SHOT"),
         "radius_pca": ("shot_fpfh_tpu_torch/csrc/radius_pca.cu",

@@ -66,6 +66,8 @@ _SIGNATURES = {
                   _P],
     "shot_runs": [_P, _I, _P, _P, _F, _L, _L, _L, _I, _I, _P, _I, _P, _F, _F, _P, _P, _P, _P,
                   _P],
+    "shot_grid": [_P, _I, _P, _P, _P, _F, _L, _L, _L, _I, _I, _P, _I, _P, _F, _F, _P, _P, _P,
+                  _P, _P],
     "fetch_windows": [_P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     "radius_dist": [_P, _I, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P],
     "nearest": [_P, _I, _P, _P, _P, _F, _L, _L, _L, _I, _I, _P, _I, _I, _P, _P, _P],

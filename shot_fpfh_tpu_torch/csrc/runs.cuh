@@ -3,8 +3,10 @@
 // the cell-sorted table that hold every point within halo·cell_size of it,
 // with the arithmetic of ops/grid_hash.py::_query_cells and ::_xyrow_runs
 // (2h+1 xy-row runs: K5, K6) or ::_zcolumn_runs ((2h+1)² z-column runs:
-// the 1-NN).  Each kernel finds its queries' runs itself from the grid's
-// cell-start table, one run a lane, so the wrapper launches no index ops.
+// the 1-NN, the SPFH pass and SHOT's grid kernel).  Each kernel finds its
+// queries' runs itself from the grid's cell-start table, one run a lane, so
+// the wrapper launches no index ops.  Also the window routes' radius test
+// as the walks take it (sq_bound).
 #pragma once
 
 #include <math.h>
@@ -66,6 +68,18 @@ __device__ __forceinline__ void zcolumn_run(const long long* cell_starts, long l
   s = cell_starts[lo < 0 ? 0 : (lo > last ? last : lo)];
   e = cell_starts[hi < 0 ? 0 : (hi > last ? last : hi)];
   e = e > s ? e : s;
+}
+
+// The largest x with sqrtf(x) <= r (sqrtf is correctly rounded and does not
+// decrease, so the window routes' test sqrtf(x) <= r is x <= bound); -1 for
+// a negative or NaN radius, where no slot is in radius.
+__device__ __forceinline__ float sq_bound(float r) {
+  if (!(r >= 0.f)) return -1.f;
+  if (isinf(r)) return INFINITY;
+  float x = r * r;  // within an ulp or two of the bound, or +inf
+  while (x > 0.f && sqrtf(x) > r) x = nextafterf(x, 0.f);
+  while (sqrtf(nextafterf(x, INFINITY)) <= r) x = nextafterf(x, INFINITY);
+  return x;
 }
 
 }  // namespace runs

@@ -17,8 +17,8 @@
 //     <= radius, K8's distance and the route's test.  sqrtf is correctly
 //     rounded, so it does not decrease, and that test holds exactly for the
 //     squared distances up to the largest float whose sqrtf is <= radius
-//     (sq_bound): the walk compares the fma chain with that bound and takes
-//     no square root;
+//     (runs.cuh, sq_bound): the walk compares the fma chain with that bound
+//     and takes no square root;
 //   - a ballot lists the slots in radius in a ring in shared memory, the
 //     count being the number listed (the query's own row and any duplicate
 //     at d = 0 included); whenever 32 are listed the warp bins them, one a
@@ -68,18 +68,6 @@ constexpr int kRing = 256;
 static_assert(kRing >= 32 * kUnroll + 64 && (kRing & (kRing - 1)) == 0,
               "the ring holds a step and the slots binned before it, and wraps by mask");
 
-// The largest x with sqrtf(x) <= r (sqrtf does not decrease, so the test
-// sqrtf(x) <= r is x <= bound); -1 for a negative or NaN radius, where no
-// slot is in radius.
-__device__ float sq_bound(float r) {
-  if (!(r >= 0.f)) return -1.f;
-  if (isinf(r)) return INFINITY;
-  float x = r * r;  // within an ulp or two of the bound, or +inf
-  while (x > 0.f && sqrtf(x) > r) x = nextafterf(x, 0.f);
-  while (sqrtf(nextafterf(x, INFINITY)) <= r) x = nextafterf(x, INFINITY);
-  return x;
-}
-
 // One query's neighborhood as its warp accumulates it: the listed rows and
 // the binning into the warp's histogram.  Every lane of the warp calls
 // every member together.
@@ -88,7 +76,7 @@ struct Query {
   const float* table;
   int stride;
   float qx, qy, qz, ux, uy, uz;
-  float bound;  // sq_bound(radius)
+  float bound;  // runs::sq_bound(radius)
   spfh::Bins bins;
   bool dec;
   int* hist;  // the warp's d_out counts in shared memory
@@ -187,8 +175,8 @@ spfh_grid_kernel(const float* __restrict__ table, int stride, const float4* __re
   const int qi = blockIdx.x * kWarps + warp;
   if (qi >= q) return;  // whole warps leave; no block barrier follows
   Query qr(xyz, table, stride, queries + (long long)qi * qstride,
-           qnormals + (long long)qi * qstride, sq_bound(radius), n_bins, decorrelated != 0,
-           smem + warp * d_out, smem + kWarps * d_out + warp * kRing);
+           qnormals + (long long)qi * qstride, runs::sq_bound(radius), n_bins,
+           decorrelated != 0, smem + warp * d_out, smem + kWarps * d_out + warp * kRing);
   for (int k = lane; k < d_out; k += 32) qr.hist[k] = 0;
   long long c[3];
   runs::query_cell(origin, cell_size, qr.qx, qr.qy, qr.qz, c);

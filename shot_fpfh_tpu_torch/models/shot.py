@@ -11,9 +11,11 @@ like the reference:
   frames by :func:`local_reference_frames`, histogram in PyTorch;
 - large supports: a halo-2 grid holding the exact, uncapped radius
   neighborhood of every keypoint, frames + binning + histogram in a kernel:
-  K1 (``ops.shot_fused``) over a gathered ``(Q, F, W)`` window, or, with the
-  run route on (``SHOT_FPFH_DMA``) and an xy-row grid, K5
-  (``ops.shot_dma``) straight over the grid's runs.
+  SG (``ops.shot_fused.shot_grid``): on the card straight over the grid's
+  z-column runs, one launch a cloud, and on CPU tensors or a grid without
+  a cell table K1 over gathered ``(Q, F, W)`` windows in keypoint chunks;
+  or, with the run route on (``SHOT_FPFH_DMA``) and an
+  xy-row grid, K5 (``ops.shot_dma``) straight over the grid's runs.
 
 Given the frames' neighborhoods (``compute_shot_descriptor(
 local_rf_neighborhoods=)``), the bins come from the ``k_max``-capped radius
@@ -32,8 +34,8 @@ matching consumes.
 accumulation count its out-of-range bin indices and unsound weight sums
 among valid neighbors, read the counts back and log them.  The routes stay
 as they are: the brute route's PyTorch binning counts them, and on the grid
-route K1 and K5 count them in the kernel (``ops.shot_fused``), so the checks
-see the bins the card computes.
+route SG, K1 and K5 count them in the kernel (``ops.shot_fused``), so the
+checks see the bins the card computes.
 """
 
 from __future__ import annotations
@@ -47,17 +49,12 @@ from .._device import resolve
 from .._fp import sqnorm3, sqrt
 from ..core.subsampling import grid_subsample
 from ..ops import grid_hash
-from ..ops.grid_hash import (
-    build_grid,
-    radius_search_with_values_auto,
-    window_chunk,
-    window_distances,
-)
+from ..ops.grid_hash import build_grid, radius_search_with_values_auto, window_chunk
 from ..ops.neighbors import Neighborhoods, as_f32, radius_search
 from ..ops.shot_dma import dma_kernel_enabled, shot_descriptor_dma
 from ..ops.shot_fused import local_frames as _local_rfs_ff
 from ..ops.shot_fused import binning_violations as _binning_violations  # noqa: F401
-from ..ops.shot_fused import shot_binning_histogram, shot_finalize, soft_histogram
+from ..ops.shot_fused import shot_binning_histogram, shot_finalize, shot_grid, soft_histogram
 from ..utils.perf import add_counts, blocking, span, uploading
 
 logger = logging.getLogger(__name__)
@@ -170,44 +167,29 @@ def _use_dma_kernel(grid) -> bool:
 def _shot_window_chunked(grid, kp, local_rfs, radius, normalize,
                          min_neighborhood_size, rf_radius=None):
     """Grid SHOT: K5 over the xy-row runs when :func:`_use_dma_kernel`
-    holds, else K1 over gathered windows in keypoint chunks.  Either way the
-    exact uncapped radius neighborhood contributes (no top-k, no ``k_max``);
-    bi-scale frames come from the ``rf_radius`` neighbors of the same grid.
-    A chunk's K8 fetch and radius planes are the span ``shot.window``, its
-    K1 call ``shot.bins``; the open stage counts the ``chunks`` and the
-    ``window_slots`` fetched (queries × ``grid.window_cap``)."""
+    holds, else SG (``ops.shot_fused.shot_grid``), which takes its kernel
+    over the z-column runs on CUDA tensors and a grid with a cell-start
+    table, and K1 over gathered windows in keypoint chunks of
+    ``window_chunk``'s size otherwise.  Every route takes the exact uncapped
+    radius neighborhood (no top-k, no ``k_max``); bi-scale frames come from
+    the ``rf_radius`` neighbors of the same grid.  ``shot_grid`` opens the
+    spans and counts ``grid_passes`` or ``chunks``; this counts the
+    ``window_slots`` the keypoints' windows cover (queries ×
+    ``grid.window_cap``)."""
+    counter = _debug_counter(kp.device)
     if _use_dma_kernel(grid):
-        counter = _debug_counter(kp.device)
         out = shot_descriptor_dma(grid, kp, radius, rfs=local_rfs, rf_radius=rf_radius,
                                   normalize=normalize,
                                   min_neighborhood_size=min_neighborhood_size,
                                   violations=counter)
         _debug_read(counter)
         return out
-    descs, frames = [], []
-    step = min(4096, window_chunk(grid, 8))
-    inf = float("inf")
-    for s in range(0, kp.shape[0], step):
-        with span("shot.chunk"):
-            qc = kp[s:s + step]
-            with span("shot.window"):
-                vals, d, valid, _ = window_distances(grid, qc, with_rows=False)
-                rf_dist_inf = None
-                if local_rfs is None and rf_radius is not None:
-                    rf_dist_inf = torch.where(valid & (d <= rf_radius), d,
-                                              torch.full_like(d, inf))
-                dist_inf = torch.where(valid & (d <= radius), d, torch.full_like(d, inf))
-            with span("shot.bins"):
-                desc, rfs = shot_from_window_ff(
-                    qc, vals, dist_inf, radius, normalize=normalize,
-                    min_neighborhood_size=min_neighborhood_size,
-                    local_rfs=None if local_rfs is None else local_rfs[s:s + step],
-                    rf_dist_inf=rf_dist_inf,
-                    rf_radius=rf_radius if rf_dist_inf is not None else None)
-            descs.append(desc)
-            frames.append(rfs)
-    add_counts(chunks=-(-kp.shape[0] // step), window_slots=kp.shape[0] * grid.window_cap)
-    return torch.cat(descs), torch.cat(frames)
+    hist, frames, count = shot_grid(grid, kp, radius, rfs=local_rfs, rf_radius=rf_radius,
+                                    violations=counter, chunk=window_chunk(grid, 8))
+    desc = shot_finalize(hist, count, normalize, min_neighborhood_size)
+    add_counts(window_slots=kp.shape[0] * grid.window_cap)
+    _debug_read(counter)
+    return desc, frames
 
 
 def _shot_routed(kp, sup, nrm, radius, *, k_max: int, normalize: bool,

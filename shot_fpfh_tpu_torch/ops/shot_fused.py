@@ -16,7 +16,19 @@ accumulates the five weighted contributions in float32 with ``index_add_``;
 the JAX reference rounds its weights to bf16 on the way into a one-hot
 matmul (``models/shot.py:195-203``), so the two agree to ~0.4%, not bitwise.
 
-Both take an optional ``violations`` counter (a zeroed ``(2,)`` int32
+SG, :func:`shot_grid`, is SHOT's grid window route and its one routing
+point: on a grid (``ops.grid_hash``) carrying normals, the same three modes
+over each keypoint's exact z-column window.  On CUDA tensors and a grid with
+a cell-start table it launches one kernel for every keypoint
+(``csrc/shot_grid.cu``: the runs, both radius tests, the frames and the bins
+inside it, no window in device memory); CPU tensors and a grid without a
+table take the chunked route it replaced (:func:`shot_window_chunked`: K8's
+window fetch, the radius planes, K1, in keypoint chunks; on CPU tensors
+those wrappers run their twins).  Its plain twin, :func:`shot_grid_plain`,
+is that route over K8's and K1's twins on any device.  The kernel's rows,
+frames and counts equal the chunked route's bit for bit on the card.
+
+All of them take an optional ``violations`` counter (a zeroed ``(2,)`` int32
 tensor on the inputs' device) for the SHOT debug checks
 (``models.shot.enable_debug_checks``): the kernel, or the twin, adds to it
 the valid neighbors with an out-of-range bin and those with an unsound
@@ -30,8 +42,11 @@ import torch
 
 from .. import _kernels
 from .._fp import acos, atan2
+from ..utils.perf import add_counts, span
 from .descriptor_bins import N_AZ, N_COS, N_ELEV, N_LO, N_RAD, SHOT_DIM, shot_soft_bins
 from .eigh3 import eigh3x3
+from .grid_hash import HashGrid, _zcolumn_runs, window_chunk
+from .radius_runs import fetch_windows, fetch_windows_plain
 
 
 def _project(centered: torch.Tensor, axis: torch.Tensor) -> torch.Tensor:
@@ -191,12 +206,149 @@ def _check_counter(violations, device) -> None:
                          "on the kernel's device")
 
 
+def _shot_chunks(grid: HashGrid, kp, radius, rfs, rf_radius, violations, fetch, histogram,
+                 chunk: int):
+    """``(hist, frames, count)`` of the keypoints over their grid windows,
+    in chunks of ``chunk`` keypoints: the window (``fetch``: K8 or its twin)
+    and its radius planes (the span ``shot.window``), then the histograms
+    and frames (``histogram``: K1 or its twin) and the count of the
+    descriptor plane's slots with ``d > 0`` (the span ``shot.bins``), each
+    chunk in the span ``shot.chunk``.  Given frames (``rfs``) win over
+    ``rf_radius``."""
+    inf = float("inf")
+    hists, frames, counts = [], [], []
+    for s in range(0, kp.shape[0], chunk):
+        with span("shot.chunk"):
+            qc = kp[s:s + chunk]
+            with span("shot.window"):
+                start, end = _zcolumn_runs(grid, qc)
+                vals, d, valid, _ = fetch(grid.packed_sorted, qc, start, end, grid.window_cap)
+                rf_dist_inf = None
+                if rfs is None and rf_radius is not None:
+                    rf_dist_inf = torch.where(valid & (d <= rf_radius), d,
+                                              torch.full_like(d, inf))
+                dist_inf = torch.where(valid & (d <= radius), d, torch.full_like(d, inf))
+            with span("shot.bins"):
+                given = None if rfs is None else rfs[s:s + chunk]
+                out = histogram(vals, dist_inf, qc, given, radius, rf_dist_inf=rf_dist_inf,
+                                rf_radius=rf_radius if rf_dist_inf is not None else None,
+                                violations=violations)
+                hist, rfs_c = out if given is None else (out, given)
+                count = (torch.isfinite(dist_inf) & (dist_inf > 0)).sum(-1, dtype=torch.int32)
+        hists.append(hist)
+        frames.append(rfs_c)
+        counts.append(count)
+    if not hists:
+        return (kp.new_zeros((0, SHOT_DIM)), kp.new_zeros((0, 3, 3)),
+                torch.zeros(0, dtype=torch.int32, device=kp.device))
+    return torch.cat(hists), torch.cat(frames), torch.cat(counts)
+
+
+def _loop_chunk(grid: HashGrid, chunk: int | None) -> int:
+    """Keypoints a chunk of the chunked routes: ``chunk``, else as many as
+    :func:`~.grid_hash.window_chunk` allows 8 planes; at most 4096."""
+    return min(4096, window_chunk(grid, 8) if chunk is None else chunk)
+
+
+def shot_grid_plain(grid: HashGrid, kp, radius, rfs=None, rf_radius=None, violations=None,
+                    chunk: int | None = None):
+    """PyTorch twin of SG: the chunked route over K8's and K1's twins
+    (:func:`_shot_chunks`), on any device."""
+    return _shot_chunks(grid, kp, radius, rfs, rf_radius, violations, fetch_windows_plain,
+                        shot_binning_histogram_plain, _loop_chunk(grid, chunk))
+
+
+def shot_window_chunked(grid: HashGrid, kp, radius, rfs=None, rf_radius=None, violations=None,
+                        chunk: int | None = None):
+    """SHOT's grid window route as the port ran it before SG, and as CPU
+    tensors and a grid without a cell-start table still run it: K8 (no rows
+    plane) over each chunk's windows, the radius planes, K1 (on CPU tensors
+    their twins, so :func:`shot_grid_plain`'s arithmetic).  The open stage
+    counts the ``chunks``."""
+    def fetch(*args):
+        return fetch_windows(*args, with_rows=False)
+
+    step = _loop_chunk(grid, chunk)
+    out = _shot_chunks(grid, kp, radius, rfs, rf_radius, violations, fetch,
+                       shot_binning_histogram, step)
+    add_counts(chunks=-(-kp.shape[0] // step))
+    return out
+
+
+def _takes_kernel(grid: HashGrid, kp: torch.Tensor) -> bool:
+    """SG's own kernel applies: the keypoints are on a card and the grid has
+    a cell-start table, from which the kernel finds each keypoint's runs."""
+    return kp.is_cuda and grid.has_table
+
+
+def shot_grid(grid: HashGrid, kp: torch.Tensor, radius: float, rfs=None, rf_radius=None,
+              violations=None, chunk: int | None = None):
+    """SG: ``(hist (Q, 352) unnormalized, frames (Q, 3, 3), count (Q,)
+    int32)`` of the keypoints ``kp`` (``(Q, 3)`` float32) over their
+    z-column windows of ``grid`` (a grid built with ``extras=normals``):
+    the frames given (``rfs``), or from the slots with ``sqrt(ρ²) <=
+    rf_radius`` (bi-scale) or ``<= radius``; the bins and the count (the
+    min-neighborhood rule's) from the slots with ``0 < sqrt(ρ²) <= radius``;
+    a keypoint off the grid (the far sentinel of padded keypoints) gets a
+    zero row, count 0 and the identity frame.  Where :func:`_takes_kernel`
+    holds, one launch for every keypoint (the span ``shot.pass``; the open
+    stage counts one ``grid_passes`` and no ``chunks``); else
+    :func:`shot_window_chunked` in chunks of ``chunk`` keypoints (see the
+    module docstring)."""
+    q = kp.shape[0]
+    if kp.shape != (q, 3) or (rfs is not None and rfs.shape != (q, 3, 3)):
+        raise ValueError(f"bad keypoint shapes {tuple(kp.shape)}"
+                         + ("" if rfs is None else f", {tuple(rfs.shape)}"))
+    if kp.dtype != torch.float32 or (rfs is not None and rfs.dtype != torch.float32):
+        raise ValueError("SHOT grid kernel inputs must be float32")
+    table = grid.packed_sorted
+    if table.dtype != torch.float32 or table.dim() != 2 or table.shape[1] < 6:
+        raise ValueError("the SHOT grid kernel takes a float32 (N, >=6) table with normals, got "
+                         f"{tuple(table.shape)} {table.dtype}")
+    if rfs is not None:
+        rf_radius = None
+    if not _takes_kernel(grid, kp):
+        return shot_window_chunked(grid, kp, radius, rfs, rf_radius, violations, chunk)
+    with span("shot.pass"):
+        out = _shot_grid_launch(grid, kp, radius, rfs, rf_radius, violations)
+    add_counts(grid_passes=1, chunks=0)
+    return out
+
+
+def _shot_grid_launch(grid: HashGrid, kp, radius, rfs, rf_radius, violations):
+    """SG's kernel over every keypoint (:func:`shot_grid`'s inputs, checked
+    there)."""
+    q, table = kp.shape[0], grid.packed_sorted
+    extra = () if rfs is None else (rfs,)
+    device = _kernels.require_cuda(kp, table, grid.cell_starts, grid.origin, *extra)
+    if table.shape[0] >= 2 ** 30:
+        raise ValueError("the SHOT grid kernel walks table rows as 32-bit ints (at most 2^30)")
+    _check_counter(violations, device)
+    kp, table = kp.contiguous(), table.contiguous()
+    rfs_in = None if rfs is None else rfs.reshape(q, 9).contiguous()
+    hist = torch.empty((q, SHOT_DIM), dtype=torch.float32, device=device)
+    rfs_out = torch.empty((q, 3, 3), dtype=torch.float32, device=device) if rfs is None else None
+    count = torch.empty(q, dtype=torch.int32, device=device)
+    if q:
+        # the walk's copy of the points, 16 B a row: one load a window slot
+        xyz = torch.nn.functional.pad(table[:, :3], (0, 1))
+        _kernels.launch(
+            "shot_grid", device, table.data_ptr(), table.shape[1], xyz.data_ptr(),
+            grid.cell_starts.data_ptr(), grid.origin.data_ptr(), grid.cell_size, *grid.dims,
+            grid.halo, grid.window_cap, kp.data_ptr(), q, _kernels.ptr(rfs_in), float(radius),
+            float(radius if rf_radius is None else rf_radius), hist.data_ptr(),
+            _kernels.ptr(rfs_out), count.data_ptr(), _kernels.ptr(violations),
+            checked=(table, kp, rfs_in, hist, rfs_out))
+    return hist, rfs if rfs_out is None else rfs_out, count
+
+
 def shot_finalize(desc, count, normalize, min_neighborhood_size):
     """L2-normalize, and zero the descriptors of neighborhoods with
     ≤ ``min_neighborhood_size`` points (the validity convention matching
     consumes)."""
     norm = torch.linalg.norm(desc, dim=-1, keepdim=True)
-    keep = (count > min_neighborhood_size)[:, None] & (norm > 0)
+    live = norm > 0
+    keep = (count > min_neighborhood_size)[:, None] & live
     if normalize:
-        desc = desc / torch.where(norm > 0, norm, torch.ones_like(norm))
-    return torch.where(keep, desc, torch.zeros_like(desc))
+        desc = desc / torch.where(live, norm, 1.0)
+    return torch.where(keep, desc, 0.0)

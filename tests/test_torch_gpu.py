@@ -38,6 +38,8 @@ from shot_fpfh_tpu_torch.ops.radius_runs import (  # noqa: E402
 from shot_fpfh_tpu_torch.ops.shot_fused import (  # noqa: E402
     shot_binning_histogram,
     shot_binning_histogram_plain,
+    shot_grid,
+    shot_window_chunked,
 )
 from shot_fpfh_tpu_torch.ops.spfh_fused import (  # noqa: E402
     spfh_grid,
@@ -970,6 +972,163 @@ def test_spfh_pass_without_cell_table(cuda, rng):
     assert torch.equal(got[:-1], want) and bool(want.any(1).all())
 
 
+# SHOT's grid kernel (SG): SHOT's window route in one launch a cloud
+SG_MODES = ["own", "given", "bi_scale"]
+
+
+def _sg_launch(grid, kp, radius, **kw):
+    """SG's ``(hist, frames, count)`` of ``kp``: one launch, and no K8 or
+    K1."""
+    before = dict(_kernels.launch_counts)
+    out = shot_grid(grid, kp, radius, **kw)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts["shot_grid"] == before["shot_grid"] + 1
+    for name in ("fetch_windows", "shot_binning_histogram"):
+        assert _kernels.launch_counts[name] == before[name]
+    return out
+
+
+def _sg_equal(got, want):
+    """Rows, frames and counts equal bit for bit (NaN where the other has
+    NaN)."""
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert bool(((g == w) | (g.isnan() & w.isnan())).all())
+
+
+def _sg_terrain(rng, cuda, cell):
+    """chip_smoke's terrain (30k points) with k=30 normals on the card, a
+    halo-2 grid with a cell table, and 1,500 keypoints then 3 far pads."""
+    from shot_fpfh_tpu_torch.models.normals import compute_normals
+
+    cloud = torch.tensor(make_terrain(30_000, rng, scale=5.0, n_bumps=10), device=cuda)
+    grid = build_grid(cloud, cell, extras=compute_normals(cloud, cloud, k=30, device=cuda),
+                      halo=2)
+    assert grid.has_table
+    idx = torch.tensor(rng.choice(30_000, 1500, replace=False), device=cuda)
+    return grid, torch.cat([cloud[idx], torch.full((3, 3), FAR, device=cuda)])
+
+
+@pytest.mark.parametrize("mode", SG_MODES)
+def test_shot_grid_kernel_equals_window_route(cuda, rng, mode):
+    """On a terrain grid with a cell table, SG's rows, frames and counts
+    equal the K8 + K1 route's (``shot_window_chunked``) bit for bit, in
+    one chunk and in chunks of 100 keypoints; the far pads get zero rows,
+    count 0 and (with frames computed) the identity; an empty keypoint set
+    launches nothing."""
+    radius, rf_radius = (0.9, 0.3) if mode == "bi_scale" else (0.6, None)
+    grid, kp = _sg_terrain(rng, cuda, radius / 2)
+    rfs = shot_grid(grid, kp, radius)[1] if mode == "given" else None
+    got = _sg_launch(grid, kp, radius, rfs=rfs, rf_radius=rf_radius)
+    _sg_equal(got, shot_window_chunked(grid, kp, radius, rfs=rfs, rf_radius=rf_radius))
+    _sg_equal(got, shot_window_chunked(grid, kp, radius, rfs=rfs, rf_radius=rf_radius,
+                                       chunk=100))
+    hist, frames, count = got
+    assert not hist[-3:].any() and not count[-3:].any() and bool((count[:-3] > 0).all())
+    if mode != "given":
+        assert torch.equal(frames[-3:].cpu(), torch.eye(3).expand(3, 3, 3))
+    before = _kernels.launch_counts["shot_grid"]
+    empty = shot_grid(grid, kp[:0], radius, rfs=None if rfs is None else rfs[:0],
+                      rf_radius=rf_radius)
+    assert [tuple(t.shape) for t in empty] == [(0, 352), (0, 3, 3), (0,)]
+    assert _kernels.launch_counts["shot_grid"] == before
+
+
+@pytest.mark.parametrize("halo", [1, 3])
+@pytest.mark.parametrize("mode", SG_MODES)
+def test_shot_grid_kernel_edge_cases(cuda, rng, halo, mode):
+    """Equal to the K8 + K1 route at halo 1 and 3 (49 runs: more than a
+    warp's lanes) on K5's edge cloud: keypoint counts off the 8 a block, the
+    cloud's edge (empty runs), a frame plane past the shared list (the
+    cluster: passes 2 and 3 walk the runs again), tied sign votes, a
+    keypoint with an empty frame plane and the far point; then with the
+    window cap cut below the longest window, where both routes take only
+    the first slots."""
+    import dataclasses
+
+    pts, nrm, special = _k5_cloud(rng)
+    radius, rf_radius = (1.2, 0.4) if mode == "bi_scale" else (0.5, None)
+    grid = build_grid(torch.tensor(pts, device=cuda), radius / halo,
+                      extras=torch.tensor(nrm, device=cuda), halo=halo)
+    assert grid.has_table and grid.halo == halo
+    edge = int(np.argmin(pts[:20_000, 0]))
+    surf = np.concatenate([[edge], rng.choice(20_000, 60, replace=False)])
+    kp = torch.tensor(np.concatenate([pts[surf], special]), device=cuda)
+    frame_r = radius if rf_radius is None else rf_radius
+    assert int((np.linalg.norm(pts - special[0], axis=1) <= frame_r).sum()) > K5_FRAME_SLOTS
+    rfs = shot_grid(grid, kp, radius)[1] if mode == "given" else None
+    for g in (grid, dataclasses.replace(grid, window_cap=grid.window_cap // 3)):
+        got = _sg_launch(g, kp, radius, rfs=rfs, rf_radius=rf_radius)
+        _sg_equal(got, shot_window_chunked(g, kp, radius, rfs=rfs, rf_radius=rf_radius))
+    assert not got[0][-1].any() and bool(got[0][-4].any())
+
+
+def test_shot_grid_debug_counter_reads_k1s(cuda, rng):
+    """``--debug_shot``'s counter on SG reads K1's on the K8 + K1 route:
+    none under the computed frames; under given frames with a planted NaN
+    (whole frames, and one z-axis component) the same counts of unsound
+    weight sums, NaN in the same histogram entries, the rest equal."""
+    grid, kp = _sg_terrain(rng, cuda, 0.3)
+    counters = [torch.zeros(2, dtype=torch.int32, device=cuda) for _ in range(2)]
+    got = _sg_launch(grid, kp, 0.6, violations=counters[0])
+    _sg_equal(got, shot_window_chunked(grid, kp, 0.6, violations=counters[1]))
+    assert counters[0].tolist() == counters[1].tolist() == [0, 0]
+    planted = got[1].clone()
+    planted[::13] = float("nan")
+    planted[6::13, 0, 2] = float("nan")
+    counters = [torch.zeros(2, dtype=torch.int32, device=cuda) for _ in range(2)]
+    got = _sg_launch(grid, kp, 0.6, rfs=planted, violations=counters[0])
+    _sg_equal(got, shot_window_chunked(grid, kp, 0.6, rfs=planted, violations=counters[1]))
+    k, p = (c.tolist() for c in counters)
+    assert k == p and k[1] > 0
+    assert bool(got[0][:-3:13].isnan().any(1).all())
+
+
+@pytest.mark.parametrize("choice", ["shot_single_scale", "shot_bi_scale"])
+def test_shot_grid_on_the_staged_path(cuda, tmp_path, monkeypatch, choice):
+    """A 30k-point terrain pair registered through the CLI on the card (the
+    grid route, run route off): SHOT launches SG once a cloud and neither K8
+    nor K1; its descriptor stage counts 2 ``grid_passes`` and no ``chunks``
+    a pair, and makes as many blocking reads, and covers as many window
+    slots, as the K8 + K1 loop it replaced (forced by the route's
+    predicate)."""
+    from shot_fpfh_tpu_torch import cli
+    from shot_fpfh_tpu_torch.io.ply import write_ply
+    from shot_fpfh_tpu_torch.ops import shot_fused
+
+    rng = np.random.default_rng(72)
+    ref = make_terrain(30_000, rng, scale=10 * 0.3 ** 0.5, n_bumps=12)
+    rot = rotation_about([0.3, -0.2, 1.0], np.deg2rad(15.0))
+    scan = (ref @ rot.T + [0.4, -0.25, 0.15]).astype(np.float32)
+    write_ply(str(tmp_path / "scan.ply"), [scan], ["x", "y", "z"])
+    write_ply(str(tmp_path / "ref.ply"), [ref], ["x", "y", "z"])
+    monkeypatch.setitem(shot_dma._DMA, "enabled", False)
+    takes_kernel = shot_fused._takes_kernel
+    runs = {}
+    for sg in (True, False):
+        monkeypatch.setattr(shot_fused, "_takes_kernel",
+                            takes_kernel if sg else lambda grid, kp: False)
+        _kernels.reset_launch_counts()
+        out = tmp_path / f"m{int(sg)}.json"
+        assert cli.main(["--scan_file_path", str(tmp_path / "scan.ply"),
+                         "--ref_file_path", str(tmp_path / "ref.ply"), "--conf_file_path", "",
+                         "--output_dir", str(tmp_path / "out"), "--neighborhood_size", "0.15",
+                         "--min_n_neighbors", "5", "--descriptor_choice", choice,
+                         "--radius", "0.9", "--rho", "20", "--phi", "3",
+                         "--disable_ply_writing", "--metrics_json", str(out)]) == 0
+        stage = next(s for s in json.loads(out.read_text())["stages"]
+                     if s["stage"] == f"descriptors[{choice}]")
+        runs[sg] = dict(_kernels.launch_counts), stage
+    (counts, stage), (loop_counts, loop) = runs[True], runs[False]
+    assert counts["shot_grid"] == 2
+    assert counts["fetch_windows"] == 0 and counts["shot_binning_histogram"] == 0
+    assert loop_counts["shot_grid"] == 0 and loop_counts["shot_binning_histogram"] >= 2
+    assert stage["grid_passes"] == 2 and stage["chunks"] == 0 and loop["chunks"] >= 2
+    assert stage["spans"]["shot.pass"]["count"] == 2 and "shot.chunk" not in stage["spans"]
+    assert stage["window_slots"] == loop["window_slots"] > 0
+    assert stage["host_syncs"] == loop["host_syncs"]
+
+
 @pytest.mark.parametrize("run_route", [False, True])
 def test_fpfh_cli_on_card(cuda, tmp_path, monkeypatch, run_route):
     """A 30k-point terrain pair (the smoke terrain's density) registered
@@ -1009,7 +1168,7 @@ def test_multiscale_cli_on_card(cuda, tmp_path, monkeypatch, choice, run_route):
     with bi-scale and multiscale SHOT through the CLI on the card (radius
     0.9, phi 3, 2 scales; rho 20 keeps the first scale's support above
     20k points, so it takes the grid routes): the window route launches
-    K1, the run route K5 and no K1."""
+    SG (no K8, no K1), the run route K5 and no SG."""
     from shot_fpfh_tpu_torch import cli
     from shot_fpfh_tpu_torch.io.ply import write_ply
 
@@ -1029,7 +1188,8 @@ def test_multiscale_cli_on_card(cuda, tmp_path, monkeypatch, choice, run_route):
     counts = _kernels.launch_counts
     assert counts["top2_match"] > 0 and counts["radius_pca"] > 0
     assert (counts["shot_runs"] > 0) == run_route
-    assert (counts["shot_binning_histogram"] > 0) == (not run_route)
+    assert (counts["shot_grid"] > 0) == (not run_route)
+    assert counts["shot_binning_histogram"] == 0 and counts["fetch_windows"] == 0
 
 
 def test_entry_points_default_to_the_card(cuda):
@@ -1300,7 +1460,7 @@ def _fused_pair(rng, n=25_000):
 
 
 def test_fused_registration_on_card_matches_cpu(cuda, rng):
-    """``register_pair`` on the card (K8 + K1, K2 in f32, K7's 1-NN) against the
+    """``register_pair`` on the card (SG, K2 in f32, K7's 1-NN) against the
     CPU with the same injected Gumbel noise: the same keypoints, matches
     within the flip rule's reach (1%), ICP transforms within 1e-3 and both
     within 1e-2 of the ground truth."""
@@ -1320,7 +1480,8 @@ def test_fused_registration_on_card_matches_cpu(cuda, rng):
     torch.cuda.synchronize()
     ran = {k: _kernels.launch_counts[k] - before[k] for k in before}
     assert ran["top2_match"] == 1
-    assert all(ran[k] > 0 for k in ("shot_binning_histogram", "fetch_windows", "nearest"))
+    assert all(ran[k] > 0 for k in ("shot_grid", "nearest"))
+    assert ran["shot_binning_histogram"] == 0 and ran["fetch_windows"] == 0
     cpu = fused.register_pair(scan, sn, ref, rn, device="cpu", gumbel=gumbel, **kw)
     np.testing.assert_array_equal(card.scan_keypoint_idx, cpu.scan_keypoint_idx)
     np.testing.assert_array_equal(card.ref_keypoint_idx, cpu.ref_keypoint_idx)
@@ -1469,9 +1630,9 @@ def test_debug_nans_raises_in_the_kernel_wrapper(cuda, rng):
 
 def test_debug_shot_on_card_counts_in_k1(cuda, rng):
     """With the SHOT debug checks on, grid-route SHOT on the card still runs
-    K1 (no K5 by default), which counts the checks itself: no violation,
-    and the descriptors within K1's flip rule of those without the checks
-    (the histogram's float atomics may add in another order)."""
+    SG (no K5 by default, no K8 + K1), which counts the checks itself: no
+    violation, and the descriptors within K1's flip rule of those without
+    the checks (the histogram's float atomics may add in another order)."""
     from chip_smoke import flip_rule
     from shot_fpfh_tpu_torch.models.normals import compute_normals
     from shot_fpfh_tpu_torch.models.shot import (
@@ -1491,11 +1652,12 @@ def test_debug_shot_on_card_counts_in_k1(cuda, rng):
         assert debug_violation_count() == 0
     finally:
         enable_debug_checks(False)
-    assert _kernels.launch_counts["shot_binning_histogram"] > 0
+    assert _kernels.launch_counts["shot_grid"] > 0
     assert _kernels.launch_counts["shot_runs"] == 0
-    assert _kernels.launch_counts["fetch_windows"] > 0
+    assert _kernels.launch_counts["shot_binning_histogram"] == 0
+    assert _kernels.launch_counts["fetch_windows"] == 0
     assert bool(torch.isfinite(got).all())
-    flip_rule(got, want, "K1 with the checks vs without")
+    flip_rule(got, want, "SG with the checks vs without")
 
 
 @pytest.mark.parametrize("kernel", ["shot_binning_histogram", "shot_runs"])
@@ -1576,7 +1738,7 @@ def nccl_mesh(cuda, tmp_path):
 
 
 def test_one_rank_nccl_mesh_equals_one_device(nccl_mesh, rng):
-    """``sharded_shot_descriptors`` (window and run routes: K8 + K1, K5) and
+    """``sharded_shot_descriptors`` (window and run routes: SG, K5) and
     ``ring_match`` (K2 on the one tile) over a 1-rank NCCL group equal the
     single-device path, and launch its kernels."""
     from shot_fpfh_tpu_torch.models.shot import compute_shot_descriptor
@@ -1591,7 +1753,7 @@ def test_one_rank_nccl_mesh_equals_one_device(nccl_mesh, rng):
     for dma in (False, True):
         shot_dma.set_dma_kernel(dma)
         try:
-            kernel = "shot_runs" if dma else "shot_binning_histogram"
+            kernel = "shot_runs" if dma else "shot_grid"
             before = _kernels.launch_counts[kernel]
             got = sharded_shot_descriptors(kp, pts, nrm, 0.5, nccl_mesh, return_rfs=True,
                                            min_neighborhood_size=10)
@@ -1610,7 +1772,7 @@ def test_one_rank_nccl_mesh_equals_one_device(nccl_mesh, rng):
 
 
 def test_fused_mesh_on_one_rank_nccl_equals_one_device(nccl_mesh, rng):
-    """``fused_registration_mesh`` over a 1-rank NCCL group (K8 + K1, K2
+    """``fused_registration_mesh`` over a 1-rank NCCL group (SG, K2
     in f32, K7 under its collectives) against ``fused_registration`` on
     the same inputs: the same match count and launches, RANSAC and ICP
     within 1e-5."""

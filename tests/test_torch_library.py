@@ -46,6 +46,7 @@ from shot_fpfh_tpu_torch import _kernels  # noqa: E402
 from shot_fpfh_tpu_torch.core import solvers as t_sv  # noqa: E402
 from shot_fpfh_tpu_torch.models import shot as t_shot  # noqa: E402
 from shot_fpfh_tpu_torch.ops import grid_hash as t_grid  # noqa: E402
+from shot_fpfh_tpu_torch.ops import shot_fused as t_shot_fused  # noqa: E402
 from shot_fpfh_tpu_torch.registration import icp as t_icp  # noqa: E402
 from shot_fpfh_tpu_torch.registration import matching as t_match  # noqa: E402
 from shot_fpfh_tpu_torch.utils import perf as t_perf  # noqa: E402
@@ -345,23 +346,24 @@ def test_shot_debug_checks_drop_a_bad_bin_in_an_inner_row(rng, caplog):
     assert_flip_rule(descs["torch"], descs["jax"])
 
 
-def _grid_shot_under_checks(rng, monkeypatch, wrapper: str):
+def _grid_shot_under_checks(rng, monkeypatch, wrapper: str, module=t_shot):
     """Grid-route SHOT (``AUTO_GRID_MIN_POINTS`` lowered) without and with
     the checks, recording the counter each call of K1's or K5's wrapper
-    (``wrapper``) is given: ``(without, with, counters)``."""
+    (``wrapper``, as ``module`` calls it) is given: ``(without, with,
+    counters)``."""
     monkeypatch.setattr(t_grid, "AUTO_GRID_MIN_POINTS", 1000)
     cloud = make_terrain(3000, rng, scale=3.0, n_bumps=6)
     normals = np.tile(np.array([0.0, 0.0, 1.0], np.float32), (len(cloud), 1))
     kp = cloud[:200]
     want = t_shot.compute_shot_descriptor(kp, cloud, normals, 0.8,
                                           min_neighborhood_size=5, device="cpu")
-    counters, real = [], getattr(t_shot, wrapper)
+    counters, real = [], getattr(module, wrapper)
 
     def spy(*a, violations=None, **k):
         counters.append(violations)
         return real(*a, violations=violations, **k)
 
-    monkeypatch.setattr(t_shot, wrapper, spy)
+    monkeypatch.setattr(module, wrapper, spy)
     t_shot.enable_debug_checks(True)
     try:
         got = t_shot.compute_shot_descriptor(kp, cloud, normals, 0.8,
@@ -375,9 +377,10 @@ def _grid_shot_under_checks(rng, monkeypatch, wrapper: str):
 def test_shot_debug_checks_leave_grid_descriptors_unchanged(rng, monkeypatch):
     """On the grid route the descriptors under the checks equal those
     without, no violation is counted, and K1's wrapper is called with a
-    counter (the route does not change)."""
+    counter (the route does not change; on CPU tensors SG's route runs K1's
+    wrapper in keypoint chunks)."""
     (want, want_rfs), (got, rfs), counters = _grid_shot_under_checks(
-        rng, monkeypatch, "shot_binning_histogram")
+        rng, monkeypatch, "shot_binning_histogram", t_shot_fused)
     assert counters and all(c is not None and c.tolist() == [0, 0] for c in counters)
     assert (want != 0).any()
     assert torch.equal(got, want) and torch.equal(rfs, want_rfs)

@@ -64,8 +64,8 @@ Phases, one line each; any failure exits non-zero with no result line:
 5. FPFH path: the same pair with ``--descriptor_choice fpfh``, cold and
    measured on the window route (launches K2, K3, the SPFH pass kernel and
    the aggregation kernel once a cloud each, no K8, K4 or K7 window), then
-   once on the run route (``set_dma_kernel(True)``: launches K6 and not the
-   pass kernel), then the window route
+   once on the run route (launches K6 and not the pass kernel), then the
+   window route
    with the aggregation's twin in the kernel's place (the same rotation
    error within 1e-5 rad); each run accepted within the same bounds;
 6. bi-scale SHOT (``--phi 3``: frames at 0.9, bins at 2.7) on the window
@@ -167,6 +167,9 @@ Phases, one line each; any failure exits non-zero with no result line:
    axis whose sign vote is near tied: counted and bounded) and the
    histograms, the CPU given the card's frames, by the flip rule;
    ``RigidTransform.identity((4,))`` on ``cuda``.
+The run route is no route of the port: for a run on it the smoke calls K5
+and K6 in the place of SG and the SPFH pass kernel
+(``run_kernels_in_place``), and holds them to the same bounds.
 Phases 4–9 and 12 run cold, then measured, each accepted within the same
 bounds; every SHOT window route launches SG once a cloud (no K8, no K1),
 FPFH's window route the SPFH pass kernel once a cloud, and every ICP K7's
@@ -179,6 +182,7 @@ both builds in turns.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
 import re
@@ -439,6 +443,47 @@ def kernel_ms(fn, kernel: str, reps: int = 10) -> float:
 def check(cond: bool, message: str) -> None:
     if not cond:
         raise AssertionError(message)
+
+
+def xyrow_grid(grid) -> tuple[bool, int]:
+    """``(in xy-row mode, longest xy-row run)`` of a grid, as K5's and K6's
+    wrappers work them out from its cell table."""
+    from shot_fpfh_tpu_torch.ops.shot_dma import _xyrow_mode
+
+    return _xyrow_mode(grid)
+
+
+@contextlib.contextmanager
+def run_kernels_in_place(on: bool = True):
+    """K5 and K6 (``ops.shot_dma``) called in the place of SG and the SPFH
+    pass kernel wherever SHOT and FPFH take a grid (the staged models, the
+    fused legs, the sharded stages), so a run holds the run kernels on the
+    main path's inputs: no route of the port selects them.  Nothing is
+    replaced unless ``on``."""
+    if not on:
+        yield
+        return
+    from shot_fpfh_tpu_torch.models import fpfh as m_fpfh
+    from shot_fpfh_tpu_torch.models import shot as m_shot
+    from shot_fpfh_tpu_torch.ops.shot_dma import shot_descriptor_dma, spfh_block_dma
+    from shot_fpfh_tpu_torch.registration import fused
+
+    def k5(grid, kp, local_rfs, radius, normalize, min_neighborhood_size, rf_radius=None):
+        counter = m_shot._debug_counter(kp.device)
+        out = shot_descriptor_dma(grid, kp, radius, rfs=local_rfs, rf_radius=rf_radius,
+                                  normalize=normalize,
+                                  min_neighborhood_size=min_neighborhood_size,
+                                  violations=counter)
+        m_shot._debug_read(counter)
+        return out
+
+    saved = m_shot._shot_on_grid, fused._shot_on_grid, m_fpfh.spfh_grid
+    m_shot._shot_on_grid = fused._shot_on_grid = k5
+    m_fpfh.spfh_grid = spfh_block_dma
+    try:
+        yield
+    finally:
+        m_shot._shot_on_grid, fused._shot_on_grid, m_fpfh.spfh_grid = saved
 
 
 def bound(n_bytes: float, n_ops: float, peak_flops: float = F32_FLOPS) -> dict:
@@ -703,7 +748,7 @@ class ShotTerrain:
         self.grid = build_grid(cloud, self.radius / 2, extras=normals, halo=2)
         self.bi_grid = build_grid(cloud, self.bi_radius / 2, extras=normals, halo=2)
         for g in (self.grid, self.bi_grid):
-            check(g.use_xyrow and g.xyrow_run_cap > 0,
+            check(all(xyrow_grid(g)),
                   f"the 50k terrain's cell-{g.cell_size} grid is not an xy-row grid")
 
     def window(self, bi_scale: bool):
@@ -1087,8 +1132,11 @@ def parity_k5(terrain: ShotTerrain, other=None):
     ``other``, its outputs held equal, bit for bit, to that build's."""
     import torch
 
-    from shot_fpfh_tpu_torch.ops.grid_hash import _xyrow_runs
-    from shot_fpfh_tpu_torch.ops.shot_dma import shot_descriptor_dma, shot_descriptor_dma_plain
+    from shot_fpfh_tpu_torch.ops.shot_dma import (
+        _xyrow_runs,
+        shot_descriptor_dma,
+        shot_descriptor_dma_plain,
+    )
     from shot_fpfh_tpu_torch.ops.shot_fused import shot_binning_histogram
 
     kp = terrain.kp
@@ -1174,7 +1222,7 @@ def parity_k5(terrain: ShotTerrain, other=None):
     lanes, n_frame, n_bin, n_runs, b = work(grid, radius, terrain.rf_radius)
     own_lanes, _, own_bin, _, own_b = work(terrain.grid, terrain.radius, terrain.radius)
     print(f"phase 3 K5 shot_runs: {q} keypoints x {n_runs} xy-row runs (bi-scale "
-          f"grid: longest run {grid.xyrow_run_cap}, {lanes / q:.0f} rows, {n_frame / q:.0f} "
+          f"grid: longest run {xyrow_grid(grid)[1]}, {lanes / q:.0f} rows, {n_frame / q:.0f} "
           f"frame and {n_bin / q:.0f} descriptor neighbors a keypoint): frames max err "
           f"{frame_errs}, (flip fraction, max diff) vs twin {stats}; vs the K1 route "
           f"(parted keypoints, frames err, (flip, max diff)) {route}; bi-scale kernel "
@@ -1199,8 +1247,7 @@ def spfh_terrain(dev, rng):
     cloud = torch.tensor(make_terrain(100_000, rng), device=dev)
     normals = compute_normals(cloud, cloud, k=30, device=dev)
     grid = build_grid(cloud, FPFH_RADIUS / 2, extras=normals, halo=2)
-    check(grid.use_xyrow and grid.xyrow_run_cap > 0,
-          "the smoke terrain's SPFH grid is not an xy-row grid")
+    check(all(xyrow_grid(grid)), "the smoke terrain's SPFH grid is not an xy-row grid")
     return grid
 
 
@@ -1334,8 +1381,11 @@ def parity_k6(grid):
     import torch
 
     from shot_fpfh_tpu_torch.models.fpfh import _spfh_window_sorted
-    from shot_fpfh_tpu_torch.ops.grid_hash import _xyrow_runs
-    from shot_fpfh_tpu_torch.ops.shot_dma import spfh_sorted_dma, spfh_sorted_dma_plain
+    from shot_fpfh_tpu_torch.ops.shot_dma import (
+        _xyrow_runs,
+        spfh_sorted_dma,
+        spfh_sorted_dma_plain,
+    )
 
     n = grid.packed_sorted.shape[0]
     # this run's work: every row of the queries' runs is tested, every
@@ -1373,7 +1423,7 @@ def parity_k6(grid):
     (ms, alone, plain_ms), (dec_ms, dec_alone, dec_plain) = times[False], times[True]
     b, dec_b = bounds[False], bounds[True]
     print(f"phase 3 K6 spfh_runs: {n} queries x {start.shape[1]} xy-row runs (longest "
-          f"{grid.xyrow_run_cap}, {lanes / n:.0f} rows and {neighbors / n:.0f} neighbors a "
+          f"{xyrow_grid(grid)[1]}, {lanes / n:.0f} rows and {neighbors / n:.0f} neighbors a "
           f"query): equal to the twin in both modes; window route held on the {n - parted} rows "
           f"whose radius rules agree ({parted} part, max diff {route_err:.2e}); joint kernel "
           f"{ms:.3f} ms (alone {alone:.4f} ms) plain {plain_ms:.3f} ms, bound "
@@ -1565,8 +1615,11 @@ def k5_own_frames(grid, kp, radius: float, reps: int = 10) -> dict:
     ``parity_k5``'s rule (one radius)."""
     import torch
 
-    from shot_fpfh_tpu_torch.ops.grid_hash import _xyrow_runs
-    from shot_fpfh_tpu_torch.ops.shot_dma import shot_descriptor_dma, shot_descriptor_dma_plain
+    from shot_fpfh_tpu_torch.ops.shot_dma import (
+        _xyrow_runs,
+        shot_descriptor_dma,
+        shot_descriptor_dma_plain,
+    )
 
     raw = dict(normalize=False, min_neighborhood_size=-1)
     hist, rfs = shot_descriptor_dma(grid, kp, radius, **raw)
@@ -1608,14 +1661,14 @@ def parity_fused_shapes(pair, dev) -> None:
     scan = torch.tensor(pair.scan, device=dev)
     grid = build_grid(scan, FUSED_SHOT_CELL, extras=compute_normals(scan, scan, k=30,
                                                                      device=dev))
-    check(grid.use_xyrow and grid.xyrow_run_cap > 0, "the fused SHOT grid is not an xy-row grid")
+    check(all(xyrow_grid(grid)), "the fused SHOT grid is not an xy-row grid")
     kp = scan[torch.as_tensor(grid_subsample(scan, KEYPOINT_VOXEL), device=dev)]
     chunk = kp[:min(4096, window_chunk(grid, 8))]
     parity_k8("the fused SHOT grid", grid, chunk)
     k1 = k1_own_frames(grid, chunk, FUSED_SHOT_CELL)
     k5 = k5_own_frames(grid, kp[:4096], FUSED_SHOT_CELL)
     print(f"phase 3 K1 and K5 on the fused SHOT grid (cell {FUSED_SHOT_CELL}, halo 1, "
-          f"window {grid.window_cap}, longest xy-row run {grid.xyrow_run_cap}): K1 "
+          f"window {grid.window_cap}, longest xy-row run {xyrow_grid(grid)[1]}): K1 "
           f"{k1['text']}; K5 {k5['text']}", flush=True)
     n_pad = -(-kp.shape[0] // 256) * 256
     parity_k2(dev, np.random.default_rng(2), n_pad, 352, modes=(False,))
@@ -2160,19 +2213,14 @@ def spfh_pass_launches(label: str, launches: dict, expected: int = FPFH_AGG_LAUN
 
 
 def phase_fpfh_path(pair: SmokePair) -> tuple[dict, dict]:
-    from shot_fpfh_tpu_torch.ops.shot_dma import set_dma_kernel
-
     fpfh = ["--descriptor_choice", "fpfh", "--radius", str(FPFH_RADIUS)]
     window = pair.run("FPFH window route", fpfh, FPFH_WINDOW_PATH, FPFH_WINDOW_NOT)
     agg_launches("FPFH window route", window["launches"])
     spfh_pass_launches("FPFH window route", window["launches"])
     print(_describe("phase 5 FPFH window route", window), flush=True)
-    set_dma_kernel(True)
-    try:
+    with run_kernels_in_place():
         runs = pair.run("FPFH run route", fpfh, FPFH_RUN_PATH, ("spfh_histogram", SPFH_PASS, K7),
                         cold=False)
-    finally:
-        set_dma_kernel(False)
     agg_launches("FPFH run route", runs["launches"])
     print(_describe("phase 5 FPFH run route", runs), flush=True)
     # the same run with the aggregation's twin on the card in the kernel's
@@ -2203,7 +2251,6 @@ def phase_multiscale_paths(pair: SmokePair) -> dict:
     columns) on the window route, single-scale SHOT on the run route."""
     from shot_fpfh_tpu_torch.core.subsampling import grid_subsample
     from shot_fpfh_tpu_torch.ops import grid_hash
-    from shot_fpfh_tpu_torch.ops.shot_dma import set_dma_kernel
 
     bi = ["--descriptor_choice", "shot_bi_scale", "--phi", str(PHI)]
     ms = ["--descriptor_choice", "shot_multiscale", "--phi", str(PHI),
@@ -2212,8 +2259,7 @@ def phase_multiscale_paths(pair: SmokePair) -> dict:
     r = pair.run("bi-scale window route", bi, SHOT_PATH, ("shot_runs", *SHOT_WINDOW_NOT))
     print(_describe("phase 6 bi-scale SHOT, window route", r), flush=True)
     launches["bi-scale window"] = r["launches"]
-    set_dma_kernel(True)
-    try:
+    with run_kernels_in_place():
         r = pair.run("bi-scale run route", bi, SHOT_RUN_PATH, ("shot_binning_histogram", SG))
         print(_describe("phase 6 bi-scale SHOT, run route", r), flush=True)
         launches["bi-scale runs"] = r["launches"]
@@ -2221,8 +2267,6 @@ def phase_multiscale_paths(pair: SmokePair) -> dict:
                      ("shot_binning_histogram", SG))
         print(_describe("phase 8 single-scale SHOT, run route", r), flush=True)
         launches["single-scale runs"] = r["launches"]
-    finally:
-        set_dma_kernel(False)
 
     # the cold run saves its state: the descriptors K2 matched are 704 wide
     state = WORK / "multiscale_state.npz"
@@ -2463,22 +2507,17 @@ def phase_fused_paths(pair: SmokePair) -> tuple[dict, dict]:
     staged path on the same keypoints; the fused run launches K2 once.
     Returns each run's launches, and each case's run route and the
     arguments its ``fused_registration`` call was given (phase 15)."""
-    from shot_fpfh_tpu_torch.ops.shot_dma import set_dma_kernel
-
     fpfh = ["--descriptor_choice", "fpfh", "--radius", str(FPFH_RADIUS)]
     cases = (("SHOT, window route", [], False, SHOT_PATH, ("shot_runs", *SHOT_WINDOW_NOT)),
              ("SHOT, run route", [], True, SHOT_RUN_PATH, ("shot_binning_histogram", SG)),
              ("FPFH", fpfh, False, FPFH_WINDOW_PATH, FPFH_WINDOW_NOT))
     launches, inputs = {}, {}
     for label, extra, run_route, must, must_not in cases:
-        set_dma_kernel(run_route)
-        try:
+        with run_kernels_in_place(run_route):
             staged = pair.run(f"staged {label}, subsampling keypoints", FUSED_FLAGS + extra,
                               must, must_not, cold=False)
             r = pair.run(f"fused {label}", FUSED_FLAGS + extra + ["--fused"], must, must_not)
             syncs, inputs[label] = _leg_syncs(pair, FUSED_FLAGS + extra + ["--fused"])
-        finally:
-            set_dma_kernel(False)
         check(r["launches"]["top2_match"] == 1,
               f"fused {label}: K2 launched {r['launches']['top2_match']} times, not once")
         if AGG in must:
@@ -2809,7 +2848,6 @@ def phase_mesh_one_rank(pair: SmokePair) -> dict:
     from shot_fpfh_tpu_torch.models.normals import compute_normals
     from shot_fpfh_tpu_torch.models.shot import ShotComputer, compute_shot_descriptor
     from shot_fpfh_tpu_torch.ops.grid_hash import build_grid
-    from shot_fpfh_tpu_torch.ops.shot_dma import set_dma_kernel
     from shot_fpfh_tpu_torch.parallel import make_mesh, sharded
     from shot_fpfh_tpu_torch.parallel.mesh import all_reduce_sum
     from shot_fpfh_tpu_torch.registration import icp, matching, ransac
@@ -2850,8 +2888,7 @@ def phase_mesh_one_rank(pair: SmokePair) -> dict:
     shot_kw = dict(k_max=512, min_neighborhood_size=100)
     single = ShotComputer(pad_queries_to=1, device=dev, **shot_kw)
     for route in ("window", "runs"):
-        set_dma_kernel(route == "runs")
-        try:
+        with run_kernels_in_place(route == "runs"):
             (s_pts, s_nrm), (s2_pts, s2_nrm) = sup["ref"]
             own = stage(f"SHOT {route} route, own frames",
                         lambda: sharded.sharded_shot_descriptors(
@@ -2874,24 +2911,19 @@ def phase_mesh_one_rank(pair: SmokePair) -> dict:
                            _all_close)
             if route == "window":
                 shot["ref"] = (own[0], shared)
-        finally:
-            set_dma_kernel(False)
     (s_pts, s_nrm), (s2_pts, s2_nrm) = sup["scan"]
     scan_desc, scan_rfs = compute_shot_descriptor(kp_scan, s_pts, s_nrm, 0.9, **shot_kw)
     shot["scan"] = (scan_desc, compute_shot_descriptor(kp_scan, s2_pts, s2_nrm, 0.9 * PHI,
                                                        local_rfs=scan_rfs, **shot_kw)[0])
     kp_idx = torch.as_tensor(kp["ref"], device=dev)
     for route in ("window", "runs"):
-        set_dma_kernel(route == "runs")
-        try:
+        with run_kernels_in_place(route == "runs"):
             before = dict(total)
             stage(f"FPFH {route} route",
                   lambda: sharded.sharded_fpfh(kp_idx, ref, ref_n, FPFH_RADIUS, mesh),
                   lambda: compute_fpfh_descriptor(kp_idx, ref, ref_n, FPFH_RADIUS, device=dev))
             agg_launches(f"phase 14 1-rank FPFH {route} route",
                          {k: total.get(k, 0) - before.get(k, 0) for k in (AGG, K7)}, 1)
-        finally:
-            set_dma_kernel(False)
 
     a_nz = torch.nonzero((shot["scan"][0] != 0).any(1))[:, 0]
     b_nz = torch.nonzero((shot["ref"][0] != 0).any(1))[:, 0]
@@ -2967,7 +2999,6 @@ def phase_fused_mesh_one_rank(cases: dict) -> dict:
     import torch
     import torch.distributed as dist
 
-    from shot_fpfh_tpu_torch.ops.shot_dma import set_dma_kernel
     from shot_fpfh_tpu_torch.parallel import make_mesh
     from shot_fpfh_tpu_torch.parallel.mesh import all_reduce_sum
     from shot_fpfh_tpu_torch.registration import fused
@@ -2981,8 +3012,7 @@ def phase_fused_mesh_one_rank(cases: dict) -> dict:
     _, setup_ms, _ = _stage(lambda: all_reduce_sum(torch.zeros(1, device=mesh.device), mesh))
     launches, lines = {}, []
     for label, (run_route, must, (args, kw)) in cases.items():
-        set_dma_kernel(run_route)
-        try:
+        with run_kernels_in_place(run_route):
             with _FusedLegs() as one:
                 want, one_ms, one_launches = _stage(lambda: fused.fused_registration(*args, **kw))
             with _FusedLegs() as sharded:
@@ -2990,8 +3020,6 @@ def phase_fused_mesh_one_rank(cases: dict) -> dict:
                     lambda: fused.fused_registration_mesh(mesh, *args, **kw))
             with _FusedLegs(syncs=True) as counted:
                 fused.fused_registration_mesh(mesh, *args, **kw)
-        finally:
-            set_dma_kernel(False)
         for leg in ("descriptors", "matching"):
             check(len(sharded.outputs[leg]) == len(one.outputs[leg]) and all(
                 _all_equal(g, w) for g, w in zip(sharded.outputs[leg], one.outputs[leg])),
@@ -3333,8 +3361,11 @@ def k6_rows(grid, rows: int, radius: float, reps: int) -> dict:
     (``torch.equal``); bound by ``parity_k6``'s rule."""
     import torch
 
-    from shot_fpfh_tpu_torch.ops.grid_hash import _xyrow_runs
-    from shot_fpfh_tpu_torch.ops.shot_dma import spfh_block_dma, spfh_block_dma_plain
+    from shot_fpfh_tpu_torch.ops.shot_dma import (
+        _xyrow_runs,
+        spfh_block_dma,
+        spfh_block_dma_plain,
+    )
 
     qc, qn = grid.packed_sorted[:rows, :3], grid.packed_sorted[:rows, 3:6]
     start, end = _xyrow_runs(grid, qc)
@@ -3356,7 +3387,7 @@ def k6_rows(grid, rows: int, radius: float, reps: int) -> dict:
                     + rows * got.shape[1] * 4,
                     lanes * OPS_DIST_TEST + neighbors * OPS_SPFH_NEIGHBOR))
     print(f"phase 16 K6 spfh_runs: {rows} queries of the {grid.packed_sorted.shape[0]}-point "
-          f"grid x {start.shape[1]} xy-row runs (longest {grid.xyrow_run_cap}, "
+          f"grid x {start.shape[1]} xy-row runs (longest {xyrow_grid(grid)[1]}, "
           f"{lanes / rows:.0f} rows and {neighbors / rows:.0f} neighbors a query): equal to the "
           f"twin in both modes; " + "; ".join(
               f"{'decorrelated' if dec else 'joint'} kernel {r['ms']:.3f} ms plain "
@@ -3532,7 +3563,7 @@ def phase_at_scale(dev) -> dict:
               f"the same bytes (the JAX grid cache's key) {hash_rec['wall'] * 1e3:.3f} ms: a "
               f"cache hit would {'save' if pays else 'cost'} "
               f"{abs(host_rec['wall'] - hash_rec['wall']) * 1e3:.3f} ms a build; window cap "
-              f"{grid.window_cap}, xy-row {grid.use_xyrow} (longest run {grid.xyrow_run_cap})")
+              f"{grid.window_cap}, (xy-row mode, longest run) {xyrow_grid(grid)}")
     kp_idx = grid_subsample(ref, SCALE_VOXEL)
     pad = -(-len(kp_idx) // SCALE_PAD) * SCALE_PAD - len(kp_idx)
     kp = torch.cat([ref[torch.as_tensor(kp_idx, device=dev)],
@@ -3592,11 +3623,11 @@ def phase_at_scale(dev) -> dict:
     cli_kp = torch.as_tensor(select_keypoints_with_density_threshold(
         ref, SCALE_CLI_VOXEL, SG_SCALE_KP_MIN, device=dev), device=dev)
     kernels[SG] = sg_at_scale(ref, normals, cli_kp, prefix, reps)
-    check(grid.use_xyrow and grid.xyrow_run_cap > 0, "the at-scale grid is not an xy-row grid")
+    check(all(xyrow_grid(grid)), "the at-scale grid is not an xy-row grid")
     k1 = kernels["shot_binning_histogram"] = k1_own_frames(grid, kp, SCALE_RADIUS, reps)
     k5 = kernels["shot_runs"] = k5_own_frames(grid, kp, SCALE_RADIUS, reps)
     print(f"{prefix} K1 and K5 on leg 3's keypoints (cell {grid.cell_size}, halo 2, window "
-          f"{grid.window_cap}, longest xy-row run {grid.xyrow_run_cap}): K1 {k1['text']}; K5 "
+          f"{grid.window_cap}, longest xy-row run {xyrow_grid(grid)[1]}): K1 {k1['text']}; K5 "
           f"{k5['text']}", flush=True)
     kernels["spfh_runs"] = k6_rows(grid, SCALE_K6_ROWS, SCALE_RADIUS, reps)
     kp_rows = _sorted_rows(grid, torch.as_tensor(kp_idx_pad, device=dev))

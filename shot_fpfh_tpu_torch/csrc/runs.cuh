@@ -1,9 +1,10 @@
 // A query's runs of the grid, shared by K5 (shot_runs.cu), K6
 // (spfh_runs.cu) and K7's 1-NN mode (nearest.cu): its cell, and the runs of
 // the cell-sorted table that hold every point within halo·cell_size of it,
-// with the arithmetic of ops/grid_hash.py::_query_cells and ::_xyrow_runs
-// (2h+1 xy-row runs: K5, K6) or ::_zcolumn_runs ((2h+1)² z-column runs:
-// the 1-NN, the SPFH pass and SHOT's grid kernel).  Each kernel finds its
+// with the arithmetic of ops/grid_hash.py::_query_cells and of
+// ops/shot_dma.py::_xyrow_runs (2h+1 xy-row runs: K5, K6) or
+// ops/grid_hash.py::_zcolumn_runs ((2h+1)² z-column runs: the 1-NN, the
+// SPFH pass and SHOT's grid kernel).  Each kernel finds its
 // queries' runs itself from the grid's cell-start table, one run a lane, so
 // the wrapper launches no index ops.  Also the window routes' radius test
 // as the walks take it (sq_bound).
@@ -21,7 +22,7 @@ __device__ __forceinline__ void query_cell(const float* origin, float cell_size,
   c[2] = (long long)floorf(__fdiv_rn(z - origin[2], cell_size));
 }
 
-// grid_hash._xyrow_runs for offset k (0 .. 2h) of the cell c: the sorted
+// shot_dma._xyrow_runs for offset k (0 .. 2h) of the cell c: the sorted
 // rows [s, e) of the cells (x+k−h, max(y−h, 0) .. min(y+h, d1−1), all z),
 // consecutive in the z-minor id; (0, 0) off the grid
 __device__ __forceinline__ void xyrow_run(const long long* cell_starts, long long d0,

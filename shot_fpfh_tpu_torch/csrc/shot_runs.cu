@@ -18,7 +18,7 @@
 // keypoint's runs of the cell-sorted [x y z nx ny nz ...] table as its
 // neighbor source, so no (Q, W) window is gathered.
 //   - The warp finds its keypoint's runs from the grid's cell-start table
-//     (runs.cuh, shared with K6: the arithmetic of grid_hash._xyrow_runs,
+//     (runs.cuh, shared with K6: the arithmetic of shot_dma._xyrow_runs,
 //     one run a lane), so the wrapper launches no index ops.
 //   - A walk puts the lanes on consecutive rows of each run, kUnroll rows a
 //     lane in flight.

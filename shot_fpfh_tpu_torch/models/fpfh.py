@@ -20,8 +20,7 @@ Routes, switched at ``ops.grid_hash.AUTO_GRID_MIN_POINTS`` cloud points
   neighborhood; SPFH of every point in grid order in one kernel launch
   (``ops.spfh_fused.spfh_grid``: the runs, radius test, count and bins
   inside it; a grid without a cell-start table takes K8 + K4 in query
-  chunks) or, with the run route on and an xy-row grid, K6
-  (``ops.shot_dma``); the aggregation sums the neighbors' 1/d weighted SPFH
+  chunks); the aggregation sums the neighbors' 1/d weighted SPFH
   rows over the same windows in K7's aggregation mode
   (``ops.radius_runs.fpfh_aggregate``: one launch a cloud; the reference
   leaves the gather and the sum to XLA).
@@ -47,7 +46,6 @@ from ..ops.grid_hash import (
 )
 from ..ops.neighbors import Neighborhoods, as_f32, radius_search
 from ..ops.radius_runs import fpfh_aggregate
-from ..ops.shot_dma import dma_kernel_enabled, spfh_block_dma
 from ..ops.spfh_fused import spfh_from_angles, spfh_grid
 from ..parallel.mesh import gather_rows, local_rows
 from ..utils.perf import span, uploading
@@ -59,13 +57,6 @@ _SPFH_CHUNK = 1 << 14
 _KP_CHUNK = 256
 # far sentinel of padded queries: an empty neighborhood, not the origin's
 _FAR = 1.0e6
-
-
-def _use_dma_spfh(grid: HashGrid) -> bool:
-    """Route the sorted-order SPFH pass through the run kernel (K6): the
-    run route is on, and the grid is an xy-row grid carrying normals."""
-    return (dma_kernel_enabled() and grid.use_xyrow and grid.xyrow_run_cap > 0
-            and grid.packed_sorted.shape[1] >= 6)
 
 
 def _spfh_from_values(cloud, nrm, p_j, n_j, d, mask, radius, n_bins: int,
@@ -184,19 +175,16 @@ def _fpfh_rows(cloud, nrm, kp_rows, radius, n_bins: int, decorrelated: bool, k_m
     (cell ``radius/2``, halo 2, carrying normals) is given, else cloud
     indices.  Pass 1 is the SPFH of the rank's block of the cloud's points
     (pad queries at the far sentinel: empty neighborhoods) — on a grid in
-    its sorted order through K6 (run route) or the SPFH pass kernel
-    (``spfh_grid``), else the capped brute search — and one
-    ``all_gather`` of the ``(N, D)`` table; pass 2
-    aggregates over the keypoints' neighborhoods found again (grid: K7's
-    aggregation mode).
-    The staged FPFH (:func:`_fpfh`) and the fused program's FPFH leg
+    its sorted order through the SPFH pass kernel (``spfh_grid``), else
+    the capped brute search — and one ``all_gather`` of the ``(N, D)``
+    table; pass 2 aggregates over the keypoints' neighborhoods found again
+    (grid: K7's aggregation mode).  The staged FPFH (:func:`_fpfh`) and the fused program's FPFH leg
     (``registration.fused``) both run this."""
     n = cloud.shape[0]
     if grid is not None:
-        spfh_rows = spfh_block_dma if _use_dma_spfh(grid) else spfh_grid
         table = grid.packed_sorted       # pass 1 in the grid's sorted order
         with span("spfh.pass"):
-            spfh = spfh_rows(grid, local_rows(table[:, :3], mesh, fill=_FAR),
+            spfh = spfh_grid(grid, local_rows(table[:, :3], mesh, fill=_FAR),
                              local_rows(table[:, 3:6], mesh), radius, n_bins, decorrelated)
         return _fpfh_window_aggregate(grid, gather_rows(spfh, n, mesh), kp_rows, radius)
     q = local_rows(cloud, mesh, fill=_FAR)

@@ -13,9 +13,7 @@ like the reference:
   neighborhood of every keypoint, frames + binning + histogram in a kernel:
   SG (``ops.shot_fused.shot_grid``): on the card straight over the grid's
   z-column runs, one launch a cloud, and on CPU tensors or a grid without
-  a cell table K1 over gathered ``(Q, F, W)`` windows in keypoint chunks;
-  or, with the run route on (``SHOT_FPFH_DMA``) and an
-  xy-row grid, K5 (``ops.shot_dma``) straight over the grid's runs.
+  a cell table K1 over gathered ``(Q, F, W)`` windows in keypoint chunks.
 
 Given the frames' neighborhoods (``compute_shot_descriptor(
 local_rf_neighborhoods=)``), the bins come from the ``k_max``-capped radius
@@ -34,7 +32,7 @@ matching consumes.
 accumulation count its out-of-range bin indices and unsound weight sums
 among valid neighbors, read the counts back and log them.  The routes stay
 as they are: the brute route's PyTorch binning counts them, and on the grid
-route SG, K1 and K5 count them in the kernel (``ops.shot_fused``), so the
+route SG and K1 count them in the kernel (``ops.shot_fused``), so the
 checks see the bins the card computes.
 """
 
@@ -51,11 +49,10 @@ from ..core.subsampling import grid_subsample
 from ..ops import grid_hash
 from ..ops.grid_hash import build_grid, radius_search_with_values_auto, window_chunk
 from ..ops.neighbors import Neighborhoods, as_f32, radius_search
-from ..ops.shot_dma import dma_kernel_enabled, shot_descriptor_dma
 from ..ops.shot_fused import local_frames as _local_rfs_ff
 from ..ops.shot_fused import binning_violations as _binning_violations  # noqa: F401
 from ..ops.shot_fused import shot_binning_histogram, shot_finalize, shot_grid, soft_histogram
-from ..utils.perf import add_counts, blocking, span, uploading
+from ..utils.perf import blocking, span, uploading
 
 logger = logging.getLogger(__name__)
 
@@ -155,39 +152,19 @@ def shot_from_window_ff(keypoints, window_vals, window_dist, radius,
     return shot_finalize(hist, count, normalize, min_neighborhood_size), rfs
 
 
-def _use_dma_kernel(grid) -> bool:
-    """Route the grid SHOT through the run kernel (K5): the run route is on
-    and the grid is an xy-row grid carrying normals (JAX
-    ``models/shot.py:265-275``, which also leaves K5 while its debug checks
-    are on; here K5 counts them itself)."""
-    return (dma_kernel_enabled() and grid.use_xyrow
-            and grid.xyrow_run_cap > 0 and grid.packed_sorted.shape[1] >= 6)
-
-
-def _shot_window_chunked(grid, kp, local_rfs, radius, normalize,
-                         min_neighborhood_size, rf_radius=None):
-    """Grid SHOT: K5 over the xy-row runs when :func:`_use_dma_kernel`
-    holds, else SG (``ops.shot_fused.shot_grid``), which takes its kernel
-    over the z-column runs on CUDA tensors and a grid with a cell-start
-    table, and K1 over gathered windows in keypoint chunks of
-    ``window_chunk``'s size otherwise.  Every route takes the exact uncapped
+def _shot_on_grid(grid, kp, local_rfs, radius, normalize, min_neighborhood_size,
+                  rf_radius=None):
+    """Grid SHOT through SG (``ops.shot_fused.shot_grid``), which takes its
+    kernel over the z-column runs on CUDA tensors and a grid with a
+    cell-start table, and K1 over gathered windows in keypoint chunks of
+    ``window_chunk``'s size otherwise.  Either takes the exact uncapped
     radius neighborhood (no top-k, no ``k_max``); bi-scale frames come from
     the ``rf_radius`` neighbors of the same grid.  ``shot_grid`` opens the
-    spans and counts ``grid_passes`` or ``chunks``; this counts the
-    ``window_slots`` the keypoints' windows cover (queries ×
-    ``grid.window_cap``)."""
+    spans and counts ``grid_passes`` or ``chunks``."""
     counter = _debug_counter(kp.device)
-    if _use_dma_kernel(grid):
-        out = shot_descriptor_dma(grid, kp, radius, rfs=local_rfs, rf_radius=rf_radius,
-                                  normalize=normalize,
-                                  min_neighborhood_size=min_neighborhood_size,
-                                  violations=counter)
-        _debug_read(counter)
-        return out
     hist, frames, count = shot_grid(grid, kp, radius, rfs=local_rfs, rf_radius=rf_radius,
                                     violations=counter, chunk=window_chunk(grid, 8))
     desc = shot_finalize(hist, count, normalize, min_neighborhood_size)
-    add_counts(window_slots=kp.shape[0] * grid.window_cap)
     _debug_read(counter)
     return desc, frames
 
@@ -209,8 +186,8 @@ def _shot_routed(kp, sup, nrm, radius, *, k_max: int, normalize: bool,
         max_r = float(radius) if rf_radius is None else float(max(radius, rf_radius))
         with span("shot.grid"):
             grid = build_grid(sup, max_r / 2, extras=nrm, halo=2)
-        return _shot_window_chunked(grid, kp, local_rfs, radius, normalize,
-                                    min_neighborhood_size, rf_radius=rf_radius)
+        return _shot_on_grid(grid, kp, local_rfs, radius, normalize, min_neighborhood_size,
+                             rf_radius=rf_radius)
     if rf_radius is not None:
         rf_nbr = radius_search(kp, sup, rf_radius, k_max)
         local_rfs = local_reference_frames(kp, sup[rf_nbr.idx], rf_nbr.mask, rf_radius)
@@ -336,8 +313,8 @@ class ShotComputer:
         """Frames from the ``local_rf_radius`` neighborhoods, bins from the
         ``shot_radius`` ones (reference shot_parallelization.py:185-239).
         Large supports: one grid at ``max(local_rf_radius, shot_radius)/2``,
-        halo 2, both planes over the same neighborhoods (K1's or K5's
-        bi-scale mode); small supports: brute-searched frames, then SHOT with
+        halo 2, both planes over the same neighborhoods (SG's bi-scale
+        mode); small supports: brute-searched frames, then SHOT with
         them given."""
         sup, nrm = self._support(point_cloud, normals, subsampling_voxel_size)
         kp, n_kp = self._pad(keypoints)

@@ -4,8 +4,6 @@ from .match import top2_match, top2_match_plain
 from .neighbors import Neighborhoods, knn, nearest_neighbor, radius_count, radius_search
 from .radius_pca import radius_pca, radius_pca_plain
 from .shot_dma import (
-    dma_kernel_enabled,
-    set_dma_kernel,
     shot_descriptor_dma,
     shot_descriptor_dma_plain,
     spfh_block_dma,
@@ -18,8 +16,6 @@ from .spfh_fused import spfh_histogram, spfh_histogram_plain
 __all__ = [
     "eigh3x3",
     "pca_eigh",
-    "dma_kernel_enabled",
-    "set_dma_kernel",
     "AUTO_GRID_MIN_POINTS",
     "HashGrid",
     "build_grid",

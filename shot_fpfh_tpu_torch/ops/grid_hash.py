@@ -10,11 +10,10 @@ concatenates them into a fixed-width ``(Q, W)`` candidate window, ``W`` being
 the largest window occupancy of the grid (computed at build) — every radius
 neighborhood of radius ≤ ``halo·cell_size`` is inside it, uncapped.
 
-On surface-like clouds the build also picks the reference's *xy-row* mode
-(``use_xyrow``): a query's window is then ``2h+1`` runs, one per x offset,
-each spanning the ``y-h .. y+h`` columns at full z extent
-(:func:`_xyrow_runs`).  The run-streaming SPFH kernel (``ops.shot_dma``)
-reads those runs straight from the sorted table.
+The reference's *xy-row* mode (``2h+1`` runs a query, one per x offset,
+each spanning the ``y-h .. y+h`` columns at full z extent) and its caps
+belong to the run kernels that read it (``ops.shot_dma``), which work them
+out from the cell table.
 
 The window functions run the kernels of ``ops.radius_runs`` over the runs:
 :func:`window_distances` K8 (the window's values and distances),
@@ -69,10 +68,7 @@ class HashGrid:
     cell_starts: torch.Tensor | None  # (n_cells+1,) first row per cell id
     cell_cap: int                  # max points in one cell
     window_cap: int                # max points in any (2h+1)^3 window
-    col_cap: int                   # max points in any (2h+1) z-column run
     halo: int = 1
-    use_xyrow: bool = False        # surface-like: 2h+1 full-z xy-row runs
-    xyrow_run_cap: int = 0         # max points in one xy-row run (0: none)
 
     @property
     def has_table(self) -> bool:
@@ -87,82 +83,18 @@ class HashGrid:
         return self.packed_sorted.device
 
 
-def _box_max(counts: torch.Tensor, halo: int) -> tuple[int, int]:
-    """(max (2h+1)^3 box sum, max (2h+1) z-column sum) over every in-grid
-    center of a dense ``(d0, d1, d2)`` count volume."""
+def _box_max(counts: torch.Tensor, halo: int) -> int:
+    """Max (2h+1)^3 box sum over every in-grid center of a dense
+    ``(d0, d1, d2)`` count volume."""
     box = counts
-    col = 0
     w = 2 * halo + 1
-    for ax in (2, 1, 0):  # z first: the column max falls out on the way
+    for ax in (2, 1, 0):
         pad = [0, 0, 0, 0, 0, 0]
         pad[2 * (2 - ax)] = pad[2 * (2 - ax) + 1] = halo
         p = F.pad(box, pad)
-        acc = sum(p.narrow(ax, s, box.shape[ax]) for s in range(w))
-        box = acc
-        if ax == 2:
-            with blocking("grid.col_cap"):
-                col = int(box.max())
+        box = sum(p.narrow(ax, s, box.shape[ax]) for s in range(w))
     with blocking("grid.window_cap"):
-        return int(box.max()), col
-
-
-def _round_up(v: int, m: int) -> int:
-    return -(-max(v, 1) // m) * m
-
-
-def _group_cap(cell_starts: torch.Tensor, dims, halo: int, group: int = 8) -> int:
-    """Exact max number of ``group``-aligned row groups any (2h+1)^2
-    z-column window needs (reference ``grid_hash._group_cap``)."""
-    d0, d1, d2 = dims
-    dev = cell_starts.device
-    zc = torch.arange(d2, device=dev)
-    zlo = torch.clamp(zc - halo, min=0)
-    zhi = torch.clamp(zc + halo, max=d2 - 1) + 1
-    base = torch.arange(d0 * d1, device=dev)[:, None] * d2
-    start = cell_starts[base + zlo[None, :]]
-    ln = cell_starts[base + zhi[None, :]] - start
-    g = torch.where(ln > 0, (start % group + ln + group - 1) // group, 0).reshape(d0, d1, d2)
-    p = F.pad(g, (0, 0, halo, halo, halo, halo))
-    w = 2 * halo + 1
-    acc = sum(p[dx:dx + d0, dy:dy + d1, :] for dx in range(w) for dy in range(w))
-    with blocking("grid.group_cap"):
-        return int(acc.max())
-
-
-def _xyrow_caps(cell_starts: torch.Tensor, dims, halo: int, group: int = 8):
-    """``(exact max group count, longest single run)`` of the xy-row mode
-    (reference ``grid_hash._xyrow_caps``, less the window occupancy no port
-    caller reads): per query 2h+1 runs, one per x offset, each spanning the
-    y-h .. y+h columns at full z extent — consecutive in the z-minor id, so
-    one contiguous run of the sorted cloud."""
-    d0, d1, d2 = dims
-    dev = cell_starts.device
-    ys = torch.arange(d1, device=dev)
-    ylo = torch.clamp(ys - halo, min=0)
-    yhi = torch.clamp(ys + halo, max=d1 - 1) + 1
-    xbase = torch.arange(d0, device=dev)[:, None] * (d1 * d2)
-    start = cell_starts[xbase + ylo[None, :] * d2]             # (d0, d1)
-    ln = cell_starts[xbase + yhi[None, :] * d2] - start
-    g_p = F.pad(torch.where(ln > 0, (start % group + ln + group - 1) // group, 0),
-                (0, 0, halo, halo))
-    g_acc = sum(g_p[dx:dx + d0] for dx in range(2 * halo + 1))
-    with blocking("grid.xyrow_groups"):
-        groups = int(g_acc.max())
-    with blocking("grid.xyrow_run"):
-        return groups, int(ln.max())
-
-
-def _xyrow_mode(cell_starts: torch.Tensor, dims, halo: int) -> tuple[bool, int]:
-    """``(use_xyrow, xyrow_run_cap)`` by the reference's build rule
-    (``grid_hash.py:438-476``): the xy-row mode when its 8-row group cap is
-    at most a small margin above the z-column window's; both caps rounded up
-    to 16 first.  Grids of more than 2^22 cells get neither."""
-    if dims[0] * dims[1] * dims[2] > 1 << 22:
-        return False, 0
-    group_cap = _round_up(_group_cap(cell_starts, dims, halo, 8), 16)
-    xy_groups, run_cap = _xyrow_caps(cell_starts, dims, halo, 8)
-    use = _round_up(xy_groups, 16) <= group_cap + max(16, group_cap // 5)
-    return use, run_cap
+        return int(box.max())
 
 
 def build_grid(points, cell_size: float, extras=None, halo: int = 1,
@@ -192,22 +124,15 @@ def build_grid(points, cell_size: float, extras=None, halo: int = 1,
         cell_starts = torch.searchsorted(
             ids_sorted, torch.arange(n_cells + 1, device=pts.device), right=False)
         counts = (cell_starts[1:] - cell_starts[:-1]).reshape(dims)
-        window_cap, col_cap = _box_max(counts, halo)
-        window_cap = min(window_cap, n)
-        col_cap = min(col_cap, n)
-        use_xyrow, xyrow_run_cap = _xyrow_mode(cell_starts, dims, halo)
+        window_cap = min(_box_max(counts, halo), n)
     else:
         cell_starts = None
         window_cap = min((2 * halo + 1) ** 3 * cell_cap, n)
-        col_cap = min((2 * halo + 1) * cell_cap, n)
-        use_xyrow, xyrow_run_cap = False, 0
     packed = pts[orig_idx]
     if extras is not None:
         packed = torch.cat([packed, as_f32(extras, pts.device)[orig_idx]], dim=1)
     return HashGrid(packed.contiguous(), orig_idx, ids_sorted, origin, dims,
-                    float(cell_size), cell_starts, cell_cap,
-                    max(window_cap, 1), max(col_cap, 1), halo,
-                    use_xyrow, xyrow_run_cap)
+                    float(cell_size), cell_starts, cell_cap, max(window_cap, 1), halo)
 
 
 def _query_cells(grid: HashGrid, queries: torch.Tensor) -> torch.Tensor:
@@ -249,30 +174,6 @@ def _zcolumn_runs(grid: HashGrid, queries: torch.Tensor, qcell: torch.Tensor | N
         start = torch.searchsorted(ids, lo_id.reshape(-1)).reshape(lo_id.shape)
         end = torch.searchsorted(ids, hi_id.reshape(-1), right=True).reshape(hi_id.shape)
         end = torch.where(in_grid, end, start)
-    return start, torch.maximum(end, start)
-
-
-def _xyrow_runs(grid: HashGrid, queries: torch.Tensor):
-    """``(start, end)`` sorted rows ``(Q, 2h+1)`` of each query's xy-row
-    runs: for each dx, the cells (x+dx, y-h .. y+h, all z) are consecutive
-    in the z-minor id.  A superset of the z-column window, exact for any
-    radius ≤ ``halo·cell_size``.  Needs the cell-start table."""
-    if not grid.has_table:
-        raise ValueError("xy-row runs need a grid with a cell-start table")
-    h = grid.halo
-    d0, d1, d2 = grid.dims
-    qcell = _query_cells(grid, queries)
-    x = qcell[:, 0:1] + torch.arange(-h, h + 1, device=queries.device)[None, :]
-    y_lo = torch.clamp(qcell[:, 1:2] - h, min=0)
-    y_hi = torch.clamp(qcell[:, 1:2] + h, max=d1 - 1)
-    ok = ((x >= 0) & (x < d0) & (y_hi >= y_lo)
-          & (qcell[:, 1:2] >= -h) & (qcell[:, 1:2] <= d1 + h - 1))
-    last = grid.cell_starts.shape[0] - 1
-    lo = torch.clamp((x * d1 + y_lo) * d2, 0, last)
-    hi = torch.clamp((x * d1 + y_hi + 1) * d2, 0, last)
-    zero = torch.zeros_like(lo)
-    start = torch.where(ok, grid.cell_starts[lo], zero)
-    end = torch.where(ok, grid.cell_starts[hi], zero)
     return start, torch.maximum(end, start)
 
 

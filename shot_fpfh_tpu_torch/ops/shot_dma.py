@@ -1,13 +1,14 @@
 """K5 and K6: SHOT and SPFH read straight from the grid's xy-row runs.
 
-Counterpart of ``shot_fpfh_tpu/ops/pallas_shot_dma.py``: on an xy-row grid
-(``HashGrid.use_xyrow``) carrying normals, each query's neighborhood is its
-``2h+1`` contiguous xy-row runs of the sorted table, so the kernels stream
-them with no ``(Q, W)`` window gather.  A row is a neighbor when its squared
-distance (the reference's contracted ``fma`` chain, ``_fp.sqnorm3``) is
-≤ r·r.  This radius rule differs from the window routes' ``sqrt(...) ≤ r``
-(``models.shot._shot_window_chunked``, ``ops.spfh_fused.spfh_grid``):
-each route keeps its reference's rule.
+Counterpart of ``shot_fpfh_tpu/ops/pallas_shot_dma.py``: on a grid in
+xy-row mode (:func:`_xyrow_mode`, the reference's build rule, worked out
+here from the grid's cell table) carrying normals, each query's
+neighborhood is its ``2h+1`` contiguous xy-row runs of the sorted table
+(:func:`_xyrow_runs`), so the kernels stream them with no ``(Q, W)`` window
+gather.  A row is a neighbor when its squared distance (the reference's
+contracted ``fma`` chain, ``_fp.sqnorm3``) is ≤ r·r.  This radius rule
+differs from the window routes' ``sqrt(...) ≤ r`` (``ops.shot_fused.shot_grid``,
+``ops.spfh_fused.spfh_grid``): each route keeps its reference's rule.
 
 - K5, :func:`shot_descriptor_dma` (``shot_descriptor_dma``): SHOT frames,
   soft bins and the 352-bin histogram in one kernel (``csrc/shot_runs.cu``,
@@ -20,64 +21,137 @@ each route keeps its reference's rule.
   (``csrc/spfh_runs.cu``).
 
 Each wrapper launches its CUDA kernel on CUDA tensors and runs its
-``*_plain`` twin on CPU tensors.
-
-The run route is off by default, as in the reference: :func:`dma_kernel_enabled`
-reads ``SHOT_FPFH_DMA`` (``1`` turns it on) and :func:`set_dma_kernel`
-overrides it (``pallas_radius.py:86-110``).  When on, SHOT (single-scale,
-bi-scale and multiscale) takes K5 and FPFH's SPFH pass takes K6 on every
-qualifying grid.
+``*_plain`` twin on CPU tensors, and works out the grid's xy-row caps once
+a call (three blocking reads).  No route of the models selects them: SHOT's
+and FPFH's grid routes take SG and the SPFH pass kernel; a caller that
+wants the run kernels calls them by name.
 """
 
 from __future__ import annotations
 
 import math
-import os
 
 import torch
+import torch.nn.functional as F
 
 from .. import _kernels
 from .._fp import sqnorm3, sqrt
+from ..utils.perf import blocking
 from .descriptor_bins import darboux_angles
-from .grid_hash import _CHUNK_ELEMS, HashGrid, _xyrow_runs, check_radius_contract
+from .grid_hash import _CHUNK_ELEMS, HashGrid, _query_cells, check_radius_contract
 from .shot_fused import SHOT_DIM, _check_counter, shot_binning_histogram_plain, shot_finalize
 from .spfh_fused import spfh_dim, spfh_from_angles
-
-_DMA = {"enabled": None}  # None: resolve from SHOT_FPFH_DMA on first use
 
 # K6 keeps one histogram of ints and a 256-row ring per warp, 8 warps a
 # block, in the 227 KB of shared memory a block can have on the H100
 _MAX_SMEM_BINS = 232_448 // 4 // 8 - 256
 
 
-def dma_kernel_enabled() -> bool:
-    """Whether SHOT (K5) and FPFH's SPFH pass (K6) take the run route on
-    qualifying grids; ``SHOT_FPFH_DMA=1`` turns it on, default off."""
-    if _DMA["enabled"] is None:
-        _DMA["enabled"] = os.environ.get("SHOT_FPFH_DMA", "0") != "0"
-    return _DMA["enabled"]
+def _round_up(v: int, m: int) -> int:
+    return -(-max(v, 1) // m) * m
 
 
-def set_dma_kernel(enabled: bool) -> None:
-    """Turn the run route on or off for this process."""
-    _DMA["enabled"] = bool(enabled)
+def _group_cap(cell_starts: torch.Tensor, dims, halo: int, group: int = 8) -> int:
+    """Exact max number of ``group``-aligned row groups any (2h+1)^2
+    z-column window needs (reference ``grid_hash._group_cap``)."""
+    d0, d1, d2 = dims
+    dev = cell_starts.device
+    zc = torch.arange(d2, device=dev)
+    zlo = torch.clamp(zc - halo, min=0)
+    zhi = torch.clamp(zc + halo, max=d2 - 1) + 1
+    base = torch.arange(d0 * d1, device=dev)[:, None] * d2
+    start = cell_starts[base + zlo[None, :]]
+    ln = cell_starts[base + zhi[None, :]] - start
+    g = torch.where(ln > 0, (start % group + ln + group - 1) // group, 0).reshape(d0, d1, d2)
+    p = F.pad(g, (0, 0, halo, halo, halo, halo))
+    w = 2 * halo + 1
+    acc = sum(p[dx:dx + d0, dy:dy + d1, :] for dx in range(w) for dy in range(w))
+    with blocking("grid.group_cap"):
+        return int(acc.max())
 
 
-def _check_run_grid(grid: HashGrid, radius) -> None:
-    if not (grid.use_xyrow and grid.xyrow_run_cap > 0):
+def _xyrow_caps(cell_starts: torch.Tensor, dims, halo: int, group: int = 8):
+    """``(exact max group count, longest single run)`` of the xy-row mode
+    (reference ``grid_hash._xyrow_caps``, less the window occupancy no port
+    caller reads): per query 2h+1 runs, one per x offset, each spanning the
+    y-h .. y+h columns at full z extent — consecutive in the z-minor id, so
+    one contiguous run of the sorted cloud."""
+    d0, d1, d2 = dims
+    dev = cell_starts.device
+    ys = torch.arange(d1, device=dev)
+    ylo = torch.clamp(ys - halo, min=0)
+    yhi = torch.clamp(ys + halo, max=d1 - 1) + 1
+    xbase = torch.arange(d0, device=dev)[:, None] * (d1 * d2)
+    start = cell_starts[xbase + ylo[None, :] * d2]             # (d0, d1)
+    ln = cell_starts[xbase + yhi[None, :] * d2] - start
+    g_p = F.pad(torch.where(ln > 0, (start % group + ln + group - 1) // group, 0),
+                (0, 0, halo, halo))
+    g_acc = sum(g_p[dx:dx + d0] for dx in range(2 * halo + 1))
+    with blocking("grid.xyrow_groups"):
+        groups = int(g_acc.max())
+    with blocking("grid.xyrow_run"):
+        return groups, int(ln.max())
+
+
+def _xyrow_mode(grid: HashGrid) -> tuple[bool, int]:
+    """``(xy-row mode, longest xy-row run)`` of ``grid`` by the reference's
+    build rule (``grid_hash.py:438-476``): the xy-row mode when its 8-row
+    group cap is at most a small margin above the z-column window's; both
+    caps rounded up to 16 first.  Grids without a cell table or of more than
+    2^22 cells get neither."""
+    dims, halo = grid.dims, grid.halo
+    if not grid.has_table or dims[0] * dims[1] * dims[2] > 1 << 22:
+        return False, 0
+    group_cap = _round_up(_group_cap(grid.cell_starts, dims, halo, 8), 16)
+    xy_groups, run_cap = _xyrow_caps(grid.cell_starts, dims, halo, 8)
+    use = _round_up(xy_groups, 16) <= group_cap + max(16, group_cap // 5)
+    return use, run_cap
+
+
+def _xyrow_runs(grid: HashGrid, queries: torch.Tensor):
+    """``(start, end)`` sorted rows ``(Q, 2h+1)`` of each query's xy-row
+    runs: for each dx, the cells (x+dx, y-h .. y+h, all z) are consecutive
+    in the z-minor id.  A superset of the z-column window, exact for any
+    radius ≤ ``halo·cell_size``.  Needs the cell-start table."""
+    if not grid.has_table:
+        raise ValueError("xy-row runs need a grid with a cell-start table")
+    h = grid.halo
+    d0, d1, d2 = grid.dims
+    qcell = _query_cells(grid, queries)
+    x = qcell[:, 0:1] + torch.arange(-h, h + 1, device=queries.device)[None, :]
+    y_lo = torch.clamp(qcell[:, 1:2] - h, min=0)
+    y_hi = torch.clamp(qcell[:, 1:2] + h, max=d1 - 1)
+    ok = ((x >= 0) & (x < d0) & (y_hi >= y_lo)
+          & (qcell[:, 1:2] >= -h) & (qcell[:, 1:2] <= d1 + h - 1))
+    last = grid.cell_starts.shape[0] - 1
+    lo = torch.clamp((x * d1 + y_lo) * d2, 0, last)
+    hi = torch.clamp((x * d1 + y_hi + 1) * d2, 0, last)
+    zero = torch.zeros_like(lo)
+    start = torch.where(ok, grid.cell_starts[lo], zero)
+    end = torch.where(ok, grid.cell_starts[hi], zero)
+    return start, torch.maximum(end, start)
+
+
+def _check_run_grid(grid: HashGrid, radius) -> int:
+    """The grid's longest xy-row run, worked out from its cell table; raises
+    unless the grid is in xy-row mode, carries normals and covers
+    ``radius``."""
+    xyrow, run_cap = _xyrow_mode(grid)
+    if not (xyrow and run_cap > 0):
         raise ValueError("the run route needs an xy-row grid (surface-like cloud, "
                          "build_grid with a cell table)")
     if grid.packed_sorted.shape[1] < 6:
         raise ValueError("the run route needs a grid built with extras=normals")
     check_radius_contract(grid, radius)
+    return run_cap
 
 
-def _run_rows(grid: HashGrid, queries):
-    """Each query's runs padded to ``xyrow_run_cap`` rows: ``(rows (C, W),
-    in_run (C, W))`` with ``W = (2h+1)·cap``, rows clamped to 0 where out
-    of the run."""
+def _run_rows(grid: HashGrid, queries, cap: int):
+    """Each query's runs padded to ``cap`` rows (the longest run):
+    ``(rows (C, W), in_run (C, W))`` with ``W = (2h+1)·cap``, rows clamped
+    to 0 where out of the run."""
     start, end = _xyrow_runs(grid, queries)                       # (C, R)
-    j = torch.arange(grid.xyrow_run_cap, device=queries.device)
+    j = torch.arange(cap, device=queries.device)
     rows = start[:, :, None] + j                                   # (C, R, cap)
     in_run = (rows < end[:, :, None]).reshape(queries.shape[0], -1)
     return torch.where(in_run, rows.reshape(queries.shape[0], -1), 0), in_run
@@ -91,10 +165,11 @@ def _frame_halo(grid: HashGrid, rf_radius: float) -> int:
     return min(grid.halo, math.ceil(rf_radius / grid.cell_size + margin))
 
 
-def _shot_chunk_plain(grid: HashGrid, q, radius, rfs, rf_radius, violations):
+def _shot_chunk_plain(grid: HashGrid, q, cap, radius, rfs, rf_radius, violations):
     """``(hist, frames, count)`` of one keypoint chunk by the K1 twin over
-    the padded runs, the planes set by the run route's radius rule."""
-    rows, in_run = _run_rows(grid, q)
+    the runs padded to ``cap`` rows, the planes set by the run route's
+    radius rule."""
+    rows, in_run = _run_rows(grid, q, cap)
     vals = grid.packed_sorted[rows]                                # (C, W, F)
     rho2 = sqnorm3(*(vals[..., i] - q[:, i:i + 1] for i in range(3)))
     d = sqrt(rho2)
@@ -116,14 +191,14 @@ def shot_descriptor_dma_plain(grid: HashGrid, keypoints, radius, rfs=None, rf_ra
                               normalize: bool = True, min_neighborhood_size: int = 100,
                               violations=None):
     """PyTorch twin of :func:`shot_descriptor_dma`: each keypoint's runs
-    padded to ``xyrow_run_cap`` rows, the same radius rule, K1's twin on
-    them, chunked by ``_CHUNK_ELEMS``."""
+    padded to the longest run, the same radius rule, K1's twin on them,
+    chunked by ``_CHUNK_ELEMS``."""
     rf_radius = None if rfs is not None else rf_radius
-    _check_run_grid(grid, radius if rf_radius is None else max(radius, rf_radius))
-    step = max(1, _CHUNK_ELEMS // ((2 * grid.halo + 1) * grid.xyrow_run_cap * 8))
+    cap = _check_run_grid(grid, radius if rf_radius is None else max(radius, rf_radius))
+    step = max(1, _CHUNK_ELEMS // ((2 * grid.halo + 1) * cap * 8))
     hists, frames, counts = [], [], []
     for s in range(0, keypoints.shape[0], step):
-        h, f, c = _shot_chunk_plain(grid, keypoints[s:s + step], radius,
+        h, f, c = _shot_chunk_plain(grid, keypoints[s:s + step], cap, radius,
                                     None if rfs is None else rfs[s:s + step], rf_radius,
                                     violations)
         hists.append(h)
@@ -180,17 +255,17 @@ def shot_descriptor_dma(grid: HashGrid, keypoints: torch.Tensor, radius, rfs=Non
 
 
 def spfh_block_dma_plain(grid: HashGrid, qc, qn, radius, n_bins: int, decorrelated: bool):
-    """PyTorch twin of the kernel: each query's runs padded to
-    ``xyrow_run_cap`` rows, the same radius rule, angles and bins."""
-    _check_run_grid(grid, radius)
-    n_runs, cap = 2 * grid.halo + 1, grid.xyrow_run_cap
+    """PyTorch twin of the kernel: each query's runs padded to the longest
+    run, the same radius rule, angles and bins."""
+    cap = _check_run_grid(grid, radius)
+    n_runs = 2 * grid.halo + 1
     r = torch.tensor(float(radius), dtype=torch.float32, device=qc.device)
     rr = r * r
     out = []
     step = max(1, _CHUNK_ELEMS // (n_runs * cap * 8))
     for s in range(0, qc.shape[0], step):
         q, u = qc[s:s + step], qn[s:s + step]
-        rows, seg = _run_rows(grid, q)
+        rows, seg = _run_rows(grid, q, cap)
         vals = grid.packed_sorted[rows]
         diff = [vals[..., i] - q[:, i:i + 1] for i in range(3)]
         rho2 = sqnorm3(*diff)

@@ -41,7 +41,6 @@ from .._fp import sqrt
 from ..core.transform import RigidTransform
 from ..ops.match import top2_match
 from ..ops.neighbors import as_f32
-from ..ops.shot_dma import dma_kernel_enabled
 from .mesh import Mesh, agree, all_reduce_sums, gather_rows, local_rows, pad_to_multiple
 from .mesh import ring_pass
 
@@ -54,7 +53,7 @@ def sharded_shot_descriptors(keypoints, support, normals, radius: float, mesh: M
                              return_rfs: bool = False):
     """SHOT descriptors ``(Q, 352)`` with the keypoints sharded over the
     mesh (JAX ``sharded.py:46-215``): every rank runs the one-device route
-    (``models.shot``: the grid, K8 + K1 or K5, from
+    (``models.shot``: the grid through SG, from
     ``AUTO_GRID_MIN_POINTS`` support points or ``use_grid=True``, else the
     brute search capped at ``k_max``) on its block of keypoints.
     ``rf_radius`` takes the frames from a second radius (bi-scale);
@@ -72,7 +71,7 @@ def sharded_shot_descriptors(keypoints, support, normals, radius: float, mesh: M
         local = isinstance(shared_rfs, torch.Tensor) and shared_rfs.shape[0] == kp.shape[0]
         rfs = shared_rfs.to(dev) if local else local_rows(as_f32(shared_rfs, dev), mesh)
     agree("the SHOT route", mesh, n_kp, sup.shape[0], -1 if use_grid is None else use_grid,
-          dma_kernel_enabled(), rfs is None, rf_radius is not None)
+          rfs is None, rf_radius is not None)
     desc, rfs_out = m_shot._shot_routed(
         kp, sup, nrm, radius, k_max=k_max, normalize=normalize,
         min_neighborhood_size=min_neighborhood_size, local_rfs=rfs, rf_radius=rf_radius,
@@ -109,7 +108,7 @@ def sharded_fpfh(keypoint_indices, cloud_points, normals, radius: float, mesh: M
     route (``models.fpfh``).  Pass 1: the SPFH of the rank's block of cloud
     points (padded queries at the far sentinel): from
     ``AUTO_GRID_MIN_POINTS`` points over a replicated halo-2 grid in its
-    sorted order, through K6 (run route) or K8 + K4; below it the capped
+    sorted order, through the SPFH pass kernel; below it the capped
     brute search.  One ``all_gather`` of the ``(N, D)`` SPFH table.  Pass
     2: the rank's block of keypoints, their neighborhoods found again and
     the neighbors' SPFH rows aggregated (grid: K7's aggregation mode); one
@@ -119,7 +118,7 @@ def sharded_fpfh(keypoint_indices, cloud_points, normals, radius: float, mesh: M
     dev = mesh.device
     cloud, nrm = as_f32(cloud_points, dev), as_f32(normals, dev)
     kp = torch.as_tensor(keypoint_indices).to(device=dev, dtype=torch.int64).reshape(-1)
-    agree("the FPFH route", mesh, cloud.shape[0], kp.shape[0], dma_kernel_enabled())
+    agree("the FPFH route", mesh, cloud.shape[0], kp.shape[0])
     return m_fpfh._fpfh(cloud, nrm, kp, radius, n_bins, decorrelated, k_max, mesh)
 
 

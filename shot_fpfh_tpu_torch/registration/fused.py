@@ -21,10 +21,10 @@ The same fixed-shape conventions as the JAX program:
   and counts inliers only over valid rows;
 - ICP runs on a pre-subsampled, padded scan with per-point validity weights.
 
-Descriptor routes, as in the JAX program: SHOT on a grid takes the window
-route (K8 + K1) or, with the run route on and an xy-row grid, K5; FPFH on a
-grid takes K8 + K4 or K6 for SPFH and K7's aggregation mode for the
-aggregation; without grids the brute routes run.  Matching is K2 in
+Descriptor routes, as in the JAX program: SHOT on a grid takes SG (on CPU
+tensors K8 + K1's twins in chunks); FPFH on a grid takes the SPFH pass
+kernel for SPFH and K7's aggregation mode for the aggregation; without
+grids the brute routes run.  Matching is K2 in
 float32; ICP's grid 1-NN is K7's 1-NN mode.
 
 Randomness: the Gumbel noise is drawn from a ``torch.Generator`` on the
@@ -62,12 +62,11 @@ from ..core.solvers import solve_point_to_point
 from ..core.subsampling import grid_subsample
 from ..core.transform import RigidTransform
 from ..models.fpfh import _fpfh_rows, _sorted_rows
-from ..models.shot import _shot_window_chunked, local_reference_frames, shot_from_neighborhoods
+from ..models.shot import _shot_on_grid, local_reference_frames, shot_from_neighborhoods
 from ..ops import grid_hash
 from ..ops.grid_hash import build_grid
 from ..ops.match import top2_match
 from ..ops.neighbors import as_f32, radius_search
-from ..ops.shot_dma import dma_kernel_enabled
 from ..parallel.mesh import agree, all_reduce_sums, gather_rows, local_rows, replicate
 from .icp import icp_loop
 
@@ -99,12 +98,12 @@ def _shot(kp, valid, sup, nrm, radius, k_max, min_nb, grid=None, rf_radius=None,
     from the ``rf_radius`` neighborhood, bins over ``radius``);
     ``local_rfs``/``return_rfs`` thread shared frames across multiscale
     scales.  With ``grid`` (cell covering ``max(radius, rf_radius)``,
-    carrying normals): the exact uncapped neighborhoods through K8 + K1 or
-    K5 (``models.shot._shot_window_chunked``); without: a brute search
+    carrying normals): the exact uncapped neighborhoods through SG
+    (``models.shot._shot_on_grid``); without: a brute search
     capped at the ``k_max`` nearest within the larger radius."""
     if grid is not None:
-        desc, rfs = _shot_window_chunked(grid, kp, local_rfs, radius, True, min_nb,
-                                         rf_radius=rf_radius)
+        desc, rfs = _shot_on_grid(grid, kp, local_rfs, radius, True, min_nb,
+                                  rf_radius=rf_radius)
         desc = torch.where(valid[:, None], desc, 0.0)
         return (desc, rfs) if return_rfs else desc
     search_r = radius if rf_radius is None else max(radius, rf_radius)
@@ -126,9 +125,9 @@ def _shot(kp, valid, sup, nrm, radius, k_max, min_nb, grid=None, rf_radius=None,
 def _fpfh(kp_idx, valid, sup, nrm, radius, k_max, n_bins, decorrelated, grid=None, mesh=None):
     """FPFH of the keypoints ``kp_idx`` (the rank's block): grid-sorted
     indices when ``grid`` (cell ``radius/2``, halo 2, carrying normals) is
-    given — SPFH of every point through K8 + K4 or K6, aggregation in K7's
-    aggregation mode — original cloud indices otherwise (brute search capped at
-    ``k_max``); over a mesh each rank's SPFH pass takes its block of the
+    given — SPFH of every point through the SPFH pass kernel, aggregation
+    in K7's aggregation mode — original cloud indices otherwise (brute
+    search capped at ``k_max``); over a mesh each rank's SPFH pass takes its block of the
     cloud's rows (``models.fpfh._fpfh_rows``).  Padding rows are zeroed
     like empty SHOT rows."""
     desc = _fpfh_rows(sup, nrm, kp_idx, radius, n_bins, decorrelated, k_max, mesh, grid)
@@ -272,7 +271,7 @@ def fused_registration(
         # type) must be the same on every rank: one check, before the
         # first collective
         agree("the fused program", mesh, DESCRIPTORS.index(descriptor),
-              *(g is not None for g in grids), dma_kernel_enabled(), scan_kp.shape[0],
+              *(g is not None for g in grids), scan_kp.shape[0],
               ref_kp.shape[0], scan_sub.shape[0], scan_support.shape[0],
               ref_support.shape[0], n_draws, draw_size, max_iter, point_to_plane,
               gumbel is None, scan_kp.device.type == "cuda")

@@ -46,11 +46,15 @@ PORT = "shot_fpfh_tpu_torch"
 _PICKS_PALLAS = ("picks Pallas or XLA on a TPU; on the card the kernel is the path and "
                  "its plain twin the tests' reference")
 _GROUPED = "the grouped feature-planar gather is a TPU workaround"
+_RUN_SWITCH = ("a process-wide switch to the run kernels K5 and K6; the port selects no "
+               "route by a user-set option: a caller names K5 or K6 (ops.shot_dma)")
 EXCLUDED = {
     "ops": {"set_window_group": _GROUPED,
             "window_group_default": _GROUPED,
             "fused_kernels_enabled": _PICKS_PALLAS,
-            "set_fused_kernels": _PICKS_PALLAS},
+            "set_fused_kernels": _PICKS_PALLAS,
+            "dma_kernel_enabled": _RUN_SWITCH,
+            "set_dma_kernel": _RUN_SWITCH},
 }
 
 # JAX file -> the port files that hold its names (default: the same path)
@@ -104,6 +108,12 @@ WALK_EXCLUDED = {
     **{f"ops/grid_hash.py::HashGrid({f})": _HASHGRID_TPU
        for f in ("cell_size_static", "group_cap", "group_cap16", "xyrow_group_cap",
                  "xyrow_group_cap16", "xyrow_group_cap32")},
+    "ops/grid_hash.py::HashGrid(col_cap)":
+        "the largest z-column run, which no port code reads; the build does not work it out",
+    **{f"ops/grid_hash.py::HashGrid({f})":
+       "the xy-row mode and its longest run serve only K5 and K6, whose wrappers work them "
+       "out from the cell table (ops.shot_dma._xyrow_mode); the build does not"
+       for f in ("use_xyrow", "xyrow_run_cap")},
     # the TPU workarounds and their knobs
     "ops/grid_hash.py::WINDOW_GROUP": _GROUPED,
     "ops/grid_hash.py::grouped_window_gather": _GROUPED,

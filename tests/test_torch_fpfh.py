@@ -167,10 +167,11 @@ def test_xyrow_mode_matches_reference(rng, kind):
         nrm = pts / np.linalg.norm(pts, axis=1, keepdims=True)
     jg = j_grid.build_grid(pts, 0.35, extras=nrm, halo=2)
     tg = t_grid.build_grid(pts, 0.35, extras=nrm, halo=2, device="cpu")
-    assert tg.use_xyrow == jg.use_xyrow == (kind == "surface")
-    assert tg.xyrow_run_cap == jg.xyrow_run_cap > 0
+    xyrow, run_cap = shot_dma._xyrow_mode(tg)
+    assert xyrow == jg.use_xyrow == (kind == "surface")
+    assert run_cap == jg.xyrow_run_cap > 0
     q = np.concatenate([pts[::13], np.full((2, 3), 1e6, np.float32)])
-    for t, j in zip(t_grid._xyrow_runs(tg, torch.tensor(q)),
+    for t, j in zip(shot_dma._xyrow_runs(tg, torch.tensor(q)),
                     j_grid._xyrow_runs(jg, jnp.asarray(q))):
         np.testing.assert_array_equal(t.numpy(), np.asarray(j))
 
@@ -230,29 +231,64 @@ def test_compute_fpfh_descriptor_brute_route(rng):
         atol=1e-5)
 
 
-@pytest.mark.parametrize("route,decorrelated", [("window", False), ("window", True),
-                                                ("runs", False)])
-def test_compute_fpfh_descriptor_grid_route(rng, monkeypatch, route, decorrelated):
-    """Above the (lowered) auto-grid threshold: the window route (the SPFH
-    pass's twin, once a cloud) and the run route (K6's twin) against JAX's
-    window route."""
+def _grid_route_case(rng, monkeypatch):
+    """A 1,500-point surface above the (lowered) auto-grid threshold of both
+    packages, and every eleventh point as a keypoint."""
     pts, nrm = surface(1500, rng, scale=2.5)
     for mod in (j_grid, t_grid):
         monkeypatch.setattr(mod, "AUTO_GRID_MIN_POINTS", 1000)
-    monkeypatch.setitem(shot_dma._DMA, "enabled", route == "runs")
-    calls, passes = [], []
-    monkeypatch.setattr(t_fpfh, "spfh_block_dma",
-                        lambda *a: calls.append(1) or shot_dma.spfh_block_dma(*a))
+    return pts, nrm, np.arange(0, 1500, 11)
+
+
+@pytest.mark.parametrize("route,decorrelated", [("window", False), ("window", True)])
+def test_compute_fpfh_descriptor_grid_route(rng, monkeypatch, route, decorrelated):
+    """Above the (lowered) auto-grid threshold: the grid route (the SPFH
+    pass's twin, once a cloud) against JAX's window route."""
+    pts, nrm, kp = _grid_route_case(rng, monkeypatch)
+    passes = []
     monkeypatch.setattr(t_fpfh, "spfh_grid",
                         lambda *a: passes.append(1) or spfh_fused.spfh_grid(*a))
-    kp = np.arange(0, 1500, 11)
     got = t_fpfh.compute_fpfh_descriptor(kp, pts, nrm, 0.5, 5, decorrelated=decorrelated,
                                          device="cpu")
     want = j_fpfh.compute_fpfh_descriptor(kp.astype(np.int32), pts, nrm, 0.5, 5,
                                           decorrelated=decorrelated)
     assert got.shape == (len(kp), 15 if decorrelated else 125)
-    assert len(calls) == (route == "runs") and len(passes) == (route == "window")
+    assert len(passes) == 1
     assert_route_rule(got.numpy(), want)
+
+
+def test_compute_fpfh_descriptor_run_kernel(rng, monkeypatch):
+    """K6's wrapper (``ops.shot_dma.spfh_sorted_dma``, its twin on CPU
+    tensors) as the SPFH pass on the grid ``compute_fpfh_descriptor``
+    builds (cell radius/2, halo 2), then the grid route's aggregation over
+    the keypoints' sorted rows: against JAX's window route by the SPFH
+    route rule."""
+    pts, nrm, kp = _grid_route_case(rng, monkeypatch)
+    grid = t_grid.build_grid(pts, 0.25, extras=nrm, halo=2, device="cpu")
+    spfh = shot_dma.spfh_sorted_dma(grid, 0.5, 5, False)
+    got = t_fpfh._fpfh_window_aggregate(grid, spfh, t_fpfh._sorted_rows(
+        grid, torch.as_tensor(kp)), 0.5)
+    want = j_fpfh.compute_fpfh_descriptor(kp.astype(np.int32), pts, nrm, 0.5, 5)
+    assert got.shape == (len(kp), 125) and float(got.sum()) > 0
+    assert_route_rule(got.numpy(), want)
+
+
+def test_fpfh_ignores_the_old_run_route_variable(rng, monkeypatch):
+    """``SHOT_FPFH_DMA=1`` in the environment selects nothing: on an
+    xy-row grid FPFH's grid route still takes the SPFH pass, once, and
+    neither K6 nor its twin runs."""
+    pts, nrm, kp = _grid_route_case(rng, monkeypatch)
+    monkeypatch.setenv("SHOT_FPFH_DMA", "1")
+    grid = t_grid.build_grid(pts, 0.25, extras=nrm, halo=2, device="cpu")
+    assert shot_dma._xyrow_mode(grid)[0]
+    passes, runs = [], []
+    monkeypatch.setattr(t_fpfh, "spfh_grid",
+                        lambda *a: passes.append(1) or spfh_fused.spfh_grid(*a))
+    check = shot_dma._check_run_grid
+    monkeypatch.setattr(shot_dma, "_check_run_grid",
+                        lambda *a: runs.append(1) or check(*a))
+    t_fpfh.compute_fpfh_descriptor(kp, pts, nrm, 0.5, 5, device="cpu")
+    assert passes == [1] and runs == []
 
 
 def _bumpy(n, rng, scale=2.0, n_bumps=12):

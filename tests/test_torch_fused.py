@@ -5,9 +5,11 @@ and the device ICP loop both ICPs share.
 Each test holds the port against the JAX package on the same numpy inputs
 (a ``make_pair`` terrain pair, normals computed once by JAX): the SHOT leg
 in its single, bi-scale and shared-frame multiscale modes and the FPFH leg,
-each on the brute route and the grid route (the port's window and run
-routes), by the flip rule of ``tests/test_torch_shot.py`` (SHOT) and atol
-1e-5 / the route rule of ``tests/test_torch_fpfh.py`` (FPFH); the matching
+each on the brute route and the grid route (SG and the SPFH pass, on CPU
+tensors their chunked twins), and K5's and K6's wrappers (``ops.shot_dma``)
+on the grid legs' grids and keypoints, by the flip rule of
+``tests/test_torch_shot.py`` (SHOT) and atol 1e-5 / the route rule of
+``tests/test_torch_fpfh.py`` (FPFH); the matching
 leg (``valid_match``, ``nn_idx``, ``n_matches`` equal, distances within
 1e-5 relative); RANSAC with JAX's Gumbel noise injected (transform within
 1e-5, inlier ratio equal); the whole program for the four descriptor
@@ -173,33 +175,52 @@ def _leg_opts(mode):
                 fpfh_decorrelated=False, ms_radii=kw.get("ms_radii"))
 
 
-@pytest.mark.parametrize("route", ["brute", "window", "runs"])
-@pytest.mark.parametrize("mode", ["shot", "shot_bi_scale", "shot_multiscale"])
-def test_shot_leg_matches_jax(pair, monkeypatch, mode, route):
-    """The port's window route (K8 + K1's twins) and run route (K5's twin)
-    against JAX's grid window route; the brute route against JAX's."""
-    monkeypatch.setitem(shot_dma._DMA, "enabled", route == "runs")
-    calls = []
-    from shot_fpfh_tpu_torch.models import shot as t_shot
+def _shot_grids(pair, mode):
+    return tuple(t_grid.build_grid(_t(sup), _shot_cell(mode), extras=_t(nrm))
+                 for sup, nrm in ((pair.scan, pair.sn), (pair.ref, pair.rn)))
 
-    monkeypatch.setattr(t_shot, "shot_descriptor_dma",
-                        lambda *a, **k: calls.append(1) or shot_dma.shot_descriptor_dma(*a, **k))
-    grids = (None, None)
-    if route != "brute":
-        grids = tuple(t_grid.build_grid(_t(sup), _shot_cell(mode), extras=_t(nrm))
-                      for sup, nrm in ((pair.scan, pair.sn), (pair.ref, pair.rn)))
-        assert all(g.use_xyrow for g in grids)
-    got = _t_descriptors(pair, _leg_opts(mode), grids)
-    want = _j_shot(pair, mode, route != "brute")
+
+def _assert_shot_leg(pair, got, want, mode):
+    """Both clouds' SHOT rows: padding rows zero, nine in ten valid rows
+    non-empty, and the flip rule against JAX's."""
     width = 352 * (len(MS_RADII) if mode == "shot_multiscale" else 1)
-    n_scales = width // 352
     for g, w, v in zip(got, want, (pair.scan_v, pair.ref_v)):
         assert g.shape == (len(v), width)
         assert not g[~torch.as_tensor(v)].any()          # padding rows are zero
         assert float(g[torch.as_tensor(v)].any(dim=1).float().mean()) > 0.9
         assert_flip_rule(g.numpy(), w)
-    # K5 once per cloud and scale on the run route
-    assert len(calls) == (2 * n_scales if route == "runs" else 0)
+
+
+@pytest.mark.parametrize("route", ["brute", "window"])
+@pytest.mark.parametrize("mode", ["shot", "shot_bi_scale", "shot_multiscale"])
+def test_shot_leg_matches_jax(pair, mode, route):
+    """The port's grid route (SG; on CPU tensors K8 + K1's twins) against
+    JAX's grid window route; the brute route against JAX's."""
+    grids = _shot_grids(pair, mode) if route != "brute" else (None, None)
+    got = _t_descriptors(pair, _leg_opts(mode), grids)
+    _assert_shot_leg(pair, got, _j_shot(pair, mode, route != "brute"), mode)
+
+
+@pytest.mark.parametrize("mode", ["shot", "shot_bi_scale", "shot_multiscale"])
+def test_shot_leg_run_kernel_matches_jax(pair, mode):
+    """K5's wrapper (``ops.shot_dma.shot_descriptor_dma``, its twin on CPU
+    tensors) called on the grid leg's grids and padded keypoints as the leg
+    calls SG: own frames, bi-scale frames, and multiscale's two scales over
+    one grid with the first scale's frames; padding rows zeroed as the leg
+    zeroes them.  Held to JAX's grid window route by the flip rule."""
+    opts = _leg_opts(mode)
+    got = []
+    for (kp, v), grid in zip(((pair.scan_kp, pair.scan_v), (pair.ref_kp, pair.ref_v)),
+                             _shot_grids(pair, mode)):
+        k5 = functools.partial(shot_dma.shot_descriptor_dma, grid, _t(kp),
+                               min_neighborhood_size=MIN_NB)
+        if mode == "shot_multiscale":
+            first, rfs = k5(MS_RADII[0])
+            desc = torch.cat([first] + [k5(r, rfs=rfs)[0] for r in MS_RADII[1:]], dim=1)
+        else:
+            desc, _ = k5(opts["radius"], rf_radius=opts["rf_radius"])
+        got.append(torch.where(_t(v, torch.bool)[:, None], desc, 0.0))
+    _assert_shot_leg(pair, got, _j_shot(pair, mode, True), mode)
 
 
 @functools.lru_cache(maxsize=None)
@@ -220,30 +241,49 @@ def _j_fpfh(pair, grid_route):
     return out
 
 
-@pytest.mark.parametrize("route", ["brute", "window", "runs"])
-def test_fpfh_leg_matches_jax(pair, monkeypatch, route):
-    """Brute route atol 1e-5; the grid routes (K8 + K4's twins or K6's,
-    sorted-order keypoints) by the SPFH route rule against JAX's."""
-    monkeypatch.setitem(shot_dma._DMA, "enabled", route == "runs")
-    calls = []
-    monkeypatch.setattr(t_fpfh, "spfh_block_dma",
-                        lambda *a: calls.append(1) or shot_dma.spfh_block_dma(*a))
-    fgrids, kp_idx = (None, None), []
-    if route != "brute":
-        fgrids = tuple(t_grid.build_grid(_t(sup), RADIUS / 2, extras=_t(nrm), halo=2)
-                       for sup, nrm in ((pair.scan, pair.sn), (pair.ref, pair.rn)))
+def _fpfh_grids(pair):
+    return tuple(t_grid.build_grid(_t(sup), RADIUS / 2, extras=_t(nrm), halo=2)
+                 for sup, nrm in ((pair.scan, pair.sn), (pair.ref, pair.rn)))
+
+
+def _fpfh_kp_rows(pair, fgrids):
+    """Each cloud's padded keypoints: rows of its grid's sorted table, or
+    cloud indices without a grid."""
+    out = []
     for g, idx in zip(fgrids, (pair.scan_idx, pair.ref_idx)):
         idx = torch.as_tensor(idx)
-        kp_idx.append(t_fused._padded(idx if g is None else t_fpfh._sorted_rows(g, idx),
-                                      PAD)[0])
-    got = _t_descriptors(pair, _leg_opts("fpfh"), fpfh_grids=fgrids, kp_idx=kp_idx)
+        out.append(t_fused._padded(idx if g is None else t_fpfh._sorted_rows(g, idx), PAD)[0])
+    return out
+
+
+@pytest.mark.parametrize("route", ["brute", "window"])
+def test_fpfh_leg_matches_jax(pair, route):
+    """Brute route atol 1e-5; the grid route (the SPFH pass's twin,
+    sorted-order keypoints) by the SPFH route rule against JAX's."""
+    fgrids = _fpfh_grids(pair) if route != "brute" else (None, None)
+    got = _t_descriptors(pair, _leg_opts("fpfh"), fpfh_grids=fgrids,
+                         kp_idx=_fpfh_kp_rows(pair, fgrids))
     for g, w, v in zip(got, _j_fpfh(pair, route != "brute"), (pair.scan_v, pair.ref_v)):
         assert g.shape == (len(v), 125) and not g[~torch.as_tensor(v)].any()
         if route == "brute":
             np.testing.assert_allclose(g.numpy(), w, atol=1e-5)
         else:
             assert_route_rule(g.numpy(), w)
-    assert len(calls) == (2 if route == "runs" else 0)
+
+
+def test_fpfh_leg_run_kernel_matches_jax(pair):
+    """K6's wrapper (``ops.shot_dma.spfh_sorted_dma``, its twin on CPU
+    tensors) as the SPFH pass of the grid leg, on its grids, and the leg's
+    aggregation over its sorted-order keypoints; padding rows zeroed.  Held
+    to JAX's grid route by the SPFH route rule."""
+    fgrids = _fpfh_grids(pair)
+    for g, rows, v, w in zip(fgrids, _fpfh_kp_rows(pair, fgrids), (pair.scan_v, pair.ref_v),
+                             _j_fpfh(pair, True)):
+        spfh = shot_dma.spfh_sorted_dma(g, RADIUS, 5, False)
+        desc = torch.where(_t(v, torch.bool)[:, None],
+                           t_fpfh._fpfh_window_aggregate(g, spfh, rows, RADIUS), 0.0)
+        assert desc.shape == (len(v), 125) and float(desc.sum()) > 0
+        assert_route_rule(desc.numpy(), w)
 
 
 # ------------------------------------------------------------------- matching --

@@ -8,10 +8,9 @@ and launches two ranks (``sys.executable -c WORKER``, a ``file://`` store
 in ``tmp_path``, collectives under a 120 s timeout, so a hang fails).  Each
 rank runs ``register_pair`` over the mesh in the four descriptor modes
 (single-scale, bi-scale and shared-frame multiscale SHOT, FPFH), on the
-brute routes and on the grid routes, window and run
+brute routes and on the grid routes
 (``ops.grid_hash.AUTO_GRID_MIN_POINTS`` lowered to reach them on 1,800
-points; the run route by ``ops.shot_dma.set_dma_kernel``), with the noise
-injected; rank 0
+points), with the noise injected; rank 0
 also runs the port's one-device ``register_pair`` on the same inputs.
 Held:
 
@@ -61,9 +60,9 @@ from shot_fpfh_tpu.registration import fused as j_fused  # noqa: E402
 torch.set_num_threads(1)
 
 RANKS = 2
-# the grid routes: the window route (K8 + K1 or K4's twins) and the run
-# route (K5 or K6's twin, ``ops.shot_dma.set_dma_kernel``)
-ROUTES = ("brute", "window", "runs")
+# the brute routes and the grid routes (SG or the SPFH pass: on CPU tensors
+# K8 + K1's or K4's twins)
+ROUTES = ("brute", "window")
 # a result row: RANSAC rotation (9), translation (3), ICP rotation (9),
 # translation (3), inlier ratio, n_matches, ICP RMS, converged
 ROW = 28
@@ -78,7 +77,7 @@ torch.set_num_threads(1)
 rank, store, inputs, out, repo, spec = (int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4],
                                         sys.argv[5], json.loads(sys.argv[6]))
 sys.path.insert(0, repo)
-from shot_fpfh_tpu_torch.ops import grid_hash, shot_dma
+from shot_fpfh_tpu_torch.ops import grid_hash
 from shot_fpfh_tpu_torch.parallel import make_mesh
 from shot_fpfh_tpu_torch.registration import fused
 
@@ -103,7 +102,6 @@ for mode, kw in spec["modes"].items():
     radius = spec["radius"] * spec["phi"] if mode == "shot_bi_scale" else spec["radius"]
     for route in spec["routes"]:
         grid_hash.AUTO_GRID_MIN_POINTS = saved if route == "brute" else spec["grid_min"]
-        shot_dma.set_dma_kernel(route == "runs")
         call = lambda **m: fused.register_pair(
             x["scan"], x["sn"], x["ref"], x["rn"], keypoint_voxel=spec["kp_voxel"],
             icp_voxel=spec["icp_voxel"], radius=radius, device="cpu",
@@ -112,7 +110,6 @@ for mode, kw in spec["modes"].items():
         if rank == 0:
             res[f"single/{mode}/{route}"] = row(call())
 grid_hash.AUTO_GRID_MIN_POINTS = saved
-shot_dma.set_dma_kernel(False)
 np.savez(out, **res)
 '''
 

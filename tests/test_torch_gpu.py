@@ -18,7 +18,13 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
-from chip_smoke import aggregate_rule, make_terrain, rotation_about, scale_terrain  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    aggregate_rule,
+    make_terrain,
+    rotation_about,
+    run_kernels_in_place,
+    scale_terrain,
+)
 from shot_fpfh_tpu_torch import _kernels  # noqa: E402
 from shot_fpfh_tpu_torch.ops import shot_dma  # noqa: E402
 from shot_fpfh_tpu_torch.ops.grid_hash import build_grid, window_distances  # noqa: E402
@@ -438,7 +444,7 @@ def test_k5_shot_runs_kernel(cuda, rng, mode):
     nrm = torch.nn.functional.normalize(torch.randn_like(pts), dim=1)
     radius, rf_radius = (1.2, 0.4) if mode == "bi_scale" else (0.5, None)
     grid = build_grid(pts, radius / 2, extras=nrm, halo=2)
-    assert grid.use_xyrow
+    assert shot_dma._xyrow_mode(grid)[0]
     kp = torch.cat([pts[::41], torch.full((1, 3), 1e6, device=cuda)])
     raw = dict(normalize=False, min_neighborhood_size=-1)
     _, rfs_p = shot_dma.shot_descriptor_dma_plain(grid, kp, radius, rf_radius=rf_radius, **raw)
@@ -518,13 +524,13 @@ def test_k5_shot_runs_kernel_edge_cases(cuda, rng, n_surface, bi_scale):
     votes, and a keypoint whose frame plane is empty: the identity frame,
     with bins in bi-scale mode (descriptor plane at 1.2) and none with own
     frames (nothing within 0.5).  The far keypoint: zero row, identity."""
-    from shot_fpfh_tpu_torch.ops.grid_hash import _xyrow_runs
+    from shot_fpfh_tpu_torch.ops.shot_dma import _xyrow_runs
 
     pts, nrm, special = _k5_cloud(rng)
     radius, rf_radius = (1.2, 0.4) if bi_scale else (0.5, None)
     grid = build_grid(torch.tensor(pts, device=cuda), radius / 2,
                       extras=torch.tensor(nrm, device=cuda), halo=2)
-    assert grid.use_xyrow
+    assert shot_dma._xyrow_mode(grid)[0]
     edge = int(np.argmin(pts[:20_000, 0]))
     surf = np.concatenate([[edge], rng.choice(20_000, n_surface - 1, replace=False)])
     kp = torch.tensor(np.concatenate([pts[surf], special]), device=cuda)
@@ -722,7 +728,7 @@ def test_k6_spfh_runs_kernel(cuda, rng, decorrelated):
     twin's, bit for bit, on every point of a cloud (grid-sorted queries,
     read from the table's own rows)."""
     grid = _spfh_grid(rng, cuda, 0.5)
-    assert grid.use_xyrow
+    assert shot_dma._xyrow_mode(grid)[0]
     got = _counted("spfh_runs", lambda: shot_dma.spfh_sorted_dma(grid, 0.5, 5, decorrelated))
     want = shot_dma.spfh_sorted_dma_plain(grid, 0.5, 5, decorrelated)
     assert torch.equal(got, want)
@@ -738,13 +744,13 @@ def test_k6_spfh_runs_kernel_edge_cases(cuda, rng, halo, decorrelated):
     runs), a point off the grid at 1e6 (every run empty: a zero row) and a
     point 5 above the surface (runs full of rows, none in radius: a zero
     row); runs longer than one walk step of 128 rows."""
-    from shot_fpfh_tpu_torch.ops.grid_hash import _xyrow_runs
+    from shot_fpfh_tpu_torch.ops.shot_dma import _xyrow_runs
 
     radius = 0.5
     pts = _surface(rng, 30_000, cuda)
     nrm = torch.nn.functional.normalize(torch.randn_like(pts), dim=1)
     grid = build_grid(pts, radius / halo, extras=nrm, halo=halo)
-    assert grid.use_xyrow and grid.halo == halo
+    assert shot_dma._xyrow_mode(grid)[0] and grid.halo == halo
     table = grid.packed_sorted
     edge = int(torch.argmin(pts[:, 0]))
     idx = torch.tensor(rng.choice(pts.shape[0], 40, replace=False), device=cuda)
@@ -804,7 +810,7 @@ def test_k6_spfh_runs_kernel_bin_edges(cuda, rng, decorrelated):
     pts, nrm, sites = _k6_edge_cloud(rng)
     grid = build_grid(torch.tensor(pts, device=cuda), 0.25, extras=torch.tensor(nrm, device=cuda),
                       halo=2)
-    assert grid.use_xyrow
+    assert shot_dma._xyrow_mode(grid)[0]
     qc = torch.tensor(sites, device=cuda)
     qn = torch.tensor([[0.0, 0.0, 1.0]] * len(sites), device=cuda)
     # the edge points' phi within 2e-5 of an edge
@@ -1087,11 +1093,10 @@ def test_shot_grid_debug_counter_reads_k1s(cuda, rng):
 @pytest.mark.parametrize("choice", ["shot_single_scale", "shot_bi_scale"])
 def test_shot_grid_on_the_staged_path(cuda, tmp_path, monkeypatch, choice):
     """A 30k-point terrain pair registered through the CLI on the card (the
-    grid route, run route off): SHOT launches SG once a cloud and neither K8
-    nor K1; its descriptor stage counts 2 ``grid_passes`` and no ``chunks``
-    a pair, and makes as many blocking reads, and covers as many window
-    slots, as the K8 + K1 loop it replaced (forced by the route's
-    predicate)."""
+    grid route): SHOT launches SG once a cloud and neither K8 nor K1; its
+    descriptor stage counts 2 ``grid_passes`` and no ``chunks`` a pair, and
+    makes as many blocking reads as the K8 + K1 loop it replaced (forced by
+    the route's predicate)."""
     from shot_fpfh_tpu_torch import cli
     from shot_fpfh_tpu_torch.io.ply import write_ply
     from shot_fpfh_tpu_torch.ops import shot_fused
@@ -1102,7 +1107,6 @@ def test_shot_grid_on_the_staged_path(cuda, tmp_path, monkeypatch, choice):
     scan = (ref @ rot.T + [0.4, -0.25, 0.15]).astype(np.float32)
     write_ply(str(tmp_path / "scan.ply"), [scan], ["x", "y", "z"])
     write_ply(str(tmp_path / "ref.ply"), [ref], ["x", "y", "z"])
-    monkeypatch.setitem(shot_dma._DMA, "enabled", False)
     takes_kernel = shot_fused._takes_kernel
     runs = {}
     for sg in (True, False):
@@ -1125,16 +1129,17 @@ def test_shot_grid_on_the_staged_path(cuda, tmp_path, monkeypatch, choice):
     assert loop_counts["shot_grid"] == 0 and loop_counts["shot_binning_histogram"] >= 2
     assert stage["grid_passes"] == 2 and stage["chunks"] == 0 and loop["chunks"] >= 2
     assert stage["spans"]["shot.pass"]["count"] == 2 and "shot.chunk" not in stage["spans"]
-    assert stage["window_slots"] == loop["window_slots"] > 0
     assert stage["host_syncs"] == loop["host_syncs"]
 
 
 @pytest.mark.parametrize("run_route", [False, True])
 def test_fpfh_cli_on_card(cuda, tmp_path, monkeypatch, run_route):
     """A 30k-point terrain pair (the smoke terrain's density) registered
-    with FPFH through the CLI on the card: the window route launches the
-    SPFH pass kernel once a cloud and neither K8 nor K4, the run route K6
-    and not the pass kernel."""
+    with FPFH through the CLI on the card, ``SHOT_FPFH_DMA=1`` in the
+    environment (it selects nothing): the grid route launches the SPFH pass
+    kernel once a cloud and neither K8, K4 nor K6; with K6 called in the
+    pass kernel's place (``chip_smoke.run_kernels_in_place``), K6 and not
+    the pass kernel."""
     from shot_fpfh_tpu_torch import cli
     from shot_fpfh_tpu_torch.io.ply import write_ply
 
@@ -1144,13 +1149,14 @@ def test_fpfh_cli_on_card(cuda, tmp_path, monkeypatch, run_route):
     scan = (ref @ rot.T + [0.4, -0.25, 0.15]).astype(np.float32)
     write_ply(str(tmp_path / "scan.ply"), [scan], ["x", "y", "z"])
     write_ply(str(tmp_path / "ref.ply"), [ref], ["x", "y", "z"])
-    monkeypatch.setitem(shot_dma._DMA, "enabled", run_route)
+    monkeypatch.setenv("SHOT_FPFH_DMA", "1")
     _kernels.reset_launch_counts()
-    assert cli.main(["--scan_file_path", str(tmp_path / "scan.ply"),
-                     "--ref_file_path", str(tmp_path / "ref.ply"), "--conf_file_path", "",
-                     "--output_dir", str(tmp_path / "out"), "--neighborhood_size", "0.15",
-                     "--min_n_neighbors", "5", "--descriptor_choice", "fpfh",
-                     "--radius", "0.9"]) == 0
+    with run_kernels_in_place(run_route):
+        assert cli.main(["--scan_file_path", str(tmp_path / "scan.ply"),
+                         "--ref_file_path", str(tmp_path / "ref.ply"), "--conf_file_path", "",
+                         "--output_dir", str(tmp_path / "out"), "--neighborhood_size", "0.15",
+                         "--min_n_neighbors", "5", "--descriptor_choice", "fpfh",
+                         "--radius", "0.9"]) == 0
     counts = _kernels.launch_counts
     assert counts["top2_match"] > 0 and counts["radius_pca"] > 0
     assert (counts["spfh_runs"] > 0) == run_route
@@ -1167,8 +1173,10 @@ def test_multiscale_cli_on_card(cuda, tmp_path, monkeypatch, choice, run_route):
     """A 30k-point terrain pair (the smoke terrain's density) registered
     with bi-scale and multiscale SHOT through the CLI on the card (radius
     0.9, phi 3, 2 scales; rho 20 keeps the first scale's support above
-    20k points, so it takes the grid routes): the window route launches
-    SG (no K8, no K1), the run route K5 and no SG."""
+    20k points, so it takes the grid routes), ``SHOT_FPFH_DMA=1`` in the
+    environment (it selects nothing): the grid route launches SG (no K8, no
+    K1, no K5); with K5 called in SG's place
+    (``chip_smoke.run_kernels_in_place``), K5 and no SG."""
     from shot_fpfh_tpu_torch import cli
     from shot_fpfh_tpu_torch.io.ply import write_ply
 
@@ -1178,13 +1186,15 @@ def test_multiscale_cli_on_card(cuda, tmp_path, monkeypatch, choice, run_route):
     scan = (ref @ rot.T + [0.4, -0.25, 0.15]).astype(np.float32)
     write_ply(str(tmp_path / "scan.ply"), [scan], ["x", "y", "z"])
     write_ply(str(tmp_path / "ref.ply"), [ref], ["x", "y", "z"])
-    monkeypatch.setitem(shot_dma._DMA, "enabled", run_route)
+    monkeypatch.setenv("SHOT_FPFH_DMA", "1")
     _kernels.reset_launch_counts()
-    assert cli.main(["--scan_file_path", str(tmp_path / "scan.ply"),
-                     "--ref_file_path", str(tmp_path / "ref.ply"), "--conf_file_path", "",
-                     "--output_dir", str(tmp_path / "out"), "--neighborhood_size", "0.15",
-                     "--min_n_neighbors", "5", "--descriptor_choice", choice,
-                     "--radius", "0.9", "--rho", "20", "--phi", "3", "--n_scales", "2"]) == 0
+    with run_kernels_in_place(run_route):
+        assert cli.main(["--scan_file_path", str(tmp_path / "scan.ply"),
+                         "--ref_file_path", str(tmp_path / "ref.ply"), "--conf_file_path", "",
+                         "--output_dir", str(tmp_path / "out"), "--neighborhood_size", "0.15",
+                         "--min_n_neighbors", "5", "--descriptor_choice", choice,
+                         "--radius", "0.9", "--rho", "20", "--phi", "3", "--n_scales",
+                         "2"]) == 0
     counts = _kernels.launch_counts
     assert counts["top2_match"] > 0 and counts["radius_pca"] > 0
     assert (counts["shot_runs"] > 0) == run_route
@@ -1679,7 +1689,7 @@ def test_debug_counter_matches_twin(cuda, rng, kernel):
     kp = pts[::79]
     raw = dict(normalize=False, min_neighborhood_size=-1)
     if kernel == "shot_runs":
-        assert grid.use_xyrow
+        assert shot_dma._xyrow_mode(grid)[0]
         _, rfs = shot_dma.shot_descriptor_dma_plain(grid, kp, 0.6, **raw)
 
         def run(fn, r, counter, frames=rfs):
@@ -1738,9 +1748,10 @@ def nccl_mesh(cuda, tmp_path):
 
 
 def test_one_rank_nccl_mesh_equals_one_device(nccl_mesh, rng):
-    """``sharded_shot_descriptors`` (window and run routes: SG, K5) and
-    ``ring_match`` (K2 on the one tile) over a 1-rank NCCL group equal the
-    single-device path, and launch its kernels."""
+    """``sharded_shot_descriptors`` (the grid route, SG, and K5 called in
+    its place: ``chip_smoke.run_kernels_in_place``) and ``ring_match`` (K2
+    on the one tile) over a 1-rank NCCL group equal the single-device path,
+    and launch its kernels."""
     from shot_fpfh_tpu_torch.models.shot import compute_shot_descriptor
     from shot_fpfh_tpu_torch.parallel import ring_match, sharded_shot_descriptors
     from shot_fpfh_tpu_torch.registration.matching import top2_descriptor
@@ -1750,17 +1761,14 @@ def test_one_rank_nccl_mesh_equals_one_device(nccl_mesh, rng):
     nrm = torch.nn.functional.normalize(torch.randn_like(pts), dim=1)
     kp = pts[::41]
     descs = []
-    for dma in (False, True):
-        shot_dma.set_dma_kernel(dma)
-        try:
-            kernel = "shot_runs" if dma else "shot_grid"
-            before = _kernels.launch_counts[kernel]
+    for run_route in (False, True):
+        kernel = "shot_runs" if run_route else "shot_grid"
+        before = _kernels.launch_counts[kernel]
+        with run_kernels_in_place(run_route):
             got = sharded_shot_descriptors(kp, pts, nrm, 0.5, nccl_mesh, return_rfs=True,
                                            min_neighborhood_size=10)
             assert _kernels.launch_counts[kernel] > before
             want = compute_shot_descriptor(kp, pts, nrm, 0.5, min_neighborhood_size=10)
-        finally:
-            shot_dma.set_dma_kernel(False)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
         descs.append(got[0])
     a, b = descs[0][::2], descs[1][1::2][:-1]      # an odd ref count pads the tile

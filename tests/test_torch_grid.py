@@ -22,7 +22,9 @@ from shot_fpfh_tpu.ops.pallas_radius import radius_pca_pallas
 from shot_fpfh_tpu_torch import _kernels
 from shot_fpfh_tpu_torch.models.normals import compute_normals as t_normals
 from shot_fpfh_tpu_torch.ops import grid_hash as t_grid
+from shot_fpfh_tpu_torch.ops import shot_dma
 from shot_fpfh_tpu_torch.ops.radius_pca import radius_pca, radius_pca_plain
+from shot_fpfh_tpu_torch.utils.perf import StageMetrics
 
 # The suite runs several pytest workers side by side on the CPU: one torch
 # thread per worker keeps torch's OpenMP pool from oversubscribing the cores
@@ -61,6 +63,37 @@ def test_window_without_cell_table(cloud):
     inside = (valid & (d <= 0.5)).numpy()
     brute = np.linalg.norm(cloud[:50, None] - sparse[None], axis=-1) <= 0.5
     np.testing.assert_array_equal(inside.sum(1), brute.sum(1))
+
+
+GRID_READS = ("grid.dims", "grid.cells", "grid.cell_cap", "grid.window_cap")
+
+
+@pytest.mark.parametrize("kind", ["surface", "volume", "no_table"])
+def test_build_grid_blocking_reads(rng, kind):
+    """``build_grid`` reads back the grid's dims, its occupied cells, the
+    cell cap and, with a cell table, the window cap: four blocking reads on
+    a surface cloud (one the run kernels would take in xy-row mode) and on
+    a volume cloud, three on a grid without a table; no cap of the run
+    kernels' xy-row mode is worked out."""
+    if kind == "surface":
+        xy = rng.uniform(-3, 3, size=(2600, 2))
+        pts = np.column_stack([xy, 0.4 * np.sin(1.2 * xy[:, 0]) * np.cos(xy[:, 1])])
+    else:
+        pts = rng.uniform(-2, 2, size=(2600, 3)) * [1, 1, 2]
+    if kind == "no_table":
+        pts = np.concatenate([pts, [[5e3, 5e3, 5e3]]])
+    metrics = StageMetrics()
+    metrics.start("grid[test]")
+    grid = t_grid.build_grid(torch.tensor(pts, dtype=torch.float32), 0.35, halo=2)
+    stage = metrics.stop()
+    assert grid.has_table == (kind != "no_table")
+    if kind == "surface":
+        assert shot_dma._xyrow_mode(grid)[0]
+    want = GRID_READS if grid.has_table else GRID_READS[:3]
+    # the stage's own two synchronizes, then the build's reads
+    syncs = {k: v["count"] for k, v in stage["spans"].items() if k.startswith("sync[")}
+    assert syncs == {"sync[stage]": 2, **{f"sync[{site}]": 1 for site in want}}
+    assert stage["host_syncs"] == 2 + len(want)
 
 
 @pytest.mark.parametrize("per_query", [False, True])

@@ -46,6 +46,7 @@ from shot_fpfh_tpu_torch import _kernels  # noqa: E402
 from shot_fpfh_tpu_torch.core import solvers as t_sv  # noqa: E402
 from shot_fpfh_tpu_torch.models import shot as t_shot  # noqa: E402
 from shot_fpfh_tpu_torch.ops import grid_hash as t_grid  # noqa: E402
+from shot_fpfh_tpu_torch.ops import shot_dma  # noqa: E402
 from shot_fpfh_tpu_torch.ops import shot_fused as t_shot_fused  # noqa: E402
 from shot_fpfh_tpu_torch.registration import icp as t_icp  # noqa: E402
 from shot_fpfh_tpu_torch.registration import matching as t_match  # noqa: E402
@@ -346,24 +347,23 @@ def test_shot_debug_checks_drop_a_bad_bin_in_an_inner_row(rng, caplog):
     assert_flip_rule(descs["torch"], descs["jax"])
 
 
-def _grid_shot_under_checks(rng, monkeypatch, wrapper: str, module=t_shot):
+def _grid_shot_under_checks(rng, monkeypatch):
     """Grid-route SHOT (``AUTO_GRID_MIN_POINTS`` lowered) without and with
-    the checks, recording the counter each call of K1's or K5's wrapper
-    (``wrapper``, as ``module`` calls it) is given: ``(without, with,
-    counters)``."""
+    the checks, recording the counter each call of K1's wrapper (as
+    ``ops.shot_fused`` calls it) is given: ``(without, with, counters)``."""
     monkeypatch.setattr(t_grid, "AUTO_GRID_MIN_POINTS", 1000)
     cloud = make_terrain(3000, rng, scale=3.0, n_bumps=6)
     normals = np.tile(np.array([0.0, 0.0, 1.0], np.float32), (len(cloud), 1))
     kp = cloud[:200]
     want = t_shot.compute_shot_descriptor(kp, cloud, normals, 0.8,
                                           min_neighborhood_size=5, device="cpu")
-    counters, real = [], getattr(module, wrapper)
+    counters, real = [], t_shot_fused.shot_binning_histogram
 
     def spy(*a, violations=None, **k):
         counters.append(violations)
         return real(*a, violations=violations, **k)
 
-    monkeypatch.setattr(module, wrapper, spy)
+    monkeypatch.setattr(t_shot_fused, "shot_binning_histogram", spy)
     t_shot.enable_debug_checks(True)
     try:
         got = t_shot.compute_shot_descriptor(kp, cloud, normals, 0.8,
@@ -379,20 +379,26 @@ def test_shot_debug_checks_leave_grid_descriptors_unchanged(rng, monkeypatch):
     without, no violation is counted, and K1's wrapper is called with a
     counter (the route does not change; on CPU tensors SG's route runs K1's
     wrapper in keypoint chunks)."""
-    (want, want_rfs), (got, rfs), counters = _grid_shot_under_checks(
-        rng, monkeypatch, "shot_binning_histogram", t_shot_fused)
+    (want, want_rfs), (got, rfs), counters = _grid_shot_under_checks(rng, monkeypatch)
     assert counters and all(c is not None and c.tolist() == [0, 0] for c in counters)
     assert (want != 0).any()
     assert torch.equal(got, want) and torch.equal(rfs, want_rfs)
 
 
-def test_shot_debug_checks_on_the_run_route(rng, monkeypatch):
-    """With the run route on, SHOT under the checks still takes K5's
-    wrapper, with a counter, and its descriptors equal those without."""
-    monkeypatch.setattr(t_shot, "dma_kernel_enabled", lambda: True)
-    (want, want_rfs), (got, rfs), counters = _grid_shot_under_checks(
-        rng, monkeypatch, "shot_descriptor_dma")
-    assert len(counters) == 1 and counters[0].tolist() == [0, 0]
+def test_shot_debug_checks_on_the_run_route(rng):
+    """K5's wrapper (its twin on CPU tensors) called with a zeroed debug
+    counter on the grid SHOT builds for the same terrain (cell r/2, halo 2,
+    normals) counts no violation, and its descriptors and frames equal
+    those of a call without a counter."""
+    cloud = make_terrain(3000, rng, scale=3.0, n_bumps=6)
+    normals = np.tile(np.array([0.0, 0.0, 1.0], np.float32), (len(cloud), 1))
+    grid = t_grid.build_grid(cloud, 0.4, extras=normals, halo=2, device="cpu")
+    kp = torch.tensor(cloud[:200])
+    counter = torch.zeros(2, dtype=torch.int32)
+    want, want_rfs = shot_dma.shot_descriptor_dma(grid, kp, 0.8, min_neighborhood_size=5)
+    got, rfs = shot_dma.shot_descriptor_dma(grid, kp, 0.8, min_neighborhood_size=5,
+                                            violations=counter)
+    assert counter.tolist() == [0, 0]
     assert (want != 0).any()
     assert torch.equal(got, want) and torch.equal(rfs, want_rfs)
 

@@ -1,7 +1,7 @@
 """Port parity: bi-scale and multiscale SHOT — K1's bi-scale mode and K5
 (SHOT over the grid's xy-row runs) through their plain twins,
-``ShotComputer``'s bi-scale and multiscale drivers on the brute, window and
-run routes, the pipeline's per-scale methods with a 704-column state
+``ShotComputer``'s bi-scale and multiscale drivers on the brute and grid
+routes and K5 on their grid supports, the pipeline's per-scale methods with a 704-column state
 ``.npz``, and the CLI.
 
 Tolerances: K1 bi-scale frames atol 2e-4 and histograms atol 5e-3 / rtol
@@ -102,7 +102,7 @@ def test_k5_plain_matches_reference_window_path(rng, mode):
                         np.full((1, 3), 1e6, np.float32)])
     jg = j_grid.build_grid(pts, radius / 2, extras=nrm, halo=2)
     tg = t_grid.build_grid(pts, radius / 2, extras=nrm, halo=2, device="cpu")
-    assert tg.use_xyrow and tg.xyrow_run_cap > 0
+    assert shot_dma._check_run_grid(tg, radius) > 0
     want, want_rfs = _xla_reference(jg, jnp.asarray(q), radius, 10, rf_radius=rf_radius)
     rfs = None
     if mode == "given":
@@ -131,28 +131,18 @@ def test_k5_plain_matches_reference_window_path(rng, mode):
 @pytest.fixture
 def grid_route(monkeypatch):
     """Lower the auto-grid threshold in both packages to reach the grid
-    routes on small clouds; ``grid_route(run)`` picks the port's run route
-    (K5) or window route (K1)."""
+    routes on small clouds."""
     for mod in (j_grid, t_grid):
         monkeypatch.setattr(mod, "AUTO_GRID_MIN_POINTS", 2000)
 
-    def pick(run: bool):
-        monkeypatch.setitem(shot_dma._DMA, "enabled", run)
-    return pick
 
-
-@pytest.mark.parametrize("route", ["brute", "window", "runs"])
+@pytest.mark.parametrize("route", ["brute", "window"])
 def test_shot_computer_bi_scale_and_multiscale(rng, grid_route, route, monkeypatch):
     pts, nrm = surface(2600, rng, scale=3.0)
     kp = pts[::37]
     if route == "brute":
         for mod in (j_grid, t_grid):
             monkeypatch.setattr(mod, "AUTO_GRID_MIN_POINTS", 20_000)
-    else:
-        grid_route(route == "runs")
-    calls = []
-    monkeypatch.setattr(t_shot, "shot_descriptor_dma",
-                        lambda *a, **k: calls.append(1) or shot_dma.shot_descriptor_dma(*a, **k))
     j = j_shot.ShotComputer(min_neighborhood_size=10, k_max=256)
     t = t_shot.ShotComputer(min_neighborhood_size=10, k_max=256, device="cpu")
     bi_j = j.compute_descriptor_bi_scale(pts, nrm, kp, 0.3, 0.9, subsampling_voxel_size=0.03)
@@ -170,13 +160,38 @@ def test_shot_computer_bi_scale_and_multiscale(rng, grid_route, route, monkeypat
     assert_flip_rule(ms_t.numpy(), ms_j)
     for half in (ms_t[:, :352], ms_t[:, 352:]):
         assert float(half.any(dim=1).float().mean()) > 0.9
-    assert len(calls) == (2 if route == "runs" else 0)
+
+
+@pytest.mark.parametrize("mode", ["bi_scale", "multiscale"])
+def test_k5_on_shot_computer_supports(rng, grid_route, mode):
+    """K5's wrapper (its twin on CPU tensors) on the grid ``ShotComputer``
+    builds over its voxel-0.03 support (2,544 points, halo 2): bi-scale
+    (frames at 0.3, bins at 0.9) against JAX's bi-scale driver, and the
+    first scale of multiscale (radius 0.3, weight 1) against JAX's first
+    352 columns, by the flip rule."""
+    pts, nrm = surface(2600, rng, scale=3.0)
+    kp = pts[::37]
+    t = t_shot.ShotComputer(min_neighborhood_size=10, k_max=256, device="cpu")
+    j = j_shot.ShotComputer(min_neighborhood_size=10, k_max=256)
+    sup, sup_nrm = t._support(pts, nrm, 0.03)
+    radius, rf_radius = (0.9, 0.3) if mode == "bi_scale" else (0.3, None)
+    grid = t_grid.build_grid(sup, radius / 2, extras=sup_nrm, halo=2)
+    got, _ = shot_dma.shot_descriptor_dma(grid, torch.tensor(kp), radius, rf_radius=rf_radius,
+                                          min_neighborhood_size=10)
+    if mode == "bi_scale":
+        want = j.compute_descriptor_bi_scale(pts, nrm, kp, 0.3, 0.9,
+                                             subsampling_voxel_size=0.03)
+    else:
+        want = j.compute_descriptor_multiscale(pts, nrm, kp, [0.3, 0.9],
+                                               voxel_sizes=[0.03, 0.12],
+                                               weights=[1.0, 0.5])[:, :352]
+    assert got.shape == (len(kp), 352) and float(got.any(dim=1).float().mean()) > 0.9
+    assert_flip_rule(got.numpy(), np.asarray(want))
 
 
 def test_multiscale_unshared_frames(rng, grid_route):
     pts, nrm = surface(2600, rng, scale=3.0)
     kp = pts[::53]
-    grid_route(False)
     args = (pts, nrm, kp, [0.3, 0.6], [0.03, 0.03])
     j = j_shot.ShotComputer(share_local_rfs=False, min_neighborhood_size=10)
     t = t_shot.ShotComputer(share_local_rfs=False, min_neighborhood_size=10, device="cpu")

@@ -1,7 +1,7 @@
 """SHOT's grid window route (``ops/shot_fused.py::shot_grid``, SG) on the
 CPU, where it takes the chunked route over K8's and K1's twins, its plain
 twin (``shot_grid_plain``), and its caller
-``models/shot.py::_shot_window_chunked``.
+``models/shot.py::_shot_on_grid``.
 
 The twin against JAX's window route (``window_distances`` +
 ``shot_from_window_ff`` on the same points, grid and keypoints) in K1's
@@ -12,7 +12,8 @@ far sentinel's zero rows; an empty keypoint set; the wrapper's shape and
 dtype checks; and which route ``shot_grid`` takes: its kernel where it
 observes CUDA tensors and a cell table (on the CPU by forcing that
 predicate, with the twin in the kernel's place), the loop on CPU tensors
-and on a grid without a cell table, and K5 with the run route on.  The
+and on a grid without a cell table, and SG, not K5, on an xy-row grid with
+``SHOT_FPFH_DMA=1`` in the environment.  The
 kernel itself is held to the K8 + K1 route bit for bit on the card
 (``tests/test_torch_gpu.py``, ``chip_smoke.py``).
 """
@@ -196,8 +197,9 @@ def test_shot_grid_rejects_bad_shapes_and_dtypes(rng, case):
 
 
 def _routes(monkeypatch):
-    """Record which route ``_shot_window_chunked`` takes: SG's kernel (with
-    the twin in its place: ``sg``), the loop (``loop``) or K5."""
+    """Record which route ``_shot_on_grid`` takes: SG's kernel (with the
+    twin in its place: ``sg``), the loop (``loop``) or K5 or its twin
+    (``k5``, seen by the run wrappers' grid check)."""
     calls = []
     monkeypatch.setattr(shot_fused, "_shot_grid_launch",
                         lambda grid, kp, radius, rfs, rf_radius, violations: calls.append("sg")
@@ -206,9 +208,9 @@ def _routes(monkeypatch):
     chunked = shot_fused.shot_window_chunked
     monkeypatch.setattr(shot_fused, "shot_window_chunked",
                         lambda *a, **k: calls.append("loop") or chunked(*a, **k))
-    dma = t_shot.shot_descriptor_dma
-    monkeypatch.setattr(t_shot, "shot_descriptor_dma",
-                        lambda *a, **k: calls.append("k5") or dma(*a, **k))
+    check = shot_dma._check_run_grid
+    monkeypatch.setattr(shot_dma, "_check_run_grid",
+                        lambda *a: calls.append("k5") or check(*a))
     return calls
 
 
@@ -236,17 +238,16 @@ def test_grid_kernel_predicate_observes_device_and_table(rng):
 @pytest.mark.parametrize("mode", MODES)
 def test_window_route_takes_sg_where_it_applies(rng, monkeypatch, mode):
     """With SG's predicate holding (forced on the CPU, the twin in the
-    kernel's place), ``_shot_window_chunked`` makes one ``shot.pass`` span,
-    counts one ``grid_passes``, no ``chunks`` and the
-    window slots, and returns the loop's descriptors and frames bit for
-    bit."""
+    kernel's place), ``_shot_on_grid`` makes one ``shot.pass`` span,
+    counts one ``grid_passes`` and no ``chunks``, and returns the loop's
+    descriptors and frames bit for bit."""
     pts, nrm = _terrain(rng, 2500, 2.0)
     grid = _grid(pts, nrm)
     kp = _keypoints(rng, pts, n=100)
     rfs, rf_radius = _mode_args(mode, grid, kp)
 
     def run():
-        return t_shot._shot_window_chunked(grid, kp, rfs, RADIUS, True, 5, rf_radius=rf_radius)
+        return t_shot._shot_on_grid(grid, kp, rfs, RADIUS, True, 5, rf_radius=rf_radius)
 
     calls = _routes(monkeypatch)
     want, loop = _stage(run)
@@ -258,27 +259,36 @@ def test_window_route_takes_sg_where_it_applies(rng, monkeypatch, mode):
     assert calls == ["sg"]
     _assert_equal(got, want)
     assert stage["grid_passes"] == 1 and stage["chunks"] == 0
-    assert stage["window_slots"] == loop["window_slots"] == kp.shape[0] * grid.window_cap
     assert stage["spans"]["shot.pass"]["count"] == 1
     assert stage["host_syncs"] == loop["host_syncs"]
 
 
-def test_window_route_keeps_the_loop_without_a_table_and_k5_with_the_run_route(rng,
-                                                                                 monkeypatch):
+def test_window_route_keeps_the_loop_without_a_table(rng, monkeypatch):
     """A grid without a cell-start table takes the loop (its chunks counted)
-    even where the keypoints would be on a card; with the run route on, an
-    xy-row grid takes K5, as before SG."""
+    even where the keypoints would be on a card."""
     pts, nrm = _terrain(rng, 3000, 2.0)
     far = _grid(torch.cat([pts, torch.full((1, 3), 5e3)]), torch.cat([nrm, nrm[:1]]))
     kp = _keypoints(rng, pts, n=100)
     calls = _routes(monkeypatch)
     monkeypatch.setattr(shot_fused, "_takes_kernel", lambda grid, kp: grid.has_table)
-    _, stage = _stage(lambda: t_shot._shot_window_chunked(far, kp, None, RADIUS, True, 5))
+    _, stage = _stage(lambda: t_shot._shot_on_grid(far, kp, None, RADIUS, True, 5))
     assert calls == ["loop"] and stage["chunks"] >= 1
     assert "grid_passes" not in stage
+
+
+def test_grid_shot_ignores_the_old_run_route_variable(rng, monkeypatch):
+    """``SHOT_FPFH_DMA=1`` in the environment selects nothing: SHOT through
+    ``compute_shot_descriptor`` on an xy-row grid (the route's threshold
+    lowered, SG's predicate forced) still takes SG, once, and neither K5
+    nor its twin runs."""
+    pts, nrm = _terrain(rng, 3000, 2.0)
+    kp = _keypoints(rng, pts, n=100)
+    monkeypatch.setenv("SHOT_FPFH_DMA", "1")
+    monkeypatch.setattr(t_grid, "AUTO_GRID_MIN_POINTS", 1000)
     grid = _grid(pts, nrm)
-    assert grid.use_xyrow
-    calls.clear()
-    monkeypatch.setitem(shot_dma._DMA, "enabled", True)
-    t_shot._shot_window_chunked(grid, kp, None, RADIUS, True, 5, rf_radius=RF_RADIUS)
-    assert calls == ["k5"]
+    assert shot_dma._xyrow_mode(grid)[0]
+    calls = _routes(monkeypatch)
+    monkeypatch.setattr(shot_fused, "_takes_kernel", lambda grid, kp: True)
+    desc, _ = t_shot.compute_shot_descriptor(kp, pts, nrm, RADIUS, min_neighborhood_size=5,
+                                             device="cpu")
+    assert calls == ["sg"] and bool(desc.any())

@@ -25,9 +25,9 @@ torch.set_num_threads(1)
 N_DRAWS = 1000
 MAX_ITER = 20
 # the bi-scale descriptor stage's blocking reads on the 4,000-point pair:
-# its two synchronizes and, a cloud, three of the voxel subsample and eight
+# its two synchronizes and, a cloud, three of the voxel subsample and four
 # of the grid; the chunk loop and its counters add none
-BI_SCALE_HOST_SYNCS = 2 + 2 * (3 + 8)
+BI_SCALE_HOST_SYNCS = 2 + 2 * (3 + 4)
 # each stage's child ranges (``sync[...]`` ones: a site of a blocking read)
 CHILDREN = {
     "normals[knn]": ("normals.grid", "normals.pass", "normals.net", "sync[normals.kth]",
@@ -233,8 +233,8 @@ def test_bi_scale_chunks_open_window_and_bins_and_count_their_slots(tmp_path, mo
     profiler, in chunks of 256 keypoints: each ``shot.chunk`` holds one
     ``shot.window`` (K8 and the two radius planes) and one ``shot.bins``
     (K1), and the descriptor stage's record, as ``--metrics_json`` writes
-    it, counts the chunks and the window slots the loop fetched (the padded
-    keypoints × each cloud's window cap); the loop adds no blocking read."""
+    it, counts the chunks (the padded keypoints of each cloud in 256s);
+    the loop adds no blocking read."""
     from shot_fpfh_tpu_torch.cli import main
     from shot_fpfh_tpu_torch.io.ply import write_ply
     from shot_fpfh_tpu_torch.models import shot as t_shot
@@ -246,8 +246,8 @@ def test_bi_scale_chunks_open_window_and_bins_and_count_their_slots(tmp_path, mo
         monkeypatch.setattr(mod, "AUTO_GRID_MIN_POINTS", 2000)
     monkeypatch.setattr(t_shot, "window_chunk", lambda grid, features: 256)
     calls = []
-    chunked = t_shot._shot_window_chunked
-    monkeypatch.setattr(t_shot, "_shot_window_chunked",
+    chunked = t_shot._shot_on_grid
+    monkeypatch.setattr(t_shot, "_shot_on_grid",
                         lambda grid, kp, *a, **k: calls.append((kp.shape[0], grid.window_cap))
                         or chunked(grid, kp, *a, **k))
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
@@ -272,7 +272,6 @@ def test_bi_scale_chunks_open_window_and_bins_and_count_their_slots(tmp_path, mo
     stage = next(s for s in json.loads((tmp_path / "m.json").read_text())["stages"]
                  if s["stage"] == "descriptors[shot_bi_scale]")
     assert stage["chunks"] == n_chunks
-    assert stage["window_slots"] == sum(n * cap for n, cap in calls)
     assert stage["spans"]["shot.window"]["count"] == stage["spans"]["shot.bins"]["count"] \
         == n_chunks
     syncs = {k: v["count"] for k, v in stage["spans"].items() if k.startswith("sync[")}

@@ -46,7 +46,11 @@ Phases, one line each; any failure exits non-zero with no result line:
    and every ref point on the iterative grid), both outputs equal to its
    twin and to the route it replaced (K7 in chunks, the row minimum, the
    gathers), timed beside that route and at each lanes-a-query variant;
-   the CUDA kernels one ICP iteration launches (``torch.profiler``); K7's
+   IS (``icp_step``: one point-to-plane ICP iteration in one launch, the
+   1-NN walk, the normal equations, the 6x6 solve and the composition)
+   against its plain twin (``registration/icp.py::_step``) at the ICP's
+   shape by ``icp_rule``, alone and in its loop beside the twin's; the
+   CUDA kernels one ICP iteration launches (``torch.profiler``); K7's
    aggregation mode (``fpfh_aggregate``: the smoke scan's density keypoints
    on its halo-2 grid of cell 0.45 over the SPFH of every point, D = 125
    and 15) against its twin by ``aggregate_rule`` with the keypoints in
@@ -57,8 +61,8 @@ Phases, one line each; any failure exits non-zero with no result line:
    known rigid motion of ref + noise) with ``config/default.yaml``, run
    cold once and then measured; the registration must be accepted, within
    1e-2 rad / 1e-2 of the ground truth, and the measured run must have
-   launched SG, K2 and K3, and K7's 1-NN mode once an ICP iteration and
-   once for the evaluation (51), K7's window, K8 and K1 never.  ``--profile DIR``
+   launched SG, K2 and K3, IS once an ICP iteration (50) and K7's 1-NN
+   mode once, for the evaluation, K7's window, K8 and K1 never.  ``--profile DIR``
    adds a third run under ``torch.profiler`` (op table, chrome trace,
    device-busy share);
 5. FPFH path: the same pair with ``--descriptor_choice fpfh``, cold and
@@ -88,7 +92,7 @@ Phases, one line each; any failure exits non-zero with no result line:
    route (SG) and on the run route (K5), and FPFH (the SPFH pass and
    the aggregation kernel once a cloud each), each
    cold, then measured, accepted within the same bounds, with one K2 (f32)
-   launch, K3 (normals) and K7's 1-NN mode (ICP); beside each, the staged
+   launch, K3 (normals) and IS (ICP); beside each, the staged
    path on the same keypoints, and the host syncs of one
    ``fused_registration`` call by leg
    (``torch.cuda.set_sync_debug_mode("warn")``).  Phase 3 also holds K8,
@@ -123,7 +127,8 @@ Phases, one line each; any failure exits non-zero with no result line:
    1-rank NCCL group runs ``fused_registration_mesh`` on the inputs phase
    12's runs gave ``fused_registration`` (SHOT on the window and run
    routes, FPFH), each equal to the one-device call through matching
-   (``torch.equal``), RANSAC and ICP within 1e-5, the same launches, with
+   (``torch.equal``), RANSAC and ICP within 1e-5, the same launches (one
+   device's IS launches as the mesh's 1-NN ones), with
    its CUDA-event ms beside the one device's and its host syncs by leg;
    then phase 14's two processes also run ``cli.main --fused --n_devices
    2`` (SHOT, FPFH; accepted, the moved scan within 1e-3 of one device's
@@ -141,9 +146,9 @@ Phases, one line each; any failure exits non-zero with no result line:
    SHOT and for FPFH on the window route (radius 0.6, keypoint voxel
    0.15), cold then measured, accepted within 1e-2 rad / 1e-2, launching
    K3, SG once a cloud and no K8 or K1 (or the SPFH pass and the
-   aggregation kernel once a cloud each, no K8, K4 or K7), K2
-   and K7's 1-NN mode once an ICP iteration
-   and twice for the evaluation; ``bench.py``'s at-scale legs through the
+   aggregation kernel once a cloud each, no K8, K4 or K7), K2,
+   IS once an ICP iteration and K7's 1-NN mode twice for the
+   evaluation; ``bench.py``'s at-scale legs through the
    library on the ref (k=30 normals, with the sampled k-th bound equal to
    its one-piece form; the descriptor grid, beside the host hash that keys
    JAX's grid cache; SHOT and FPFH of the voxel-0.9 keypoints; ICP of a
@@ -151,7 +156,7 @@ Phases, one line each; any failure exits non-zero with no result line:
    each cold then measured; each leg's wall, stage timers, launches and
    peak device memory; every kernel at these shapes against its twin
    (phase 3's rules; K2 on 4096 sampled rows; the aggregation on the CLI
-   legs' ~78k ref keypoints; the SPFH pass also at the FPFH cell's radius
+   legs' ~78k ref keypoints; IS at leg 3's ICP shape; the SPFH pass also at the FPFH cell's radius
    3.0, cell 1.5; SG on those keypoints over the ref's 0.3 support, the
    SHOT cells' shapes, at 3.0 and bi-scale at 9.0 / 3.0); the voxel sums with a voxel
    of 10^5 and of 10^6 points bit-identical to the CPU's;
@@ -172,8 +177,9 @@ and K6 in the place of SG and the SPFH pass kernel
 (``run_kernels_in_place``), and holds them to the same bounds.
 Phases 4–9 and 12 run cold, then measured, each accepted within the same
 bounds; every SHOT window route launches SG once a cloud (no K8, no K1),
-FPFH's window route the SPFH pass kernel once a cloud, and every ICP K7's
-1-NN mode.
+FPFH's window route the SPFH pass kernel once a cloud, and every
+one-device point-to-plane ICP on a grid IS (the mesh's sharded ICP keeps
+K7's 1-NN mode).
 ``--bits-against LIB`` also holds K1's and K5's phase-3 outputs equal, bit
 for bit, to those of another build's library and times each alone under
 both builds in turns.
@@ -295,6 +301,16 @@ SG_PLAIN_CHUNK = 1024
 SG_SCALE_SUPPORT, SG_SCALE_KP_MIN = 0.3, 5
 SG_SCALE_RADIUS, SG_SCALE_BI_RADIUS, SG_SCALE_PLAIN_ROWS = 3.0, 9.0, 4096
 NN_KERNEL, AGG_KERNEL = "nearest_kernel", "fpfh_aggregate_kernel"
+# ICP's iteration kernel (csrc/icp_step.cu): its C entry point and kernel;
+# its work a point besides the walk (the move 18, the cross product and h
+# 17, the 29 sums 84)
+IS, IS_KERNEL = "icp_step", "icp_step_kernel"
+OPS_ICP_POINT = 120
+# IS against its plain twin (the same inputs, float32 sums in another
+# order): the RMS after each of the first ICP_RULE_ITERS iterations within
+# ICP_RMS_RTOL relative, the transform after them within ICP_ROT_TOL rad and
+# ICP_T_TOL
+ICP_RULE_ITERS, ICP_RMS_RTOL, ICP_ROT_TOL, ICP_T_TOL = 4, 1e-5, 1e-6, 1e-5
 # K7's FPFH aggregation mode against its twin, whose einsum sums in no
 # defined order: every row within AGG_ROW_RTOL of its largest entry (at
 # least 1), the counts and every row with no neighbor (the keypoint's own
@@ -306,33 +322,33 @@ AGG_ROW_RTOL = 1e-5
 AGG_MATCH_AGREE = 0.99
 
 # each path and the kernels its measured run must launch (and must not):
-# SHOT's window route runs SG once a cloud (no K8, no K1), every ICP's grid
-# 1-NN runs K7's 1-NN mode; FPFH's SPFH pass runs its kernel once a cloud on the window
+# SHOT's window route runs SG once a cloud (no K8, no K1), every ICP IS and
+# the evaluation's grid 1-NN K7's 1-NN mode; FPFH's SPFH pass runs its kernel once a cloud on the window
 # route (no K8, no K4) and K6 on the run route; its aggregation runs K7's
 # aggregation mode (one launch a cloud) and no K7 window; the iterative
 # keypoints run K7's window
 WINDOW, K7, NN, AGG = "fetch_windows", "radius_dist", "nearest", "fpfh_aggregate"
-SHOT_PATH = (SG, "top2_match", "radius_pca", NN)
+SHOT_PATH = (SG, "top2_match", "radius_pca", IS, NN)
 # SHOT's window route on a grid with a cell table: SG alone, no K8 + K1
 SHOT_WINDOW_NOT = ("shot_binning_histogram", WINDOW)
-FPFH_WINDOW_PATH = ("top2_match", "radius_pca", SPFH_PASS, AGG, NN)
+FPFH_WINDOW_PATH = ("top2_match", "radius_pca", SPFH_PASS, AGG, IS, NN)
 FPFH_WINDOW_NOT = ("spfh_runs", "spfh_histogram", WINDOW, K7)
-FPFH_RUN_PATH = ("top2_match", "radius_pca", "spfh_runs", AGG, NN)
+FPFH_RUN_PATH = ("top2_match", "radius_pca", "spfh_runs", AGG, IS, NN)
 # the FPFH paths' aggregation launches: one a cloud
 FPFH_AGG_LAUNCHES = 2
-SHOT_RUN_PATH = ("shot_runs", "top2_match", "radius_pca", NN)
-MULTISCALE_PATH = (SG, "top2_match", NN)
-ITERATIVE_PATH = (K7, NN, SG, "top2_match", "radius_pca")
-# the SHOT path's 1-NN launches: one an ICP iteration (50: the threshold
-# 1e-3 lies under the pair's RMS floor) and one for the evaluation's
-# overlap (its keypoint inlier ratio takes the brute route)
-SHOT_NN_LAUNCHES = 51
+SHOT_RUN_PATH = ("shot_runs", "top2_match", "radius_pca", IS, NN)
+MULTISCALE_PATH = (SG, "top2_match", IS, NN)
+ITERATIVE_PATH = (K7, NN, IS, SG, "top2_match", "radius_pca")
+# the SHOT path's IS launches, one an ICP iteration (50: the threshold 1e-3
+# lies under the pair's RMS floor), and 1-NN launches, one for the
+# evaluation's overlap (its keypoint inlier ratio takes the brute route)
+SHOT_IS_LAUNCHES, SHOT_NN_LAUNCHES = 50, 1
 
 # phase 12: the fused program's keypoints (the CLI's fused set-up) and the
 # kernels each of its runs must launch: its SHOT grid (cell = radius, halo
 # 1) takes SG or K5, its FPFH grid the SPFH pass kernel and K7's
 # aggregation mode; K2 once, in f32;
-# K3 in the CLI's normals; K7's 1-NN mode in ICP
+# K3 in the CLI's normals; IS in ICP
 FUSED_FLAGS = ["--selection_algorithm", "subsampling", "--neighborhood_size",
                str(KEYPOINT_VOXEL)]
 FUSED_SHOT_CELL = 0.9
@@ -1917,8 +1933,9 @@ def _kernel_label(name: str) -> str:
 
 def icp_iteration_kernels(grid, scan_sub, ref, ref_n, init) -> None:
     """The CUDA kernels one point-to-plane ICP iteration launches on the
-    ref's 1-NN grid (``icp_loop`` with ``max_iter`` 1), by name, from
-    ``torch.profiler``."""
+    ref's 1-NN grid (``icp_loop`` with ``max_iter`` 1, its state set up
+    included), by name, from ``torch.profiler``: one IS, no 1-NN kernel and
+    no K7 window."""
     from collections import Counter
 
     import torch
@@ -1937,12 +1954,102 @@ def icp_iteration_kernels(grid, scan_sub, ref, ref_n, init) -> None:
         torch.cuda.synchronize()
     names = Counter(_kernel_label(e.name) for e in prof.events()
                     if e.device_type == DeviceType.CUDA)
-    check(names.get(NN_KERNEL, 0) == 1,
-          f"one ICP iteration launched {names.get(NN_KERNEL, 0)} 1-NN kernels: {dict(names)}")
-    check(names.get(K7_KERNEL, 0) == 0, f"one ICP iteration launched K7's window: {dict(names)}")
+    check(names.get(IS_KERNEL, 0) == 1,
+          f"one ICP iteration launched {names.get(IS_KERNEL, 0)} IS kernels: {dict(names)}")
+    check(names.get(NN_KERNEL, 0) == 0 and names.get(K7_KERNEL, 0) == 0,
+          f"one ICP iteration launched a 1-NN kernel or K7's window: {dict(names)}")
     print(f"phase 3 one ICP iteration (point-to-plane, {scan_sub.shape[0]} points, "
           f"icp_loop max_iter 1): {sum(names.values())} operations on the card: "
           + ", ".join(f"{k} {v}" for k, v in names.most_common()), flush=True)
+
+
+def twin_icp(grid, scan_sub, ref, ref_n, init, d_max: float, iters: int,
+             rms_threshold: float = 0.0):
+    """ICP's plain twin on the card: ``registration/icp.py::_step`` (K7's
+    1-NN mode and PyTorch operations) from ``init``, ``iters`` times or,
+    with a threshold, until ``done`` (read after every iteration);
+    ``(i, rotation, translation, rms, done)``."""
+    import torch
+
+    from shot_fpfh_tpu_torch.registration import icp
+
+    dev = scan_sub.device
+    state = (torch.zeros((), dtype=torch.int32, device=dev), init.rotation, init.translation,
+             torch.full((), float("inf"), device=dev),
+             torch.zeros((), dtype=torch.bool, device=dev))
+    for _ in range(iters):
+        state = icp._step(state, scan_sub, ref, ref_n, d_max, rms_threshold, grid, None, None)
+        if rms_threshold > 0 and bool(state[4]):
+            break
+    return state
+
+
+def rotation_gap(a, b) -> float:
+    """The angle between two rotations from their difference, in float64:
+    ``2·asin(‖a − b‖_F / 2√2)`` (a float32 trace would blur it to ~1e-4)."""
+    import torch
+
+    diff = float(torch.linalg.norm((a.double() - b.double()).cpu()))
+    return 2.0 * float(np.arcsin(min(1.0, diff / (2.0 * np.sqrt(2.0)))))
+
+
+def icp_rule(label: str, grid, scan_sub, ref, ref_n, init, d_max: float) -> tuple[float, float]:
+    """IS's loop held to its twin's on the same inputs: after each of the
+    first ICP_RULE_ITERS iterations the RMS within ICP_RMS_RTOL relative,
+    after the last the rotation within ICP_ROT_TOL rad and the translation
+    within ICP_T_TOL; returns the largest relative RMS gap and rotation
+    gap."""
+    from shot_fpfh_tpu_torch.registration import icp
+
+    rms_gap = rot_gap = t_gap = 0.0
+    for k in range(1, ICP_RULE_ITERS + 1):
+        got = icp.icp_loop(scan_sub, ref, ref_n, init, d_max, k, 0.0, grid=grid)
+        want = twin_icp(grid, scan_sub, ref, ref_n, init, d_max, k)
+        check(int(got.n_iters) == int(want[0]) == k, f"IS ({label}): {int(got.n_iters)} "
+              f"iterations, the twin {int(want[0])}, not {k}")
+        rms_gap = max(rms_gap, abs(float(got.rms) - float(want[3])) / float(want[3]))
+        rot_gap = rotation_gap(got.transform.rotation, want[1])
+        t_gap = float((got.transform.translation - want[2]).abs().max())
+    check(rms_gap <= ICP_RMS_RTOL and rot_gap <= ICP_ROT_TOL and t_gap <= ICP_T_TOL,
+          f"IS ({label}) against its twin: RMS {rms_gap:.3e} relative, rotation {rot_gap:.3e} "
+          f"rad, translation {t_gap:.3e}")
+    return rms_gap, rot_gap
+
+
+def parity_icp_step(label: str, grid, scan_sub, ref, ref_n, init, d_max: float,
+                    prefix: str = "phase 3", reps: int = 10) -> dict:
+    """IS at an ICP shape: held to its twin by :func:`icp_rule`; timed alone
+    (the kernel, from the profiler) and in its loop (50 iterations, no
+    threshold, ``done`` read once a block, over 50), beside the twin's
+    iteration (``_step`` 50 times with no read, over 50) and the 1-NN
+    kernel alone at the first iteration's queries; bound: K7's 1-NN mode's
+    (the table's xyz, the cell-start table, ``orig_idx`` and the scan read
+    once, a distance test for every row of the windows), the ref's points
+    and normals read once and OPS_ICP_POINT operations a point."""
+    from shot_fpfh_tpu_torch.ops.radius_runs import nearest
+    from shot_fpfh_tpu_torch.registration import icp
+
+    rms_gap, rot_gap = icp_rule(label, grid, scan_sub, ref, ref_n, init, d_max)
+    n_iters = 50
+    loop = lambda: icp.icp_loop(scan_sub, ref, ref_n, init, d_max, n_iters, 0.0, grid=grid)
+    twin = lambda: twin_icp(grid, scan_sub, ref, ref_n, init, d_max, n_iters)
+    ms = cuda_ms(loop, reps) / n_iters
+    alone = kernel_ms(loop, IS_KERNEL, 1)
+    plain_ms = cuda_ms(twin, reps) / n_iters
+    moved = init.apply(scan_sub)
+    nn_alone = kernel_ms(lambda: nearest(grid, moved), NN_KERNEL, reps)
+    _, rows, _ = _runs_case(grid, moved)
+    q, n = scan_sub.shape[0], grid.packed_sorted.shape[0]
+    b = bound(n * 12 + grid.cell_starts.numel() * 8 + n * 8 + n * 24 + q * 12,
+              rows * OPS_DIST_TEST + q * OPS_ICP_POINT)
+    print(f"{prefix} IS icp_step ({label}): {q} points, window cap {grid.window_cap}, halo "
+          f"{grid.halo}, {rows / q:.0f} rows a point: against its twin over "
+          f"{ICP_RULE_ITERS} iterations RMS within {rms_gap:.3e} relative, rotation "
+          f"{rot_gap:.3e} rad; an iteration in its loop {ms:.4f} ms (alone {alone:.4f} ms; "
+          f"the 1-NN kernel alone at the same queries {nn_alone:.4f} ms), the twin's "
+          f"iteration {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})",
+          flush=True)
+    return dict(max_abs_err=rot_gap, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
 
 
 def feature_queries(pair) -> np.ndarray:
@@ -1950,15 +2057,16 @@ def feature_queries(pair) -> np.ndarray:
     return pair.ref[::pair.ref.shape[0] // FEATURE_QUERIES][:FEATURE_QUERIES]
 
 
-def parity_pair_paths(pair, dev) -> tuple[dict, dict, dict]:
+def parity_pair_paths(pair, dev) -> tuple[dict, dict, dict, dict]:
     """K7 at its two paths' shapes on the smoke pair: the iterative path's
     search (every ref point on the halo-2 grid of cell 0.15, radius 0.3) and
     the ICP's 1-NN (the scan subsampled at voxel 0.2, moved onto the ref,
     against the ref's grid of cell d_max, radius +inf); K7's 1-NN mode at
-    the ICP's shape and on the iterative grid, and the kernels of one ICP
-    iteration; and K8 at the PCA features' (phase 10's queries on the ref's
-    halo-2 grid of cell 0.15, three columns: no normals).  Returns K7's,
-    K8's and the 1-NN mode's records (the latter at the ICP's shape)."""
+    the ICP's shape and on the iterative grid, IS at the ICP's shape (from
+    the exact motion) and the kernels of one ICP iteration; and K8 at the
+    PCA features' (phase 10's queries on the ref's halo-2 grid of cell
+    0.15, three columns: no normals).  Returns K7's, K8's, the 1-NN mode's
+    and IS's records (the latter two at the ICP's shape)."""
     import torch
 
     from shot_fpfh_tpu_torch.core.subsampling import grid_subsample
@@ -1978,11 +2086,13 @@ def parity_pair_paths(pair, dev) -> tuple[dict, dict, dict]:
     icp_grid = build_grid(ref, ICP_D_MAX)
     parity_k7("ICP 1-NN", icp_grid, moved, float("inf"))
     nn = parity_nearest("ICP", icp_grid, moved)
-    icp_iteration_kernels(icp_grid, sub, ref, compute_normals(ref, ref, k=30, device=dev),
-                          RigidTransform(rot.T.contiguous(), -(trans @ rot)))
+    ref_n = compute_normals(ref, ref, k=30, device=dev)
+    exact = RigidTransform(rot.T.contiguous(), -(trans @ rot))
+    is_rec = parity_icp_step("ICP", icp_grid, sub, ref, ref_n, exact, ICP_D_MAX)
+    icp_iteration_kernels(icp_grid, sub, ref, ref_n, exact)
     k8 = parity_k8("the PCA features", build_grid(ref, FEATURE_RADIUS / 2, halo=2),
                    torch.tensor(feature_queries(pair), device=dev))
-    return k7, k8, nn
+    return k7, k8, nn, is_rec
 
 
 class _LogLines(logging.Handler):
@@ -2179,9 +2289,10 @@ def phase_shot_path(pair: SmokePair, profile_dir: Path | None = None) -> dict:
     from shot_fpfh_tpu_torch import cli
 
     r = pair.run("SHOT path", [], SHOT_PATH, (K7, *SHOT_WINDOW_NOT))
-    check(r["launches"][NN] == SHOT_NN_LAUNCHES,
-          f"SHOT path: {r['launches'][NN]} 1-NN launches, not {SHOT_NN_LAUNCHES} (one an ICP "
-          "iteration, one for the evaluation)")
+    check(r["launches"][IS] == SHOT_IS_LAUNCHES and r["launches"][NN] == SHOT_NN_LAUNCHES,
+          f"SHOT path: {r['launches'][IS]} IS and {r['launches'][NN]} 1-NN launches, not "
+          f"{SHOT_IS_LAUNCHES} (one an ICP iteration) and {SHOT_NN_LAUNCHES} (the "
+          "evaluation)")
     profiled = ""
     if profile_dir is not None:
         # a third run under the profiler, so its overhead stays out of the
@@ -2963,7 +3074,8 @@ def phase_mesh_one_rank(pair: SmokePair) -> dict:
             (want.transform.rotation, want.transform.translation, want.rms.cpu()))
 
     tf, rms, conv, n_iters = stage(
-        f"ICP point-to-plane, {scan_sub.shape[0]} points, K7's 1-NN mode on the ref's grid",
+        f"ICP point-to-plane, {scan_sub.shape[0]} points, on the ref's grid (the mesh: _step "
+        "with K7's 1-NN mode; one device: IS)",
         lambda: sharded.sharded_icp(scan_sub, ref, ref_n, init, mesh, d_max=ICP_D_MAX,
                                     max_iter=50, rms_threshold=1e-3),
         lambda: icp.icp_loop(scan_sub, ref, ref_n, init, ICP_D_MAX, 50, 1e-3,
@@ -3036,10 +3148,14 @@ def phase_fused_mesh_one_rank(cases: dict) -> dict:
              want.ransac_inlier_ratio, want.icp_transform.rotation,
              want.icp_transform.translation, want.icp_rms))
         check(close is True, f"phase 15 {label}: RANSAC / ICP differ from one device's {close}")
-        check(mesh_launches == one_launches,
+        # ICP: one device runs IS, the mesh its plain step (K7's 1-NN mode)
+        # under the summed statistics, one launch an iteration each
+        icp_ok = one_launches.get(IS, 0) == mesh_launches.get(NN, 0) > 0
+        rest = {k: v for k, v in one_launches.items() if k not in (IS, NN)}
+        check(icp_ok and rest == {k: v for k, v in mesh_launches.items() if k not in (IS, NN)},
               f"phase 15 {label}: launches {mesh_launches}, one device {one_launches}")
         for name in must:
-            if name != "radius_pca":    # K3 runs in the CLI's normals, outside the program
+            if name not in ("radius_pca", IS):    # K3: the CLI's normals; IS: one device's
                 check(mesh_launches.get(name, 0) > 0, f"phase 15 {label}: never launched {name}")
         if AGG in must:
             agg_launches(f"phase 15 {label}", {k: mesh_launches.get(k, 0) for k in (AGG, K7)})
@@ -3050,7 +3166,8 @@ def phase_fused_mesh_one_rank(cases: dict) -> dict:
     dist.destroy_process_group()
     print(f"phase 15 fused program over a 1-rank NCCL group ({mesh.device}, first collective "
           f"{setup_ms:.1f} ms): equal to one device through matching, RANSAC and ICP within "
-          f"{MESH_SUM_ATOL}, the same launches; " + "; ".join(lines), flush=True)
+          f"{MESH_SUM_ATOL}, the same launches (IS's on one device as the 1-NN's under the "
+          "mesh); " + "; ".join(lines), flush=True)
     return launches
 
 
@@ -3341,18 +3458,23 @@ def _leg_line(label: str, rec: dict, extra: str = "") -> None:
 
 
 def _icp_nn_launches(label: str, r: dict, max_iter: int, keypoint_grid: bool) -> None:
-    """A CLI run's 1-NN launches: one an ICP iteration issued (the stage
+    """A CLI run's IS launches, one an ICP iteration issued (the stage
     timer's count, rounded up to the loop's block of ICP_BLOCK and capped
-    at ``max_iter``) and one for the evaluation's overlap (the 10^6-point
-    ref), plus one for its keypoint inliers when the ref keypoints are at
-    least AUTO_GRID_MIN_POINTS (``keypoint_grid``: ~78k at voxel 0.15,
-    ~2k at 0.9, which take the brute route)."""
+    at ``max_iter``; the stage's ``icp_kernel_iters`` too), and its 1-NN
+    launches: one for the evaluation's overlap (the 10^6-point ref), plus
+    one for its keypoint inliers when the ref keypoints are at least
+    AUTO_GRID_MIN_POINTS (``keypoint_grid``: ~78k at voxel 0.15, ~2k at
+    0.9, which take the brute route)."""
     from shot_fpfh_tpu_torch.registration.icp import ICP_BLOCK
 
-    iters = next(s["iterations"] for s in r["stages"] if s["stage"].startswith("icp"))
+    stage = next(s for s in r["stages"] if s["stage"].startswith("icp"))
+    iters = stage["iterations"]
     issued = min(max_iter, -(-iters // ICP_BLOCK) * ICP_BLOCK)
-    check(r["launches"][NN] == issued + 1 + keypoint_grid,
-          f"{label}: {r['launches'][NN]} 1-NN launches for {iters} ICP iterations")
+    check(r["launches"][IS] == stage["icp_kernel_iters"] == issued,
+          f"{label}: {r['launches'][IS]} IS launches ({stage['icp_kernel_iters']} counted) for "
+          f"{iters} ICP iterations")
+    check(r["launches"][NN] == 1 + keypoint_grid,
+          f"{label}: {r['launches'][NN]} 1-NN launches outside ICP")
 
 
 def k6_rows(grid, rows: int, radius: float, reps: int) -> dict:
@@ -3643,8 +3765,10 @@ def phase_at_scale(dev) -> dict:
     sub = scan_s[torch.as_tensor(grid_subsample(scan_s, SCALE_ICP["voxel_size"]), device=dev)]
     moved = sub @ torch.tensor(r_s.T, dtype=torch.float32, device=dev) + torch.tensor(
         t_s, dtype=torch.float32, device=dev)
-    kernels["nearest"] = parity_nearest("leg 3's ICP", nn_grid(ref, SCALE_ICP["d_max"]), moved,
-                                        prefix, reps)
+    icp_grid = nn_grid(ref, SCALE_ICP["d_max"])
+    kernels["nearest"] = parity_nearest("leg 3's ICP", icp_grid, moved, prefix, reps)
+    kernels[IS] = parity_icp_step("leg 3's ICP, from the identity", icp_grid, sub, ref, normals,
+                                  ident, SCALE_ICP["d_max"], prefix, reps)
     kernels["top2_match"] = k2_sampled(a, b, np.random.default_rng(SCALE_LOWE_SEED + 1), reps)
     for name, r in kernels.items():
         print(f"{prefix} kernel {name}: ms {r['ms']:.4f}, plain {r['plain_ms']:.4f}, bound "
@@ -3892,7 +4016,7 @@ def main(argv=None) -> int:
     del grid
     voxel_sums(dev, rng)
     pair = SmokePair()
-    k7, k8_features, nn = parity_pair_paths(pair, dev)
+    k7, k8_features, nn, is_rec = parity_pair_paths(pair, dev)
     agg = parity_pair_aggregate(pair, dev)
     parity_fused_shapes(pair, dev)
     k8["max_abs_err"] = max(r["max_abs_err"] for r in (k8, k8_features, *k8_more))
@@ -3939,6 +4063,8 @@ def main(argv=None) -> int:
                         "shot_fpfh_tpu/ops/pallas_radius.py:497", k7, "iterative"),
         "nearest": ("shot_fpfh_tpu_torch/csrc/nearest.cu",
                     "shot_fpfh_tpu/ops/pallas_radius.py:497", nn, "SHOT"),
+        IS: ("shot_fpfh_tpu_torch/csrc/icp_step.cu",
+             "none (shot_fpfh_tpu/registration/icp.py _icp_loop's body, XLA)", is_rec, "SHOT"),
         AGG: ("shot_fpfh_tpu_torch/csrc/fpfh_aggregate.cu",
               "shot_fpfh_tpu/ops/pallas_radius.py:497", agg, "FPFH window"),
         "fetch_windows": ("shot_fpfh_tpu_torch/csrc/radius_runs.cu",

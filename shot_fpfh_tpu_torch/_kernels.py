@@ -71,6 +71,8 @@ _SIGNATURES = {
     "fetch_windows": [_P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     "radius_dist": [_P, _I, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P],
     "nearest": [_P, _I, _P, _P, _P, _F, _L, _L, _L, _I, _I, _P, _I, _I, _P, _P, _P],
+    "icp_step": [_P, _I, _P, _P, _P, _F, _L, _L, _L, _I, _I, _P, _P, _P, _P, _I, _I, _F, _F, _P,
+                 _P, _P, _I, _P],
     "fpfh_aggregate": [_P, _I, _P, _P, _F, _L, _L, _L, _I, _I, _P, _I, _P, _P, _I, _F, _P, _P,
                        _P],
 }

@@ -1,56 +1,27 @@
 // K7's 1-NN mode: each query's nearest grid row, found and reduced inside
 // one kernel.
 //
-// Computes, for the grid 1-NN of ICP and of the evaluation's frac_within,
-// what shot_fpfh_tpu/ops/grid_hash.py::grid_nearest_neighbor computes in
-// XLA (the grouped window fetch, then an argmin over the (Q, W) window in
-// 2,048-query chunks), and what the port had run as K7
+// Computes, for the grid 1-NN of the evaluation's frac_within (and of
+// ICP's plain loop), what shot_fpfh_tpu/ops/grid_hash.py::grid_nearest_neighbor
+// computes in XLA (the grouped window fetch, then an argmin over the (Q, W)
+// window in 2,048-query chunks), and what the port had run as K7
 // (radius_dist_kernel at radius +inf, pallas_radius.py:497's kernel)
 // writing a (Q, W) plane of rows and distances, then a min and two
-// gathers, in chunks of 6,700 queries.  Here
-// one launch takes every query and writes only (dist, orig_idx of the
-// nearest row): for each query, inside the kernel,
-//   - its cell, floor((q − origin) / cell_size) with one IEEE division
-//     (runs::query_cell, as grid_hash._query_cells);
-//   - its (2h+1)² z-column runs from the grid's cell-start table, with the
-//     clamps and empty-run rules of grid_hash._zcolumn_runs
-//     (runs::zcolumn_run);
-//   - the runs walked in window order: slot j is the j-th row of the runs
-//     concatenated (at most the grid's window cap, as the window was), its
-//     distance sqrtf(fmaf(dz, dz, fmaf(dy, dy, dx * dx))), built -fmad=false
-//     like K7's, so every distance equals K7's bit for bit;
-//   - the minimum, the lowest slot winning a tie (JAX's argmin, torch's
-//     min); no finite distance (an empty window, a NaN query) gives +inf and
-//     slot 0's row, which is what the argmin over an all-inf window row
-//     gives: the first row of the first non-empty run, else row 0.
+// gathers, in chunks of 6,700 queries.  Here one launch takes every query
+// and writes only (dist, orig_idx of the nearest row): each query's walk
+// is nearest.cuh's (shared with ICP's iteration kernel, icp_step.cu).
 //
 // Bound on the H100: the table (100k rows, 1.2 MB at ICP's shape) and the
 // cell-start table stay in the 50 MB L2, and the output is 12 bytes a
 // query, so the kernel is bound by the rate it issues loads and distance
 // tests at, not by HBM.  A group of kLanes lanes serves one query (32 or
-// 8; the wrapper picks from the window cap): one run a lane for the run
-// bounds and a shuffle scan of their lengths, then the lanes stride over
-// the window's slots (a lane's slots rise by kLanes, so its run index only
-// moves forward: no search), reading consecutive rows of a run with
-// consecutive lanes, each keeping its own (distance, slot) minimum; a
-// shuffle reduction of those ends the query.  No (Q, W) plane exists.
+// 8; the wrapper picks from the window cap).  No (Q, W) plane exists.
 
-#include <limits.h>
-
-#include "common.cuh"
-#include "runs.cuh"
+#include "nearest.cuh"
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarps = 8;  // warps a block
-
-// the run of slot j (j below the last run's end): the first run whose end
-// slot is past j, walked forward from run r
-__device__ __forceinline__ int run_at(const int* run_end, int r, int j) {
-  while (run_end[r] <= j) ++r;
-  return r;
-}
 
 template <int kLanes>
 __global__ void __launch_bounds__(32 * kWarps)
@@ -78,66 +49,16 @@ nearest_kernel(const float* __restrict__ table, int stride,
                  group * n_runs;
 
   float qx = 0.f, qy = 0.f, qz = 0.f;
-  long long cell[3] = {0, 0, 0};
   if (live) {
     qx = queries[3 * qi];
     qy = queries[3 * qi + 1];
     qz = queries[3 * qi + 2];
-    runs::query_cell(origin, cell_size, qx, qy, qz, cell);
   }
-
-  // the runs: start rows, and the window slot each one ends at (clamped to w)
-  int filled = 0;  // slots of the runs scanned so far, at most w
-  for (int r0 = 0; r0 < n_runs; r0 += kLanes) {
-    const int r = r0 + sub;
-    long long s = 0, e = 0;
-    if (live && r < n_runs) runs::zcolumn_run(cell_starts, d0, d1, d2, halo, cell, r, s, e);
-    long long incl = e - s;
-#pragma unroll
-    for (int d = 1; d < kLanes; d <<= 1) {
-      const long long t = __shfl_up_sync(kFull, incl, d, kLanes);
-      if (sub >= d) incl += t;
-    }
-    if (r < n_runs) {
-      run_start[r] = s;
-      run_end[r] = (int)min((long long)filled + incl, (long long)w);
-    }
-    filled = (int)min((long long)filled + __shfl_sync(kFull, incl, kLanes - 1, kLanes),
-                      (long long)w);
-  }
-  __syncwarp();
-
-  // this lane's slots, sub, sub + kLanes, ...: its (distance, slot) minimum
-  float best = __int_as_float(0x7f800000);
-  int best_slot = INT_MAX;  // none finite yet
-  int r = 0;
-  for (int j = sub; j < filled; j += kLanes) {
-    r = run_at(run_end, r, j);
-    const long long row = run_start[r] + (j - (r > 0 ? run_end[r - 1] : 0));
-    const float* p = table + row * stride;
-    const float dx = __ldg(p) - qx, dy = __ldg(p + 1) - qy, dz = __ldg(p + 2) - qz;
-    const float d = sqrtf(fmaf(dz, dz, fmaf(dy, dy, dx * dx)));
-    if (d < best) {  // a NaN never wins; a later slot of this lane wins no tie
-      best = d;
-      best_slot = j;
-    }
-  }
-#pragma unroll
-  for (int off = kLanes / 2; off > 0; off >>= 1) {
-    const float other = __shfl_xor_sync(kFull, best, off, kLanes);
-    const int other_slot = __shfl_xor_sync(kFull, best_slot, off, kLanes);
-    if (other < best || (other == best && other_slot < best_slot)) {
-      best = other;
-      best_slot = other_slot;
-    }
-  }
+  float best;
+  long long row;
+  nn::nearest_row<kLanes>(table, stride, cell_starts, origin, cell_size, d0, d1, d2, halo, w,
+                          live, qx, qy, qz, run_start, run_end, best, row);
   if (!live || sub != 0) return;
-  if (best_slot == INT_MAX) best_slot = 0;  // the argmin of an all-inf row
-  long long row = 0;                        // an empty window's slot 0
-  if (best_slot < filled) {
-    const int rb = run_at(run_end, 0, best_slot);
-    row = run_start[rb] + (best_slot - (rb > 0 ? run_end[rb - 1] : 0));
-  }
   dist[qi] = best;
   idx[qi] = orig_idx[row];
 }
@@ -145,7 +66,7 @@ nearest_kernel(const float* __restrict__ table, int stride,
 // dynamic shared memory a block: each group's run starts and end slots
 template <int kLanes>
 size_t nearest_smem(int n_runs) {
-  return (size_t)kWarps * (32 / kLanes) * n_runs * (sizeof(long long) + sizeof(int));
+  return (size_t)kWarps * (32 / kLanes) * nn::group_smem(n_runs);
 }
 
 template <int kLanes>

@@ -1,5 +1,5 @@
 // A query's runs of the grid, shared by K5 (shot_runs.cu), K6
-// (spfh_runs.cu) and K7's 1-NN mode (nearest.cu): its cell, and the runs of
+// (spfh_runs.cu) and K7's 1-NN walk (nearest.cuh): its cell, and the runs of
 // the cell-sorted table that hold every point within halo·cell_size of it,
 // with the arithmetic of ops/grid_hash.py::_query_cells and of
 // ops/shot_dma.py::_xyrow_runs (2h+1 xy-row runs: K5, K6) or

@@ -13,9 +13,14 @@ The loop's state lives on the device (:func:`icp_loop`, JAX's ``_icp_loop``
 ``lax.while_loop``): an iteration after ``done`` leaves it unchanged, so the
 host enqueues ``ICP_BLOCK`` iterations at a time and reads ``done`` once a
 block.  The staged ICP and the fused program (``registration.fused``) run
-this one loop.  :func:`icp_point_to_point_with_sampling` is the reference's
-legacy variant: each iteration aligns a fresh random subset and moves the
-whole cloud.
+this one loop.  Where its inputs allow (CUDA tensors, a grid with a
+cell-start table, point-to-plane, one device's sums) an iteration is one
+launch of IS (``csrc/icp_step.cu``: the move, the 1-NN walk, the normal
+equations, the 6x6 solve and the composition on the card); every other
+case runs :func:`_step`, its plain twin.
+:func:`icp_point_to_point_with_sampling` is the reference's legacy
+variant: each iteration aligns a fresh random subset and moves the whole
+cloud.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import _kernels
 from .._device import resolve
 from ..core.solvers import (
     point_to_plane_normal_eq,
@@ -37,12 +43,18 @@ from ..core.subsampling import grid_subsample
 from ..core.transform import RigidTransform
 from ..ops.grid_hash import AUTO_GRID_MIN_POINTS, build_grid, grid_nearest_neighbor
 from ..ops.neighbors import as_f32, nearest_neighbor
-from ..utils.perf import blocking, span, uploading
+from ..ops.radius_runs import nearest_lanes
+from ..utils.perf import add_counts, blocking, span, uploading
 
 # iterations enqueued between two host reads of ``done``: a converged loop
 # runs at most ICP_BLOCK - 1 no-op iterations, and a 50-iteration loop
 # waits on the card 7 times instead of 50
 ICP_BLOCK = 8
+# IS's grid: this many blocks an SM (as many as its launch bounds keep
+# resident), whatever the point count, so a point's place in the float32
+# sums depends on its index alone (zero-weight rows appended change no bit)
+# and the launch's last block adds a few hundred partial rows
+_IS_BLOCKS_PER_SM = 6
 
 
 class IcpResult(NamedTuple):
@@ -116,26 +128,88 @@ def icp_loop(scan_sub, ref, ref_normals, init: RigidTransform, d_max: float, max
     iteration.  Iterates while fewer than ``max_iter`` ran and the last RMS
     was not below ``rms_threshold``; the state stays on the device and the
     host reads ``done`` once every ``ICP_BLOCK`` iterations."""
-    dev = scan_sub.device
-    state = (torch.zeros((), dtype=torch.int32, device=dev),
-             init.rotation.to(device=dev, dtype=torch.float32),
-             init.translation.to(device=dev, dtype=torch.float32),
-             torch.full((), float("inf"), dtype=torch.float32, device=dev),
-             torch.zeros((), dtype=torch.bool, device=dev))
+    on_card = _takes_kernel(scan_sub, ref_normals, grid, reduce)
+    if on_card:
+        state, step = _kernel_step(scan_sub, ref, ref_normals, init, d_max, rms_threshold, grid,
+                                   weights)
+    else:
+        dev = scan_sub.device
+        state = (torch.zeros((), dtype=torch.int32, device=dev),
+                 init.rotation.to(device=dev, dtype=torch.float32),
+                 init.translation.to(device=dev, dtype=torch.float32),
+                 torch.full((), float("inf"), dtype=torch.float32, device=dev),
+                 torch.zeros((), dtype=torch.bool, device=dev))
+
+        def step(s):
+            return _step(s, scan_sub, ref, ref_normals, d_max, rms_threshold, grid, weights,
+                         reduce)
     issued = 0
     while issued < max_iter:
         block = min(ICP_BLOCK, max_iter - issued)
         with span("icp.block"):
             for _ in range(block):
-                state = _step(state, scan_sub, ref, ref_normals, d_max, rms_threshold, grid,
-                              weights, reduce)
+                state = step(state)
             issued += block
+            add_counts(icp_kernel_iters=block if on_card else 0)
             with blocking("icp.done"):
                 done = bool(state[4])
         if done:
             break
     i, rot, t, rms, done = state
-    return IcpResult(RigidTransform(rot, t), rms, done, i)
+    return IcpResult(RigidTransform(rot, t), rms, done.bool(), i)
+
+
+def _takes_kernel(scan_sub, ref_normals, grid, reduce) -> bool:
+    """Whether IS runs the loop: CUDA tensors, a grid with a cell-start
+    table, point-to-plane (``ref_normals``) and one device's sums (no
+    ``reduce``); :func:`_step` in every other case."""
+    return (scan_sub.is_cuda and grid is not None and grid.has_table
+            and ref_normals is not None and reduce is None)
+
+
+def _kernel_step(scan_sub, ref, ref_normals, init: RigidTransform, d_max: float,
+                 rms_threshold: float, grid, weights):
+    """IS's loop: ``(state, step)``, the state ``(i, rotation, translation,
+    rms, done)`` as views of the two device buffers the kernel updates in
+    place (``done`` int32), and ``step(state)``, one launch of IS, which
+    returns it.  Every buffer is allocated here, once a loop."""
+    dev = _kernels.require_cuda(scan_sub, ref, ref_normals, grid.packed_sorted, grid.orig_idx,
+                                grid.cell_starts, grid.origin)
+    q, n = scan_sub.shape[0], ref.shape[0]
+    for name, t, shape in (("scan_sub", scan_sub, (q, 3)), ("ref", ref, (n, 3)),
+                           ("ref_normals", ref_normals, (n, 3))):
+        if t.dtype != torch.float32 or t.shape != shape:
+            raise ValueError(f"{name} must be {shape} float32, got {tuple(t.shape)} {t.dtype}")
+    table = grid.packed_sorted
+    if table.dtype != torch.float32 or table.dim() != 2 or table.shape[1] < 3:
+        raise ValueError(f"the grid's table must be (N, >=3) float32, got {tuple(table.shape)}")
+    if weights is not None:
+        weights = weights.to(device=dev, dtype=torch.float32).contiguous()
+        if weights.shape != (q,):
+            raise ValueError(f"weights must be ({q},), got {tuple(weights.shape)}")
+    scan_sub, ref, ref_normals, table = (t.contiguous()
+                                         for t in (scan_sub, ref, ref_normals, table))
+    fstate = torch.cat([init.rotation.to(device=dev, dtype=torch.float32).reshape(9),
+                        init.translation.to(device=dev, dtype=torch.float32).reshape(3),
+                        torch.full((1,), float("inf"), device=dev)])
+    istate = torch.zeros(3, dtype=torch.int32, device=dev)     # i, done, ticket
+    lanes = nearest_lanes(grid.window_cap)
+    blocks = _IS_BLOCKS_PER_SM * torch.cuda.get_device_properties(dev).multi_processor_count
+    partials = torch.empty((blocks, 32), dtype=torch.float32, device=dev)
+    args = (table.data_ptr(), table.shape[1], grid.orig_idx.data_ptr(),
+            grid.cell_starts.data_ptr(), grid.origin.data_ptr(), grid.cell_size, *grid.dims,
+            grid.halo, grid.window_cap, ref.data_ptr(), ref_normals.data_ptr(),
+            scan_sub.data_ptr(), _kernels.ptr(weights), q, lanes, float(d_max),
+            float(rms_threshold), fstate.data_ptr(), istate.data_ptr(), partials.data_ptr(),
+            blocks)
+
+    # the default keeps alive every tensor whose address ``args`` holds
+    def step(state, _held=(table, ref, ref_normals, scan_sub, weights, fstate, istate, partials)):
+        _kernels.launch("icp_step", dev, *args, checked=(fstate,))
+        return state
+
+    state = (istate[0], fstate[:9].view(3, 3), fstate[9:12], fstate[12], istate[1])
+    return state, step
 
 
 def nn_grid(ref: torch.Tensor, d_max: float):

@@ -22,8 +22,10 @@ from chip_smoke import (  # noqa: E402
     aggregate_rule,
     make_terrain,
     rotation_about,
+    rotation_gap,
     run_kernels_in_place,
     scale_terrain,
+    twin_icp,
 )
 from shot_fpfh_tpu_torch import _kernels  # noqa: E402
 from shot_fpfh_tpu_torch.ops import shot_dma  # noqa: E402
@@ -1470,7 +1472,7 @@ def _fused_pair(rng, n=25_000):
 
 
 def test_fused_registration_on_card_matches_cpu(cuda, rng):
-    """``register_pair`` on the card (SG, K2 in f32, K7's 1-NN) against the
+    """``register_pair`` on the card (SG, K2 in f32, ICP's IS) against the
     CPU with the same injected Gumbel noise: the same keypoints, matches
     within the flip rule's reach (1%), ICP transforms within 1e-3 and both
     within 1e-2 of the ground truth."""
@@ -1490,7 +1492,7 @@ def test_fused_registration_on_card_matches_cpu(cuda, rng):
     torch.cuda.synchronize()
     ran = {k: _kernels.launch_counts[k] - before[k] for k in before}
     assert ran["top2_match"] == 1
-    assert all(ran[k] > 0 for k in ("shot_grid", "nearest"))
+    assert all(ran[k] > 0 for k in ("shot_grid", "icp_step"))
     assert ran["shot_binning_histogram"] == 0 and ran["fetch_windows"] == 0
     cpu = fused.register_pair(scan, sn, ref, rn, device="cpu", gumbel=gumbel, **kw)
     np.testing.assert_array_equal(card.scan_keypoint_idx, cpu.scan_keypoint_idx)
@@ -1566,8 +1568,9 @@ def test_point_to_plane_solve_ex_equals_solve_on_card(cuda, rng, monkeypatch):
 def test_icp_loop_reads_the_card_once_a_block(cuda, rng):
     """Point-to-plane ICP on the grid 1-NN: the only host syncs of the loop
     are its reads of ``done``, one every ``ICP_BLOCK`` iterations
-    (``torch.cuda.set_sync_debug_mode("warn")``), and each iteration makes
-    one 1-NN launch (K7's 1-NN mode) and no K7 window."""
+    (``torch.cuda.set_sync_debug_mode("warn")``), and each iteration is one
+    launch of IS (``icp_step``), with no 1-NN launch (K7's 1-NN mode) and
+    no K7 window."""
     import warnings
 
     from shot_fpfh_tpu_torch.registration import icp
@@ -1585,10 +1588,123 @@ def test_icp_loop_reads_the_card_once_a_block(cuda, rng):
             torch.cuda.set_sync_debug_mode(0)
     syncs = [w for w in caught if "called a synchronizing" in str(w.message)]
     assert int(out.n_iters) == 20
-    # one 1-NN launch an iteration, and no K7 window
-    assert _kernels.launch_counts["nearest"] - before["nearest"] == 20
+    # one IS launch an iteration, and no 1-NN or K7 window launch
+    assert _kernels.launch_counts["icp_step"] - before["icp_step"] == 20
+    assert _kernels.launch_counts["nearest"] == before["nearest"]
     assert _kernels.launch_counts["radius_dist"] == before["radius_dist"]
     assert len(syncs) == -(-20 // icp.ICP_BLOCK), [str(w.message) for w in syncs]
+
+
+def _icp_terrain_case(cuda):
+    """ICP's shape in the benchmark's cells: a 10^6-point terrain
+    (``chip_smoke.scale_terrain``) with k=30 normals on the card, its grid
+    of cell 0.5, and the scan (the ref moved 0.01 rad and 0.05, with noise
+    of its own at 0.005, so the RMS floor lies above 1e-3 as in the cells)
+    subsampled at voxel 0.2, started at the identity."""
+    from shot_fpfh_tpu_torch.core.subsampling import grid_subsample
+    from shot_fpfh_tpu_torch.core.transform import RigidTransform
+    from shot_fpfh_tpu_torch.models.normals import compute_normals
+    from shot_fpfh_tpu_torch.registration.icp import nn_grid
+
+    ref_np = scale_terrain(np.random.default_rng(11), 1_000_000)
+    ref = torch.tensor(ref_np, device=cuda)
+    rn = compute_normals(ref, ref, k=30)
+    rot = rotation_about([0.2, -0.4, 1.0], 0.01)
+    noise = np.random.default_rng(12).normal(scale=0.005, size=ref_np.shape)
+    scan = torch.tensor(((ref_np - 0.05) @ rot + noise).astype(np.float32), device=cuda)
+    sub = scan[torch.as_tensor(grid_subsample(scan, 0.2), device=cuda)]
+    return sub, ref, rn, RigidTransform.identity(device=cuda), nn_grid(ref, 0.5), 0.5
+
+
+@pytest.mark.parametrize("shape", ["smoke", "terrain_1m"])
+def test_icp_kernel_matches_its_plain_twin(cuda, rng, shape):
+    """IS (``icp_step``: the whole iteration in one launch) against ``_step``
+    on the same card inputs, at the smoke ICP shape and at the cells' 10^6
+    shape: the RMS after each of iterations 1–4 within 1e-5 relative, and
+    after 30 iterations the same count, the rotation within 1e-6 rad and
+    the translation within 1e-5.  The smoke scan gets noise of its own at
+    0.005, as the cells' scans have: an exact motion drives the RMS to the
+    float32 floor of the residuals (~1e-7) by iteration 4, where neither
+    loop's rounding means anything."""
+    from shot_fpfh_tpu_torch.registration import icp
+
+    if shape == "smoke":
+        sub, ref, rn, init, grid = _icp_case(rng, cuda)
+        sub = sub + torch.tensor(rng.normal(scale=0.005, size=tuple(sub.shape)),
+                                 dtype=torch.float32, device=cuda)
+        d_max = 0.3
+    else:
+        sub, ref, rn, init, grid, d_max = _icp_terrain_case(cuda)
+    for k in range(1, 5):
+        got = icp.icp_loop(sub, ref, rn, init, d_max, k, 0.0, grid=grid)
+        want = twin_icp(grid, sub, ref, rn, init, d_max, k)
+        assert int(got.n_iters) == int(want[0]) == k
+        assert abs(float(got.rms) - float(want[3])) <= 1e-5 * float(want[3]), (k, float(got.rms),
+                                                                              float(want[3]))
+    got = icp.icp_loop(sub, ref, rn, init, d_max, 30, 1e-3, grid=grid)
+    want = twin_icp(grid, sub, ref, rn, init, d_max, 30, 1e-3)
+    assert int(got.n_iters) == int(want[0])
+    assert bool(got.has_converged) == bool(want[4])
+    assert rotation_gap(got.transform.rotation, want[1]) <= 1e-6
+    assert float((got.transform.translation - want[2]).abs().max()) <= 1e-5
+
+
+def test_icp_kernel_stops_mid_block_and_repeats_its_bits(cuda, rng):
+    """A threshold crossed inside a block of ``ICP_BLOCK`` launches: the
+    later launches of the block leave the state as a loop stopped there
+    (``max_iter`` at the crossing) leaves it, bit for bit; two runs give
+    the same bits."""
+    from shot_fpfh_tpu_torch.registration import icp
+
+    sub, ref, rn, init, grid = _icp_case(rng, cuda)
+    args = (sub, ref, rn, init, 0.3)
+    stopped = icp.icp_loop(*args, 3, 0.0, grid=grid)
+    again = icp.icp_loop(*args, 3, 0.0, grid=grid)
+    crossed = icp.icp_loop(*args, 30, float(stopped.rms) * 1.0001, grid=grid)
+    assert int(crossed.n_iters) == 3 and bool(crossed.has_converged)
+    for out in (again, crossed):
+        for a, b in ((out.transform.rotation, stopped.transform.rotation),
+                     (out.transform.translation, stopped.transform.translation),
+                     (out.rms, stopped.rms)):
+            assert torch.equal(a, b)
+
+
+def test_icp_kernel_padding_rows_change_nothing(cuda, rng):
+    """Zero-weight rows appended to the scan (the fused program's padding:
+    far points and repeats of real ones) change no bit of IS's result."""
+    from shot_fpfh_tpu_torch.registration import icp
+
+    sub, ref, rn, init, grid = _icp_case(rng, cuda)
+    pad = torch.cat([torch.full((100, 3), 1.0e6, device=cuda), sub[:156]])
+    weights = torch.cat([torch.ones(sub.shape[0], device=cuda),
+                         torch.zeros(pad.shape[0], device=cuda)])
+    plain = icp.icp_loop(sub, ref, rn, init, 0.3, 12, 0.0, grid=grid)
+    padded = icp.icp_loop(torch.cat([sub, pad]), ref, rn, init, 0.3, 12, 0.0, grid=grid,
+                          weights=weights)
+    assert int(plain.n_iters) == int(padded.n_iters) == 12
+    for a, b in ((plain.transform.rotation, padded.transform.rotation),
+                 (plain.transform.translation, padded.transform.translation),
+                 (plain.rms, padded.rms)):
+        assert torch.equal(a, b)
+
+
+def test_icp_kernel_all_outliers_match_the_twin(cuda, rng):
+    """No point within ``d_max`` of the ref (the start 50 units off): the
+    sums are all 0, the RMS 0 (no NaN) and the loop done after one
+    iteration, as the twin's; the singular solve gives the twin's
+    transform, NaN where it is NaN."""
+    from shot_fpfh_tpu_torch.core.transform import RigidTransform
+    from shot_fpfh_tpu_torch.registration import icp
+
+    sub, ref, rn, init, grid = _icp_case(rng, cuda)
+    far = RigidTransform(init.rotation, init.translation + 50.0)
+    got = icp.icp_loop(sub, ref, rn, far, 0.3, 10, 1e-3, grid=grid)
+    want = twin_icp(grid, sub, ref, rn, far, 0.3, 10, 1e-3)
+    assert int(got.n_iters) == int(want[0]) == 1
+    assert bool(got.has_converged) and bool(want[4])
+    assert float(got.rms) == float(want[3]) == 0.0
+    for a, b in ((got.transform.rotation, want[1]), (got.transform.translation, want[2])):
+        torch.testing.assert_close(a, b, equal_nan=True, rtol=0, atol=1e-6)
 
 
 def _whole_number_stacks(rng, device=None):
@@ -1782,8 +1898,9 @@ def test_one_rank_nccl_mesh_equals_one_device(nccl_mesh, rng):
 def test_fused_mesh_on_one_rank_nccl_equals_one_device(nccl_mesh, rng):
     """``fused_registration_mesh`` over a 1-rank NCCL group (SG, K2
     in f32, K7 under its collectives) against ``fused_registration`` on
-    the same inputs: the same match count and launches, RANSAC and ICP
-    within 1e-5."""
+    the same inputs: the same match count and launches (but ICP's: IS an
+    iteration on one device, the plain step's 1-NN an iteration under the
+    mesh's sums), RANSAC and ICP within 1e-5."""
     from shot_fpfh_tpu_torch.registration import fused
 
     scan, sn, ref, rn, _, _ = _fused_pair(rng)
@@ -1809,6 +1926,10 @@ def test_fused_mesh_on_one_rank_nccl_equals_one_device(nccl_mesh, rng):
         counts.append((run(), {k: _kernels.launch_counts[k] - before[k] for k in before}))
         torch.cuda.synchronize()
     (one, one_launches), (mesh, mesh_launches) = counts
+    assert one_launches["icp_step"] == mesh_launches["nearest"] > 0
+    assert one_launches["nearest"] == mesh_launches["icp_step"] == 0
+    for c in (one_launches, mesh_launches):
+        del c["icp_step"], c["nearest"]
     assert mesh_launches == one_launches and mesh_launches["top2_match"] == 1
     assert int(mesh.n_matches) == int(one.n_matches) > 50
     assert bool(mesh.icp_converged) == bool(one.icp_converged)

@@ -106,6 +106,9 @@ def test_every_synchronising_statement_passes_a_counted_site(cuda, workload):
     assert sum(outside.values()) == 2, dict(outside)
     icp = next(s for s in metrics.stages if s["stage"].startswith("icp["))
     assert icp["spans"]["sync[icp.done]"]["count"] == -(-icp["iterations"] // 8)
+    # every issued ICP iteration is one launch of IS (csrc/icp_step.cu)
+    issued = min(int(cell.config["icp"]["max_iter"]), -(-icp["iterations"] // 8) * 8)
+    assert icp["icp_kernel_iters"] == issued
 
 
 @pytest.mark.parametrize("workload", WORKLOADS)

@@ -76,7 +76,9 @@ Phases, one line each; any failure exits non-zero with no result line:
    route (SG, K2, K3) and on the run route (K5, K2, K3, no SG);
 7. multiscale SHOT (``--n_scales 2``: radii 0.9 and 2.7, 704 columns) on the
    window route (SG, and K2 at D = 704); scale 2's support, subsampled at
-   2.7/10, is under 20k points and takes the brute route;
+   2.7/10, is under 20k points and takes the grid all the same, as every
+   support on the card does: SG in its given-frames mode under scale 1's
+   frames, so SG runs twice a cloud;
 8. single-scale SHOT on the run route (K5, no SG);
 9. iterative keypoints (``--selection_algorithm iterative
    --neighborhood_size 0.3``: greedy coverage over the K7 radius search),
@@ -158,7 +160,9 @@ Phases, one line each; any failure exits non-zero with no result line:
    (phase 3's rules; K2 on 4096 sampled rows; the aggregation on the CLI
    legs' ~78k ref keypoints; IS at leg 3's ICP shape; the SPFH pass also at the FPFH cell's radius
    3.0, cell 1.5; SG on those keypoints over the ref's 0.3 support, the
-   SHOT cells' shapes, at 3.0 and bi-scale at 9.0 / 3.0); the voxel sums with a voxel
+   SHOT cells' shapes, at 3.0 and bi-scale at 9.0 / 3.0, and SG's given-frames mode at
+   9.0 over the ref's 0.9 support under those 3.0 frames, multiscale's second scale);
+   the voxel sums with a voxel
    of 10^5 and of 10^6 points bit-identical to the CPU's;
 17. the surface the port gained last: ``radius_search_auto`` on a random
    5k of the smoke ref (brute) and on all of it (the grid through K7), for
@@ -293,12 +297,15 @@ K7_KERNEL, K8_KERNEL = "radius_dist_kernel", "fetch_windows_kernel"
 # the card (K8's and K1's twins: (chunk, F, W) windows of ~10k slots)
 SG, SG_KERNEL = "shot_grid", "shot_grid_kernel"
 SG_PLAIN_CHUNK = 1024
-# SG at the SHOT cells' shapes (regbench's shot-1m and shot-biscale-1m), in
+# SG at the SHOT cells' shapes (regbench's shot-1m, shot-biscale-1m and
+# shot-multiscale-1m), in
 # phase 16: the 10^6-point ref's support at voxel 0.3, the CLI's density
 # keypoints of the ref (voxel 0.15, more than 5 points), padded to 1024;
 # single scale at radius 3.0 (cell 1.5), bi-scale frames at 3.0 and bins at
-# 9.0 (cell 4.5); the twin on the first SG_SCALE_PLAIN_ROWS keypoints
-SG_SCALE_SUPPORT, SG_SCALE_KP_MIN = 0.3, 5
+# 9.0 (cell 4.5), and shot-multiscale-1m's second scale: the support at
+# 9.0/SG_SCALE_RHO, bins at 9.0 (cell 4.5) under the 3.0 frames; the twin on
+# the first SG_SCALE_PLAIN_ROWS keypoints
+SG_SCALE_SUPPORT, SG_SCALE_KP_MIN, SG_SCALE_RHO = 0.3, 5, 10.0
 SG_SCALE_RADIUS, SG_SCALE_BI_RADIUS, SG_SCALE_PLAIN_ROWS = 3.0, 9.0, 4096
 NN_KERNEL, AGG_KERNEL = "nearest_kernel", "fpfh_aggregate_kernel"
 # ICP's iteration kernel (csrc/icp_step.cu): its C entry point and kernel;
@@ -936,10 +943,11 @@ def parity_k1(terrain: ShotTerrain, other=None):
 
 def parity_shot_grid(grid, kp, radius: float, rf_radius: float | None = None,
                      label: str = "", prefix: str = "phase 3", reps: int = 10,
-                     plain_rows: int | None = None) -> dict:
+                     plain_rows: int | None = None, rfs=None) -> dict:
     """SHOT's grid kernel (SG, ``shot_grid``) on ``kp`` over ``grid`` in
     K1's modes: own frames and those frames given at ``radius``, or, with
-    ``rf_radius``, bi-scale (frames at ``rf_radius``, bins at ``radius``).
+    ``rf_radius``, bi-scale (frames at ``rf_radius``, bins at ``radius``),
+    or, with ``rfs``, those frames given alone (multiscale's later scale).
     Each call launches SG once and neither K8 nor K1, and its rows, frames
     and counts equal the K8 + K1 route it replaced (``shot_window_chunked``;
     ``torch.equal``); on the first ``plain_rows`` keypoints (every one:
@@ -969,7 +977,10 @@ def parity_shot_grid(grid, kp, radius: float, rf_radius: float | None = None,
     start, end = _zcolumn_runs(grid, kp)
     slots = float(torch.clamp((end - start).sum(1), max=grid.window_cap).sum())
     del start, end
-    if rf_radius is None:
+    frames_given = rfs is not None
+    if frames_given:
+        modes = {"given frames": (rfs, None)}
+    elif rf_radius is None:
         given = shot_grid(grid, kp, radius)[1]
         modes = {"own frames": (None, None), "given frames": (given, None)}
     else:
@@ -1031,6 +1042,8 @@ def parity_shot_grid(grid, kp, radius: float, rf_radius: float | None = None,
     print(f"{prefix} SG shot_grid on {label}: {q} keypoints, window cap {grid.window_cap} "
           f"({slots / q:.0f} slots a keypoint), " + (f"bins at {radius}, frames at {rf_radius}"
                                                     if rf_radius is not None
+                                                    else f"radius {radius}, frames given"
+                                                    if frames_given
                                                     else f"radius {radius}")
           + ": equal to K8 + K1 in every mode; " + "; ".join(
               f"{mode} ({r['neighbors']:.0f} neighbours a keypoint) call {r['ms']:.3f} ms "
@@ -1096,27 +1109,38 @@ def sg_at_scale(ref, normals, kp_idx, prefix: str, reps: int) -> dict:
     """SG at the SHOT cells' shapes (:func:`parity_shot_grid`): the ref's
     support at SG_SCALE_SUPPORT, the keypoints ``kp_idx`` padded to
     SCALE_PAD with the far sentinel; single scale at SG_SCALE_RADIUS, then
-    bi-scale (bins at SG_SCALE_BI_RADIUS, frames at SG_SCALE_RADIUS).
-    Returns the single-scale own-frames result."""
+    bi-scale (bins at SG_SCALE_BI_RADIUS, frames at SG_SCALE_RADIUS), then
+    multiscale's second scale as the port runs it: the given-frames mode at
+    SG_SCALE_BI_RADIUS over the support at SG_SCALE_BI_RADIUS/SG_SCALE_RHO
+    (cell SG_SCALE_BI_RADIUS/2, halo 2), under the frames that SG took at
+    SG_SCALE_RADIUS on the first support.  Returns the single-scale
+    own-frames result."""
     import torch
 
     from shot_fpfh_tpu_torch.core.subsampling import grid_subsample
     from shot_fpfh_tpu_torch.ops.grid_hash import build_grid
+    from shot_fpfh_tpu_torch.ops.shot_fused import shot_grid
 
     dev = ref.device
     pad = -(-len(kp_idx) // SCALE_PAD) * SCALE_PAD
     kp = torch.cat([ref[kp_idx], torch.full((pad - len(kp_idx), 3), 1.0e6, device=dev)])
-    sel = torch.as_tensor(grid_subsample(ref, SG_SCALE_SUPPORT), device=dev)
-    sup, nrm = ref[sel], normals[sel]
-    out = {}
-    for radius, rf_radius in ((SG_SCALE_RADIUS, None), (SG_SCALE_BI_RADIUS, SG_SCALE_RADIUS)):
-        grid = build_grid(sup, radius / 2, extras=nrm, halo=2)
-        out[rf_radius] = parity_shot_grid(grid, kp, radius, rf_radius, label=(
-            f"the SHOT cells' shapes ({ref.shape[0]}-point ref, {sup.shape[0]}-point support, "
-            f"{len(kp_idx)} keypoints padded to {pad})"), prefix=prefix, reps=reps,
-            plain_rows=SG_SCALE_PLAIN_ROWS)
-        del grid
-    return out[None]["own frames"]
+    out, frames = {}, None
+    for radius, rf_radius, voxel, given in (
+            (SG_SCALE_RADIUS, None, SG_SCALE_SUPPORT, False),
+            (SG_SCALE_BI_RADIUS, SG_SCALE_RADIUS, SG_SCALE_SUPPORT, False),
+            (SG_SCALE_BI_RADIUS, None, SG_SCALE_BI_RADIUS / SG_SCALE_RHO, True)):
+        sel = torch.as_tensor(grid_subsample(ref, voxel), device=dev)
+        grid = build_grid(ref[sel], radius / 2, extras=normals[sel], halo=2)
+        if frames is None:
+            frames = shot_grid(grid, kp, radius)[1]
+        out[(rf_radius, given)] = parity_shot_grid(grid, kp, radius, rf_radius, label=(
+            f"the SHOT cells' shapes ({ref.shape[0]}-point ref, {sel.shape[0]}-point support "
+            f"at {voxel}, {len(kp_idx)} keypoints padded to {pad}"
+            + (f", frames taken at {SG_SCALE_RADIUS} on the {SG_SCALE_SUPPORT} support)"
+               if given else ")")), prefix=prefix, reps=reps,
+            plain_rows=SG_SCALE_PLAIN_ROWS, rfs=frames if given else None)
+        del grid, sel
+    return out[(None, False)]["own frames"]
 
 
 def _route_counts(grid, queries, radius):
@@ -1935,7 +1959,8 @@ def icp_iteration_kernels(grid, scan_sub, ref, ref_n, init) -> None:
     """The CUDA kernels one point-to-plane ICP iteration launches on the
     ref's 1-NN grid (``icp_loop`` with ``max_iter`` 1, its state set up
     included), by name, from ``torch.profiler``: one IS, no 1-NN kernel and
-    no K7 window."""
+    no K7 window.  A trace that recorded no device event at all is taken
+    again, up to three times, as :func:`kernel_ms` does."""
     from collections import Counter
 
     import torch
@@ -1949,11 +1974,14 @@ def icp_iteration_kernels(grid, scan_sub, ref, ref_n, init) -> None:
 
     one()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        one()
-        torch.cuda.synchronize()
-    names = Counter(_kernel_label(e.name) for e in prof.events()
-                    if e.device_type == DeviceType.CUDA)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            one()
+            torch.cuda.synchronize()
+        names = Counter(_kernel_label(e.name) for e in prof.events()
+                        if e.device_type == DeviceType.CUDA)
+        if names:
+            break
     check(names.get(IS_KERNEL, 0) == 1,
           f"one ICP iteration launched {names.get(IS_KERNEL, 0)} IS kernels: {dict(names)}")
     check(names.get(NN_KERNEL, 0) == 0 and names.get(K7_KERNEL, 0) == 0,
@@ -2361,7 +2389,6 @@ def phase_multiscale_paths(pair: SmokePair) -> dict:
     """Phases 6–8: bi-scale SHOT on both routes, multiscale SHOT (704
     columns) on the window route, single-scale SHOT on the run route."""
     from shot_fpfh_tpu_torch.core.subsampling import grid_subsample
-    from shot_fpfh_tpu_torch.ops import grid_hash
 
     bi = ["--descriptor_choice", "shot_bi_scale", "--phi", str(PHI)]
     ms = ["--descriptor_choice", "shot_multiscale", "--phi", str(PHI),
@@ -2387,11 +2414,11 @@ def phase_multiscale_paths(pair: SmokePair) -> dict:
     check(set(widths.values()) == {352 * N_SCALES}, f"multiscale descriptor widths {widths}")
     scale2 = [len(grid_subsample(cloud, 0.9 * PHI / 10, device="cuda"))
               for cloud in (pair.scan, pair.ref)]
-    routes = ("scale 2's supports (voxel 2.7/10) hold "
-              f"{scale2} points: " + ("brute route (k_max-capped, no kernel); phase 3 alone "
-                                      "holds K1's and K5's given-frames modes"
-                                      if max(scale2) < grid_hash.AUTO_GRID_MIN_POINTS
-                                      else "grid route with the first scale's frames"))
+    check(r["launches"][SG] == 2 * N_SCALES,
+          f"multiscale window route: {r['launches'][SG]} SG launches, not one a scale a cloud")
+    routes = (f"scale 2's supports (voxel 2.7/10) hold {scale2} points: on the card the "
+              f"grid route at any size, SG with the first scale's frames ({r['launches'][SG]} "
+              "SG launches a pair)")
     print(_describe("phase 7 multiscale SHOT, window route", r)
           + f"; descriptor widths {widths}; {routes}", flush=True)
     launches["multiscale window"] = r["launches"]
@@ -2943,10 +2970,9 @@ def phase_mesh_one_rank(pair: SmokePair) -> dict:
     """Phase 14, part 1: a 1-rank NCCL group in this process; every sharded
     stage at the smoke pair's shapes held to the single-device port on the
     same inputs: equal (``torch.equal``) per row (normals, SHOT in its three
-    modes on both routes, FPFH on both routes, the ring's top-2, multiscale
-    matching; SHOT's scale 2 on the brute route, whose histogram sums in no
-    fixed order, within MESH_SUM_ATOL), RANSAC's count equal and its
-    transform and ICP's within MESH_SUM_ATOL.  Each stage's CUDA-event time and launches (and the
+    modes on both routes, scale 2's under shared frames among them, FPFH on
+    both routes, the ring's top-2, multiscale matching), RANSAC's count
+    equal and its transform and ICP's within MESH_SUM_ATOL.  Each stage's CUDA-event time and launches (and the
     single-device call's time) are printed; returns the launches summed
     over the sharded stages."""
     import torch
@@ -3010,16 +3036,14 @@ def phase_mesh_one_rank(pair: SmokePair) -> dict:
                       kp_ref, s_pts, s_nrm, 0.9 * PHI, mesh, rf_radius=0.9, **shot_kw),
                   lambda: single.compute_descriptor_bi_scale(s_pts, s_nrm, kp_ref, 0.9,
                                                              0.9 * PHI))
-            # scale 2's support (under 20k points) takes the brute route, whose
-            # histogram is PyTorch's index_add_: float atomics on the card, in
-            # no fixed order, so two runs of one device part in the last bits
-            shared = stage(f"SHOT {route} route, shared frames (scale 2, brute route)",
+            # scale 2's support is under 20k points: on the card it takes the
+            # grid all the same, the given-frames mode of SG (or K5)
+            shared = stage(f"SHOT {route} route, shared frames (scale 2)",
                            lambda: sharded.sharded_shot_descriptors(
                                kp_ref, s2_pts, s2_nrm, 0.9 * PHI, mesh, shared_rfs=own[1],
                                **shot_kw),
                            lambda: compute_shot_descriptor(kp_ref, s2_pts, s2_nrm, 0.9 * PHI,
-                                                           local_rfs=own[1], **shot_kw)[0],
-                           _all_close)
+                                                           local_rfs=own[1], **shot_kw)[0])
             if route == "window":
                 shot["ref"] = (own[0], shared)
     (s_pts, s_nrm), (s2_pts, s2_nrm) = sup["scan"]
@@ -3091,7 +3115,7 @@ def phase_mesh_one_rank(pair: SmokePair) -> dict:
     dist.destroy_process_group()
     print(f"phase 14 mesh, 1-rank NCCL group ({mesh.device}, first collective "
           f"{setup_ms:.1f} ms): every per-row stage equal to "
-          f"one device (scale 2's brute-route SHOT, RANSAC and ICP within {MESH_SUM_ATOL}); "
+          f"one device (RANSAC and ICP within {MESH_SUM_ATOL}); "
           f"ICP {n_iters} iterations, "
           f"rotation error {rot_err:.2e} rad, translation error {t_err:.2e}; stages: "
           + "; ".join(lines), flush=True)

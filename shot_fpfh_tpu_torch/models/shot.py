@@ -3,17 +3,19 @@
 
 352 bins = 11 cosine x 8 azimuth x 2 elevation x 2 radial, with the
 reference's bin conventions (``ops.descriptor_bins``) and true accumulation
-of every contribution.  Two routes, switched at
-``ops.grid_hash.AUTO_GRID_MIN_POINTS`` support points (read at call time)
-like the reference:
+of every contribution.  Two routes, chosen by :func:`takes_grid` from what
+the support is: on the card always the grid, and on CPU tensors the grid
+from ``ops.grid_hash.AUTO_GRID_MIN_POINTS`` support points (read at call
+time) like the reference:
 
-- small supports: brute radius search capped at the ``k_max`` nearest,
-  frames by :func:`local_reference_frames`, histogram in PyTorch;
-- large supports: a halo-2 grid holding the exact, uncapped radius
-  neighborhood of every keypoint, frames + binning + histogram in a kernel:
-  SG (``ops.shot_fused.shot_grid``): on the card straight over the grid's
+- the grid: a halo-2 grid holding the exact, uncapped radius neighborhood
+  of every keypoint, frames + binning + histogram in a kernel: SG
+  (``ops.shot_fused.shot_grid``): on the card straight over the grid's
   z-column runs, one launch a cloud, and on CPU tensors or a grid without
-  a cell table K1 over gathered ``(Q, F, W)`` windows in keypoint chunks.
+  a cell table K1 over gathered ``(Q, F, W)`` windows in keypoint chunks;
+- small supports on CPU tensors: brute radius search capped at the
+  ``k_max`` nearest, frames by :func:`local_reference_frames`, histogram
+  in PyTorch.
 
 Given the frames' neighborhoods (``compute_shot_descriptor(
 local_rf_neighborhoods=)``), the bins come from the ``k_max``-capped radius
@@ -24,9 +26,11 @@ by K1 in its given-frames mode over them.
 Bi-scale SHOT takes its frames from the ``local_rf_radius`` neighborhood
 and its bins from the ``shot_radius`` one; multiscale SHOT concatenates
 per-scale descriptors, each on its own subsampled support, optionally
-sharing the first scale's frames.  Descriptors of neighborhoods with
-≤ ``min_neighborhood_size`` points are all-zero, the validity convention
-matching consumes.
+sharing the first scale's frames (on the card SG's given-frames mode at
+every later scale; each scale a ``shot.scale`` range, and the stage
+counts its ``scales`` and their ``support_points``).  Descriptors of
+neighborhoods with ≤ ``min_neighborhood_size`` points are all-zero, the
+validity convention matching consumes.
 
 ``enable_debug_checks`` (the CLI's ``--debug_shot``) makes every SHOT
 accumulation count its out-of-range bin indices and unsound weight sums
@@ -52,7 +56,7 @@ from ..ops.neighbors import Neighborhoods, as_f32, radius_search
 from ..ops.shot_fused import local_frames as _local_rfs_ff
 from ..ops.shot_fused import binning_violations as _binning_violations  # noqa: F401
 from ..ops.shot_fused import shot_binning_histogram, shot_finalize, shot_grid, soft_histogram
-from ..utils.perf import blocking, span, uploading
+from ..utils.perf import add_counts, blocking, span, uploading
 
 logger = logging.getLogger(__name__)
 
@@ -169,11 +173,19 @@ def _shot_on_grid(grid, kp, local_rfs, radius, normalize, min_neighborhood_size,
     return desc, frames
 
 
+def takes_grid(sup: torch.Tensor) -> bool:
+    """SHOT's route rule: the support's grid (exact, uncapped) for a
+    support on the card at any size, and for CPU tensors from
+    ``AUTO_GRID_MIN_POINTS`` points (below it the ``k_max``-capped brute
+    search, as the reference routes)."""
+    return sup.is_cuda or sup.shape[0] >= grid_hash.AUTO_GRID_MIN_POINTS
+
+
 def _shot_routed(kp, sup, nrm, radius, *, k_max: int, normalize: bool,
                  min_neighborhood_size: int, local_rfs=None, rf_radius=None,
                  use_grid: bool | None = None):
-    """SHOT of the keypoints ``kp`` on the support's route (the grid from
-    ``AUTO_GRID_MIN_POINTS`` support points, or ``use_grid``); returns
+    """SHOT of the keypoints ``kp`` on the support's route
+    (:func:`takes_grid`, or ``use_grid``); returns
     ``(descriptors, frames)``.  Frames: ``local_rfs`` when given, else from
     the ``rf_radius`` neighborhoods (bi-scale; the grid's cell then covers
     both radii), else from the ``radius`` ones.  The one-device entry
@@ -181,7 +193,7 @@ def _shot_routed(kp, sup, nrm, radius, *, k_max: int, normalize: bool,
     keypoints) all run this."""
     rf_radius = None if local_rfs is not None else rf_radius
     if use_grid is None:
-        use_grid = sup.shape[0] >= grid_hash.AUTO_GRID_MIN_POINTS
+        use_grid = takes_grid(sup)
     if use_grid:
         max_r = float(radius) if rf_radius is None else float(max(radius, rf_radius))
         with span("shot.grid"):
@@ -327,15 +339,21 @@ class ShotComputer:
         scale on its own support (subsampled at ``voxel_sizes[scale]``) and
         scaled by ``weights[scale]``; with ``share_local_rfs`` every scale
         takes the first scale's frames (reference
-        shot_parallelization.py:241-312)."""
+        shot_parallelization.py:241-312).  The cloud is copied to the
+        device once; each scale's support, grid and pass are one
+        ``shot.scale`` range, and the open stage counts the ``scales`` and
+        their ``support_points``."""
         if weights is None:
             weights = [1.0] * len(radii)
         kp, n_kp = self._pad(keypoints)
+        cloud, cloud_nrm = self._support(point_cloud, normals, None)
         descs, shared_rfs = [], None
         for scale, radius in enumerate(radii):
             voxel = None if voxel_sizes is None else voxel_sizes[scale]
-            sup, nrm = self._support(point_cloud, normals, voxel)
-            desc, rfs = self._shot(kp, sup, nrm, radius, local_rfs=shared_rfs)
+            with span("shot.scale"):
+                sup, nrm = self._support(cloud, cloud_nrm, voxel)
+                add_counts(scales=1, support_points=sup.shape[0])
+                desc, rfs = self._shot(kp, sup, nrm, radius, local_rfs=shared_rfs)
             if self.share_local_rfs and shared_rfs is None:
                 shared_rfs = rfs
             descs.append(desc * weights[scale])

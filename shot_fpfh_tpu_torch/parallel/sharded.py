@@ -53,9 +53,9 @@ def sharded_shot_descriptors(keypoints, support, normals, radius: float, mesh: M
                              return_rfs: bool = False):
     """SHOT descriptors ``(Q, 352)`` with the keypoints sharded over the
     mesh (JAX ``sharded.py:46-215``): every rank runs the one-device route
-    (``models.shot``: the grid through SG, from
-    ``AUTO_GRID_MIN_POINTS`` support points or ``use_grid=True``, else the
-    brute search capped at ``k_max``) on its block of keypoints.
+    (``models.shot``: the grid through SG where ``models.shot.takes_grid``
+    holds or ``use_grid=True``, else the brute search capped at ``k_max``)
+    on its block of keypoints.
     ``rf_radius`` takes the frames from a second radius (bi-scale);
     ``shared_rfs`` reuses frames: the rank's block that ``return_rfs=True``
     returned (it stays on the rank, for the next scale over the same

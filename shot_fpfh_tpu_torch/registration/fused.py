@@ -22,7 +22,8 @@ The same fixed-shape conventions as the JAX program:
 - ICP runs on a pre-subsampled, padded scan with per-point validity weights.
 
 Descriptor routes, as in the JAX program: SHOT on a grid takes SG (on CPU
-tensors K8 + K1's twins in chunks); FPFH on a grid takes the SPFH pass
+tensors K8 + K1's twins in chunks), and takes the grid by the staged path's
+rule (``models.shot.takes_grid``); FPFH on a grid takes the SPFH pass
 kernel for SPFH and K7's aggregation mode for the aggregation; without
 grids the brute routes run.  Matching is K2 in
 float32; ICP's grid 1-NN is K7's 1-NN mode.
@@ -62,7 +63,12 @@ from ..core.solvers import solve_point_to_point
 from ..core.subsampling import grid_subsample
 from ..core.transform import RigidTransform
 from ..models.fpfh import _fpfh_rows, _sorted_rows
-from ..models.shot import _shot_on_grid, local_reference_frames, shot_from_neighborhoods
+from ..models.shot import (
+    _shot_on_grid,
+    local_reference_frames,
+    shot_from_neighborhoods,
+    takes_grid,
+)
 from ..ops import grid_hash
 from ..ops.grid_hash import build_grid
 from ..ops.match import top2_match
@@ -372,11 +378,14 @@ def register_pair(scan, scan_normals, ref, ref_normals, *, keypoint_voxel: float
     """Keypoints (grid subsampling at ``keypoint_voxel``) and the ICP
     subsample (at ``icp_voxel``) of both clouds, padded to multiples of
     ``pad_multiple``, then :func:`fused_registration` on ``device``
-    (default ``cuda``).  From ``AUTO_GRID_MIN_POINTS`` cloud points up the
-    descriptor legs get grids (SHOT: cell ``max(radius, rf_radius)`` or the
-    largest multiscale radius, carrying normals; FPFH: cell ``radius/2``,
-    halo 2, keypoints as sorted-order indices) and ICP a grid of the ref at
-    cell ``d_max`` (``d_max`` pinned, default 0.3).  With a ``mesh`` of
+    (default ``cuda``).  The SHOT leg gets a grid where
+    ``models.shot.takes_grid`` holds (on the card at any size, on CPU
+    tensors from ``AUTO_GRID_MIN_POINTS`` cloud points; cell
+    ``max(radius, rf_radius)`` or the largest multiscale radius, carrying
+    normals), the FPFH leg from ``AUTO_GRID_MIN_POINTS`` cloud points (cell
+    ``radius/2``, halo 2, keypoints as sorted-order indices), and ICP from
+    as many ref points a grid of the ref at cell ``d_max`` (``d_max``
+    pinned, default 0.3).  With a ``mesh`` of
     more than one rank (every rank given the same clouds) the rows pad to
     ``lcm(pad_multiple, mesh size)`` and the program shards over it on the
     rank's device (:func:`fused_registration_mesh`).  Returns the result
@@ -414,7 +423,7 @@ def register_pair(scan, scan_normals, ref, ref_normals, *, keypoint_voxel: float
                 grids[f"{side}_fpfh_grid"] = grid
                 idx = _sorted_rows(grid, idx)
             fused_kwargs[f"{side}_kp_idx"] = _padded(idx, pad_multiple)[0]
-        elif pts.shape[0] >= big:
+        elif takes_grid(pts):
             grids[f"{side}_grid"] = build_grid(pts, shot_cell, extras=nrm)
     if ref_t.shape[0] >= big:
         # pinned, so the ICP grid's cell (its exactness bound) and the

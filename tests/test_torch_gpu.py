@@ -550,7 +550,8 @@ def test_k5_shot_runs_kernel_edge_cases(cuda, rng, n_surface, bi_scale):
 def test_golden_pair_on_card(cuda):
     """The golden pair (tests/test_reference_parity.py:31) through the port
     on the card: within the measured reference's accuracy envelope, with the
-    matching kernel on (2,500 points take the brute normals / SHOT routes)."""
+    matching kernel on (2,500 points take the brute normals route; SHOT takes
+    its grid, SG, at any support size on the card)."""
     from shot_fpfh_tpu_torch.core.transform import rotation_angle
     from shot_fpfh_tpu_torch.models.normals import compute_normals
     from shot_fpfh_tpu_torch.pipeline import RegistrationPipeline

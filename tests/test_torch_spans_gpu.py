@@ -27,7 +27,8 @@ from shot_fpfh_tpu_torch.utils import perf  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
-WORKLOADS = ("shot1m.dense", "fpfh1m.dense", "shot1m.biscale", "shot1m.sparse")
+WORKLOADS = ("shot1m.dense", "fpfh1m.dense", "shot1m.biscale", "shot1m.sparse",
+             "shot1m.multiscale")
 # a tenth of a cell's points at its density: every route the cell takes
 SMOKE = {"points": 100_000, "extent": 6.3}
 SEED = 2147483990
